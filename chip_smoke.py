@@ -2,26 +2,48 @@
 
     python3 chip_smoke.py        # from the repository root; needs CUDA and nvcc
 
-Drives the port's main path, DeCo-XL/16 class-to-image sampling at 256 px,
-and holds each hand-written kernel against its plain PyTorch version:
+Drives the port's two main paths at the full width of DeCo-XL/16 256 px,
+class-to-image sampling (``configs_c2i/DeCo_XL.yaml``) and training
+(``configs_c2i/DeCo_XL_freq.yaml``), and holds each hand-written kernel
+against its plain PyTorch version. Phases, in the order they run:
 
 1. build: compile every ``deco_tpu_torch/csrc/*.cu`` with nvcc (one process
    per source, started together); print the card's name and power limit.
-2. kernel: flash attention against its plain version at the main-path shape
-   and at ragged, cross-length, other-head-dim and long shapes; time the
-   kernel, the plain version, the library SDPA call (a yardstick only; the
-   port never calls it) and the roofline bound at the main-path shape.
-3. model: one full-width DeCo-XL/16 forward at batch 2: finite, and exactly
+2. kernel: the flash-attention forward against its plain version at the
+   sampling shape and at ragged, cross-length, other-head-dim and long
+   shapes; time the kernel, the plain version, the library SDPA call (a
+   yardstick only; the port never calls it) and the roofline bound.
+3. kernels_train: the forward with logsumexp, the dQ and dK/dV backward and
+   the frequency-weighted MSE against their plain versions at the training
+   shape and at ragged, cross-length, other-head-dim and long shapes; the
+   frequency MSE also at W = 2048 and bit-identical over two runs. Times at
+   the training shape beside the plain versions, the bounds and the library
+   yardsticks (SDPA's forward with logsumexp and its autograd backward),
+   and the plain forward's time at N = 4096.
+4. model: one full-width DeCo-XL/16 forward at batch 2: finite, and exactly
    one attention launch per trunk block.
-4. slice vs plain: a 4-block trunk, full widths, 8 CFG steps, the same
+5. slice vs plain: a 4-block trunk, full widths, 8 CFG steps, the same
    weights and noise on the card (kernel) and on the CPU (plain versions),
    both in bf16; the final images agree within the stated tolerance.
-5. sample: the main path through ``deco_tpu_torch.sample.generate`` at full
-   width: 50 Euler steps, CFG 3.2 on (0.1, 1], batch 8; images finite, the
-   launch count exact; throughput, time per step, MFU and a device-time
-   breakdown of one network call.
-6. kernels: one JSON line listing every kernel with its launches on the main
-   path, error, times and bound.
+6. train slice vs plain: one training step of the same cut-depth model at
+   batch 2 on the card and on the CPU, both bf16 compute with fp32
+   parameters, the same weights, batch and draws: loss, gradients and the
+   parameter update agree within the stated gates.
+7. sample: the sampling path through ``deco_tpu_torch.sample.generate``:
+   50 Euler steps, CFG 3.2 on (0.1, 1], batch 8; images finite, the launch
+   count exact; throughput, time per step, MFU and a device-time breakdown
+   of one network call.
+8. train: the training path through ``deco_tpu_torch.fit`` at batch 32 with
+   full remat, 2 warm-up and 5 timed steps: finite losses, a positive grad
+   norm, parameters moved and the EMA moved by the rule e*d + p*(1-d), the
+   exact launches per step; s/step, images/s, MFU, peak memory and a
+   device-time breakdown of one step.
+9. kernels: one JSON line listing every kernel with its launches on its
+   path (sampling for the forward, training for the others), error, times,
+   bound and library time.
+
+``python3 chip_smoke.py --calibrate-train-slice`` prints, on the CPU, the two
+readings between which the train-slice gates sit, and no result.
 
 Every phase prints JSON lines; a failed phase raises and the script exits
 non-zero without the last line. The last line is
@@ -45,6 +67,23 @@ ATTN_ATOL = 3e-2
 # by rel L2 0.009, and zeroing the trunk's attention moves them by 0.103;
 # 0.03 sits between, so it passes rounding and fails a wrong attention.
 SLICE_REL_L2 = 0.03
+# Training kernels vs plain versions: lse is an fp32 sum of exact bf16
+# products in another order (1e-3); the backward kernels round P and dS to
+# bf16 before their products, as the TPU kernels do, where the plain version
+# keeps fp32, so their max error is held to 2e-2 of the largest plain value;
+# the frequency MSE is an fp32 sum of ~6M terms in another order (rtol 1e-4).
+LSE_ATOL = 1e-3
+BWD_REL = 2e-2
+FREQ_RTOL = 1e-4
+# The one-step train slice, card vs CPU, both bf16 compute. On the CPU
+# (--calibrate-train-slice) bf16 differs from fp32 by grad rel L2 0.0030 and
+# update rel L2 0.131; zeroing the attention backward moves them by 0.053
+# and 0.755. The gates sit between; the loss, which the attention backward
+# cannot move, is held to 10x its bf16-vs-fp32 reading of 2.2e-4.
+TRAIN_SLICE_GRAD_REL_L2 = 0.015
+TRAIN_SLICE_UPDATE_REL_L2 = 0.4
+TRAIN_SLICE_LOSS_REL = 2e-3
+ATTN_BWD_KINDS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
 def emit(obj) -> None:
@@ -97,7 +136,6 @@ def phase_kernel(card: str):
     import torch.nn.functional as F
 
     from deco_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
-    from deco_tpu_torch.utils.flops import card_peaks
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -132,16 +170,172 @@ def phase_kernel(card: str):
     ms = cuda_ms(lambda: flash_attention(q, k, v), 50, flush)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 50, flush)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 50, flush)
-    peak_flops, peak_bytes = card_peaks(card)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    flops = 4 * b * h * nq * nkv * d
-    bound = {"bytes": nbytes / peak_bytes * 1e3, "operations": flops / peak_flops * 1e3}
-    bound_by = max(bound, key=bound.get)
     timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": bound[bound_by], "bound_by": bound_by, "bytes": nbytes,
-              "flops": flops, "l2": "flushed before each call", "card": card}
+              **_bound(card, nbytes, 4 * b * h * nq * nkv * d),
+              "l2": "flushed before each call", "card": card}
     emit({"phase": "kernel", "shape": "main", "timing": timing})
     return {"max_abs_err": errs["main"], **timing}
+
+
+def _bound(card: str, nbytes: float, flops: float, fp32: bool = False) -> dict:
+    from deco_tpu_torch.utils.flops import card_fp32_peak, card_peaks
+
+    peak_flops, peak_bytes = card_peaks(card)
+    if fp32:
+        peak_flops = card_fp32_peak(card)
+    bound = {"bytes": nbytes / peak_bytes * 1e3, "operations": flops / peak_flops * 1e3}
+    bound_by = max(bound, key=bound.get)
+    return {"bound_ms": bound[bound_by], "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+
+
+def _max_rel(out, ref) -> float:
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def _attention_timings(card: str, operands, flush, iters: int) -> dict:
+    """Times of the forward with lse, dQ and dK/dV at one shape, beside
+    their plain versions, bounds and library yardsticks: SDPA's flash
+    forward with logsumexp, and SDPA's autograd backward (dQ, dK and dV
+    together) against delta + dQ + dK/dV."""
+    import torch
+    import torch.nn.functional as F
+
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = operands
+    b, nq, h, d = q.shape
+    nkv = k.shape[1]
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
+    delta = fa.attention_delta(o, do)
+    rows, op = b * h * nq, 2 * q.numel()  # rows of lse/delta; bytes of one bf16 operand
+    work = b * h * nq * nkv * d
+    plain_iters = max(iters // 5, 3)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))  # SDPA's (B, H, N, D) views
+    out = {"fwd_lse": {
+        "ms": cuda_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, scale), iters, flush),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_fwd_lse_plain(q, k, v, scale),
+                            plain_iters, flush),
+        "library_ms": cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, False, False, scale=scale), iters, flush),
+        **_bound(card, 4 * op + 4 * rows, 4 * work)}}
+    for name, kernel, plain, nbytes, flops in (
+            ("bwd_dq", fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain,
+             5 * op + 8 * rows, 6 * work),
+            ("bwd_dkv", fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_plain,
+             6 * op + 8 * rows, 8 * work)):
+        args = (q, k, v, do, lse, delta, scale)
+        out[name] = {"ms": cuda_ms(lambda: kernel(*args), iters, flush),
+                     "plain_ms": cuda_ms(lambda: plain(*args), plain_iters, flush),
+                     "library_ms": None,  # no one PyTorch call computes dQ (or dK, dV) alone
+                     **_bound(card, nbytes, flops)}
+    whole_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, scale), iters, flush)
+    leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True),
+                      iters, flush)
+    for name in ("bwd_dq", "bwd_dkv"):
+        out[name].update(whole_backward_ms=whole_ms, sdpa_backward_ms=sdpa_ms)
+    return out
+
+
+def phase_kernels_train(card: str):
+    """Forward with lse, dQ, dK/dV and the frequency MSE against their plain
+    versions, then their times at the training shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from deco_tpu_torch.ops import block_dct
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def operands(b, nq, nkv, h, d):
+        shapes = ((b, nq, h, d), (b, nkv, h, d), (b, nkv, h, d), (b, nq, h, d))
+        return [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes]
+
+    shapes = {  # (B, Nq, Nkv, H, D)
+        "train": (32, 256, 256, 16, 72),  # DeCo-XL/16 256 px at batch 32: B*H = 512
+        "ragged": (2, 200, 200, 16, 72),
+        "cross": (2, 256, 333, 16, 72),
+        "d64": (4, 256, 256, 16, 64),
+        "d128": (2, 256, 256, 8, 128),
+        "long": (1, 4096, 4096, 16, 72),  # stands for the JAX streaming variants
+    }
+    errs = {"fwd_lse": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
+    for name, shape in shapes.items():
+        q, k, v, do = operands(*shape)
+        scale = shape[-1] ** -0.5
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
+        delta = fa.attention_delta(o, do)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
+        dq_ref = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+        dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+        for x in (o, lse, dq, dk, dv):
+            check(bool(torch.isfinite(x).all()), f"{name}: a training kernel output is not finite")
+        row = {"o_max_abs_err": (o.float() - o_ref.float()).abs().max().item(),
+               "lse_max_abs_err": (lse - lse_ref).abs().max().item()}
+        for key, out, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+            row[key + "_max_abs_err"] = (out.float() - ref.float()).abs().max().item()
+            row[key + "_max_rel_err"] = _max_rel(out, ref)
+        emit({"phase": "kernels_train", "shape": name, "b_nq_nkv_h_d": shape, **row,
+              "atol": ATTN_ATOL, "lse_atol": LSE_ATOL, "bwd_rel": BWD_REL})
+        check(row["o_max_abs_err"] < ATTN_ATOL and row["lse_max_abs_err"] < LSE_ATOL,
+              f"forward with lse {name}: {row}")
+        check(max(row["dq_max_rel_err"], row["dk_max_rel_err"], row["dv_max_rel_err"]) < BWD_REL,
+              f"attention backward {name}: {row}")
+        errs["fwd_lse"] = max(errs["fwd_lse"], row["o_max_abs_err"])
+        errs["bwd_dq"] = max(errs["bwd_dq"], row["dq_max_abs_err"])
+        errs["bwd_dkv"] = max(errs["bwd_dkv"], row["dk_max_abs_err"], row["dv_max_abs_err"])
+        del q, k, v, do, o, lse, delta, dq, dk, dv, o_ref, lse_ref, dq_ref, dk_ref, dv_ref
+
+    w = block_dct.build_freq_weight()
+    errs["freq_mse"] = 0.0
+    for shape in ((32, 256, 256, 3), (2, 16, 2048, 3)):
+        diff = torch.randn(shape, generator=gen, device="cuda")
+        first, second = block_dct.freq_mse(diff, w), block_dct.freq_mse(diff, w)
+        ref = block_dct.frequency_weighted_mse_plain(diff, w)
+        rel = abs(first.item() - ref.item()) / abs(ref.item())
+        emit({"phase": "kernels_train", "shape": list(shape), "freq_mse": first.item(),
+              "plain": ref.item(), "rel_err": rel, "rtol": FREQ_RTOL,
+              "bit_identical": bool(torch.equal(first, second))})
+        check(torch.equal(first, second), f"freq_mse {shape} differs between two runs")
+        check(rel < FREQ_RTOL, f"freq_mse {shape} rel err {rel} >= {FREQ_RTOL}")
+        errs["freq_mse"] = max(errs["freq_mse"], abs(first.item() - ref.item()))
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    timings = {}
+    for name, iters in (("train", 50), ("long", 10)):  # long N stands for the streaming rows
+        suffix = "" if name == "train" else "_long"
+        for kernel, timing in _attention_timings(card, operands(*shapes[name]), flush,
+                                                 iters).items():
+            timings[kernel + suffix] = timing
+
+    q, k, v, _ = operands(*shapes["long"])  # the forward without lse at N = 4096
+    b, nq, nkv, h, d = shapes["long"]
+    timings["fwd_long"] = {
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 10, flush),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 5, flush),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in (q, k, v))), 10, flush),
+        **_bound(card, 4 * 2 * q.numel(), 4 * b * h * nq * nkv * d)}
+    del q, k, v
+
+    diff = torch.randn(32, 256, 256, 3, generator=gen, device="cuda")
+    # per element: YCbCr 5, separable DCT 32, weight, square and sum 3 fp32 operations
+    timings["freq_mse"] = {
+        "ms": cuda_ms(lambda: block_dct.freq_mse(diff, w), 50, flush),
+        "plain_ms": cuda_ms(lambda: block_dct.frequency_weighted_mse_plain(diff, w), 20, flush),
+        "library_ms": None,  # no single PyTorch call computes this function
+        **_bound(card, 4 * diff.numel() + 4, 40 * diff.numel(), fp32=True)}
+    for name, timing in timings.items():
+        emit({"phase": "kernels_train", "timing": name, **timing,
+              "l2": "flushed before each call", "card": card})
+    return errs, timings
 
 
 def phase_model():
@@ -204,54 +398,243 @@ def phase_slice():
     check(rel_l2 < SLICE_REL_L2, f"slice card vs CPU rel L2 {rel_l2} >= {SLICE_REL_L2}")
 
 
+TRAIN_SLICE = dict(num_cond_blocks=4, num_blocks=7)  # full width, cut depth
+
+
+def train_slice_step(device: str, dtype=None, zero_attention_backward: bool = False):
+    """One DeCo_XL_freq.yaml training step of the cut-depth model at batch 2:
+    (loss, flat gradient, flat parameter update), on the CPU as fp32 tensors.
+
+    Weights, batch and draws come from fixed seeds, so every device and
+    dtype starts from the same numbers. ``zero_attention_backward`` makes
+    the attention backward return zeros (the reading that sets the gate).
+    """
+    import torch
+
+    from deco_tpu_torch import fit
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    dtype = dtype or torch.bfloat16
+    state, _, step = fit.build("deco_xl_256", device=device, seed=1, dtype=dtype, **TRAIN_SLICE)
+    before = torch.cat([p.detach().reshape(-1).cpu() for p in state.model.parameters()])
+    batch = fit.synthetic_batches(1, 2, 256, 1000, seed=2, device=device)[0]
+    rng = np.random.default_rng(3)
+    draws = dict(drop_u=np.array([0.9, 0.1], np.float32),  # one label dropped
+                 t_normal=rng.standard_normal(2).astype(np.float32),
+                 t_uniform=rng.uniform(size=2).astype(np.float32),
+                 mix_u=np.array([0.5, 0.95], np.float32),  # both t branches
+                 noise=rng.standard_normal((2, 256, 256, 3)).astype(np.float32))
+    saved = fa.flash_attention_bwd
+    if zero_attention_backward:
+        fa.flash_attention_bwd = lambda q, k, v, *_: tuple(map(torch.zeros_like, (q, k, v)))
+    try:
+        metrics = step(state, batch, draws=[draws])
+    finally:
+        fa.flash_attention_bwd = saved
+    params = list(state.model.parameters())
+    grads = torch.cat([p.grad.reshape(-1).cpu() for p in params])
+    after = torch.cat([p.detach().reshape(-1).cpu() for p in params])
+    return float(metrics["loss"]), grads, after - before
+
+
+def _rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def calibrate_train_slice() -> None:
+    """The two CPU readings between which TRAIN_SLICE_GATE sits."""
+    import torch
+
+    loss32, g32, u32 = train_slice_step("cpu", torch.float32)
+    loss16, g16, u16 = train_slice_step("cpu")
+    loss0, g0, u0 = train_slice_step("cpu", zero_attention_backward=True)
+    emit({"phase": "calibrate_train_slice",
+          "bf16_vs_fp32": {"loss_rel": abs(loss16 - loss32) / abs(loss32),
+                           "grad_rel_l2": _rel_l2(g16, g32), "update_rel_l2": _rel_l2(u16, u32)},
+          "zero_attention_backward_vs_bf16": {
+              "loss_rel": abs(loss0 - loss16) / abs(loss16),
+              "grad_rel_l2": _rel_l2(g0, g16), "update_rel_l2": _rel_l2(u0, u16)}})
+
+
+def phase_train_slice():
+    from deco_tpu_torch.ops import block_dct
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv, block_dct.freq_mse)
+    results = {}
+    for device in ("cuda", "cpu"):
+        before = [f.launches for f in kernels]
+        t0 = time.perf_counter()
+        results[device] = train_slice_step(device)
+        results[device + "_s"] = time.perf_counter() - t0
+        results[device + "_launches"] = [f.launches - n for f, n in zip(kernels, before)]
+    (loss, grads, update), (loss_ref, grads_ref, update_ref) = results["cuda"], results["cpu"]
+    row = {"loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+           "grad_rel_l2": _rel_l2(grads, grads_ref), "update_rel_l2": _rel_l2(update, update_ref)}
+    emit({"phase": "train_slice_vs_plain", **TRAIN_SLICE, "batch": 2, "loss": loss,
+          "loss_cpu": loss_ref, **row, "loss_rel_limit": TRAIN_SLICE_LOSS_REL,
+          "grad_rel_l2_limit": TRAIN_SLICE_GRAD_REL_L2,
+          "update_rel_l2_limit": TRAIN_SLICE_UPDATE_REL_L2,
+          "cuda_launches_fwd_lse_dq_dkv_freq": results["cuda_launches"],
+          "cpu_launches": results["cpu_launches"], "cuda_s": results["cuda_s"],
+          "cpu_s": results["cpu_s"]})
+    check(all(np.isfinite([loss, loss_ref])), "train slice loss not finite")
+    check(results["cuda_launches"] == [8, 4, 4, 1],
+          f"train slice launches {results['cuda_launches']}, expected [8, 4, 4, 1]")
+    check(results["cpu_launches"] == [0, 0, 0, 0], "the CPU train slice launched a kernel")
+    check(row["loss_rel"] < TRAIN_SLICE_LOSS_REL, f"train slice loss {row}")
+    check(row["grad_rel_l2"] < TRAIN_SLICE_GRAD_REL_L2, f"train slice gradients {row}")
+    check(row["update_rel_l2"] < TRAIN_SLICE_UPDATE_REL_L2, f"train slice update {row}")
+
+
+def phase_train(card: str):
+    """The training main path at full width through ``deco_tpu_torch.fit``."""
+    import torch
+
+    from deco_tpu_torch import fit
+    from deco_tpu_torch.ops import block_dct
+    from deco_tpu_torch.ops import flash_attention as fa
+    from deco_tpu_torch.utils.flops import card_peaks, deco_c2i_flops, train_flops_per_image
+
+    batch, warmup, steps = 32, 2, 5
+    t0 = time.perf_counter()
+    state, _, step = fit.build("deco_xl_256", device="cuda", seed=0)  # freq loss, full remat
+    batches = fit.synthetic_batches(4, batch, 256, 1000, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    build_s = time.perf_counter() - t0
+    check(len(state.model.blocks) == 28 and state.model.trunk_checkpoint, "not the XL remat config")
+    fit.train(state, step, batches, warmup, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = {"fwd_lse": fa.flash_attention_fwd_lse, "bwd_dq": fa.flash_attention_bwd_dq,
+               "bwd_dkv": fa.flash_attention_bwd_dkv, "freq_mse": block_dct.freq_mse,
+               "fwd": fa.flash_attention}
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    metrics = fit.train(state, step, batches, steps, gen)
+    losses = [float(m["loss"]) for m in metrics]  # waits for the device
+    seconds = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in kernels.items()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    grad_norms = [float(m["grad_norm"]) for m in metrics]
+
+    # one more step: the parameters move and the EMA follows e*d + p*(1-d)
+    params = list(state.model.parameters())
+    p0 = [p.detach().clone() for p in params]
+    e0 = [e.clone() for e in state.ema_params]
+    fit.train(state, step, batches, 1, gen)
+    decay = fit.PRESETS["deco_xl_256"]["ema_decay"]
+    moved = max((p.detach() - a).abs().max().item() for p, a in zip(params, p0))
+    ema_moved = max((e - a).abs().max().item() for e, a in zip(state.ema_params, e0))
+    ema_ulps, num, den = 0.0, 0.0, 0.0
+    for e, a, p in zip(state.ema_params, e0, params):
+        # each element within 2 fp32 ulps of e*d + p*(1-d) taken in fp64, the
+        # ulp taken at the larger of |e| before and after (e*d rounds at |e|) ...
+        ref = a.double() * decay + p.detach().double() * (1 - decay)
+        ulp = torch.maximum(a.abs(), e.abs()).double() * 2.0**-23 + 1e-45
+        ema_ulps = max(ema_ulps, ((e.double() - ref).abs() / ulp).max().item())
+        # ... and, where |e| is small enough for fp32 to resolve a move of
+        # ~1e-7, the move is the (1 - d) share of p - e
+        small = a.abs() < 1e-2
+        want = ((1 - decay) * (p.detach().double() - a.double()))[small]
+        num += ((e.double() - a.double())[small] - want).square().sum().item()
+        den += want.square().sum().item()
+    ema_share_err = (num / den) ** 0.5
+    del p0, e0
+
+    s_per_step = seconds / steps
+    flops = train_flops_per_image(deco_c2i_flops())
+    images_per_s = batch / s_per_step
+    result = {"phase": "train", "config": "configs_c2i/DeCo_XL_freq.yaml", "batch": batch,
+              "remat": "full", "warmup": warmup, "steps": steps, "losses": losses,
+              "grad_norms": grad_norms, "s_per_step": s_per_step, "images_per_s": images_per_s,
+              "train_flops_per_image": flops, "mfu": images_per_s * flops / card_peaks(card)[0],
+              "peak_mem_bytes": peak_mem, "build_and_init_s": build_s,
+              "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+              "param_max_move": moved, "ema_max_move": ema_moved, "ema_rule_max_ulps": ema_ulps,
+              "ema_share_rel_l2": ema_share_err,
+              "card": card}
+    emit(result)
+    check(all(np.isfinite(losses + grad_norms)), "training loss or grad norm not finite")
+    check(min(grad_norms) > 0, "zero gradient norm")
+    check(moved > 0 and ema_moved > 0, "parameters or EMA did not move")
+    check(ema_ulps <= 2 and ema_share_err < 0.05,
+          f"EMA off e*d + p*(1-d): {ema_ulps} ulps, share rel L2 {ema_share_err}")
+    expected = {"fwd_lse": 56 * steps, "bwd_dq": 28 * steps, "bwd_dkv": 28 * steps,
+                "freq_mse": steps, "fwd": 0}
+    check(launches == expected, f"training launches {launches}, expected {expected}")
+
+    def one_step():
+        fit.train(state, step, batches, 1, gen)
+        torch.cuda.synchronize()
+
+    emit({"phase": "train_breakdown", "batch": batch,
+          **profile_breakdown(one_step, s_per_step * 1e3), "card": card})
+    return launches
+
+
 def _kernel_kind(name: str) -> str:
     if "flash_fwd_kernel" in name:
-        return "attention"
+        return "attention_fwd"
+    if any(k in name for k in ATTN_BWD_KINDS):
+        return "attention_bwd"
+    if "freq_mse" in name:
+        return "freq_mse"
     if any(s in name.lower() for s in ("gemm", "nvjet", "cutlass", "xmma")):
         return "gemm"
     return "other"  # elementwise, reductions, copies
+
+
+def profile_breakdown(fn, wall_ms: float) -> dict:
+    """Device time by kind of kernel over one more call of ``fn``, which ends
+    in a synchronize, against ``wall_ms`` measured without the profiler. One
+    stream, so the kernels do not overlap and idle = 1 - busy / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    rows, kinds = [], {}
+    for ev in prof.key_averages():
+        # user annotations (the optimizer's step range) enclose kernels counted already
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("Optimizer."):
+            continue
+        ms = ev.self_device_time_total / 1e3
+        rows.append((ev.key, ms, ev.count))
+        kinds[_kernel_kind(ev.key)] = kinds.get(_kernel_kind(ev.key), 0.0) + ms
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(kinds.values())
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "kernels": sum(r[2] for r in rows), "by_kind_ms": kinds,
+            "top": [{"kernel": k[:80], "ms": ms, "calls": n} for k, ms, n in rows[:8]]}
 
 
 def device_breakdown(model, batch: int):
     """Device time by kernel over one CFG network call (``2 * batch`` rows).
 
     The wall time is taken without the profiler (median of 5 calls, each
-    ended by a synchronize); the device busy time is the sum of the kernels
-    the profiler recorded over one more call. One stream, so they do not
-    overlap, and idle = 1 - busy / wall.
+    ended by a synchronize), then :func:`profile_breakdown` records one more.
     """
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(2 * batch, 256, 256, 3, generator=gen, device="cuda")
     t = torch.full((2 * batch,), 0.5, device="cuda")
     y = torch.arange(2 * batch, device="cuda")
+
+    def call():
+        with torch.no_grad():
+            model(x, t, y)
+        torch.cuda.synchronize()
+
     walls = []
-    with torch.no_grad():
-        for _ in range(6):
-            t0 = time.perf_counter()
-            model(x, t, y)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model(x, t, y)
-            torch.cuda.synchronize()
-    wall_ms = float(np.median(walls[1:]))
-    rows, kinds = [], {"gemm": 0.0, "attention": 0.0, "other": 0.0}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        ms = ev.self_device_time_total / 1e3
-        rows.append((ev.key, ms, ev.count))
-        kinds[_kernel_kind(ev.key)] += ms
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(kinds.values())
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms, "kernels": sum(r[2] for r in rows),
-            "by_kind_ms": kinds,
-            "top": [{"kernel": k[:80], "ms": ms, "calls": n} for k, ms, n in rows[:8]]}
+    for _ in range(6):
+        t0 = time.perf_counter()
+        call()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return profile_breakdown(call, float(np.median(walls[1:])))
 
 
 def phase_sample(model, card: str):
@@ -296,6 +679,9 @@ def phase_sample(model, card: str):
 def main() -> int:
     import torch
 
+    if sys.argv[1:] == ["--calibrate-train-slice"]:
+        calibrate_train_slice()  # on the CPU; sets no result
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card",
               file=sys.stderr)
@@ -305,17 +691,37 @@ def main() -> int:
 
     card = phase_build()
     kernel = phase_kernel(card)
+    train_errs, train_times = phase_kernels_train(card)
     model = phase_model()
     phase_slice()
+    phase_train_slice()
     launches = phase_sample(model, card)
-    emit({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "deco_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "deco_tpu/ops/flash_attention.py:63",
-        "launches": launches, "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"],
-    }]})
+    del model
+    torch.cuda.empty_cache()
+    train_launches = phase_train(card)
+
+    def row(name, source, replaces, launches, err, timing):
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return {"name": name, "route": "cuda", "source": f"deco_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                **{k: timing[k] for k in keys},
+                **{k: v for k, v in timing.items() if k.endswith("backward_ms")}}
+
+    emit({"kernels": [
+        row("flash_attention_fwd", "flash_attention_fwd.cu", "deco_tpu/ops/flash_attention.py:63",
+            launches, kernel["max_abs_err"], kernel),
+        row("flash_attention_fwd_lse", "flash_attention_fwd.cu",
+            "deco_tpu/ops/flash_attention.py:270", train_launches["fwd_lse"],
+            train_errs["fwd_lse"], train_times["fwd_lse"]),
+        row("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+            "deco_tpu/ops/flash_attention.py:344", train_launches["bwd_dq"],
+            train_errs["bwd_dq"], train_times["bwd_dq"]),
+        row("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+            "deco_tpu/ops/flash_attention.py:379", train_launches["bwd_dkv"],
+            train_errs["bwd_dkv"], train_times["bwd_dkv"]),
+        row("freq_mse", "freq_mse.cu", "deco_tpu/ops/block_dct.py:175",
+            train_launches["freq_mse"], train_errs["freq_mse"], train_times["freq_mse"]),
+    ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,5 +8,8 @@ CUDA C++ kernel under ``csrc/``, built with ``nvcc`` at first use
 wrapper and serves CPU tensors.
 
 Ported so far: DeCo-XL/16 class-to-image sampling (the 50-step Euler CFG
-sampler over ``DeCoC2I``), with the flash-attention forward as a kernel.
+sampler over ``DeCoC2I``) and its training (``DeCoTrainer`` with the
+block-DCT frequency loss, AdamW, EMA, per-block remat: ``fit.py``), with the
+flash-attention forward (with and without logsumexp), its dQ and dK/dV
+backward and the fused frequency-weighted MSE as kernels.
 """

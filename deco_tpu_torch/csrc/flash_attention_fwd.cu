@@ -7,6 +7,13 @@
 // (batch, head); one kernel covers both here, because K/V always stream
 // through shared memory in tiles.
 //
+// The LSE instantiation also replaces `_fwd_kernel_lse` (:270, launched from
+// `_flash_fwd_lse` :319) and `_fwd_kernel_stream_lse` (:152): the forward of
+// training, which also stores the fp32 row statistic lse = m + log(l) in the
+// scaled-logit units of :304, shaped (B, H, Nq) contiguous, for the backward
+// (flash_attention_bwd.cu). It adds 4*B*H*Nq bytes to the output, 2.7% at
+// D = 72; the instantiation without it (sampling) is unchanged.
+//
 // Layout: q is (B, Nq, H, D), k and v are (B, Nkv, H, D), o is (B, Nq, H, D).
 // The kernel reads each operand in place through its (batch, token, head)
 // strides, with the head dim contiguous, so no fold/unfold transposes run
@@ -74,14 +81,14 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int heads, int nq, int nkv,
-                     Strides sq, Strides sk, Strides sv, Strides so,
-                     float scale) {
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int heads, int nq, int nkv, Strides sq, Strides sk,
+                     Strides sv, Strides so, float scale) {
   constexpr int DP = (D + 15) / 16 * 16;  // head dim padded for k16 MMAs
   constexpr int KD = DP / 16;             // k16 steps over the head dim
   constexpr int ND = DP / 8;              // n8 tiles over the head dim
@@ -239,6 +246,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + qr + 8 * r;
     if (row >= nq) continue;
+    if constexpr (LSE) {
+      if (t == 0) lse[static_cast<long long>(blockIdx.y) * nq + row] = m_run[r] + logf(l_run[r]);
+    }
     __nv_bfloat16* orow = o + b * so.b + row * so.n + h * so.h;
 #pragma unroll
     for (int dt = 0; dt < ND; ++dt) {
@@ -250,17 +260,33 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int batch, int heads, int nq, int nkv, Strides sq,
-                   Strides sk, Strides sv, Strides so, float scale,
+                   float* lse, int batch, int heads, int nq, int nkv,
+                   Strides sq, Strides sk, Strides sv, Strides so, float scale,
                    cudaStream_t stream) {
   const dim3 grid((nq + kBlockQ - 1) / kBlockQ, batch * heads);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<D, LSE><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
       heads, nq, nkv, sq, sk, sv, so, scale);
   return cudaGetLastError();
+}
+
+template <bool LSE>
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int batch, int heads, int nq, int nkv, int head_dim, Strides sq,
+             Strides sk, Strides sv, Strides so, float scale, cudaStream_t st) {
+  switch (head_dim) {
+    case 64:
+      return launch<64, LSE>(q, k, v, o, lse, batch, heads, nq, nkv, sq, sk, sv, so, scale, st);
+    case 72:
+      return launch<72, LSE>(q, k, v, o, lse, batch, heads, nq, nkv, sq, sk, sv, so, scale, st);
+    case 128:
+      return launch<128, LSE>(q, k, v, o, lse, batch, heads, nq, nkv, sq, sk, sv, so, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -278,17 +304,24 @@ int deco_flash_attention_fwd(const void* q, const void* k, const void* v,
                              long long o_sh, float scale, void* stream) {
   const Strides sq{q_sb, q_sn, q_sh}, sk{k_sb, k_sn, k_sh};
   const Strides sv{v_sb, v_sn, v_sh}, so{o_sb, o_sn, o_sh};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64:
-      return launch<64>(q, k, v, o, batch, heads, nq, nkv, sq, sk, sv, so, scale, st);
-    case 72:
-      return launch<72>(q, k, v, o, batch, heads, nq, nkv, sq, sk, sv, so, scale, st);
-    case 128:
-      return launch<128>(q, k, v, o, batch, heads, nq, nkv, sq, sk, sv, so, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(q, k, v, o, nullptr, batch, heads, nq, nkv, head_dim,
+                         sq, sk, sv, so, scale, static_cast<cudaStream_t>(stream));
+}
+
+// As deco_flash_attention_fwd, and also writes lse, fp32 (B, H, Nq) contiguous.
+int deco_flash_attention_fwd_lse(const void* q, const void* k, const void* v,
+                                 void* o, void* lse, int batch, int heads,
+                                 int nq, int nkv, int head_dim, long long q_sb,
+                                 long long q_sn, long long q_sh, long long k_sb,
+                                 long long k_sn, long long k_sh, long long v_sb,
+                                 long long v_sn, long long v_sh, long long o_sb,
+                                 long long o_sn, long long o_sh, float scale,
+                                 void* stream) {
+  const Strides sq{q_sb, q_sn, q_sh}, sk{k_sb, k_sn, k_sh};
+  const Strides sv{v_sb, v_sn, v_sh}, so{o_sb, o_sn, o_sh};
+  return dispatch<true>(q, k, v, o, static_cast<float*>(lse), batch, heads, nq,
+                        nkv, head_dim, sq, sk, sv, so, scale,
+                        static_cast<cudaStream_t>(stream));
 }
 
 const char* deco_cuda_error_string(int err) {

@@ -13,6 +13,11 @@ import numpy as np
 import torch
 
 
+def bcast_right(t, ndim: int):
+    """Append trailing singleton dims so ``t`` broadcasts against an ndim tensor."""
+    return t.reshape(tuple(t.shape) + (1,) * (ndim - t.dim()))
+
+
 def _ones_like(t):
     return torch.ones_like(t) if isinstance(t, torch.Tensor) else np.ones_like(t)
 
@@ -49,6 +54,10 @@ class BaseScheduler:
 
     def w(self, t):
         return self.sigma(t)
+
+    def isotropic_coeffs(self, t):
+        """(alpha, dalpha, sigma, dsigma) evaluated together."""
+        return self.alpha(t), self.dalpha(t), self.sigma(t), self.dsigma(t)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,10 +7,15 @@ is a Python loop over an ``nn.ModuleList``; its state-dict keys are those of
 the reference torch model, so ``convert.state_dict_from_jax`` output and
 reference-layout checkpoints load with ``strict=True``.
 
-Not ported, and rejected when asked for: remat (``grad_checkpoint``,
-``trunk_remat_policy``), ``decoder_chunks``, ``quantize``,
-``trunk_parallel``, and the REPA outputs ``return_s``/``return_features``
-(``align_layer``).
+``grad_checkpoint`` recomputes each trunk block (``trunk_remat_policy``
+"full"; "none" keeps the trunk's activations) and each decoder res block in
+the backward, as ``nn.remat`` does in ``run_dit_blocks`` and
+``SimpleMLPAdaLN``. ``param_dtype`` (default: ``dtype``) is the storage type
+of the parameters: fp32 for training, the compute dtype for sampling.
+
+Not ported, and rejected when asked for: the "dots" and "attn" remat
+policies, ``decoder_chunks``, ``quantize``, ``trunk_parallel``, and the REPA
+outputs ``return_s``/``return_features`` (``align_layer``).
 """
 
 from __future__ import annotations
@@ -26,8 +31,6 @@ from deco_tpu_torch.models.patching import patchify, unpatchify
 # constructor fields of the JAX model that the port does not implement,
 # with the value that means "off"
 _UNPORTED = {
-    "grad_checkpoint": False,
-    "trunk_remat_policy": "full",
     "decoder_chunks": 0,
     "align_layer": 0,
     "trunk_parallel": "none",
@@ -40,7 +43,8 @@ class DeCoC2I(nn.Module):
 
     DeCo-XL/16: in_channels=3, patch_size=16, num_groups=16, hidden_size=1152,
     hidden_size_x=32, num_blocks=31, num_cond_blocks=28. ``dtype`` is the
-    compute dtype; ``device`` defaults to CUDA and raises where there is none.
+    compute dtype, ``param_dtype`` the parameters' (default ``dtype``);
+    ``device`` defaults to CUDA and raises where there is none.
     """
 
     def __init__(self, in_channels: int = 3, patch_size: int = 16,
@@ -49,8 +53,13 @@ class DeCoC2I(nn.Module):
                  num_blocks: int = 18, num_cond_blocks: int = 4,
                  num_classes: int = 1000, max_freqs: int = 8,
                  dtype=torch.bfloat16, rope_scale: float = 16.0,
-                 device="cuda", **unported):
+                 param_dtype=None, grad_checkpoint: bool = False,
+                 trunk_remat_policy: str = "full", device="cuda", **unported):
         super().__init__()
+        if trunk_remat_policy not in ("full", "none"):
+            raise NotImplementedError(
+                f"DeCoC2I: trunk_remat_policy={trunk_remat_policy!r} is not ported to "
+                f"deco_tpu_torch (it has 'full' and 'none')")
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"DeCoC2I: unexpected argument {name!r}")
@@ -65,22 +74,24 @@ class DeCoC2I(nn.Module):
         self.hidden_size = hidden_size
         self.dtype = dtype
         self.rope_scale = rope_scale
+        self.trunk_checkpoint = grad_checkpoint and trunk_remat_policy == "full"
         self._rope_cache: dict = {}
         p2c = patch_size * patch_size * in_channels
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
         with dev:
-            self.s_embedder = layers.Embed(p2c, hidden_size, dtype=dtype)
-            self.t_embedder = layers.TimestepEmbedder(hidden_size, dtype=dtype)
-            self.y_embedder = layers.LabelEmbedder(num_classes + 1, hidden_size, dtype=dtype)
+            self.s_embedder = layers.Embed(p2c, hidden_size, **kw)
+            self.t_embedder = layers.TimestepEmbedder(hidden_size, **kw)
+            self.y_embedder = layers.LabelEmbedder(num_classes + 1, hidden_size, **kw)
             self.blocks = nn.ModuleList(
-                layers.FlattenDiTBlock(hidden_size, num_groups, dtype=dtype)
+                layers.FlattenDiTBlock(hidden_size, num_groups, **kw)
                 for _ in range(num_cond_blocks))
             self.x_embedder = layers.NerfEmbedder(
-                in_channels, hidden_size_x, patch_size, max_freqs=max_freqs, dtype=dtype)
+                in_channels, hidden_size_x, patch_size, max_freqs=max_freqs, **kw)
             self.dec_net = layers.SimpleMLPAdaLN(
                 in_channels=hidden_size_x, model_channels=hidden_size_x,
                 out_channels=in_channels, z_channels=hidden_size,
                 num_res_blocks=num_blocks - num_cond_blocks, patch_size=patch_size,
-                dtype=dtype)
+                grad_checkpoint=grad_checkpoint, **kw)
         self.to(dev)  # buffers made from numpy start on the CPU
 
     def _rope(self, grid_h: int, grid_w: int, device):
@@ -116,7 +127,8 @@ class DeCoC2I(nn.Module):
             s = self.s_embedder(x_cm.transpose(2, 3).reshape(b, gh * gw, -1))
             rope = self._rope(gh, gw, x.device)
             for block in self.blocks:
-                s = block(s, c, rope, mask)
+                s = layers.run_checkpointed(block, s, c, rope, mask,
+                                            enabled=self.trunk_checkpoint)
             s = F.silu(t_emb + s)
 
         x_pix = x_patches.reshape(b, gh * gw, p * p, self.in_channels)

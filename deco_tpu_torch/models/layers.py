@@ -4,12 +4,17 @@ Module and parameter names follow the reference torch state-dict keys that
 ``convert.state_dict_from_jax`` writes, so reference-layout checkpoints load
 with ``strict=True``. Numerics follow the Flax modules:
 
-- :class:`Linear` is ``nn.Dense(dtype=...)``: input, weight and bias in the
-  compute dtype. Its parameters are stored in that dtype, which gives the
-  same values as Flax's fp32 parameters cast at every use.
+- :class:`Linear` is ``nn.Dense(dtype=..., param_dtype=...)``: parameters
+  stored in ``param_dtype`` (fp32 for training, as Flax keeps them; by
+  default the compute dtype, as in sampling, where a cast at every use would
+  only add kernels), input, weight and bias cast to the compute ``dtype``.
+  Every module built from it takes both.
 - :class:`RMSNorm` and :class:`LayerNorm` compute in fp32 with fp32
   parameters and cast back to the input dtype.
 - RoPE rotates in the input dtype (the JAX package's deliberate deviation).
+- ``grad_checkpoint`` on :class:`SimpleMLPAdaLN` recomputes each res block in
+  the backward (``torch.utils.checkpoint``, non-reentrant), the counterpart
+  of ``nn.remat(AdaLNResBlock)``.
 """
 
 from __future__ import annotations
@@ -20,15 +25,32 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deco_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
 
 class Linear(nn.Linear):
-    """``nn.Dense(dtype=dtype)``: parameters and compute in ``dtype``."""
+    """``nn.Dense``: parameters in ``param_dtype`` (default ``dtype``),
+    input, weight and bias cast to the compute ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.float32, param_dtype=None):
+        super().__init__(in_features, out_features, bias=bias, dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def run_checkpointed(fn, *args, enabled: bool):
+    """``fn(*args)``, recomputed in the backward when ``enabled`` and grad is
+    on (``nn.remat``). No block draws random numbers, so no RNG state is kept."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def modulate(x, shift, scale):
@@ -81,12 +103,13 @@ class LayerNorm(nn.Module):
 class SwiGLU(nn.Module):
     """c2i SwiGLU (unfused w1/w3/w2) of width ``int(2 * hidden_dim / 3)``."""
 
-    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32, param_dtype=None):
         super().__init__()
         hidden = int(2 * hidden_dim / 3)
-        self.w1 = Linear(dim, hidden, bias=False, dtype=dtype)
-        self.w3 = Linear(dim, hidden, bias=False, dtype=dtype)
-        self.w2 = Linear(hidden, dim, bias=False, dtype=dtype)
+        kw = dict(bias=False, dtype=dtype, param_dtype=param_dtype)
+        self.w1 = Linear(dim, hidden, **kw)
+        self.w3 = Linear(dim, hidden, **kw)
+        self.w2 = Linear(hidden, dim, **kw)
 
     def forward(self, x):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
@@ -96,15 +119,15 @@ class TimestepEmbedder(nn.Module):
     """Sinusoidal timestep embedding (cos before sin, ``max_period`` 10) + MLP."""
 
     def __init__(self, hidden_size: int, frequency_embedding_size: int = 256,
-                 max_period: float = 10.0, dtype=torch.float32):
+                 max_period: float = 10.0, dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.frequency_embedding_size = frequency_embedding_size
         self.max_period = max_period
         self.dtype = dtype
         self.mlp = nn.Sequential(
-            Linear(frequency_embedding_size, hidden_size, dtype=dtype),
+            Linear(frequency_embedding_size, hidden_size, dtype=dtype, param_dtype=param_dtype),
             nn.SiLU(),
-            Linear(hidden_size, hidden_size, dtype=dtype),
+            Linear(hidden_size, hidden_size, dtype=dtype, param_dtype=param_dtype),
         )
 
     def timestep_embedding(self, t, dim: int):
@@ -128,23 +151,26 @@ class Embed(nn.Module):
     """Linear patch/feature embed (``Embed`` without the optional norm)."""
 
     def __init__(self, in_dim: int, embed_dim: int, bias: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=None):
         super().__init__()
-        self.proj = Linear(in_dim, embed_dim, bias=bias, dtype=dtype)
+        self.proj = Linear(in_dim, embed_dim, bias=bias, dtype=dtype, param_dtype=param_dtype)
 
     def forward(self, x):
         return self.proj(x)
 
 
 class LabelEmbedder(nn.Module):
-    """Class-label table; ``num_classes`` rows (callers add the null class)."""
+    """Class-label table; ``num_classes`` rows (callers add the null class).
+    The table is stored in ``param_dtype`` and the rows cast to ``dtype``."""
 
-    def __init__(self, num_classes: int, hidden_size: int, dtype=torch.float32):
+    def __init__(self, num_classes: int, hidden_size: int, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
-        self.embedding_table = nn.Embedding(num_classes, hidden_size, dtype=dtype)
+        self.dtype = dtype
+        self.embedding_table = nn.Embedding(num_classes, hidden_size, dtype=param_dtype or dtype)
 
     def forward(self, labels):
-        return self.embedding_table(labels)
+        return self.embedding_table(labels).to(self.dtype)
 
 
 def precompute_rope_2d(dim: int, height: int, width: int,
@@ -200,13 +226,13 @@ def sdpa(q, k, v, mask=None):
 class RAttention(nn.Module):
     """RoPE + qk-RMSNorm multi-head self-attention."""
 
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype)
+        self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype, param_dtype=param_dtype)
         self.q_norm = RMSNorm(dim // num_heads)
         self.k_norm = RMSNorm(dim // num_heads)
-        self.proj = Linear(dim, dim, dtype=dtype)
+        self.proj = Linear(dim, dim, dtype=dtype, param_dtype=param_dtype)
 
     def forward(self, x, rope, mask=None):
         b, n, c = x.shape
@@ -221,13 +247,14 @@ class FlattenDiTBlock(nn.Module):
     """adaLN-gated DiT block: RAttention + SwiGLU."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=None):
         super().__init__()
-        self.adaLN_modulation = nn.Sequential(Linear(hidden, 6 * hidden, dtype=dtype))
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        self.adaLN_modulation = nn.Sequential(Linear(hidden, 6 * hidden, **kw))
         self.norm1 = RMSNorm(hidden)
-        self.attn = RAttention(hidden, num_heads, dtype=dtype)
+        self.attn = RAttention(hidden, num_heads, **kw)
         self.norm2 = RMSNorm(hidden)
-        self.mlp = SwiGLU(hidden, int(hidden * mlp_ratio), dtype=dtype)
+        self.mlp = SwiGLU(hidden, int(hidden * mlp_ratio), **kw)
 
     def forward(self, x, c, rope, mask=None):
         (shift_msa, scale_msa, gate_msa,
@@ -259,7 +286,7 @@ class NerfEmbedder(nn.Module):
     """
 
     def __init__(self, in_channels: int, hidden_size: int, patch_size: int,
-                 max_freqs: int = 8, dtype=torch.float32):
+                 max_freqs: int = 8, dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.dtype = dtype
         self.register_buffer(
@@ -267,7 +294,7 @@ class NerfEmbedder(nn.Module):
             persistent=False,
         )
         self.embedder = nn.Sequential(
-            Linear(in_channels + max_freqs**2, hidden_size, dtype=dtype))
+            Linear(in_channels + max_freqs**2, hidden_size, dtype=dtype, param_dtype=param_dtype))
 
     def forward(self, x):
         basis = self.basis.to(self.dtype).expand(x.shape[:-1] + self.basis.shape[-1:])
@@ -277,16 +304,16 @@ class NerfEmbedder(nn.Module):
 class AdaLNResBlock(nn.Module):
     """Pixel-decoder res block with a per-pixel adaLN condition ``y``."""
 
-    def __init__(self, channels: int, dtype=torch.float32):
+    def __init__(self, channels: int, dtype=torch.float32, param_dtype=None):
         super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.in_ln = LayerNorm(channels, eps=1e-6, dtype=dtype)
         self.mlp = nn.Sequential(
-            Linear(channels, channels, dtype=dtype),
+            Linear(channels, channels, **kw),
             nn.SiLU(),
-            Linear(channels, channels, dtype=dtype),
+            Linear(channels, channels, **kw),
         )
-        self.adaLN_modulation = nn.Sequential(
-            nn.SiLU(), Linear(channels, 3 * channels, dtype=dtype))
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(channels, 3 * channels, **kw))
         nn.init.zeros_(self.adaLN_modulation[1].weight)
         nn.init.zeros_(self.adaLN_modulation[1].bias)
 
@@ -299,10 +326,11 @@ class AdaLNResBlock(nn.Module):
 class FinalLayer(nn.Module):
     """The decoder's parameter-free LayerNorm and zero-initialised linear."""
 
-    def __init__(self, channels: int, out_channels: int, dtype=torch.float32):
+    def __init__(self, channels: int, out_channels: int, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
         self.norm_final = LayerNorm(channels, eps=1e-6, affine=False, dtype=dtype)
-        self.linear = Linear(channels, out_channels, dtype=dtype)
+        self.linear = Linear(channels, out_channels, dtype=dtype, param_dtype=param_dtype)
         nn.init.zeros_(self.linear.weight)
         nn.init.zeros_(self.linear.bias)
 
@@ -315,25 +343,28 @@ class SimpleMLPAdaLN(nn.Module):
 
     x: (B, L, P^2, C_in) per-pixel features; z: (B, L, z_channels) patch
     conditions. ``cond_embed`` turns each patch token into P^2 per-pixel
-    conditions, so every pixel gets its own modulation.
+    conditions, so every pixel gets its own modulation. ``grad_checkpoint``
+    recomputes each res block in the backward.
     """
 
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
                  z_channels: int, num_res_blocks: int, patch_size: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=None, grad_checkpoint: bool = False):
         super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.model_channels = model_channels
         self.patch_size = patch_size
-        self.input_proj = Linear(in_channels, model_channels, dtype=dtype)
-        self.cond_embed = Linear(z_channels, patch_size**2 * model_channels, dtype=dtype)
+        self.grad_checkpoint = grad_checkpoint
+        self.input_proj = Linear(in_channels, model_channels, **kw)
+        self.cond_embed = Linear(z_channels, patch_size**2 * model_channels, **kw)
         self.res_blocks = nn.ModuleList(
-            AdaLNResBlock(model_channels, dtype=dtype) for _ in range(num_res_blocks))
-        self.final_layer = FinalLayer(model_channels, out_channels, dtype=dtype)
+            AdaLNResBlock(model_channels, **kw) for _ in range(num_res_blocks))
+        self.final_layer = FinalLayer(model_channels, out_channels, **kw)
 
     def forward(self, x, z):
         x = self.input_proj(x)
         c = self.cond_embed(z)
         y = c.reshape(c.shape[:-1] + (self.patch_size**2, self.model_channels))
         for block in self.res_blocks:
-            x = block(x, y)
+            x = run_checkpointed(block, x, y, enabled=self.grad_checkpoint)
         return self.final_layer(x)

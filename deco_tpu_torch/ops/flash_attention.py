@@ -1,14 +1,24 @@
-"""Flash-attention forward: the Hopper kernel and its plain PyTorch version.
+"""Flash attention, forward and backward: the Hopper kernels and their plain
+PyTorch versions.
 
 Counterpart of ``deco_tpu/ops/flash_attention.py`` (``flash_attention``
-:631 -> ``_flash_core`` -> ``_flash_fwd`` -> the Pallas ``_fwd_kernel``).
-:func:`flash_attention` takes (B, N, H, D) operands as the JAX function does.
-On CUDA tensors it launches ``csrc/flash_attention_fwd.cu``, which reads the
-operands in place through their strides (no fold to (B*H, N, D)) and masks
-ragged N itself, so unlike the JAX wrapper it needs no detour to a library
-call when N is not a multiple of 8. On CPU tensors it runs
-:func:`flash_attention_plain`, the explicit fp32-softmax version that is the
-counterpart of ``deco_tpu.models.layers.sdpa(impl="einsum")``.
+:631 -> ``_flash_core``, a ``jax.custom_vjp`` over ``_flash_fwd``,
+``_flash_core_fwd`` and ``_flash_core_bwd``). :func:`flash_attention` takes
+(B, N, H, D) operands as the JAX function does:
+
+- under autograd (grad enabled and an input that requires grad) it runs
+  :class:`FlashAttention`, whose forward is the forward-with-logsumexp
+  (:func:`flash_attention_fwd_lse`, ``csrc/flash_attention_fwd.cu``) and
+  whose backward is delta = rowsum(dO * O) as a torch op, then the dQ and
+  dK/dV kernels (``csrc/flash_attention_bwd.cu``);
+- otherwise, as in sampling, it launches the plain forward kernel, with no
+  logsumexp work.
+
+The kernels read the operands in place through their strides (no fold to
+(B*H, N, D)) and mask ragged N themselves, so unlike the JAX wrapper they
+need no detour to a library call when N is not a multiple of 8. Every
+wrapper runs its plain version on CPU tensors and launches its kernel, or
+raises, on CUDA tensors; each counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -24,6 +34,11 @@ SUPPORTED_HEAD_DIMS = (64, 72, 128)
 _MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, which spans B*H
 
 
+def _logits(q, k, scale):
+    """fp32 scale * q k^T, (B, H, Nq, Nkv)."""
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+
+
 def flash_attention_plain(q, k, v, scale: float | None = None, mask=None):
     """softmax(scale * q k^T) v with fp32 logits and softmax; any device.
 
@@ -33,78 +48,258 @@ def flash_attention_plain(q, k, v, scale: float | None = None, mask=None):
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = _logits(q, k, scale)
     if mask is not None:
         logits = logits.masked_fill(~mask.bool(), torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _check_kernel_args(q, k, v) -> None:
-    """Raise for operands the CUDA kernel does not take."""
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention kernel: {name} is {x.dtype}, needs bfloat16")
-        if x.dim() != 4:
-            raise ValueError(f"flash_attention: {name} must be (B, N, H, D), got {tuple(x.shape)}")
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
-            raise ValueError(
-                f"flash_attention kernel: {name} needs a contiguous head dim, "
-                f"strides that are multiples of 8 and a 16-byte aligned base "
-                f"(strides {x.stride()}); pass x.contiguous()"
-            )
+def flash_attention_fwd_lse_plain(q, k, v, scale: float):
+    """(o, lse): the output as :func:`flash_attention_plain` and the fp32
+    logsumexp of the scaled logits, (B, H, Nq) (``_fwd_kernel_lse``)."""
+    logits = _logits(q, k, scale)
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None]).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v), lse
+
+
+def attention_delta(o, do):
+    """delta = rowsum(dO * O) in fp32, (B, H, Nq) contiguous (``_flash_core_bwd``
+    :623); a torch op on every device, as it is XLA in the JAX package."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_probs(q, k, v, do, lse, delta, scale):
+    """fp32 (P, dS), each (B, H, Nq, Nkv), from the saved lse and delta."""
+    p = torch.exp(_logits(q, k, scale) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale: float):
+    """dQ = scale * dS K in fp32, returned in q's dtype (``_bwd_dq_kernel``)."""
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, scale)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale: float):
+    """(dK, dV) = (scale * dS^T Q, P^T dO) in fp32, returned in k's and v's
+    dtypes (``_bwd_dkv_kernel``)."""
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
+    """(dQ, dK, dV), the counterpart of ``_flash_core_bwd_xla`` (:592-609)."""
+    delta = attention_delta(o, do)
+    dq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    return (dq, *flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale))
+
+
+def _readable_in_place(x) -> bool:
+    """A contiguous head dim, 16-byte aligned rows and base."""
+    return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3]) and not x.data_ptr() % 16
+
+
+def _check_operand(name, x) -> None:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention kernel: {name} is {x.dtype}, needs bfloat16")
+    if x.dim() != 4:
+        raise ValueError(f"flash_attention: {name} must be (B, N, H, D), got {tuple(x.shape)}")
+    if not _readable_in_place(x):
+        raise ValueError(
+            f"flash_attention kernel: {name} needs a contiguous head dim, "
+            f"strides that are multiples of 8 and a 16-byte aligned base "
+            f"(strides {x.stride()}); pass x.contiguous()"
+        )
+
+
+def _check_kernel_args(q, k, v, do=None) -> None:
+    """Raise for operands the CUDA kernels do not take."""
+    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if x is not None:
+            _check_operand(name, x)
     b, _, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]:
         raise ValueError(
             f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} do not agree"
         )
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"flash_attention: do {tuple(do.shape)} is not q's shape")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     if k.shape[1] == 0:
         raise ValueError("flash_attention: no keys")
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"flash_attention kernel: B*H = {b * h} > {_MAX_GRID_Y}")
+    devices = {x.device for x in (q, k, v, do) if x is not None}
+    if len(devices) != 1:
+        raise ValueError("flash_attention: operands must be on one CUDA device")
 
 
-def _kernel():
-    lib = _build.load("flash_attention_fwd")
-    fn = lib.deco_flash_attention_fwd
+def _check_stats(q, *stats) -> None:
+    b, nq, h, _ = q.shape
+    for x in stats:
+        if x.dtype != torch.float32 or tuple(x.shape) != (b, h, nq) or not x.is_contiguous():
+            raise ValueError(
+                f"flash_attention backward: lse/delta must be fp32 contiguous "
+                f"{(b, h, nq)}, got {x.dtype} {tuple(x.shape)}")
+
+
+def _fn(source: str, symbol: str, argtypes):
+    lib = _build.load(source)
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FWD_ARGS = [_P] * 4 + [_I] * 5 + [_LL] * 12 + [ctypes.c_float, _P]
+
+
+def _strides(*xs):
+    return [s for x in xs for s in x.stride()[:3]]
+
+
+def _run_fwd(q, k, v, scale, with_lse: bool):
+    """(o, lse or None) from the forward kernel; q/k/v already checked."""
+    b, n_q, h, d = q.shape
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()]
+    lse = None
+    if with_lse:
+        lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
+        lib, fn = _fn("flash_attention_fwd", "deco_flash_attention_fwd_lse", [_P] + _FWD_ARGS)
+        ptrs.append(lse.data_ptr())
+    else:
+        lib, fn = _fn("flash_attention_fwd", "deco_flash_attention_fwd", _FWD_ARGS)
+    with torch.cuda.device(q.device):
+        err = fn(*ptrs, b, h, n_q, k.shape[1], d, *_strides(q, k, v, o), float(scale),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "flash_attention_fwd launch")
+    return o, lse
+
+
+def flash_attention_fwd_lse(q, k, v, scale: float):
+    """(o, lse) of the forward with logsumexp; lse is fp32 (B, H, Nq).
+
+    CPU tensors take :func:`flash_attention_fwd_lse_plain`; CUDA tensors
+    launch the kernel's LSE instantiation or raise.
+    """
+    if not q.is_cuda:
+        return flash_attention_fwd_lse_plain(q, k, v, scale)
+    _check_kernel_args(q, k, v)
+    o, lse = _run_fwd(q, k, v, scale, with_lse=True)
+    flash_attention_fwd_lse.launches += 1
+    return o, lse
+
+
+def _bwd_args(q, k, v, do, lse, delta):
+    _check_kernel_args(q, k, v, do)
+    _check_stats(q, lse, delta)
+    b, n_q, h, d = q.shape
+    return b, h, n_q, k.shape[1], d
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float):
+    """dQ, (B, Nq, H, D) in q's dtype. CPU tensors take
+    :func:`flash_attention_bwd_dq_plain`; CUDA tensors launch the kernel or raise."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    dims = _bwd_args(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lib, fn = _fn("flash_attention_bwd", "deco_flash_attention_bwd_dq",
+                  [_P] * 7 + [_I] * 5 + [_P, ctypes.c_float, _P])
+    strides = (ctypes.c_longlong * 15)(*_strides(q, k, v, do, dq))
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), *dims, strides, float(scale),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "flash_attention_bwd_dq launch")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float):
+    """(dK, dV), each (B, Nkv, H, D). CPU tensors take
+    :func:`flash_attention_bwd_dkv_plain`; CUDA tensors launch the kernel or raise."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    dims = _bwd_args(q, k, v, do, lse, delta)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    lib, fn = _fn("flash_attention_bwd", "deco_flash_attention_bwd_dkv",
+                  [_P] * 8 + [_I] * 5 + [_P, ctypes.c_float, _P])
+    strides = (ctypes.c_longlong * 18)(*_strides(q, k, v, do, dk, dv))
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims, strides,
+                 float(scale), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "flash_attention_bwd_dkv launch")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
+    """(dQ, dK, dV): delta as a torch op, then the dQ and dK/dV wrappers."""
+    if do.is_cuda and not _readable_in_place(do):
+        do = do.contiguous()  # autograd may hand back a gradient of any layout
+    delta = attention_delta(o, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward (``_flash_core``'s custom VJP).
+
+    The forward saves (q, k, v, o, lse) as ``_flash_core_fwd`` does; the
+    backward recomputes P from lse. CPU tensors run the plain versions.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_attention_fwd_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, lse, do, ctx.scale), None)
 
 
 def flash_attention(q, k, v, scale: float | None = None):
     """Non-causal attention. q: (B, Nq, H, D); k, v: (B, Nkv, H, D).
 
-    Returns (B, Nq, H, D) in q's dtype. CPU tensors take
-    :func:`flash_attention_plain`; CUDA tensors launch the kernel (bf16
-    only, D in ``SUPPORTED_HEAD_DIMS``) or raise.
+    Returns (B, Nq, H, D) in q's dtype. Under autograd this is
+    :class:`FlashAttention`; otherwise CPU tensors take
+    :func:`flash_attention_plain` and CUDA tensors launch the forward kernel
+    (bf16 only, D in ``SUPPORTED_HEAD_DIMS``) or raise.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: q, k and v must be on one CUDA device")
     _check_kernel_args(q, k, v)
-    b, n_q, h, d = q.shape
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if n_q == 0:
-        return o
-    lib, fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 b, h, n_q, k.shape[1], d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-                 float(scale), stream)
-    _build.check(lib, err, "flash_attention_fwd launch")
+    if q.shape[1] == 0:
+        return torch.empty_like(q, memory_format=torch.contiguous_format)
+    o, _ = _run_fwd(q, k, v, scale, with_lse=False)
     flash_attention.launches += 1
     return o
 
 
-flash_attention.launches = 0  # kernel launches since the last reset
+# kernel launches since the last reset, one count per kernel
+flash_attention.launches = 0
+flash_attention_fwd_lse.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

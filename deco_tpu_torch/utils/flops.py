@@ -17,16 +17,29 @@ CARD_PEAKS = {
 }
 
 
-def card_peaks(card_name: str) -> tuple[float, float]:
-    """(bf16 FLOP/s, bytes/s) for a card name as ``nvidia-smi`` reports it."""
+# per card: dense fp32 FLOP/s outside the tensor cores (NVIDIA data sheets)
+CARD_FP32_PEAKS = {"H100 SXM": 67e12, "H100 NVL": 60e12, "H100 PCIe": 51e12}
+
+
+def _card_key(card_name: str) -> str:
     name = card_name.upper()
     if "H100" not in name:
         raise ValueError(f"no peak rates on record for {card_name!r}")
     if "PCIE" in name:
-        return CARD_PEAKS["H100 PCIe"]
+        return "H100 PCIe"
     if "NVL" in name:
-        return CARD_PEAKS["H100 NVL"]
-    return CARD_PEAKS["H100 SXM"]  # "H100 80GB HBM3" is the SXM part
+        return "H100 NVL"
+    return "H100 SXM"  # "H100 80GB HBM3" is the SXM part
+
+
+def card_fp32_peak(card_name: str) -> float:
+    """fp32 FLOP/s outside the tensor cores for a card name from ``nvidia-smi``."""
+    return CARD_FP32_PEAKS[_card_key(card_name)]
+
+
+def card_peaks(card_name: str) -> tuple[float, float]:
+    """(bf16 FLOP/s, bytes/s) for a card name as ``nvidia-smi`` reports it."""
+    return CARD_PEAKS[_card_key(card_name)]
 
 
 def dit_block_flops(tokens: int, hidden: int, mlp_hidden: int,
@@ -71,6 +84,12 @@ def sampler_flops_per_image(net_flops: float, num_steps: int,
     """FLOPs per generated image for an N-step sampler; ``cfg_batch_factor``
     is the mean network batch per image (2 for CFG on every step)."""
     return net_flops * num_steps * cfg_batch_factor
+
+
+def train_flops_per_image(net_flops: float) -> float:
+    """Training FLOPs per image: forward + backward = 3 x the forward's.
+    Recompute under remat is not counted, so MFU is model FLOPs utilisation."""
+    return 3.0 * net_flops
 
 
 def mfu(images_per_sec: float, flops_per_image: float, peak_flops: float) -> float:

@@ -18,7 +18,7 @@ from deco_tpu.models.layers import sdpa as jax_sdpa
 from deco_tpu.ops.flash_attention import flash_attention as jax_flash
 from deco_tpu_torch.models import layers as tl
 from deco_tpu_torch.ops.flash_attention import (
-    _check_kernel_args, flash_attention, flash_attention_plain)
+    _check_kernel_args, flash_attention, flash_attention_fwd_lse, flash_attention_plain)
 
 
 def _qkv(b, nq, nkv, h, d, seed=0):
@@ -106,3 +106,78 @@ def test_entry_point_without_cuda_raises():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DeCoC2I(hidden_size=144, num_groups=2, num_blocks=2, num_cond_blocks=1)
+
+
+# ---- training path: forward with logsumexp and the backward ----------------
+# The JAX side runs its Pallas kernels in interpret mode, as tests/test_ops.py
+# does: `_flash_fwd_lse` for (o, lse) and, with DECO_FLASH_BWD=pallas, the dq
+# and dk/dv kernels under jax.vjp. "stream" shrinks the VMEM budget so the
+# streaming variants run. Tolerances: fp32, atol 2e-5 on o and lse and 1e-4
+# on gradients (fp32 sums in another order); bf16, atol 3e-2 on o and lse
+# and 2e-2 of the largest gradient (the Pallas kernels round P and dS to
+# bf16 before their products, the port's plain version keeps them fp32).
+@pytest.mark.parametrize("variant,dtype", [
+    ("resident", "float32"), ("stream", "float32"), ("resident", "bfloat16"),
+    ("stream", "bfloat16"),
+])
+def test_fwd_lse_and_backward_match_jax_pallas(monkeypatch, variant, dtype):
+    import jax
+
+    from deco_tpu.ops import flash_attention as jfa
+
+    b, n, h, d = 1, 64, 2, 72
+    q, k, v = _qkv(b, n, n, h, d, seed=11)
+    g = np.random.default_rng(12).standard_normal((b, n, h, d)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tg = (torch.from_numpy(a).to(tdt) for a in (q, k, v, g))
+    q, k, v, g = (x.float().numpy() for x in (tq, tk, tv, tg))  # both sides see the same values
+    jq, jk, jv, jg = (jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v, g))
+    scale = d ** -0.5
+    if variant == "stream":
+        monkeypatch.setattr(jfa, "_RESIDENT_VMEM_BUDGET", 1)
+    monkeypatch.setenv("DECO_FLASH_BWD", "pallas")
+
+    def fold(x):
+        return x.transpose(0, 2, 1, 3).reshape(b * h, n, d)
+
+    with pltpu.force_tpu_interpret_mode():
+        o_ref, lse_ref = jfa._flash_fwd_lse(fold(jq), fold(jk), fold(jv), scale)
+        _, vjp = jax.vjp(jax_flash, jq, jk, jv)
+        grads_ref = vjp(jg)
+    o_ref = np.asarray(o_ref.astype(jnp.float32)).reshape(b, h, n, d).transpose(0, 2, 1, 3)
+    lse_ref = np.asarray(lse_ref).reshape(b, h, n)
+
+    o, lse = flash_attention_fwd_lse(tq, tk, tv, scale)
+    atol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(o.float().numpy(), o_ref, atol=atol)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, atol=atol)
+
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    out = flash_attention(*leaves)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.backward(tg)
+    for got, want in zip(leaves, grads_ref):
+        assert got.grad.dtype == tdt
+        want = np.asarray(want.astype(jnp.float32))
+        got = got.grad.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=1e-4)
+        else:
+            assert np.abs(got - want).max() < 2e-2 * np.abs(want).max()
+
+
+def test_cpu_autograd_reaches_qkv_through_the_function():
+    """Under autograd on the CPU attention goes through FlashAttention, and
+    the trunk's qkv projection gets a gradient from it."""
+    from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I, init_random_
+
+    model = DeCoC2I(hidden_size=144, num_groups=2, num_blocks=3, num_cond_blocks=1,
+                    patch_size=4, hidden_size_x=16, num_classes=10,
+                    dtype=torch.float32, device="cpu")
+    init_random_(model, 0)
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(1, 16, 16, 2, 72))
+    assert type(flash_attention(q, k, v).grad_fn).__name__ == "FlashAttentionBackward"
+    x = torch.randn(2, 16, 16, 3, generator=torch.Generator().manual_seed(1))
+    model(x, torch.tensor([0.3, 0.6]), torch.tensor([1, 2])).square().mean().backward()
+    grad = model.blocks[0].attn.qkv.weight.grad
+    assert grad is not None and grad.abs().max() > 0

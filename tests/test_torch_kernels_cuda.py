@@ -7,23 +7,51 @@ JAX caches):
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
-Tolerance: atol 3e-2 between the bf16 kernel and the plain version (both
-round the output to bf16 and round P to bf16 against different maxima).
+Tolerances:
+- attention outputs, atol 3e-2 between the bf16 kernel and the plain
+  version (both round the output to bf16 and round P to bf16 against
+  different maxima); lse, atol 1e-3 (fp32 sums of exact bf16 products, in
+  another order);
+- attention gradients, max abs error under 2e-2 of the largest plain value:
+  the kernels round P and dS to bf16 before their products, as the TPU
+  kernels do, where the plain version keeps fp32, and the outputs are bf16;
+- the frequency MSE, rtol 1e-4 (fp32 sums of ~6M terms in another order),
+  and bit-identical from run to run.
 """
 
 import pytest
 import torch
 
-from deco_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from deco_tpu_torch.ops import block_dct
+from deco_tpu_torch.ops import flash_attention as fa
 
 ATOL = 3e-2
+LSE_ATOL = 1e-3
+BWD_REL = 2e-2
+FREQ_RTOL = 1e-4
+
+ATTN_SHAPES = [  # (B, Nq, Nkv, H, D), as chip_smoke.py: training, ragged, cross, D 64/128, long
+    (32, 256, 256, 16, 72), (2, 200, 200, 16, 72), (2, 256, 333, 16, 72),
+    (4, 256, 256, 16, 64), (2, 256, 256, 8, 128), (1, 4096, 4096, 16, 72),
+]
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA Hopper GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _qkv(device, b, nq, nkv, h, d, seed=6):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+            for shape in ((b, nq, h, d), (b, nkv, h, d), (b, nkv, h, d), (b, nq, h, d))]
+
+
+def _rel(out, ref):
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
 @pytest.mark.cuda
@@ -32,14 +60,12 @@ def cuda_device():
     (2, 256, 256, 4, 64), (1, 130, 130, 2, 128), (1, 4096, 4096, 2, 72),
 ])
 def test_kernel_matches_plain_on_card(cuda_device, b, nq, nkv, h, d):
-    gen = torch.Generator(device=cuda_device).manual_seed(6)
-    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
-               for shape in ((b, nq, h, d), (b, nkv, h, d), (b, nkv, h, d)))
-    before = flash_attention.launches
-    out = flash_attention(q, k, v)
+    q, k, v, _ = _qkv(cuda_device, b, nq, nkv, h, d)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
-    ref = flash_attention_plain(q, k, v)
+    assert fa.flash_attention.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() < ATOL
 
 
@@ -48,6 +74,80 @@ def test_kernel_reads_strided_qkv_on_card(cuda_device):
     """q/k/v as views into one (B, N, 3, H, D) projection, as RAttention passes them."""
     qkv = torch.randn(2, 256, 3, 16, 72, device=cuda_device, dtype=torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    out = flash_attention(q, k, v)
-    ref = flash_attention_plain(q, k, v)
+    out = fa.flash_attention(q, k, v)
+    ref = fa.flash_attention_plain(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_fwd_lse_and_backward_match_plain_on_card(cuda_device, shape):
+    q, k, v, do = _qkv(cuda_device, *shape)
+    scale = shape[-1] ** -0.5
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
+    assert (o.float() - o_ref.float()).abs().max().item() < ATOL
+    assert (lse - lse_ref).abs().max().item() < LSE_ATOL
+    delta = fa.attention_delta(o, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    dq_ref = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    for out, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+        assert _rel(out, ref) < BWD_REL
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_kernels_on_card(cuda_device):
+    """Under autograd the wrapper takes the forward-with-lse and both backward
+    kernels, and gradients reach q, k and v (v a strided view)."""
+    qkv = torch.randn(2, 256, 3, 4, 72, device=cuda_device, dtype=torch.bfloat16,
+                      requires_grad=True)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    counts = [f.launches for f in (fa.flash_attention, fa.flash_attention_fwd_lse,
+                                   fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)]
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    after = [f.launches for f in (fa.flash_attention, fa.flash_attention_fwd_lse,
+                                  fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)]
+    assert [a - b for a, b in zip(after, counts)] == [0, 1, 1, 1]
+    ref = qkv.detach().clone().requires_grad_(True)
+    fa.flash_attention_plain(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2]).float().square().sum().backward()
+    assert _rel(qkv.grad, ref.grad) < BWD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 256, 256, 3), (2, 16, 2048, 3), (1, 8, 200, 3)])
+def test_freq_mse_matches_plain_and_repeats_on_card(cuda_device, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    diff = torch.randn(shape, generator=gen, device=cuda_device)
+    w = block_dct.build_freq_weight()
+    before = block_dct.freq_mse.launches
+    first, second = block_dct.freq_mse(diff, w), block_dct.freq_mse(diff, w)
+    torch.cuda.synchronize()
+    assert block_dct.freq_mse.launches == before + 2
+    assert torch.equal(first, second)
+    ref = block_dct.frequency_weighted_mse_plain(diff, w)
+    torch.testing.assert_close(first, ref, rtol=FREQ_RTOL, atol=0)
+
+
+@pytest.mark.cuda
+def test_freq_mse_unaligned_raises_on_card(cuda_device):
+    with pytest.raises(ValueError, match="multiples of 8"):
+        block_dct.freq_mse(torch.zeros(1, 12, 16, 3, device=cuda_device),
+                           block_dct.build_freq_weight())
+
+
+@pytest.mark.cuda
+def test_fit_step_on_card(cuda_device):
+    """One bf16-compute step of a 2-block full-width model through fit."""
+    from deco_tpu_torch import fit
+
+    result = fit.run("deco_xl_256", batch=2, steps=1, warmup=0, device="cuda",
+                     num_cond_blocks=2, num_blocks=5)
+    assert all(map(lambda x: x == x and abs(x) < float("inf"), result["losses"]))
+    assert result["grad_norms"][0] > 0

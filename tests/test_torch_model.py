@@ -72,7 +72,7 @@ def test_trunk_output_reaches_the_image():
 
 
 @pytest.mark.parametrize("kwarg", [
-    dict(grad_checkpoint=True), dict(decoder_chunks=2), dict(quantize="int8"),
+    dict(trunk_remat_policy="dots"), dict(decoder_chunks=2), dict(quantize="int8"),
     dict(trunk_parallel="sp"), dict(align_layer=4),
 ])
 def test_unported_options_raise(kwarg):
