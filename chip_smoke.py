@@ -13,11 +13,15 @@ against its plain PyTorch version. Phases, in the order they run:
    sampling shape and at ragged, cross-length, other-head-dim and long
    shapes; time the kernel, the plain version, the library SDPA call (a
    yardstick only; the port never calls it) and the roofline bound.
-3. kernels_train: the forward with logsumexp, the dQ and dK/dV backward and
-   the frequency-weighted MSE against their plain versions at the training
+3. kernels_train: the forward with logsumexp, the dQ backward (which also
+   computes delta = rowsum(dO * O)), the dK/dV backward and the
+   frequency-weighted MSE against their plain versions at the training
    shape and at ragged, cross-length, other-head-dim and long shapes; the
-   frequency MSE also at W = 2048 and bit-identical over two runs. Times at
-   the training shape beside the plain versions, the bounds and the library
+   backward (dQ, delta, dK, dV) and the frequency MSE bit-identical over two
+   runs, the frequency MSE also at W = 2048. The backward kernels'
+   registers, spills and shared memory from the build log, and their
+   resident CTAs per SM from the CUDA runtime. Times at the training shape
+   and at N = 4096 beside the plain versions, the bounds and the library
    yardsticks (SDPA's forward with logsumexp and its autograd backward),
    and the plain forward's time at N = 4096.
 4. model: one full-width DeCo-XL/16 forward at batch 2: finite, and exactly
@@ -53,6 +57,7 @@ non-zero without the last line. The last line is
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 
@@ -71,9 +76,12 @@ SLICE_REL_L2 = 0.03
 # products in another order (1e-3); the backward kernels round P and dS to
 # bf16 before their products, as the TPU kernels do, where the plain version
 # keeps fp32, so their max error is held to 2e-2 of the largest plain value;
-# the frequency MSE is an fp32 sum of ~6M terms in another order (rtol 1e-4).
+# delta is an fp32 sum of D exact products of bf16 values in another order
+# (1e-4 of the largest plain value); the frequency MSE is an fp32 sum of ~6M
+# terms in another order (rtol 1e-4).
 LSE_ATOL = 1e-3
 BWD_REL = 2e-2
+DELTA_REL = 1e-4
 FREQ_RTOL = 1e-4
 # The one-step train slice, card vs CPU, both bf16 compute. On the CPU
 # (--calibrate-train-slice) bf16 differs from fp32 by grad rel L2 0.0030 and
@@ -193,11 +201,19 @@ def _max_rel(out, ref) -> float:
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
+def _backward(q, k, v, o, lse, do, scale):
+    """(dQ, delta, dK, dV) from the two backward kernels."""
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+    return (dq, delta, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
 def _attention_timings(card: str, operands, flush, iters: int) -> dict:
-    """Times of the forward with lse, dQ and dK/dV at one shape, beside
-    their plain versions, bounds and library yardsticks: SDPA's flash
-    forward with logsumexp, and SDPA's autograd backward (dQ, dK and dV
-    together) against delta + dQ + dK/dV."""
+    """Times of the forward with lse, dQ (with delta) and dK/dV at one
+    shape, beside their plain versions, bounds and library yardsticks:
+    SDPA's flash forward with logsumexp, and SDPA's autograd backward (dQ,
+    dK and dV together) against the whole backward (dQ, then dK/dV)."""
     import torch
     import torch.nn.functional as F
 
@@ -208,7 +224,7 @@ def _attention_timings(card: str, operands, flush, iters: int) -> dict:
     nkv = k.shape[1]
     scale = d ** -0.5
     o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
-    delta = fa.attention_delta(o, do)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
     rows, op = b * h * nq, 2 * q.numel()  # rows of lse/delta; bytes of one bf16 operand
     work = b * h * nq * nkv * d
     plain_iters = max(iters // 5, 3)
@@ -220,12 +236,13 @@ def _attention_timings(card: str, operands, flush, iters: int) -> dict:
         "library_ms": cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
             qt, kt, vt, 0.0, False, False, scale=scale), iters, flush),
         **_bound(card, 4 * op + 4 * rows, 4 * work)}}
-    for name, kernel, plain, nbytes, flops in (
+    # dQ reads q, k, v, o, do and lse and writes dq and delta; dK/dV reads
+    # q, k, v, do, lse and delta and writes dk and dv
+    for name, kernel, plain, args, nbytes, flops in (
             ("bwd_dq", fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain,
-             5 * op + 8 * rows, 6 * work),
+             (q, k, v, o, lse, do, scale), 6 * op + 8 * rows, 6 * work),
             ("bwd_dkv", fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_plain,
-             6 * op + 8 * rows, 8 * work)):
-        args = (q, k, v, do, lse, delta, scale)
+             (q, k, v, do, lse, delta, scale), 6 * op + 8 * rows, 8 * work)):
         out[name] = {"ms": cuda_ms(lambda: kernel(*args), iters, flush),
                      "plain_ms": cuda_ms(lambda: plain(*args), plain_iters, flush),
                      "library_ms": None,  # no one PyTorch call computes dQ (or dK, dV) alone
@@ -240,9 +257,27 @@ def _attention_timings(card: str, operands, flush, iters: int) -> dict:
     return out
 
 
+def backward_resources(card: str) -> None:
+    """Registers, spills and static shared memory of each backward kernel
+    instantiation from the build log (ptxas), with its dynamic shared memory
+    and resident CTAs per SM from the CUDA runtime."""
+    from deco_tpu_torch.ops import _build
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    report = _build.ptxas_report((_build.BUILD_DIR / "flash_attention_bwd.log").read_text())
+    rows = []
+    for mangled, ptxas in report.items():
+        name, d = re.search(r"(flash_bwd_\w+?_kernel)ILi(\d+)E", mangled).groups()
+        runtime = fa.backward_kernel_info(int(d))[name]
+        rows.append({"kernel": f"{name}<{d}>", "ptxas": ptxas, "runtime": runtime})
+    rows.sort(key=lambda r: r["kernel"])
+    check(len(rows) == 2 * len(fa.SUPPORTED_HEAD_DIMS), f"backward build log lists {rows}")
+    emit({"phase": "kernels_train", "backward_resources": rows, "card": card})
+
+
 def phase_kernels_train(card: str):
     """Forward with lse, dQ, dK/dV and the frequency MSE against their plain
-    versions, then their times at the training shape."""
+    versions, then their times at the training shape and at N = 4096."""
     import torch
     import torch.nn.functional as F
 
@@ -263,35 +298,41 @@ def phase_kernels_train(card: str):
         "d128": (2, 256, 256, 8, 128),
         "long": (1, 4096, 4096, 16, 72),  # stands for the JAX streaming variants
     }
+    backward_resources(card)
     errs = {"fwd_lse": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
     for name, shape in shapes.items():
         q, k, v, do = operands(*shape)
         scale = shape[-1] ** -0.5
         o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
-        delta = fa.attention_delta(o, do)
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+        dq, delta, dk, dv = _backward(q, k, v, o, lse, do, scale)
+        again = _backward(q, k, v, o, lse, do, scale)
         torch.cuda.synchronize()
+        bit_identical = all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), again))
         o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
-        dq_ref = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+        dq_ref, delta_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
         dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
-        for x in (o, lse, dq, dk, dv):
+        for x in (o, lse, dq, delta, dk, dv):
             check(bool(torch.isfinite(x).all()), f"{name}: a training kernel output is not finite")
         row = {"o_max_abs_err": (o.float() - o_ref.float()).abs().max().item(),
-               "lse_max_abs_err": (lse - lse_ref).abs().max().item()}
+               "lse_max_abs_err": (lse - lse_ref).abs().max().item(),
+               "delta_max_rel_err": _max_rel(delta, delta_ref)}
         for key, out, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
             row[key + "_max_abs_err"] = (out.float() - ref.float()).abs().max().item()
             row[key + "_max_rel_err"] = _max_rel(out, ref)
         emit({"phase": "kernels_train", "shape": name, "b_nq_nkv_h_d": shape, **row,
-              "atol": ATTN_ATOL, "lse_atol": LSE_ATOL, "bwd_rel": BWD_REL})
+              "backward_bit_identical": bit_identical, "atol": ATTN_ATOL,
+              "lse_atol": LSE_ATOL, "bwd_rel": BWD_REL, "delta_rel": DELTA_REL})
         check(row["o_max_abs_err"] < ATTN_ATOL and row["lse_max_abs_err"] < LSE_ATOL,
               f"forward with lse {name}: {row}")
+        check(row["delta_max_rel_err"] < DELTA_REL, f"delta {name}: {row}")
         check(max(row["dq_max_rel_err"], row["dk_max_rel_err"], row["dv_max_rel_err"]) < BWD_REL,
               f"attention backward {name}: {row}")
+        check(bit_identical, f"attention backward {name} differs between two runs")
         errs["fwd_lse"] = max(errs["fwd_lse"], row["o_max_abs_err"])
         errs["bwd_dq"] = max(errs["bwd_dq"], row["dq_max_abs_err"])
         errs["bwd_dkv"] = max(errs["bwd_dkv"], row["dk_max_abs_err"], row["dv_max_abs_err"])
-        del q, k, v, do, o, lse, delta, dq, dk, dv, o_ref, lse_ref, dq_ref, dk_ref, dv_ref
+        del q, k, v, do, o, lse, delta, dq, dk, dv, again
+        del o_ref, lse_ref, dq_ref, delta_ref, dk_ref, dv_ref
 
     w = block_dct.build_freq_weight()
     errs["freq_mse"] = 0.0

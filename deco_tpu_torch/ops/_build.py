@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -101,6 +102,26 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers, stack frame, spill stores and loads and static shared
+    memory (bytes) of each entry function (mangled name) in a build log."""
+    report, current = {}, None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            current = report.setdefault(m[1], {})
+        elif current is not None and (m := _FRAME.search(line)):
+            current.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                           spill_load_bytes=int(m[3]))
+        elif current is not None and (m := _USED.search(line)):
+            current.update(registers=int(m[1]), static_smem=int(m[2] or 0))
+    return report
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

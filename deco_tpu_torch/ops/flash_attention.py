@@ -9,8 +9,9 @@ Counterpart of ``deco_tpu/ops/flash_attention.py`` (``flash_attention``
 - under autograd (grad enabled and an input that requires grad) it runs
   :class:`FlashAttention`, whose forward is the forward-with-logsumexp
   (:func:`flash_attention_fwd_lse`, ``csrc/flash_attention_fwd.cu``) and
-  whose backward is delta = rowsum(dO * O) as a torch op, then the dQ and
-  dK/dV kernels (``csrc/flash_attention_bwd.cu``);
+  whose backward is the dQ kernel, which also computes delta = rowsum(dO * O)
+  (XLA in the JAX package), then the dK/dV kernel
+  (``csrc/flash_attention_bwd.cu``);
 - otherwise, as in sampling, it launches the plain forward kernel, with no
   logsumexp work.
 
@@ -66,7 +67,7 @@ def flash_attention_fwd_lse_plain(q, k, v, scale: float):
 
 def attention_delta(o, do):
     """delta = rowsum(dO * O) in fp32, (B, H, Nq) contiguous (``_flash_core_bwd``
-    :623); a torch op on every device, as it is XLA in the JAX package."""
+    :623, XLA in the JAX package); the plain version of the dQ kernel's prologue."""
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -77,10 +78,12 @@ def _bwd_probs(q, k, v, do, lse, delta, scale):
     return p, p * (dp - delta[..., None])
 
 
-def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale: float):
-    """dQ = scale * dS K in fp32, returned in q's dtype (``_bwd_dq_kernel``)."""
+def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale: float):
+    """(dQ, delta): dQ = scale * dS K in fp32, returned in q's dtype
+    (``_bwd_dq_kernel``), and the delta it used (:func:`attention_delta`)."""
+    delta = attention_delta(o, do)
     _, ds = _bwd_probs(q, k, v, do, lse, delta, scale)
-    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(q.dtype)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(q.dtype), delta
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale: float):
@@ -94,8 +97,7 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale: float):
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
     """(dQ, dK, dV), the counterpart of ``_flash_core_bwd_xla`` (:592-609)."""
-    delta = attention_delta(o, do)
-    dq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    dq, delta = flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
     return (dq, *flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale))
 
 
@@ -200,30 +202,37 @@ def flash_attention_fwd_lse(q, k, v, scale: float):
     return o, lse
 
 
-def _bwd_args(q, k, v, do, lse, delta):
+def _bwd_args(q, k, v, do, *stats):
     _check_kernel_args(q, k, v, do)
-    _check_stats(q, lse, delta)
+    _check_stats(q, *stats)
     b, n_q, h, d = q.shape
     return b, h, n_q, k.shape[1], d
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float):
-    """dQ, (B, Nq, H, D) in q's dtype. CPU tensors take
-    :func:`flash_attention_bwd_dq_plain`; CUDA tensors launch the kernel or raise."""
+def flash_attention_bwd_dq(q, k, v, o, lse, do, scale: float):
+    """(dQ, delta): dQ (B, Nq, H, D) in q's dtype and delta = rowsum(dO * O),
+    fp32 (B, H, Nq), which the dK/dV kernel reads. CPU tensors take
+    :func:`flash_attention_bwd_dq_plain`; CUDA tensors launch the kernel,
+    which computes delta in its prologue, or raise."""
     if not q.is_cuda:
-        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
-    dims = _bwd_args(q, k, v, do, lse, delta)
+        return flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
+    dims = _bwd_args(q, k, v, do, lse)
+    _check_operand("o", o)
+    if o.shape != q.shape or o.device != q.device:
+        raise ValueError(f"flash_attention: o {tuple(o.shape)} is not q's shape or device")
+    b, h, n_q = dims[:3]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    delta = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
     lib, fn = _fn("flash_attention_bwd", "deco_flash_attention_bwd_dq",
-                  [_P] * 7 + [_I] * 5 + [_P, ctypes.c_float, _P])
-    strides = (ctypes.c_longlong * 15)(*_strides(q, k, v, do, dq))
+                  [_P] * 8 + [_I] * 5 + [_P, ctypes.c_float, _P])
+    strides = (ctypes.c_longlong * 18)(*_strides(q, k, v, do, o, dq))
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), *dims, strides, float(scale),
-                 torch.cuda.current_stream().cuda_stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims, strides,
+                 float(scale), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "flash_attention_bwd_dq launch")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float):
@@ -247,12 +256,28 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float):
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
-    """(dQ, dK, dV): delta as a torch op, then the dQ and dK/dV wrappers."""
+    """(dQ, dK, dV): the dQ wrapper, which also gives delta, then the dK/dV
+    wrapper, on the same stream."""
     if do.is_cuda and not _readable_in_place(do):
         do = do.contiguous()  # autograd may hand back a gradient of any layout
-    delta = attention_delta(o, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
     return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
+def backward_kernel_info(head_dim: int) -> dict:
+    """What the current card makes of the dQ and dK/dV kernels at ``head_dim``:
+    registers, local (spill) bytes, static and dynamic shared memory and
+    resident CTAs per SM, from the CUDA runtime."""
+    lib, fn = _fn("flash_attention_bwd", "deco_flash_attention_bwd_info",
+                  [_I, _I, ctypes.POINTER(ctypes.c_int)])
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem", "ctas_per_sm",
+            "threads")
+    info = {}
+    for kind, name in enumerate(("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")):
+        out = (ctypes.c_int * len(keys))()
+        _build.check(lib, fn(kind, head_dim, out), f"{name} info")
+        info[name] = dict(zip(keys, out))
+    return info
 
 
 class FlashAttention(torch.autograd.Function):

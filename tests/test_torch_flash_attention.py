@@ -18,7 +18,8 @@ from deco_tpu.models.layers import sdpa as jax_sdpa
 from deco_tpu.ops.flash_attention import flash_attention as jax_flash
 from deco_tpu_torch.models import layers as tl
 from deco_tpu_torch.ops.flash_attention import (
-    _check_kernel_args, flash_attention, flash_attention_fwd_lse, flash_attention_plain)
+    _check_kernel_args, flash_attention, flash_attention_bwd_dq, flash_attention_fwd_lse,
+    flash_attention_plain)
 
 
 def _qkv(b, nq, nkv, h, d, seed=0):
@@ -164,6 +165,50 @@ def test_fwd_lse_and_backward_match_jax_pallas(monkeypatch, variant, dtype):
             np.testing.assert_allclose(got, want, atol=1e-4)
         else:
             assert np.abs(got - want).max() < 2e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("variant,dtype", [
+    ("resident", "float32"), ("stream", "float32"), ("resident", "bfloat16"),
+    ("stream", "bfloat16"),
+])
+def test_bwd_dq_and_delta_match_jax_pallas(monkeypatch, variant, dtype):
+    """The dQ wrapper's plain version, which takes o and returns (dQ, delta),
+    against `_flash_bwd_pallas`'s dq in interpret mode and the delta that
+    `_flash_core_bwd` computes with XLA (:623), from the same o and lse.
+    delta: atol 2e-5 (fp32 sums in another order); dQ as above."""
+    from deco_tpu.ops import flash_attention as jfa
+
+    b, n, h, d = 1, 64, 2, 72
+    q, k, v = _qkv(b, n, n, h, d, seed=13)
+    g = np.random.default_rng(14).standard_normal((b, n, h, d)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tg = (torch.from_numpy(a).to(tdt) for a in (q, k, v, g))
+    jq, jk, jv, jg = (jnp.asarray(x.float().numpy(), getattr(jnp, dtype)) for x in (tq, tk, tv, tg))
+    scale = d ** -0.5
+    if variant == "stream":
+        monkeypatch.setattr(jfa, "_RESIDENT_VMEM_BUDGET", 1)
+
+    def fold(x):
+        return x.transpose(0, 2, 1, 3).reshape(b * h, n, d)
+
+    with pltpu.force_tpu_interpret_mode():
+        o, lse = jfa._flash_fwd_lse(fold(jq), fold(jk), fold(jv), scale)
+        delta_ref = jnp.sum(fold(jg).astype(jnp.float32) * o.astype(jnp.float32),
+                            axis=-1)[:, None, :]
+        dq_ref, _, _ = jfa._flash_bwd_pallas(fold(jq), fold(jk), fold(jv), fold(jg), lse,
+                                             delta_ref, scale)
+    to = torch.from_numpy(np.array(o.astype(jnp.float32))).to(tdt)
+    to = to.reshape(b, h, n, d).transpose(1, 2)
+    tlse = torch.from_numpy(np.array(lse)).reshape(b, h, n)
+    dq, delta = flash_attention_bwd_dq(tq, tk, tv, to, tlse, tg, scale)
+    np.testing.assert_allclose(delta.numpy(), np.asarray(delta_ref).reshape(b, h, n), atol=2e-5)
+    assert dq.dtype == tdt
+    got = dq.float().numpy()
+    want = np.asarray(dq_ref.astype(jnp.float32)).reshape(b, h, n, d).transpose(0, 2, 1, 3)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-4)
+    else:
+        assert np.abs(got - want).max() < 2e-2 * np.abs(want).max()
 
 
 def test_cpu_autograd_reaches_qkv_through_the_function():

@@ -15,6 +15,9 @@ Tolerances:
 - attention gradients, max abs error under 2e-2 of the largest plain value:
   the kernels round P and dS to bf16 before their products, as the TPU
   kernels do, where the plain version keeps fp32, and the outputs are bf16;
+  delta, under 1e-4 of the largest plain value (fp32 sums of D exact
+  products of bf16 values, in another order); the backward is bit-identical
+  from run to run (no atomics);
 - the frequency MSE, rtol 1e-4 (fp32 sums of ~6M terms in another order),
   and bit-identical from run to run.
 """
@@ -28,6 +31,7 @@ from deco_tpu_torch.ops import flash_attention as fa
 ATOL = 3e-2
 LSE_ATOL = 1e-3
 BWD_REL = 2e-2
+DELTA_REL = 1e-4
 FREQ_RTOL = 1e-4
 
 ATTN_SHAPES = [  # (B, Nq, Nkv, H, D), as chip_smoke.py: training, ragged, cross, D 64/128, long
@@ -79,8 +83,16 @@ def test_kernel_reads_strided_qkv_on_card(cuda_device):
     assert (out.float() - ref.float()).abs().max().item() < ATOL
 
 
+def _backward(q, k, v, o, lse, do, scale):
+    """(dQ, delta, dK, dV) from the two backward kernels."""
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+    return (dq, delta, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("shape", ATTN_SHAPES + [
+    (2, 130, 333, 2, 128),  # D = 128, ragged and Nq != Nkv: the largest shared-memory variant
+])
 def test_fwd_lse_and_backward_match_plain_on_card(cuda_device, shape):
     q, k, v, do = _qkv(cuda_device, *shape)
     scale = shape[-1] ** -0.5
@@ -88,21 +100,37 @@ def test_fwd_lse_and_backward_match_plain_on_card(cuda_device, shape):
     o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
     assert (o.float() - o_ref.float()).abs().max().item() < ATOL
     assert (lse - lse_ref).abs().max().item() < LSE_ATOL
-    delta = fa.attention_delta(o, do)
-    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    dq, delta, dk, dv = _backward(q, k, v, o, lse, do, scale)
     torch.cuda.synchronize()
-    dq_ref = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    dq_ref, delta_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
     dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    assert delta.shape == delta_ref.shape and _rel(delta, delta_ref) < DELTA_REL
     for out, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         assert out.shape == ref.shape and bool(torch.isfinite(out).all())
         assert _rel(out, ref) < BWD_REL
 
 
 @pytest.mark.cuda
-def test_autograd_runs_the_kernels_on_card(cuda_device):
+@pytest.mark.parametrize("shape", [ATTN_SHAPES[0], ATTN_SHAPES[-1]])  # training, N = 4096
+def test_backward_is_bit_identical_on_card(cuda_device, shape):
+    q, k, v, do = _qkv(cuda_device, *shape)
+    scale = shape[-1] ** -0.5
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
+    first = _backward(q, k, v, o, lse, do, scale)
+    second = _backward(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_kernels_on_card(cuda_device, monkeypatch):
     """Under autograd the wrapper takes the forward-with-lse and both backward
-    kernels, and gradients reach q, k and v (v a strided view)."""
+    kernels, with delta inside the dQ kernel (no torch op), and gradients
+    reach q, k and v (v a strided view)."""
+    def no_delta_op(*_):
+        raise AssertionError("delta ran as a torch op on the card")
+
+    monkeypatch.setattr(fa, "attention_delta", no_delta_op)
     qkv = torch.randn(2, 256, 3, 4, 72, device=cuda_device, dtype=torch.bfloat16,
                       requires_grad=True)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
