@@ -11,19 +11,22 @@ against its plain PyTorch version. Phases, in the order they run:
    per source, started together); print the card's name and power limit.
 2. kernel: the flash-attention forward against its plain version at the
    sampling shape and at ragged, cross-length, other-head-dim and long
-   shapes; time the kernel, the plain version, the library SDPA call (a
-   yardstick only; the port never calls it) and the roofline bound.
+   shapes, and bit-identical over two runs at each; time the kernel, the
+   plain version, each SDPA backend pinned in turn (flash, efficient,
+   cuDNN; the fastest is the yardstick, and the port never calls SDPA) and
+   the roofline bound.
 3. kernels_train: the forward with logsumexp, the dQ backward (which also
    computes delta = rowsum(dO * O)), the dK/dV backward and the
    frequency-weighted MSE against their plain versions at the training
    shape and at ragged, cross-length, other-head-dim and long shapes; the
-   backward (dQ, delta, dK, dV) and the frequency MSE bit-identical over two
-   runs, the frequency MSE also at W = 2048. The backward kernels'
-   registers, spills and shared memory from the build log, and their
-   resident CTAs per SM from the CUDA runtime. Times at the training shape
-   and at N = 4096 beside the plain versions, the bounds and the library
-   yardsticks (SDPA's forward with logsumexp and its autograd backward),
-   and the plain forward's time at N = 4096.
+   forward with lse, the backward (dQ, delta, dK, dV) and the frequency MSE
+   bit-identical over two runs, the frequency MSE also at W = 2048 and
+   W = 520. One line each for the forward's, the backward's and the
+   frequency MSE's registers, spills and shared memory from the build log,
+   with their resident CTAs per SM from the CUDA runtime. Times at the
+   training shape and at N = 4096 beside the plain versions, the bounds and
+   the library yardsticks (each SDPA backend's forward with logsumexp, and
+   SDPA's autograd backward), and the forward without lse at N = 4096.
 4. model: one full-width DeCo-XL/16 forward at batch 2: finite, and exactly
    one attention launch per trunk block.
 5. slice vs plain: a 4-block trunk, full widths, 8 CFG steps, the same
@@ -44,7 +47,7 @@ against its plain PyTorch version. Phases, in the order they run:
    device-time breakdown of one step.
 9. kernels: one JSON line listing every kernel with its launches on its
    path (sampling for the forward, training for the others), error, times,
-   bound and library time.
+   bound, library time and the library call's backend.
 
 ``python3 chip_smoke.py --calibrate-train-slice`` prints, on the CPU, the two
 readings between which the train-slice gates sit, and no result.
@@ -105,14 +108,17 @@ def check(ok: bool, what: str) -> None:
 
 def cuda_ms(fn, iters: int, flush=None) -> float:
     """Median device milliseconds of ``fn()``, each call timed by CUDA events,
-    with L2 flushed by writing ``flush`` before each call when given."""
+    with L2 flushed before each call when ``flush`` is given: by writing it
+    if it is a tensor, by calling it if it is a function."""
     import torch
 
     for _ in range(3):
         fn()
     times = []
     for _ in range(iters):
-        if flush is not None:
+        if callable(flush):
+            flush()
+        elif flush is not None:
             flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -141,7 +147,6 @@ def phase_build():
 
 def phase_kernel(card: str):
     import torch
-    import torch.nn.functional as F
 
     from deco_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
@@ -162,28 +167,96 @@ def phase_kernel(card: str):
     errs = {}
     for name, shape in shapes.items():
         q, k, v = qkv(*shape)
-        out = flash_attention(q, k, v)
+        out, again = flash_attention(q, k, v), flash_attention(q, k, v)
         torch.cuda.synchronize()
         ref = flash_attention_plain(q, k, v)
         check(out.shape == ref.shape and bool(torch.isfinite(out).all()), f"{name}: bad output")
         errs[name] = (out.float() - ref.float()).abs().max().item()
         emit({"phase": "kernel", "shape": name, "b_nq_nkv_h_d": shape,
-              "max_abs_err": errs[name], "atol": ATTN_ATOL})
+              "max_abs_err": errs[name], "atol": ATTN_ATOL,
+              "bit_identical": torch.equal(out, again)})
         check(errs[name] < ATTN_ATOL, f"flash attention {name} error {errs[name]} >= {ATTN_ATOL}")
+        check(torch.equal(out, again), f"flash attention {name} differs between two runs")
 
     b, nq, nkv, h, d = shapes["main"]
     q, k, v = qkv(*shapes["main"])
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, N, D) view
     ms = cuda_ms(lambda: flash_attention(q, k, v), 50, flush)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 50, flush)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 50, flush)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    timing = {"ms": ms, "plain_ms": plain_ms,
+              **sdpa_forward_yardsticks(q, k, v, d ** -0.5, False, flush, 50),
               **_bound(card, nbytes, 4 * b * h * nq * nkv * d),
               "l2": "flushed before each call", "card": card}
     emit({"phase": "kernel", "shape": "main", "timing": timing})
     return {"max_abs_err": errs["main"], **timing}
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def sdpa_forward_yardsticks(q, k, v, scale: float, with_lse: bool, flush, iters: int) -> dict:
+    """Each SDPA backend's forward on the (B, N, H, D) operands, pinned with
+    ``sdpa_kernel``: ``F.scaled_dot_product_attention`` without lse, else
+    the backend's own aten entry with its logsumexp. Returns every backend's
+    ms or the reason it refused, and the fastest as ``library_ms`` with its
+    name in ``library_backend``. A yardstick only: the port never calls SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, N, D) views
+    aten = torch.ops.aten
+    with_lse_calls = {
+        "FLASH_ATTENTION": lambda: aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, False, False, scale=scale),
+        "EFFICIENT_ATTENTION": lambda: aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, None, True, 0.0, False, scale=scale),
+        "CUDNN_ATTENTION": lambda: aten._scaled_dot_product_cudnn_attention(
+            qt, kt, vt, None, True, 0.0, False, False, scale=scale),
+    }
+    per_backend = {}
+    for name in SDPA_BACKENDS:
+        fn = with_lse_calls[name] if with_lse else (
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                per_backend[name] = cuda_ms(fn, iters, flush)
+        except RuntimeError as err:
+            per_backend[name] = "refused: " + " ".join(str(err).split())[:200]
+    timed = {n: ms for n, ms in per_backend.items() if isinstance(ms, float)}
+    best = min(timed, key=timed.get) if timed else None
+    return {"library_ms": timed.get(best), "library_backend": best,
+            "sdpa_backends_ms": per_backend,
+            "sdpa_entry": "aten backend entry with lse" if with_lse else "F.sdpa, no grad"}
+
+
+# Kernels the resource lines report, as their names appear in ptxas's log.
+_KERNEL_NAME = re.compile(
+    r"(?<=\d)(flash_fwd_kernel|flash_bwd_d(?:q|kv)_kernel|freq_mse(?:_[a-z]+)?_kernel)"
+    r"(?:ILi(\d+)E(?:Lb(\d)E)?)?")
+
+
+def kernel_resources(build_dir, source: str, runtime=None) -> list:
+    """One row per kernel instantiation in ``source``'s build log: ptxas's
+    registers, spills and static shared memory, and, where ``runtime`` is
+    given (a ``*_kernel_info`` function of the ops), the CUDA runtime's
+    dynamic shared memory and resident CTAs per SM."""
+    from deco_tpu_torch.ops import _build
+
+    report = _build.ptxas_report((build_dir / f"{source}.log").read_text())
+    rows = []
+    for mangled, ptxas in report.items():
+        m = _KERNEL_NAME.search(mangled)
+        if m is None:
+            continue
+        name, d, lse = m.group(1), m.group(2), m.group(3) == "1"
+        key = name + ("_lse" if lse else "")
+        info = None
+        if runtime is not None:
+            info = (runtime(int(d)) if d else runtime())[key]
+        rows.append({"kernel": key + (f"<{d}>" if d else ""), "ptxas": ptxas, "runtime": info})
+    return sorted(rows, key=lambda r: r["kernel"])
 
 
 def _bound(card: str, nbytes: float, flops: float, fp32: bool = False) -> dict:
@@ -211,9 +284,10 @@ def _backward(q, k, v, o, lse, do, scale):
 
 def _attention_timings(card: str, operands, flush, iters: int) -> dict:
     """Times of the forward with lse, dQ (with delta) and dK/dV at one
-    shape, beside their plain versions, bounds and library yardsticks:
-    SDPA's flash forward with logsumexp, and SDPA's autograd backward (dQ,
-    dK and dV together) against the whole backward (dQ, then dK/dV)."""
+    shape, beside their plain versions, bounds and library yardsticks: the
+    fastest SDPA backend's forward with logsumexp, and SDPA's autograd
+    backward (dQ, dK and dV together, default backend) against the whole
+    backward (dQ, then dK/dV)."""
     import torch
     import torch.nn.functional as F
 
@@ -233,8 +307,7 @@ def _attention_timings(card: str, operands, flush, iters: int) -> dict:
         "ms": cuda_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, scale), iters, flush),
         "plain_ms": cuda_ms(lambda: fa.flash_attention_fwd_lse_plain(q, k, v, scale),
                             plain_iters, flush),
-        "library_ms": cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-            qt, kt, vt, 0.0, False, False, scale=scale), iters, flush),
+        **sdpa_forward_yardsticks(q, k, v, scale, True, flush, iters),
         **_bound(card, 4 * op + 4 * rows, 4 * work)}}
     # dQ reads q, k, v, o, do and lse and writes dq and delta; dK/dV reads
     # q, k, v, do, lse and delta and writes dk and dv
@@ -257,29 +330,29 @@ def _attention_timings(card: str, operands, flush, iters: int) -> dict:
     return out
 
 
-def backward_resources(card: str) -> None:
-    """Registers, spills and static shared memory of each backward kernel
-    instantiation from the build log (ptxas), with its dynamic shared memory
-    and resident CTAs per SM from the CUDA runtime."""
-    from deco_tpu_torch.ops import _build
+def kernel_resource_lines(card: str) -> None:
+    """One line each for the forward, the backward and the frequency MSE:
+    every kernel instantiation's registers, spills and static shared memory
+    from the build log (ptxas), with its dynamic shared memory and resident
+    CTAs per SM from the CUDA runtime."""
+    from deco_tpu_torch.ops import _build, block_dct
     from deco_tpu_torch.ops import flash_attention as fa
 
-    report = _build.ptxas_report((_build.BUILD_DIR / "flash_attention_bwd.log").read_text())
-    rows = []
-    for mangled, ptxas in report.items():
-        name, d = re.search(r"(flash_bwd_\w+?_kernel)ILi(\d+)E", mangled).groups()
-        runtime = fa.backward_kernel_info(int(d))[name]
-        rows.append({"kernel": f"{name}<{d}>", "ptxas": ptxas, "runtime": runtime})
-    rows.sort(key=lambda r: r["kernel"])
-    check(len(rows) == 2 * len(fa.SUPPORTED_HEAD_DIMS), f"backward build log lists {rows}")
-    emit({"phase": "kernels_train", "backward_resources": rows, "card": card})
+    for key, source, runtime, count in (
+            ("forward_resources", "flash_attention_fwd", fa.forward_kernel_info,
+             2 * len(fa.SUPPORTED_HEAD_DIMS)),
+            ("backward_resources", "flash_attention_bwd", fa.backward_kernel_info,
+             2 * len(fa.SUPPORTED_HEAD_DIMS)),
+            ("freq_mse_resources", "freq_mse", block_dct.kernel_info, 1)):
+        rows = kernel_resources(_build.BUILD_DIR, source, runtime)
+        check(len(rows) == count, f"{source} build log lists {rows}")
+        emit({"phase": "kernels_train", key: rows, "card": card})
 
 
 def phase_kernels_train(card: str):
     """Forward with lse, dQ, dK/dV and the frequency MSE against their plain
     versions, then their times at the training shape and at N = 4096."""
     import torch
-    import torch.nn.functional as F
 
     from deco_tpu_torch.ops import block_dct
     from deco_tpu_torch.ops import flash_attention as fa
@@ -298,15 +371,17 @@ def phase_kernels_train(card: str):
         "d128": (2, 256, 256, 8, 128),
         "long": (1, 4096, 4096, 16, 72),  # stands for the JAX streaming variants
     }
-    backward_resources(card)
+    kernel_resource_lines(card)
     errs = {"fwd_lse": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
     for name, shape in shapes.items():
         q, k, v, do = operands(*shape)
         scale = shape[-1] ** -0.5
         o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
+        o2, lse2 = fa.flash_attention_fwd_lse(q, k, v, scale)
         dq, delta, dk, dv = _backward(q, k, v, o, lse, do, scale)
         again = _backward(q, k, v, o, lse, do, scale)
         torch.cuda.synchronize()
+        fwd_bit_identical = torch.equal(o, o2) and torch.equal(lse, lse2)
         bit_identical = all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), again))
         o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
         dq_ref, delta_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
@@ -320,6 +395,7 @@ def phase_kernels_train(card: str):
             row[key + "_max_abs_err"] = (out.float() - ref.float()).abs().max().item()
             row[key + "_max_rel_err"] = _max_rel(out, ref)
         emit({"phase": "kernels_train", "shape": name, "b_nq_nkv_h_d": shape, **row,
+              "forward_bit_identical": fwd_bit_identical,
               "backward_bit_identical": bit_identical, "atol": ATTN_ATOL,
               "lse_atol": LSE_ATOL, "bwd_rel": BWD_REL, "delta_rel": DELTA_REL})
         check(row["o_max_abs_err"] < ATTN_ATOL and row["lse_max_abs_err"] < LSE_ATOL,
@@ -327,16 +403,17 @@ def phase_kernels_train(card: str):
         check(row["delta_max_rel_err"] < DELTA_REL, f"delta {name}: {row}")
         check(max(row["dq_max_rel_err"], row["dk_max_rel_err"], row["dv_max_rel_err"]) < BWD_REL,
               f"attention backward {name}: {row}")
+        check(fwd_bit_identical, f"forward with lse {name} differs between two runs")
         check(bit_identical, f"attention backward {name} differs between two runs")
         errs["fwd_lse"] = max(errs["fwd_lse"], row["o_max_abs_err"])
         errs["bwd_dq"] = max(errs["bwd_dq"], row["dq_max_abs_err"])
         errs["bwd_dkv"] = max(errs["bwd_dkv"], row["dk_max_abs_err"], row["dv_max_abs_err"])
-        del q, k, v, do, o, lse, delta, dq, dk, dv, again
+        del q, k, v, do, o, lse, o2, lse2, delta, dq, dk, dv, again
         del o_ref, lse_ref, dq_ref, delta_ref, dk_ref, dv_ref
 
     w = block_dct.build_freq_weight()
     errs["freq_mse"] = 0.0
-    for shape in ((32, 256, 256, 3), (2, 16, 2048, 3)):
+    for shape in ((32, 256, 256, 3), (2, 16, 2048, 3), (3, 24, 520, 3)):
         diff = torch.randn(shape, generator=gen, device="cuda")
         first, second = block_dct.freq_mse(diff, w), block_dct.freq_mse(diff, w)
         ref = block_dct.frequency_weighted_mse_plain(diff, w)
@@ -361,8 +438,7 @@ def phase_kernels_train(card: str):
     timings["fwd_long"] = {
         "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 10, flush),
         "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 5, flush),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            *(x.transpose(1, 2) for x in (q, k, v))), 10, flush),
+        **sdpa_forward_yardsticks(q, k, v, d ** -0.5, False, flush, 10),
         **_bound(card, 4 * 2 * q.numel(), 4 * b * h * nq * nkv * d)}
     del q, k, v
 
@@ -746,6 +822,7 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": f"deco_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 **{k: timing[k] for k in keys},
+                "library_backend": timing.get("library_backend"),
                 **{k: v for k, v in timing.items() if k.endswith("backward_ms")}}
 
     emit({"kernels": [

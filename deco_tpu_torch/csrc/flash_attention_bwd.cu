@@ -59,20 +59,17 @@
 //   (two fp32 accumulators of 16 x D) within 168 a thread, so three CTAs (12
 //   warps) fit on an SM at D <= 72, with a three-slot ring (72-73.5 KB of
 //   shared memory a CTA).
+// The tile layout, copies, fragment loads and MMA tiles it shares with the
+// forward are in attention_sm90.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_sm90.cuh"
+#include "kernel_info.cuh"
+
+using namespace deco;
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kBlock = 64;  // rows per CTA and per streamed tile, 16 per warp
-constexpr int kWarps = kBlock / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x * log2(e))
 
 // Resident CTAs per SM that each kernel is compiled for (the registers are
 // capped at 65536 / (ctas * kThreads)), and the slots of its ring; shared
@@ -80,126 +77,12 @@ constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x * log2(e))
 __host__ __device__ constexpr int min_ctas(int d) { return d <= 72 ? 3 : 2; }
 __host__ __device__ constexpr int stages(int d) { return d <= 72 ? 3 : 2; }
 
-struct Strides {
-  long long b, n, h;  // elements; the head dim has stride 1
-};
-
-// A 64-row tile of one (tokens, D) operand in shared memory.
-template <int D>
-struct Tile {
-  static constexpr int N8 = D / 8;             // 16-byte chunks in a row; n8 tiles over D
-  static constexpr int K16 = D / 16;           // k16 steps over the head dim ...
-  static constexpr bool K8 = D % 16 != 0;      // ... and a last k8 step
-  static constexpr int LD = 8 * (N8 | 1);      // row stride in bf16: an odd number of chunks
-  static constexpr int kBytes = kBlock * LD * 2;
-  static_assert(D % 8 == 0, "rows are copied in 16-byte chunks");
-};
-
 // Both kernels hold 2 + 2 * stages tiles; dK/dV also rings lse and delta.
 template <int D>
 constexpr int dq_smem_bytes() { return (2 + 2 * stages(D)) * Tile<D>::kBytes; }
 template <int D>
 constexpr int dkv_smem_bytes() {
   return (2 + 2 * stages(D)) * Tile<D>::kBytes + 2 * stages(D) * kBlock * 4;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes from global to shared memory, asynchronously; zeros when !ok.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(dst), "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               ::"r"(dst), "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four (or two) 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-// Each lane's element offset into a tile for the two ldmatrix patterns:
-// - `a`: rows lane % 16, columns (lane / 16) * 8. Gives the A fragment of
-//   16 rows x 16 columns (x2: 16 rows x 8 columns) and, with .trans, the B
-//   fragments of a k16 x n16 block stored k-major (two n8 tiles: b[0], b[1]
-//   and b[2], b[3]; x2: one n8 tile).
-// - `b`: rows lane % 8 + (lane / 16) * 8, columns ((lane / 8) % 2) * 8.
-//   Gives the B fragments of an n16 x k16 block stored n-major (two n8
-//   tiles: b[0], b[1] and b[2], b[3]).
-template <int LD>
-__device__ __forceinline__ int lane_off_a(int lane) { return (lane % 16) * LD + (lane / 16) * 8; }
-template <int LD>
-__device__ __forceinline__ int lane_off_b(int lane) {
-  return (lane % 8 + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8;
-}
-
-// 2^x on the special-function unit; subnormal results flush to 0.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a * b for one 16x8x16 tile (A row-major 16x16, B column-major 16x8) ...
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// ... and for one 16x8x8 tile.
-__device__ __forceinline__ void mma_1688(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b));
-}
-
-// The A fragment of fp32 accumulator tiles x[j], x[j + 1] (16 rows x 16
-// columns of a product), rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&x0)[4],
-                                         const float (&x1)[4]) {
-  a[0] = pack_bf16x2(x0[0], x0[1]);
-  a[1] = pack_bf16x2(x0[2], x0[3]);
-  a[2] = pack_bf16x2(x1[0], x1[1]);
-  a[3] = pack_bf16x2(x1[2], x1[3]);
 }
 
 // c[16 x 8 NT] += A B^T over the head dim: A the 16 rows of a tile from
@@ -256,28 +139,6 @@ __device__ __forceinline__ void mma_ab(float (&acc)[Tile<D>::N8][4], const uint3
     uint32_t bf[2];
     ldsm_t(bf, b + oa + 16 * (T::N8 - 1));
     mma_16816(acc[T::N8 - 1], a, bf[0], bf[1]);
-  }
-}
-
-// Rows [row0, row0 + 64) of a (tokens, D) plane into the tile at `dst`, in
-// flight until the caller's cp_async_wait; consecutive threads take
-// consecutive 16-byte chunks of the tile, so a warp reads whole rows. Rows
-// at or past `valid` are zero-filled, so padded tokens add exact zeros,
-// never NaNs.
-template <int D>
-__device__ __forceinline__ void copy_rows(uint32_t dst, const bf16* base, long long stride,
-                                          int row0, int valid) {
-  using T = Tile<D>;
-  constexpr int kChunks = kBlock * T::N8;
-#pragma unroll
-  for (int i = 0; i < (kChunks + kThreads - 1) / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    if (kChunks % kThreads == 0 || c < kChunks) {
-      const int r = c / T::N8, ch = c % T::N8;
-      const bool ok = row0 + r < valid;
-      cp_async16(dst + 2 * (r * T::LD + ch * 8), base + (ok ? (row0 + r) * stride + ch * 8 : 0),
-                 ok);
-    }
   }
 }
 
@@ -574,26 +435,6 @@ __global__ void __launch_bounds__(kThreads, min_ctas(D))
   store_rows(dv, sdv, b, h, row, nkv, dv_acc, 1.0f, t);
 }
 
-// Registers, local (spill) bytes, static and dynamic shared memory, resident
-// CTAs per SM and threads of one kernel into out[0..5].
-template <typename Kernel>
-cudaError_t kernel_info(Kernel kernel, int smem, int* out) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  int ctas = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = static_cast<int>(attr.sharedSizeBytes);
-  out[3] = smem;
-  out[4] = ctas;
-  out[5] = kThreads;
-  return cudaSuccess;
-}
-
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* o, const void* lse, void* delta, void* dq, int batch,
@@ -687,17 +528,17 @@ int deco_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
 int deco_flash_attention_bwd_info(int dkv, int head_dim, int* out) {
   switch (head_dim * 2 + (dkv != 0)) {
     case 128:
-      return kernel_info(flash_bwd_dq_kernel<64>, dq_smem_bytes<64>(), out);
+      return kernel_info(flash_bwd_dq_kernel<64>, kThreads, dq_smem_bytes<64>(), out);
     case 129:
-      return kernel_info(flash_bwd_dkv_kernel<64>, dkv_smem_bytes<64>(), out);
+      return kernel_info(flash_bwd_dkv_kernel<64>, kThreads, dkv_smem_bytes<64>(), out);
     case 144:
-      return kernel_info(flash_bwd_dq_kernel<72>, dq_smem_bytes<72>(), out);
+      return kernel_info(flash_bwd_dq_kernel<72>, kThreads, dq_smem_bytes<72>(), out);
     case 145:
-      return kernel_info(flash_bwd_dkv_kernel<72>, dkv_smem_bytes<72>(), out);
+      return kernel_info(flash_bwd_dkv_kernel<72>, kThreads, dkv_smem_bytes<72>(), out);
     case 256:
-      return kernel_info(flash_bwd_dq_kernel<128>, dq_smem_bytes<128>(), out);
+      return kernel_info(flash_bwd_dq_kernel<128>, kThreads, dq_smem_bytes<128>(), out);
     case 257:
-      return kernel_info(flash_bwd_dkv_kernel<128>, dkv_smem_bytes<128>(), out);
+      return kernel_info(flash_bwd_dkv_kernel<128>, kThreads, dkv_smem_bytes<128>(), out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -11,272 +11,345 @@
 // `_flash_fwd_lse` :319) and `_fwd_kernel_stream_lse` (:152): the forward of
 // training, which also stores the fp32 row statistic lse = m + log(l) in the
 // scaled-logit units of :304, shaped (B, H, Nq) contiguous, for the backward
-// (flash_attention_bwd.cu). It adds 4*B*H*Nq bytes to the output, 2.7% at
-// D = 72; the instantiation without it (sampling) is unchanged.
+// (flash_attention_bwd.cu, which reads it as lse * log2(e)).
 //
 // Layout: q is (B, Nq, H, D), k and v are (B, Nkv, H, D), o is (B, Nq, H, D).
 // The kernel reads each operand in place through its (batch, token, head)
 // strides, with the head dim contiguous, so no fold/unfold transposes run
-// around it. Nq and Nkv are arbitrary: keys >= Nkv get -inf before the
-// softmax and rows >= Nq are never stored.
+// around it. Nq and Nkv are arbitrary: keys >= Nkv get P = 0 and rows >= Nq
+// are never stored. D is one of {64, 72, 128}; scale must be positive.
 //
 // Numerics follow the TPU kernel: QK^T and PV accumulate in fp32 on the
 // tensor cores; the running max, running sum and the accumulator are fp32;
 // P is rounded to bf16 before PV (`p.astype(v.dtype)`, :97); O = acc / l is
-// rounded to bf16 once at the end.
+// rounded to bf16 once at the end. The exponentials are exp2 of
+// s * (scale * log2 e) - m2, with m2 the running max in those units, and
+// lse = (m2 + log2 l) * ln 2.
 //
-// Bound on an H100 SXM at the main-path shape (DeCo-XL/16, 256 px: N = 256,
-// H = 16, D = 72, B*H = 256 with CFG at batch 8): the function moves
-// 4*BH*N*D*2 bytes = 37.7 MB (q, k, v read once, o written once), 11.3 us
-// at 3.35 TB/s, and does 4*BH*Nq*Nkv*D = 4.8 GFLOP, 4.9 us at 989 TFLOP/s.
-// At about 128 FLOP per byte, under the card's ~295, it is memory-bound.
+// Bounds on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s). The function moves
+// q, k, v and o once (plus lse) and does 4 * BH * Nq * Nkv * D operations:
+// - sampling, DeCo-XL/16 256 px with CFG at batch 8 (B*H 256, N 256,
+//   D 72): 37.7 MB, 11.3 us, against 4.8 GFLOP, 4.9 us: bytes;
+// - training at batch 32 (B*H 512, with lse): 76.0 MB, 22.7 us: bytes;
+// - N = 4096 (B*H 16): 77.3 GFLOP, 78.2 us, against 37.7 MB: operations.
+// At N = 256 each CTA sees only two to four key tiles, so the prologue and
+// the epilogue weigh as much as the loop; at N = 4096 the loop is all, and
+// with mma.sync the limit is the shared-memory reads of the K and V
+// fragments and the exponentials, not the tensor cores.
 //
-// Design (simple first; speed is later work):
-// - one CTA of 4 warps per (batch*head, 64-row query tile); each warp owns
-//   16 query rows and keeps its Q fragments in registers for the whole run;
-// - K and V stream through shared memory in 64-key tiles; V is stored
-//   transposed so both products read their B operand as 32-bit pairs;
-// - the products are `mma.sync.m16n8k16` bf16 -> fp32; D is a template
-//   parameter padded with zeros to a multiple of 16 in shared memory only
-//   (72 -> 80), never in device memory, so the kernel reads no extra bytes;
-// - the online softmax runs on the accumulator fragments, and P goes from
-//   the QK^T accumulators straight into the A operand of PV in registers.
-// Against the bound: each byte of q and o crosses device memory once; k and
-// v are read once per query tile (4 times at N = 256), which the 50 MB L2
-// absorbs. Nothing is double-buffered yet, so loads and MMAs do not overlap.
+// Design:
+// - one CTA of 4 warps per (batch*head, 64 * row_tiles(D) query rows); each
+//   warp owns row_tiles(D) tiles of 16 rows (rows 16w and 64 + 16w at
+//   D <= 72) and keeps their Q A fragments in registers, loaded once by
+//   ldmatrix. Every K and V fragment it loads feeds the MMAs of all its row
+//   tiles, so two tiles halve the shared-memory reads per MMA; at D = 128
+//   two would not fit in the registers;
+// - K and V pass through a ring of `stages(D)` slots of 64 keys in dynamic
+//   shared memory, filled by zero-filling 16-byte cp.async.cg copies (rows
+//   past Nkv arrive as zeros); the Q tiles' copy goes out with the first
+//   tiles', so the prologue overlaps, and one barrier a tile both publishes
+//   tile j and frees the slot of tile j - 1 for refilling;
+// - every fragment comes from ldmatrix: K's B fragments in the n-major
+//   pattern and V's by ldmatrix.trans, so V stays row-major as it lies in
+//   device memory;
+// - the head dim is not padded: D = 72 takes four k16 steps and one m16n8k8
+//   step in Q K^T and nine n8 tiles in P V (an x2 load for the ninth); a
+//   row is an odd number of 16-byte chunks, which puts the eight rows of
+//   every 8x8 ldmatrix in distinct banks;
+// - the online softmax runs on the accumulator fragments in exp2 units, and
+//   P goes from the Q K^T accumulators straight into the A operand of P V;
+// - the epilogue writes each warp's O rows over its own Q rows in shared
+//   memory and stores them as 16-byte chunks, whole rows per warp, and lse
+//   as one 4-byte store per row.
+// Resources (ptxas and the CUDA runtime's `forward_kernel_info`, on an H100
+// SXM), each instantiation without spills, 2 CTAs (8 warps) per SM:
+//   D = 64:  242 registers, 72 KB of shared memory (2 Q tiles + 6 K/V);
+//   D = 72:  244 registers (252 with lse), 72 KB;
+//   D = 128: 224 registers, 85 KB (1 Q tile + 4 K/V).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_sm90.cuh"
+#include "kernel_info.cuh"
+
+using namespace deco;
 
 namespace {
 
-constexpr int kBlockQ = 64;  // query rows per CTA, 16 per warp
-constexpr int kBlockK = 64;  // keys per shared-memory tile
-constexpr int kWarps = kBlockQ / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;  // bf16 of row padding: fragment loads hit distinct banks
+// m16 row tiles per warp (a CTA covers 64 * row_tiles(D) query rows, and
+// each K/V fragment a warp loads serves that many MMAs), slots of the K/V
+// ring, and the resident CTAs per SM each instantiation is compiled for
+// (registers capped at 65536 / (ctas * kThreads)). At D = 128 two row
+// tiles would spill.
+__host__ __device__ constexpr int row_tiles(int d) { return d <= 72 ? 2 : 1; }
+__host__ __device__ constexpr int stages(int d) { return d <= 72 ? 3 : 2; }
+constexpr int kMinCtas = 2;
 
-struct Strides {
-  long long b, n, h;  // elements; the head dim has stride 1
-};
+// The Q tiles, then the ring: K of tile j in slot j % S, V in S + j % S.
+template <int D>
+constexpr int fwd_smem_bytes() { return (row_tiles(D) + 2 * stages(D)) * Tile<D>::kBytes; }
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// c[mt][16 x 64] += Q K^T for one key tile and each of the warp's MT row
+// tiles: Q's A fragments in registers (`qa` over the k16 steps, `qa8` the
+// k8 step of D = 72), K's 64 rows from `b`; every K fragment serves all MT.
+template <int D, int MT = row_tiles(D)>
+__device__ __forceinline__ void mma_qk(float (&c)[MT][kBlock / 8][4],
+                                       const uint32_t (&qa)[MT][Tile<D>::K16][4],
+                                       const uint32_t (&qa8)[MT][2], uint32_t b, int lane) {
+  using T = Tile<D>;
+  constexpr int LD = T::LD, NT = kBlock / 8;
+  const uint32_t ob = 2 * lane_off_b<LD>(lane);
+#pragma unroll
+  for (int kk = 0; kk < T::K16; ++kk)
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bf[4];
+      ldsm(bf, b + ob + 2 * (np * 16 * LD + kk * 16));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_16816(c[mt][2 * np], qa[mt][kk], bf[0], bf[1]);
+        mma_16816(c[mt][2 * np + 1], qa[mt][kk], bf[2], bf[3]);
+      }
+    }
+  if constexpr (T::K8) {
+    constexpr int k0 = T::K16 * 16;
+#pragma unroll
+    for (int nq = 0; nq < NT / 4; ++nq) {
+      uint32_t bf[4];
+      ldsm(bf, b + 2 * ((nq * 32 + lane) * LD + k0));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma_1688(c[mt][4 * nq + i], qa8[mt], bf[i]);
+    }
+  }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// acc[mt][16 x D] += P V for each row tile: P's A fragments a[mt], V's 16
+// rows from `b` by ldmatrix.trans (the ninth n8 tile of D = 72 by an x2
+// load), each V fragment serving all MT.
+template <int D, int MT = row_tiles(D)>
+__device__ __forceinline__ void mma_pv(float (&acc)[MT][Tile<D>::N8][4],
+                                       const uint32_t (&a)[MT][4], uint32_t b, int lane) {
+  using T = Tile<D>;
+  const uint32_t oa = 2 * lane_off_a<T::LD>(lane);
+#pragma unroll
+  for (int np = 0; np < T::N8 / 2; ++np) {
+    uint32_t bf[4];
+    ldsm_t(bf, b + oa + 32 * np);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma_16816(acc[mt][2 * np], a[mt], bf[0], bf[1]);
+      mma_16816(acc[mt][2 * np + 1], a[mt], bf[2], bf[3]);
+    }
+  }
+  if constexpr (T::N8 % 2 != 0) {
+    uint32_t bf[2];
+    ldsm_t(bf, b + oa + 16 * (T::N8 - 1));
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma_16816(acc[mt][T::N8 - 1], a[mt], bf[0], bf[1]);
+  }
 }
 
-// d += a * b for one 16x8x16 tile (A row-major 16x16, B column-major 16x8).
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The online softmax over one key tile, for rows g and g + 8 of the warp
+// (this thread's columns 2t, 2t + 1 of each n8 tile): s holds the raw
+// scores Q K^T and leaves holding P = exp2(s * sl2 - m2), with MASK giving
+// P = 0 for keys at or past `valid`; m2 is the running max in units of
+// s * sl2, l this thread's share of the running sum, and corr the factor
+// by which the accumulator is to be rescaled. Needs sl2 > 0. Every tile
+// holds a valid key, so the new max is finite, and the first tile's
+// correction exp2(-inf) = 0.
+template <bool MASK, int NK>
+__device__ __forceinline__ void softmax_tile(float (&s)[NK][4], float (&m2)[2], float (&l)[2],
+                                             float (&corr)[2], float sl2, int t, int valid) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < NK; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (MASK && nt * 8 + 2 * t + (e & 1) >= valid) s[nt][e] = -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+    }
+  float neg[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m2[r], mx[r] * sl2);
+    corr[r] = exp2_ftz(m2[r] - m_new);
+    m2[r] = m_new;
+    neg[r] = -m_new;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NK; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2_ftz(fmaf(s[nt][e], sl2, neg[e >> 1]));
+      s[nt][e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
 }
 
 template <int D, bool LSE>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int heads, int nq, int nkv, Strides sq, Strides sk,
-                     Strides sv, Strides so, float scale) {
-  constexpr int DP = (D + 15) / 16 * 16;  // head dim padded for k16 MMAs
-  constexpr int KD = DP / 16;             // k16 steps over the head dim
-  constexpr int ND = DP / 8;              // n8 tiles over the head dim
-  constexpr int NK = kBlockK / 8;         // n8 tiles over a key tile
-  constexpr int KK = kBlockK / 16;        // k16 steps over a key tile
-  constexpr int CH = D / 8;               // 16-byte chunks in one row
-  constexpr int LDK = DP + kPad;
-  constexpr int LDV = kBlockK + kPad;
-  static_assert(D % 8 == 0, "rows are read in 16-byte chunks");
+__global__ void __launch_bounds__(kThreads, kMinCtas)
+    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                     int heads, int nq, int nkv, Strides sq, Strides sk, Strides sv, Strides so,
+                     float scale) {
+  using T = Tile<D>;
+  constexpr int LD = T::LD, N8 = T::N8, S = stages(D), MT = row_tiles(D);
+  constexpr int NK = kBlock / 8;  // n8 tiles over a key tile
 
-  // The query tile passes through `ks` first; then `ks` holds K tiles.
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * LDK];
-  __shared__ __align__(16) __nv_bfloat16 vt[DP * LDV];  // V tile, transposed
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t base = smem_u32(smem), qs = base;
+  auto k_slot = [&](int j) { return base + (MT + j % S) * T::kBytes; };
+  auto v_slot = [&](int j) { return base + (MT + S + j % S) * T::kBytes; };
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;  // MMA fragment row group and column
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * kBlockQ;
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-
-  const __nv_bfloat16* qp = q + b * sq.b + h * sq.h;
-  const __nv_bfloat16* kp = k + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vp = v + b * sv.b + h * sv.h;
-
-  // Zero the padded head-dim columns once; tile loads never write them.
-  if constexpr (DP > D) {
-    for (int i = tid; i < kBlockK * (DP - D); i += kThreads)
-      ks[(i / (DP - D)) * LDK + D + i % (DP - D)] = zero;
-    for (int i = tid; i < (DP - D) * LDV; i += kThreads) vt[D * LDV + i] = zero;
-  }
-
-  // Rows [row0, row0 + 64) of a (tokens, D) plane into `ks`; rows past
-  // `valid` are zero, so padded keys add exact zeros and never NaNs.
-  auto load_rows = [&](const __nv_bfloat16* base, long long stride, int row0,
-                       int valid) {
-    for (int c = tid; c < kBlockK * CH; c += kThreads) {
-      const int r = c / CH, ch = c % CH;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (row0 + r < valid)
-        val = *reinterpret_cast<const uint4*>(base + (row0 + r) * stride + ch * 8);
-      *reinterpret_cast<uint4*>(&ks[r * LDK + ch * 8]) = val;
+  const int q0 = blockIdx.x * MT * kBlock;
+  const int wr = warp * 16;  // this warp's first row in each 64-row tile
+  const bf16* kp = k + b * sk.b + h * sk.h;
+  const bf16* vp = v + b * sv.b + h * sv.h;
+  const int ntiles = (nkv + kBlock - 1) / kBlock;
+  auto copy_kv = [&](int j) {
+    if (j < ntiles) {
+      copy_rows<D>(k_slot(j), kp, sk.n, j * kBlock, nkv);
+      copy_rows<D>(v_slot(j), vp, sv.n, j * kBlock, nkv);
     }
+    cp_async_commit();  // possibly empty, so one group per tile
   };
 
-  load_rows(qp, sq.n, q0, nq);
-  __syncthreads();
-  uint32_t qf[KD][4];
-  const int qr = warp * 16 + g;
+  copy_rows<D, MT * kBlock>(qs, q + b * sq.b + h * sq.h, sq.n, q0, nq);  // joins tile 0's group
+  for (int j = 0; j < S - 1; ++j) copy_kv(j);
+
+  const float sl2 = scale * kLog2e;
+  float m2[MT][2], l[MT][2];
+  float acc[MT][N8][4];
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = ld_pair(&ks[qr * LDK + c]);
-    qf[kk][1] = ld_pair(&ks[(qr + 8) * LDK + c]);
-    qf[kk][2] = ld_pair(&ks[qr * LDK + c + 8]);
-    qf[kk][3] = ld_pair(&ks[(qr + 8) * LDK + c + 8]);
+  for (int mt = 0; mt < MT; ++mt) {
+    m2[mt][0] = m2[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.0f;
+#pragma unroll
+    for (int dt = 0; dt < N8; ++dt)
+      acc[mt][dt][0] = acc[mt][dt][1] = acc[mt][dt][2] = acc[mt][dt][3] = 0.0f;
   }
+  uint32_t qa[MT][T::K16][4], qa8[MT][2];
 
-  // Row statistics for rows g and g + 8 of this warp's 16; `l` holds this
-  // thread's partial sum over its columns until the end.
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.0f, 0.0f};
-  float acc[ND][4];
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<S - 2>();  // tile j (and Q) have landed for this thread ...
+    __syncthreads();         // ... and for every thread, and every warp is done with tile j - 1
+    if (j == 0) {
 #pragma unroll
-  for (int dt = 0; dt < ND; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.0f;
-
-  for (int k0 = 0; k0 < nkv; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_rows(kp, sk.n, k0, nkv);
-    for (int c = tid; c < kBlockK * CH; c += kThreads) {
-      const int r = c / CH, ch = c % CH;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (k0 + r < nkv)
-        val = *reinterpret_cast<const uint4*>(vp + (k0 + r) * sv.n + ch * 8);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint32_t q_frag = qs + 2 * ((mt * kBlock + wr) * LD + lane_off_a<LD>(lane));
 #pragma unroll
-      for (int i = 0; i < 8; ++i) vt[(ch * 8 + i) * LDV + r] = e[i];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[NK][4];
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-      const __nv_bfloat16* krow = &ks[(nt * 8 + g) * LDK + 2 * t];
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        mma_16816(s[nt], qf[kk], ld_pair(krow + kk * 16), ld_pair(krow + kk * 16 + 8));
-    }
-
-    // Online softmax. Every tile holds at least one valid key, so the new
-    // max is finite and exp(-inf - m) = 0 clears the first correction.
-    float m_new[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t + (e & 1);
-        const float x = key < nkv ? s[nt][e] * scale : -INFINITY;
-        s[nt][e] = x;
-        m_new[e >> 1] = fmaxf(m_new[e >> 1], x);
+        for (int kk = 0; kk < T::K16; ++kk) ldsm(qa[mt][kk], q_frag + 32 * kk);
+        if constexpr (T::K8) ldsm(qa8[mt], q_frag + 32 * T::K16);
       }
-    float corr[2], rsum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
-      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
-      corr[r] = expf(m_run[r] - m_new[r]);
-      m_run[r] = m_new[r];
     }
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m_run[e >> 1]);
-        s[nt][e] = p;
-        rsum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rsum[r];
-#pragma unroll
-    for (int dt = 0; dt < ND; ++dt) {
-      acc[dt][0] *= corr[0];
-      acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1];
-      acc[dt][3] *= corr[1];
-    }
+    copy_kv(j + S - 1);  // into the slot of tile j - 1
+    const uint32_t ks = k_slot(j), vs = v_slot(j);
 
-    // O += P V: the S accumulators of key tiles 2kk and 2kk+1 are exactly
+    float s[MT][NK][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NK; ++nt) s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.0f;
+    mma_qk<D>(s, qa, qa8, ks, lane);
+    const int kvalid = nkv - j * kBlock;  // only the last tile can hold keys past the end
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float corr[2];
+      if (kvalid >= kBlock)
+        softmax_tile<false>(s[mt], m2[mt], l[mt], corr, sl2, t, kvalid);
+      else
+        softmax_tile<true>(s[mt], m2[mt], l[mt], corr, sl2, t, kvalid);
+#pragma unroll
+      for (int dt = 0; dt < N8; ++dt) {
+        acc[mt][dt][0] *= corr[0];
+        acc[mt][dt][1] *= corr[0];
+        acc[mt][dt][2] *= corr[1];
+        acc[mt][dt][3] *= corr[1];
+      }
+    }
+    // O += P V: the S accumulators of n8 tiles 2kk and 2kk + 1 are exactly
     // the A fragment of the k16 step kk, rounded to bf16.
 #pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
+    for (int kk = 0; kk < NK / 2; ++kk) {
+      uint32_t a[MT][4];
 #pragma unroll
-      for (int dt = 0; dt < ND; ++dt) {
-        const __nv_bfloat16* vrow = &vt[(dt * 8 + g) * LDV + kk * 16 + 2 * t];
-        mma_16816(acc[dt], a, ld_pair(vrow), ld_pair(vrow + 8));
-      }
+      for (int mt = 0; mt < MT; ++mt) acc_to_a(a[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
+      mma_pv<D>(acc, a, vs + 2 * kk * 16 * LD, lane);
     }
   }
 
+  // Epilogue: O = acc / l over this warp's own Q rows in shared memory,
+  // which no other warp reads, then out as 16-byte chunks, whole rows.
+  __syncwarp();  // every lane's Q fragments are loaded before any O lands on them
+  bf16* op = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + qr + 8 * r;
-    if (row >= nq) continue;
-    if constexpr (LSE) {
-      if (t == 0) lse[static_cast<long long>(blockIdx.y) * nq + row] = m_run[r] + logf(l_run[r]);
+    for (int r = 0; r < 2; ++r) {
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 1);
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 2);
     }
-    __nv_bfloat16* orow = o + b * so.b + row * so.n + h * so.h;
+    const float inv[2] = {1.0f / l[mt][0], 1.0f / l[mt][1]};
+    const int r0 = mt * kBlock + wr;  // the tile's first row in the CTA
+    bf16* orows = reinterpret_cast<bf16*>(smem) + r0 * LD;
 #pragma unroll
-    for (int dt = 0; dt < ND; ++dt) {
-      const int col = dt * 8 + 2 * t;
-      if (col < D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
-            acc[dt][2 * r] / l_run[r], acc[dt][2 * r + 1] / l_run[r]);
+    for (int dt = 0; dt < N8; ++dt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<__nv_bfloat162*>(orows + (g + 8 * r) * LD + dt * 8 + 2 * t) =
+            __floats2bfloat162_rn(acc[mt][dt][2 * r] * inv[r], acc[mt][dt][2 * r + 1] * inv[r]);
+    if constexpr (LSE) {
+      if (t == 0)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + r0 + g + 8 * r;
+          if (row < nq)
+            lse[static_cast<long long>(blockIdx.y) * nq + row] =
+                (m2[mt][r] + log2f(l[mt][r])) * kLn2;
+        }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < (16 * N8 + 31) / 32; ++i) {
+      const int c = lane + 32 * i;
+      const int r = c / N8, ch = c % N8, row = q0 + r0 + r;
+      if ((16 * N8 % 32 == 0 || c < 16 * N8) && row < nq)
+        *reinterpret_cast<uint4*>(op + row * so.n + ch * 8) =
+            *reinterpret_cast<const uint4*>(orows + r * LD + ch * 8);
     }
   }
 }
 
 template <int D, bool LSE>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int batch, int heads, int nq, int nkv,
-                   Strides sq, Strides sk, Strides sv, Strides so, float scale,
-                   cudaStream_t stream) {
-  const dim3 grid((nq + kBlockQ - 1) / kBlockQ, batch * heads);
-  flash_fwd_kernel<D, LSE><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
-      heads, nq, nkv, sq, sk, sv, so, scale);
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int batch, int heads, int nq, int nkv, Strides sq, Strides sk, Strides sv,
+                   Strides so, float scale, cudaStream_t stream) {
+  constexpr int smem = fwd_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, LSE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int rows = row_tiles(D) * kBlock;
+  const dim3 grid((nq + rows - 1) / rows, batch * heads);
+  flash_fwd_kernel<D, LSE><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, heads, nq, nkv, sq, sk, sv, so, scale);
   return cudaGetLastError();
 }
 
 template <bool LSE>
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-             int batch, int heads, int nq, int nkv, int head_dim, Strides sq,
-             Strides sk, Strides sv, Strides so, float scale, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+             int heads, int nq, int nkv, int head_dim, Strides sq, Strides sk, Strides sv,
+             Strides so, float scale, cudaStream_t st) {
+  if (!(scale > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 64:
       return launch<64, LSE>(q, k, v, o, lse, batch, heads, nq, nkv, sq, sk, sv, so, scale, st);
@@ -287,6 +360,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <int D>
+cudaError_t info(bool with_lse, int* out) {
+  return with_lse ? kernel_info(flash_fwd_kernel<D, true>, kThreads, fwd_smem_bytes<D>(), out)
+                  : kernel_info(flash_fwd_kernel<D, false>, kThreads, fwd_smem_bytes<D>(), out);
 }
 
 }  // namespace
@@ -322,6 +401,22 @@ int deco_flash_attention_fwd_lse(const void* q, const void* k, const void* v,
   return dispatch<true>(q, k, v, o, static_cast<float*>(lse), batch, heads, nq,
                         nkv, head_dim, sq, sk, sv, so, scale,
                         static_cast<cudaStream_t>(stream));
+}
+
+// What the current device makes of one instantiation (lse = 0: sampling,
+// 1: with lse): registers, local bytes, static and dynamic shared memory,
+// resident CTAs per SM, threads, into out[0..5].
+int deco_flash_attention_fwd_info(int lse, int head_dim, int* out) {
+  switch (head_dim) {
+    case 64:
+      return info<64>(lse != 0, out);
+    case 72:
+      return info<72>(lse != 0, out);
+    case 128:
+      return info<128>(lse != 0, out);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* deco_cuda_error_string(int err) {

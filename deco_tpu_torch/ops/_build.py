@@ -124,6 +124,24 @@ def ptxas_report(log: str) -> dict[str, dict]:
     return report
 
 
+INFO_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem", "ctas_per_sm", "threads")
+
+
+def kernel_info(name: str, symbol: str, *args: int) -> dict:
+    """What the current card makes of one kernel of ``csrc/<name>.cu``:
+    the C entry ``symbol(*args, int out[6])`` fills :data:`INFO_KEYS` from
+    the CUDA runtime (registers, local bytes, static and dynamic shared
+    memory, resident CTAs per SM, threads)."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    check(lib, fn(*args, out), f"{symbol}{args}")
+    return dict(zip(INFO_KEYS, out))
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise when a kernel's C entry returned a CUDA error code."""
     if err != 0:

@@ -134,18 +134,45 @@ def _aligned(diff) -> bool:
     return c == 3 and h % BLOCK == 0 and w % BLOCK == 0
 
 
-@functools.lru_cache(maxsize=8)
-def _host_consts(freq_w_bytes: bytes):
-    """ctypes pointers to the float32 DCT, YCbCr and weight tables."""
-    arrays = [np.ascontiguousarray(a, dtype=np.float32) for a in
-              (dct_matrix(), RGB2YCBCR, np.frombuffer(freq_w_bytes, np.float32))]
+@functools.lru_cache()
+def _host_consts():
+    """ctypes pointers to the float32 DCT and YCbCr tables, which the kernel
+    takes by value."""
+    arrays = [np.ascontiguousarray(a, dtype=np.float32) for a in (dct_matrix(), RGB2YCBCR)]
     return arrays, [a.ctypes.data_as(ctypes.c_void_p) for a in arrays]
+
+
+_device_weights: dict[tuple, torch.Tensor] = {}
+
+
+def _weights_on(device, freq_w) -> torch.Tensor:
+    """The (3, 8, 8) fp32 weights in ``device``'s memory, copied once per
+    device and table."""
+    w = np.ascontiguousarray(freq_w, dtype=np.float32)
+    key = (device, w.tobytes())
+    if key not in _device_weights:
+        _device_weights[key] = torch.from_numpy(w.copy()).to(device)
+    return _device_weights[key]
+
+
+_tickets: dict[torch.device, torch.Tensor] = {}
+
+
+def _ticket(device) -> torch.Tensor:
+    """The kernel's ticket counter on ``device``: one int32, zero between
+    calls (the kernel's last CTA resets it)."""
+    if device not in _tickets:
+        _tickets[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _tickets[device]
 
 
 def freq_mse(diff, freq_w):
     """The loss as a 0-d fp32 tensor from the kernel, for a CUDA fp32
-    contiguous NHWC ``diff`` with C = 3 and H, W multiples of 8; raises on
-    anything else. CPU tensors take :func:`frequency_weighted_mse_plain`."""
+    contiguous NHWC ``diff`` with C = 3, H, W multiples of 8 and a 16-byte
+    aligned base; raises on anything else. CPU tensors take
+    :func:`frequency_weighted_mse_plain`. One launch per call; calls on one
+    device share its ticket counter, so they must not run concurrently on
+    two streams."""
     if not diff.is_cuda:
         return frequency_weighted_mse_plain(diff, freq_w)
     if diff.dim() != 4 or not _aligned(diff):
@@ -153,27 +180,36 @@ def freq_mse(diff, freq_w):
                          f"got {tuple(diff.shape)}")
     if diff.dtype != torch.float32 or not diff.is_contiguous():
         raise ValueError(f"freq_mse kernel: needs a contiguous float32 diff, got {diff.dtype}")
+    if diff.data_ptr() % 16:
+        raise ValueError("freq_mse kernel: needs a 16-byte aligned diff (it reads 16-byte "
+                         "chunks); pass diff.clone()")
     b, h, w, _ = diff.shape
     lib = _build.load("freq_mse")
     fn = lib.deco_freq_mse
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
         lib.deco_freq_mse_partials.argtypes = [ctypes.c_int] * 3
         lib.deco_freq_mse_partials.restype = ctypes.c_int
-    partial = torch.empty(lib.deco_freq_mse_partials(b, h, w), dtype=torch.float32,
-                          device=diff.device)
     out = torch.empty((), dtype=torch.float32, device=diff.device)
-    _, ptrs = _host_consts(np.asarray(freq_w, np.float32).tobytes())
+    _, ptrs = _host_consts()
     with torch.cuda.device(diff.device):
-        err = fn(diff.data_ptr(), partial.data_ptr(), out.data_ptr(), b, h, w, *ptrs,
-                 torch.cuda.current_stream().cuda_stream)
+        partial = torch.empty(lib.deco_freq_mse_partials(b, h, w), dtype=torch.float32,
+                              device=diff.device)
+        err = fn(diff.data_ptr(), _weights_on(diff.device, freq_w).data_ptr(),
+                 partial.data_ptr(), _ticket(diff.device).data_ptr(), out.data_ptr(), b, h, w,
+                 *ptrs, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "freq_mse launch")
     freq_mse.launches += 1
     return out
 
 
 freq_mse.launches = 0  # kernel launches since the last reset
+
+
+def kernel_info() -> dict:
+    """What the current card makes of the kernel (:func:`_build.kernel_info`)."""
+    return {"freq_mse_kernel": _build.kernel_info("freq_mse", "deco_freq_mse_info")}
 
 
 class FrequencyWeightedMSE(torch.autograd.Function):

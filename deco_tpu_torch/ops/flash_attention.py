@@ -171,6 +171,8 @@ def _strides(*xs):
 
 def _run_fwd(q, k, v, scale, with_lse: bool):
     """(o, lse or None) from the forward kernel; q/k/v already checked."""
+    if not scale > 0:
+        raise ValueError(f"flash_attention kernel: scale must be positive, got {scale}")
     b, n_q, h, d = q.shape
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()]
@@ -264,20 +266,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
     return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
 
 
+def forward_kernel_info(head_dim: int) -> dict:
+    """What the current card makes of the forward kernel's two
+    instantiations at ``head_dim`` (:func:`_build.kernel_info`)."""
+    return {name: _build.kernel_info("flash_attention_fwd", "deco_flash_attention_fwd_info",
+                                     lse, head_dim)
+            for lse, name in enumerate(("flash_fwd_kernel", "flash_fwd_kernel_lse"))}
+
+
 def backward_kernel_info(head_dim: int) -> dict:
-    """What the current card makes of the dQ and dK/dV kernels at ``head_dim``:
-    registers, local (spill) bytes, static and dynamic shared memory and
-    resident CTAs per SM, from the CUDA runtime."""
-    lib, fn = _fn("flash_attention_bwd", "deco_flash_attention_bwd_info",
-                  [_I, _I, ctypes.POINTER(ctypes.c_int)])
-    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem", "ctas_per_sm",
-            "threads")
-    info = {}
-    for kind, name in enumerate(("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")):
-        out = (ctypes.c_int * len(keys))()
-        _build.check(lib, fn(kind, head_dim, out), f"{name} info")
-        info[name] = dict(zip(keys, out))
-    return info
+    """What the current card makes of the dQ and dK/dV kernels at ``head_dim``
+    (:func:`_build.kernel_info`)."""
+    return {name: _build.kernel_info("flash_attention_bwd", "deco_flash_attention_bwd_info",
+                                     kind, head_dim)
+            for kind, name in enumerate(("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -62,6 +62,7 @@ def _rel(out, ref):
 @pytest.mark.parametrize("b,nq,nkv,h,d", [
     (16, 256, 256, 16, 72), (2, 200, 200, 4, 72), (2, 256, 333, 4, 72),
     (2, 256, 256, 4, 64), (1, 130, 130, 2, 128), (1, 4096, 4096, 2, 72),
+    (2, 130, 333, 2, 128),  # D = 128, ragged and Nq != Nkv
 ])
 def test_kernel_matches_plain_on_card(cuda_device, b, nq, nkv, h, d):
     q, k, v, _ = _qkv(cuda_device, b, nq, nkv, h, d)
@@ -81,6 +82,35 @@ def test_kernel_reads_strided_qkv_on_card(cuda_device):
     out = fa.flash_attention(q, k, v)
     ref = fa.flash_attention_plain(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+def test_fwd_lse_reads_strided_qkv_on_card(cuda_device):
+    """The forward with lse on q/k/v views into one (B, N, 3, H, D) projection."""
+    qkv = torch.randn(2, 200, 3, 16, 72, device=cuda_device, dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    scale = 72 ** -0.5
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
+    assert (o.float() - o_ref.float()).abs().max().item() < ATOL
+    assert (lse - lse_ref).abs().max().item() < LSE_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 256, 256, 16, 72), ATTN_SHAPES[-1]])  # sampling, N = 4096
+def test_forward_is_bit_identical_on_card(cuda_device, shape):
+    q, k, v, _ = _qkv(cuda_device, *shape)
+    first, second = fa.flash_attention(q, k, v), fa.flash_attention(q, k, v)
+    (o1, lse1), (o2, lse2) = (fa.flash_attention_fwd_lse(q, k, v, 0.1) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
+@pytest.mark.cuda
+def test_nonpositive_scale_raises_on_card(cuda_device):
+    q, k, v, _ = _qkv(cuda_device, 1, 64, 64, 2, 72)
+    with pytest.raises(ValueError, match="scale must be positive"):
+        fa.flash_attention(q, k, v, scale=-0.1)
 
 
 def _backward(q, k, v, o, lse, do, scale):
@@ -149,7 +179,8 @@ def test_autograd_runs_the_kernels_on_card(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(32, 256, 256, 3), (2, 16, 2048, 3), (1, 8, 200, 3)])
+@pytest.mark.parametrize("shape", [(32, 256, 256, 3), (2, 16, 2048, 3), (1, 8, 200, 3),
+                                   (3, 24, 520, 3)])
 def test_freq_mse_matches_plain_and_repeats_on_card(cuda_device, shape):
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     diff = torch.randn(shape, generator=gen, device=cuda_device)
@@ -168,6 +199,14 @@ def test_freq_mse_unaligned_raises_on_card(cuda_device):
     with pytest.raises(ValueError, match="multiples of 8"):
         block_dct.freq_mse(torch.zeros(1, 12, 16, 3, device=cuda_device),
                            block_dct.build_freq_weight())
+
+
+@pytest.mark.cuda
+def test_freq_mse_misaligned_base_raises_on_card(cuda_device):
+    diff = torch.zeros(8 * 16 * 3 + 1, device=cuda_device)[1:].view(1, 8, 16, 3)  # 4 bytes off
+    assert diff.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        block_dct.freq_mse(diff, block_dct.build_freq_weight())
 
 
 @pytest.mark.cuda
