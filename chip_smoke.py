@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (``deco_tpu_torch``) on one NVIDIA Hopper card.
 
-    python3 chip_smoke.py        # from the repository root; needs CUDA and nvcc
+    python3 chip_smoke.py [--seed N]   # from the repository root; needs CUDA and nvcc
 
 Drives the port's two main paths at the full width of DeCo-XL/16 256 px,
 class-to-image sampling (``configs_c2i/DeCo_XL.yaml``) and training
@@ -45,9 +45,20 @@ against its plain PyTorch version. Phases, in the order they run:
    norm, parameters moved and the EMA moved by the rule e*d + p*(1-d), the
    exact launches per step; s/step, images/s, MFU, peak memory and a
    device-time breakdown of one step.
-9. kernels: one JSON line listing every kernel with its launches on its
-   path (sampling for the forward, training for the others), error, times,
-   bound, library time and the library call's backend.
+9. cli: the entry point users run, ``deco_tpu_torch.cli``, on
+   ``configs_c2i/DeCo_XL_freq.yaml`` at full width. A PNG folder (2 classes
+   x 32 images of 320x288 and 288x384 from ``--seed``) under
+   ``build/chip_smoke_cli/``; ``fit`` for 3 steps at batch 32 with full
+   remat: finite losses in ``metrics.jsonl``, phase 8's launches per step,
+   a final checkpoint with every key (its bytes and save time); ``predict``
+   from it, one batch of 20 with 100 Euler steps and CFG 3.2 on (0.1, 1]:
+   a non-constant uint8 (20, 256, 256, 3) ``output.npz``, the FID
+   protocol's file names ``0_0`` ... ``0_9``, exactly 2,800 forward
+   launches, and the EMA weights loaded equal to those saved. Step times,
+   s/step, the device's idle share and images/s; the folder is deleted.
+10. kernels: one JSON line listing every kernel with its launches on its
+   path (sampling for the forward, training for the others) and on the CLI
+   path, error, times, bound, library time and the library call's backend.
 
 ``python3 chip_smoke.py --calibrate-train-slice`` prints, on the CPU, the two
 readings between which the train-slice gates sit, and no result.
@@ -498,7 +509,7 @@ def phase_slice():
         model = build_model("deco_xl_256", device=device, seed=1, **depth)
         before = flash_attention.launches
         t0 = time.perf_counter()
-        results[device] = generate(model, sampler, 2, 2, seed=0, image_size=256, device=device)
+        results[device] = generate(model, sampler, 2, 2, image_size=256, device=device)
         results[device + "_s"] = time.perf_counter() - t0
         results[device + "_launches"] = flash_attention.launches - before
     gpu, cpu = results["cuda"], results["cpu"]
@@ -764,10 +775,10 @@ def phase_sample(model, card: str):
 
     batch, steps = 8, 50
     sampler = build_sampler("deco_xl_256", steps)
-    generate(model, build_sampler("deco_xl_256", 2), batch, batch, 0, 256)  # warm-up
+    generate(model, build_sampler("deco_xl_256", 2), batch, batch, 256)  # warm-up
     flash_attention.launches = 0
     t0 = time.perf_counter()
-    images = generate(model, sampler, batch, batch, seed=0, image_size=256)
+    images = generate(model, sampler, batch, batch, image_size=256)
     seconds = time.perf_counter() - t0  # ends in a copy to the host
     launches = flash_attention.launches
     stored = fp_to_uint8(images)
@@ -793,12 +804,183 @@ def phase_sample(model, card: str):
     return launches
 
 
+CLI_DIR = "build/chip_smoke_cli"  # git-ignored; deleted at the end of the phase
+CLI_CONFIG = "configs_c2i/DeCo_XL_freq.yaml"
+
+
+def write_image_folder(root: str, seed: int) -> int:
+    """2 classes x 32 PNGs of 320x288 and 288x384 from ``seed``, written with
+    the port's encoder: the ADM crop resamples every one of them."""
+    import os
+
+    from deco_tpu_torch.utils import png
+
+    rng = np.random.default_rng(seed)
+    count = 0
+    for c in range(2):
+        os.makedirs(f"{root}/class_{c}", exist_ok=True)
+        for i in range(32):
+            h, w = (320, 288) if i % 2 else (288, 384)
+            yy, xx = np.mgrid[0:h, 0:w]
+            base = np.stack([xx * 255.0 / w, yy * 255.0 / h, np.full((h, w), 128.0 * c)], -1)
+            image = np.clip(base + rng.normal(0, 25, (h, w, 3)), 0, 255).astype(np.uint8)
+            png.write(f"{root}/class_{c}/{i:03d}.png", image)
+            count += 1
+    return count
+
+
+class Spy:
+    """Wraps ``owner.name`` for the phase: records each call's arguments,
+    result and seconds, and puts the original back on exit."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.calls = owner, name, []
+        self.original = getattr(owner, name)
+
+    def __enter__(self):
+        original, calls = self.original, self.calls
+
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = original(*args, **kwargs)
+            calls.append({"args": args, "kwargs": kwargs, "out": out,
+                          "seconds": time.perf_counter() - t0, "end": time.perf_counter()})
+            return out
+
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.original)
+        return False
+
+
+def _kernel_busy_ms(prof) -> float:
+    """Device milliseconds in kernels (not copies or fills of memory) in a trace."""
+    from torch.autograd import DeviceType
+
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and not ev.key.startswith(("Memcpy", "Memset", "Optimizer."))) / 1e3
+
+
+def phase_cli(card: str, seed: int) -> dict:
+    """The port's entry point as users run it: ``deco_tpu_torch.cli`` fit and
+    predict on DeCo_XL_freq.yaml at full width, through an image folder,
+    a checkpoint and the FID-protocol sample set."""
+    import json
+    import os
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.config import registry
+    from deco_tpu_torch.ops import block_dct
+    from deco_tpu_torch.ops import flash_attention as fa
+    from deco_tpu_torch.train import checkpoint
+
+    config = registry.load_yaml(CLI_CONFIG)
+    kernels = {"fwd_lse": fa.flash_attention_fwd_lse, "bwd_dq": fa.flash_attention_bwd_dq,
+               "bwd_dkv": fa.flash_attention_bwd_dkv, "freq_mse": block_dct.freq_mse,
+               "fwd": fa.flash_attention}
+    steps = 3
+    try:
+        images = write_image_folder(f"{CLI_DIR}/images", seed)
+        workroot = f"{CLI_DIR}/work"
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "maybe_save") as saves, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state = cli.main(["fit", "-c", CLI_CONFIG,
+                              f"--data.train_dataset.init_args.root={CLI_DIR}/images",
+                              f"--trainer.default_root_dir={workroot}", "--max_steps", str(steps),
+                              "--trainer.log_every_n_steps=1"])
+        fit_s = time.perf_counter() - t0
+        fit_launches = {k: f.launches for k, f in kernels.items()}
+        workdir = f"{workroot}/DeCo_256_XL_freq"
+        records = [json.loads(line) for line in open(f"{workdir}/metrics.jsonl")]
+        # each log reads the loss back, so record k's time is the end of step k
+        ends = [r["time"] for r in records]
+        step_s = [ends[0]] + [b - a for a, b in zip(ends, ends[1:])]
+        busy_ms = _kernel_busy_ms(prof)
+        ckpt_path = f"{workdir}/checkpoints/{steps}.pt"
+        written = [c for c in saves.calls if c["out"]]
+        names = [n for n, _ in state.model.named_parameters()]
+        xl = len(state.model.blocks) == 28 and state.model.trunk_checkpoint
+        obj = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)
+        keys_ok = (set(obj["state_dict"]) == {f"{p}{n}" for p in ("denoiser.", "ema_denoiser.")
+                                              for n in names}
+                   and set(obj["optimizer"]) == set(names)
+                   and all(set(m) == {"exp_avg", "exp_avg_sq", "step"}
+                           for m in obj["optimizer"].values()) and obj["step"] == steps)
+        fit = {"phase": "cli_fit", "config": CLI_CONFIG, "images": images,
+               "batch": config["data"]["train_batch_size"], "steps": steps,
+               "losses": [r["loss"] for r in records], "step_s": step_s,
+               "s_per_step": float(np.median(step_s[1:])),
+               "device_kernel_ms": busy_ms, "idle_share": 1 - busy_ms / 1e3 / ends[-1],
+               "fit_call_s": fit_s, "launches": fit_launches,
+               "launches_per_step": {k: v / steps for k, v in fit_launches.items()},
+               "checkpoint_bytes": os.path.getsize(ckpt_path),
+               "checkpoint_save_s": [c["seconds"] for c in written],
+               "checkpoint_keys_ok": keys_ok, "params": len(names), "card": card,
+               "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl"}
+        emit(fit)
+        check(xl, "the cli fit did not build DeCo-XL with full remat")
+        check(len(records) == steps and all(np.isfinite(fit["losses"])), f"cli fit losses {records}")
+        expected = {"fwd_lse": 56 * steps, "bwd_dq": 28 * steps, "bwd_dkv": 28 * steps,
+                    "freq_mse": steps, "fwd": 0}
+        check(fit_launches == expected, f"cli fit launches {fit_launches}, expected {expected}")
+        check(keys_ok, "the cli checkpoint lacks keys")
+        check(len(written) == 1, f"{len(written)} checkpoint saves, expected the final one")
+        ema_saved = {n[len("ema_denoiser."):]: t for n, t in obj["state_dict"].items()
+                     if n.startswith("ema_denoiser.")}
+        del state, obj
+        torch.cuda.empty_cache()
+
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "restore_params") as restores:
+            out = cli.main(["predict", "-c", CLI_CONFIG, f"--trainer.default_root_dir={workroot}",
+                            f"--ckpt_path={workdir}/checkpoints", "--max_batches", "1"])
+        predict_s = time.perf_counter() - t0
+        sampling_s = time.perf_counter() - restores.calls[0]["end"]  # after the weights load
+        pred_launches = {k: f.launches for k, f in kernels.items()}
+        model = restores.calls[0]["args"][1]
+        ema_equal = all(torch.equal(p.detach().cpu(), ema_saved[n])
+                        for n, p in model.named_parameters())
+        arr = np.load(out)["arr_0"]
+        pngs = sorted(f for f in os.listdir(os.path.dirname(out)) if f.endswith(".png"))
+        want_pngs = sorted(f"0_{i}.png" for i in range(10))  # class idx // 50, seed idx % 50
+        emit({"phase": "cli_predict", "config": CLI_CONFIG, "batch": int(arr.shape[0]),
+              "steps": config["model"]["diffusion_sampler"]["init_args"]["num_steps"],
+              "predict_call_s": predict_s, "sampling_s": sampling_s,
+              "images_per_s": arr.shape[0] / sampling_s, "launches": pred_launches,
+              "npz_shape": list(arr.shape), "npz_dtype": str(arr.dtype),
+              "pixel_std": float(arr.std()), "pngs": pngs, "ema_loaded_equal": ema_equal,
+              "card": card})
+        check(arr.shape == (20, 256, 256, 3) and arr.dtype == np.uint8, f"npz {arr.shape}")
+        check(arr.std() > 0, "constant output.npz")
+        check(pngs == want_pngs, f"sample files {pngs}")
+        check(pred_launches["fwd"] == 2800 and sum(pred_launches.values()) == 2800,
+              f"cli predict launches {pred_launches}, expected 2800 forward")
+        check(ema_equal, "the predict's weights differ from the saved EMA")
+        print(card, flush=True)
+        return {"fit": fit_launches, "predict": pred_launches}
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
     if sys.argv[1:] == ["--calibrate-train-slice"]:
         calibrate_train_slice()  # on the CPU; sets no result
         return 2
+    seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card",
               file=sys.stderr)
@@ -816,11 +998,15 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     train_launches = phase_train(card)
+    cli_launches = phase_cli(card, seed)
 
     def row(name, source, replaces, launches, err, timing):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        key = {"flash_attention_fwd": "fwd"}.get(name, name.replace("flash_attention_", ""))
+        path = "predict" if key == "fwd" else "fit"
         return {"name": name, "route": "cuda", "source": f"deco_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
+                f"cli_{path}_launches": cli_launches[path][key],
                 **{k: timing[k] for k in keys},
                 "library_backend": timing.get("library_backend"),
                 **{k: v for k, v in timing.items() if k.endswith("backward_ms")}}

@@ -11,5 +11,7 @@ Ported so far: DeCo-XL/16 class-to-image sampling (the 50-step Euler CFG
 sampler over ``DeCoC2I``) and its training (``DeCoTrainer`` with the
 block-DCT frequency loss, AdamW, EMA, per-block remat: ``fit.py``), with the
 flash-attention forward (with and without logsumexp), its dQ and dK/dV
-backward and the fused frequency-weighted MSE as kernels.
+backward and the fused frequency-weighted MSE as kernels; and both run
+from the reference YAML configs through ``python -m deco_tpu_torch.cli``
+(image-folder data, loader, step checkpoints, hooks, the run loop).
 """

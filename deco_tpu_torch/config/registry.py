@@ -1,0 +1,245 @@
+"""YAML config surface: ``class_path``/``init_args`` instantiation
+(``deco_tpu/config/registry.py``).
+
+Every object of a run config is a ``class_path``/``init_args`` node,
+instantiated recursively. :data:`REFERENCE_CLASS_MAP` has the JAX
+registry's keys (the reference's torch class paths): the ported ones map to
+``deco_tpu_torch`` classes, and every other one to a factory that raises
+``NotImplementedError`` naming the ROADMAP item that ports it. Step
+functions collapse to string selectors through :data:`VALUE_MAP`.
+:func:`apply_overrides` applies ``--a.b.c=v`` dot-overrides.
+
+Departure from the JAX package: PyYAML reads ``lr: 1e-4`` as the string
+``'1e-4'`` (YAML 1.1 floats need a dot), and the JAX AdamW node hands the
+string to optax, which fails at its first update. The reference's config
+system casts by type hint, so the port's optimizer node turns numeric
+strings into floats.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Any, Callable, Dict, Union
+
+import torch
+
+from deco_tpu_torch.config import _yaml
+
+_PORTED: Dict[str, str] = {
+    "src.models.autoencoder.pixel.PixelAE": "deco_tpu_torch.models.autoencoders.PixelAE",
+    "src.models.transformer.dit_c2i_DeCo.PixNerDiT": "deco_tpu_torch.config.registry._deco_c2i",
+    "src.models.conditioner.class_label.LabelConditioner":
+        "deco_tpu_torch.models.conditioners.LabelConditioner",
+    "src.diffusion.flow_matching.scheduling.LinearScheduler":
+        "deco_tpu_torch.diffusion.scheduling.LinearScheduler",
+    "src.diffusion.flow_matching.training.FlowMatchingTrainer":
+        "deco_tpu_torch.diffusion.training.FlowMatchingTrainer",
+    "src.diffusion.flow_matching.training_repa_DeCo.REPATrainer":
+        "deco_tpu_torch.diffusion.training.DeCoTrainer",
+    "src.diffusion.flow_matching.sampling.EulerSampler":
+        "deco_tpu_torch.diffusion.sampling.EulerSampler",
+    "src.diffusion.base.guidance.simple_guidance_fn":
+        "deco_tpu_torch.diffusion.guidance.simple_guidance_fn",
+    "src.diffusion.base.guidance.guidance_fn_with_rescale":
+        "deco_tpu_torch.diffusion.guidance.guidance_fn_with_rescale",
+    "src.diffusion.base.guidance.c3_guidance_fn": "deco_tpu_torch.diffusion.guidance.c3_guidance_fn",
+    "src.data.dataset.imagenet.PixImageNet": "deco_tpu_torch.data.imagenet.PixImageNet",
+    "src.data.dataset.randn.RandomNDataset": "deco_tpu_torch.data.randn.RandomNDataset",
+    "src.data.dataset.randn.ClassLabelRandomNDataset":
+        "deco_tpu_torch.data.randn.ClassLabelRandomNDataset",
+    "src.callbacks.simple_ema.SimpleEMA": "deco_tpu_torch.config.registry._SimpleEMAConfig",
+    "torch.optim.AdamW": "deco_tpu_torch.config.registry._AdamWConfig",
+}
+
+# class path -> the ROADMAP section A item that ports it
+UNPORTED: Dict[str, int] = {
+    "src.models.autoencoder.latent.LatentAE": 7,
+    "src.models.autoencoder.dc_latent.DCLatentAE": 7,
+    "src.models.transformer.dit_c2i_baseline.FlattenDiT": 7,
+    "src.models.transformer.dit_c2i_pixnerd.PixNerDiT": 7,
+    "src.models.transformer.dit_t2i_DeCo.PixNerDiT": 6,
+    "src.models.transformer.dit_t2i_pixnerd.PixNerDiT": 6,
+    "src.models.conditioner.qwen3_text_encoder.Qwen3TextEncoder": 6,
+    "src.models.conditioner.place_holder.PlaceHolderConditioner": 6,
+    "src.models.conditioner.base.ComposeConditioner": 6,
+    "src.diffusion.flow_matching.scheduling.GVPScheduler": 5,
+    "src.diffusion.flow_matching.scheduling.ConstScheduler": 5,
+    "src.diffusion.flow_matching.scheduling.VPBetaScheduler": 5,
+    "src.diffusion.ddpm.scheduling.VPScheduler": 5,
+    "src.diffusion.ddpm.scheduling.DDPMScheduler": 5,
+    "src.diffusion.flow_matching.training_repa.REPATrainer": 7,
+    "src.diffusion.flow_matching.training_repa_JiT.REPATrainer": 7,
+    "src.diffusion.ddpm.training.VPTrainer": 7,
+    "src.diffusion.ddpm.training.DDPMTrainer": 7,
+    "src.diffusion.flow_matching.sampling.EulerSamplerJiT": 5,
+    "src.diffusion.flow_matching.sampling.HeunSampler": 5,
+    "src.diffusion.flow_matching.adam_sampling.AdamLMSampler": 5,
+    "src.diffusion.ddpm.ddim_sampling.DDIMSampler": 5,
+    "src.diffusion.ddpm.vp_sampling.VPEulerSampler": 5,
+    "src.models.encoder.DINOv2": 7,
+    "src.models.encoder.CLIP": 7,
+    "src.models.encoder.SigLIP": 7,
+    "src.models.encoder.SigLIPVision": 7,
+    "src.models.encoder_custom.DINOv2": 7,
+    "src.models.transformer.encoder_ae_sim.VAEModel": 8,
+    "src.models.transformer.encoder_ae.VAEModel": 8,
+    "src.models.modules.vae_loss.VAEReconstructionLoss": 8,
+    "src.models.modules.discriminator.NLayerDiscriminator": 8,
+    "src.data.dataset.imagenet.PixHFDataset": 6,
+    "src.data.dataset.imagenet.PixWebDataset": 6,
+    "src.data.dataset.geneval.GenEvalDataset": 6,
+    "src.data.dataset.dpg.DPGDataset": 6,
+    "src.data.dataset.image_txt.ImageText": 6,
+    "src.data.dataset.imagenet.PixJSONLDataset": 6,
+    "src.data.dataset.imagenet.PixMultiJSONLDataset": 6,
+    "src.data.dataset.blip3o_dataset.PackedParquetDataset": 6,
+    "src.data.dataset.blip3o_dataset.WebDatasetPackedDataset": 6,
+    "src.data.dataset.blip3o_ori_dataset.LazySupervisedMixDataset": 8,
+    "src.models.modules.losses.ReconstructionLoss_Base": 8,
+    "src.models.modules.losses.ReconstructionLoss_Stage1": 8,
+    "src.models.modules.losses.ReconstructionLoss_Stage2": 8,
+    "optax.adafactor": 10,
+    "transformers.Adafactor": 10,
+}
+
+
+def not_ported(class_path: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{class_path}: not ported to deco_tpu_torch yet, ROADMAP §A {item}")
+
+
+def _unported_factory(class_path: str, item: int) -> Callable:
+    def factory(*args, **kwargs):
+        raise not_ported(class_path, item)
+
+    factory.__name__ = f"unported<{class_path}>"
+    return factory
+
+
+REFERENCE_CLASS_MAP: Dict[str, Union[str, Callable]] = {
+    **_PORTED, **{cp: _unported_factory(cp, item) for cp, item in UNPORTED.items()}}
+
+VALUE_MAP: Dict[str, str] = {
+    "src.diffusion.flow_matching.sampling.ode_step_fn": "ode",
+    "src.diffusion.flow_matching.sampling.sde_step_fn": "sde",
+    "src.diffusion.flow_matching.sampling.sde_mean_step_fn": "sde_mean",
+    "src.diffusion.flow_matching.sampling.sde_preserve_step_fn": "sde_preserve",
+    "src.diffusion.flow_matching.adam_sampling.ode_step_fn": "ode",
+    "src.diffusion.flow_matching.adam_sampling.t2snr": "snr",
+    "src.diffusion.flow_matching.adam_sampling.t2logsnr": "logsnr",
+    "src.diffusion.flow_matching.adam_sampling.t2isnr": "isnr",
+    "src.diffusion.flow_matching.adam_sampling.nop": "nop",
+}
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def torch_dtype(value):
+    """A dtype given in a config (``bfloat16``, ``jnp.float32``, ...) as a torch dtype."""
+    if isinstance(value, torch.dtype):
+        return value
+    name = str(value).rsplit(".", 1)[-1]
+    if name not in _DTYPES:
+        raise ValueError(f"dtype {value!r}: expected one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def _deco_c2i(dtype="bfloat16", param_dtype=None, **kw):
+    """``DeCoC2I`` with the dtypes of a config (strings) as torch dtypes."""
+    from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I
+
+    return DeCoC2I(dtype=torch_dtype(dtype),
+                   param_dtype=None if param_dtype is None else torch_dtype(param_dtype), **kw)
+
+
+# the settings nodes below take float() of numbers given as strings: YAML 1.1
+# reads 1e-4 as the string '1e-4'
+
+
+class _SimpleEMAConfig:
+    """EMA settings node (reference SimpleEMA callback args)."""
+
+    def __init__(self, decay: float = 0.9999, every_n_steps: int = 1):
+        self.decay = float(decay)
+        self.every_n_steps = int(every_n_steps)
+
+
+class _AdamWConfig:
+    """Optimizer settings node -> torch AdamW over a model's parameters.
+
+    Numeric strings become floats (see the module docstring)."""
+
+    def __init__(self, lr: float = 1e-4, weight_decay: float = 0.0, betas=(0.9, 0.999),
+                 eps: float = 1e-8):
+        self.lr = float(lr)
+        self.weight_decay = float(weight_decay)
+        self.betas = tuple(float(b) for b in betas)
+        self.eps = float(eps)
+
+    def create_state(self, model):
+        """A :class:`~deco_tpu_torch.train.state.TrainState` (with EMA) over ``model``."""
+        from deco_tpu_torch.train.state import TrainState
+
+        return TrainState.create(model, lr=self.lr, weight_decay=self.weight_decay,
+                                 betas=self.betas, eps=self.eps)
+
+
+def resolve(class_path: str):
+    """The class or callable a (reference or ``deco_tpu_torch``) class path names."""
+    target = REFERENCE_CLASS_MAP.get(class_path, class_path)
+    if callable(target):
+        return target
+    if not target.startswith("deco_tpu_torch."):
+        raise ValueError(f"class path {class_path!r}: not a reference class path the port "
+                         "knows, nor a deco_tpu_torch path")
+    module_name, _, attr = target.rpartition(".")
+    return getattr(importlib.import_module(module_name), attr)
+
+
+# init_args accepted by reference classes and dropped on purpose: weight
+# loading goes through the checkpoint, and the rest are torch-runtime flags
+# with no counterpart in these models
+DROPPED_ARGS = {"weight_path", "load_ema", "learn_sigma", "deep_supervision", "attn_drop",
+                "proj_drop", "qkv_bias"}
+RENAMED_ARGS = {"grad_checkpointing": "grad_checkpoint"}
+
+
+def instantiate(node: Any, drop_unknown: bool = True):
+    """Recursively instantiate a ``class_path``/``init_args`` config tree."""
+    if isinstance(node, str):
+        if node in VALUE_MAP:
+            return VALUE_MAP[node]
+        if node in REFERENCE_CLASS_MAP or node.startswith(("deco_tpu_torch.", "src.")):
+            if node.startswith("src.") and node not in REFERENCE_CLASS_MAP:
+                raise ValueError(f"class path {node!r}: not in the reference class map")
+            target = resolve(node)
+            # a bare class path string is a default-constructed instance
+            return target() if isinstance(target, type) else target
+        return node
+    if isinstance(node, list):
+        return [instantiate(n, drop_unknown) for n in node]
+    if not isinstance(node, dict):
+        return node
+    if "class_path" in node:
+        cls = resolve(node["class_path"])
+        kwargs = {}
+        for k, v in (node.get("init_args") or {}).items():
+            if drop_unknown and k in DROPPED_ARGS:
+                continue
+            kwargs[RENAMED_ARGS.get(k, k)] = instantiate(v, drop_unknown)
+        return cls(**kwargs)
+    return {k: instantiate(v, drop_unknown) for k, v in node.items()}
+
+
+def apply_overrides(config: dict, overrides: Dict[str, Any]) -> dict:
+    """Apply dot-path overrides (``model.denoiser.init_args.foo=1``) in place."""
+    for path, value in overrides.items():
+        parts = path.split(".")
+        node = config
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return config
+
+
+def load_yaml(path: str) -> dict:
+    return _yaml.load(path)

@@ -6,6 +6,11 @@ torch model (those of ``deco_tpu/convert/flax_to_torch.py``
 kernels (in, out) become Linear weights (out, in), the ``nn.scan``-stacked
 trunk unstacks into ``blocks.{i}``, and the ``s_embedder`` weight is written
 channel-major, the order of torch ``unfold`` patches.
+
+:func:`train_checkpoint_from_jax` turns a JAX training state (params, EMA,
+optax AdamW moments and count) into the port's step checkpoint
+(``train/checkpoint.py``), so a run started in the JAX package resumes in
+the port.
 """
 
 from __future__ import annotations
@@ -85,6 +90,27 @@ def state_dict_from_jax(params: dict, in_channels: int = 3,
         _dit_block(blocks, out, f"blocks.{i}.", i)
     _pixel_decoder(p["dec_net"], out, "dec_net.")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def train_checkpoint_from_jax(params: dict, ema_params, mu: dict, nu: dict, count, step: int,
+                              in_channels: int = 3, patch_size: int = 16) -> dict:
+    """A port step checkpoint (``train.checkpoint.payload``) from numpy trees
+    of the JAX ``TrainState``: ``params`` and ``ema_params`` (or None), the
+    AdamW first and second moments ``mu``/``nu`` of optax's
+    ``ScaleByAdamState`` and its ``count``, and the train step. The moments
+    have the parameters' layout and go through the same transforms; optax's
+    ``count`` (updates taken) is torch AdamW's ``step``."""
+    from deco_tpu_torch.train.checkpoint import payload
+
+    def convert(tree):
+        return state_dict_from_jax(tree, in_channels=in_channels, patch_size=patch_size)
+
+    exp_avg, exp_avg_sq = convert(mu), convert(nu)
+    adam_step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    moments = {name: {"exp_avg": exp_avg[name], "exp_avg_sq": exp_avg_sq[name],
+                      "step": adam_step.clone()} for name in exp_avg}
+    ema = None if ema_params is None else convert(ema_params)
+    return payload(convert(params), ema, moments, int(step))
 
 
 def load_checkpoint(path: str, ema: bool = True) -> dict[str, torch.Tensor]:

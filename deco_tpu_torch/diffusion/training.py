@@ -138,10 +138,18 @@ class FlowMatchingTrainer(BaseTrainer):
 class DeCoTrainer(BaseTrainer):
     """The DeCo objective: t from 90% sigmoid(randn) and 10% uniform (the
     mix ignores ``lognorm_t``, as in the JAX package), velocity MSE, and with
-    ``enable_freq_loss`` the frequency-weighted MSE of the velocity error."""
+    ``enable_freq_loss`` the frequency-weighted MSE of the velocity error.
+
+    The REPA arguments (``feat_loss_weight``, ``encoder``, ``align_layer``,
+    ``proj_*_dim``) are taken and stored as the JAX constructor does, so the
+    reference configs that pass them build this trainer; the DeCo loss does
+    not use them (its REPA branch is off upstream)."""
 
     def __init__(self, scheduler: BaseScheduler, loss_weight_fn: Union[str, Callable] = "constant",
                  lognorm_t: bool = False, timeshift: float = 1.0, lognorm_mix_p: float = 0.9,
+                 feat_loss_weight: float = 0.5, encoder=None, align_layer: int = 8,
+                 proj_denoiser_dim: int = 256, proj_hidden_dim: int = 256,
+                 proj_encoder_dim: int = 256,
                  freq_loss_weight: float = 1.0, freq_quality: int = 85,
                  freq_mode: str = "inv_gamma", freq_gamma: float = 1.0,
                  enable_freq_loss: bool = False, **kwargs):
@@ -151,6 +159,12 @@ class DeCoTrainer(BaseTrainer):
         self.lognorm_t = lognorm_t
         self.timeshift = timeshift
         self.lognorm_mix_p = lognorm_mix_p
+        self.feat_loss_weight = feat_loss_weight
+        self.encoder = encoder
+        self.align_layer = align_layer
+        self.proj_denoiser_dim = proj_denoiser_dim
+        self.proj_hidden_dim = proj_hidden_dim
+        self.proj_encoder_dim = proj_encoder_dim
         self.freq_loss_weight = freq_loss_weight
         self.enable_freq_loss = enable_freq_loss
         self.freq_w = block_dct.build_freq_weight(quality=freq_quality, mode=freq_mode,

@@ -158,3 +158,46 @@ def init_random_(model: nn.Module, seed: int, scale: float = 1.0) -> nn.Module:
                     r += 1.0
                 param.copy_(r)
     return model
+
+
+# parameters whose JAX initializer is xavier_uniform / normal(0.02) / zeros;
+# every other weight is a default nn.Dense kernel (lecun_normal), every bias
+# is zero and every norm scale one
+_XAVIER = ("s_embedder.proj.weight", "x_embedder.embedder.0.weight", "dec_net.input_proj.weight",
+           "dec_net.cond_embed.weight", ".mlp.0.weight", ".mlp.2.weight")
+_NORMAL_002 = ("y_embedder.embedding_table.weight", "t_embedder.mlp.0.weight",
+               "t_embedder.mlp.2.weight")
+_ZEROS = (".adaLN_modulation.1.weight", "dec_net.final_layer.linear.weight")
+
+
+def init_like_jax_(model: nn.Module, seed: int) -> nn.Module:
+    """Draw every parameter from the distribution the JAX ``DeCoC2I``'s
+    initializers use for it (the reference model's): lecun-normal
+    (truncated) trunk kernels, xavier-uniform embedders and decoder MLPs,
+    normal(0.02) label table and timestep MLP, zero biases, zero decoder
+    modulations and final linear, unit norm scales. The values come from a
+    CPU generator seeded with ``seed``, so they do not depend on the device;
+    they are not the JAX package's values (another generator)."""
+    gen = torch.Generator().manual_seed(seed)
+    norms = {m for m in model.modules() if isinstance(m, (layers.RMSNorm, layers.LayerNorm))}
+    with torch.no_grad():
+        for module_name, module in model.named_modules():
+            for pname, param in module.named_parameters(recurse=False):
+                name = f"{module_name}.{pname}"
+                r = torch.empty(param.shape, dtype=torch.float32)
+                if module in norms and pname == "weight":
+                    r.fill_(1.0)
+                elif pname == "bias" or name.endswith(_ZEROS):
+                    r.zero_()
+                elif name.endswith(_NORMAL_002):
+                    r.normal_(0.0, 0.02, generator=gen)
+                elif name.endswith(_XAVIER):
+                    fan_out, fan_in = param.shape
+                    bound = (6.0 / (fan_in + fan_out)) ** 0.5
+                    r.uniform_(-bound, bound, generator=gen)
+                else:  # flax lecun_normal: truncated at 2 std, rescaled to unit variance
+                    std = (1.0 / param.shape[1]) ** 0.5 / 0.87962566103423978
+                    nn.init.trunc_normal_(r, 0.0, std, -2 * std, 2 * std, generator=gen)
+                param.copy_(r)
+    return model
+

@@ -7,8 +7,9 @@
 Builds ``DeCoC2I`` at the preset's width with seeded random weights (or a
 reference-layout checkpoint, see ``convert.load_checkpoint``), samples with
 the Euler CFG sampler in bf16, and writes ``arr_0`` as uint8 NHWC to
-``--out``. Labels cycle over the classes; sample ``i`` starts from
-``seeded_noise(seed + i)``. Prints one JSON line with the throughput and the
+``--out``. Image ``i`` is item ``i`` of the FID protocol (class ``i // 50``,
+noise seed ``i % 50``), as in the CLI predict; ``--seed`` seeds the random
+weights. Prints one JSON line with the throughput and the
 card it ran on.
 """
 
@@ -23,7 +24,7 @@ import torch
 
 from deco_tpu_torch._device import card_info, resolve_device
 from deco_tpu_torch.convert import load_checkpoint
-from deco_tpu_torch.data.randn import seeded_noise
+from deco_tpu_torch.data.randn import ClassLabelRandomNDataset
 from deco_tpu_torch.diffusion.sampling import EulerSampler
 from deco_tpu_torch.diffusion.scheduling import LinearScheduler
 from deco_tpu_torch.models.autoencoders import PixelAE, fp_to_uint8
@@ -64,19 +65,24 @@ def build_sampler(preset: str, steps: int) -> EulerSampler:
 
 @torch.no_grad()
 def generate(model: DeCoC2I, sampler: EulerSampler, num_images: int, batch: int,
-             seed: int, image_size: int, device="cuda") -> torch.Tensor:
-    """Sample ``num_images`` images in batches: decoded float32 (N, H, W, C)
-    on the CPU, nominally in [-1, 1] (``fp_to_uint8`` makes the stored form)."""
+             image_size: int, device="cuda", max_num_instances: int = 50000) -> torch.Tensor:
+    """Sample the first ``num_images`` items of the FID protocol in batches:
+    item ``i`` of ``ClassLabelRandomNDataset`` (class ``i // num_seeds``,
+    noise seed ``i % num_seeds``, as the CLI predict pairs them). Returns the
+    decoded float32 (N, H, W, C) on the CPU, nominally in [-1, 1]
+    (``fp_to_uint8`` makes the stored form)."""
     dev = resolve_device(device)
     num_classes = model.y_embedder.embedding_table.num_embeddings - 1
+    dataset = ClassLabelRandomNDataset(latent_shape=(model.in_channels, image_size, image_size),
+                                       num_classes=num_classes,
+                                       max_num_instances=max_num_instances)
     conditioner = LabelConditioner(num_classes)
     ae = PixelAE()
-    chw = (model.in_channels, image_size, image_size)
     out = []
     for start in range(0, num_images, batch):
-        idx = range(start, min(start + batch, num_images))
-        noise = torch.from_numpy(np.stack([seeded_noise(seed + i, chw) for i in idx])).to(dev)
-        cond, uncond = conditioner([i % num_classes for i in idx])
+        items = [dataset[i] for i in range(start, min(start + batch, num_images))]
+        noise = torch.from_numpy(np.stack([latent for latent, _, _ in items])).to(dev)
+        cond, uncond = conditioner([label for _, label, _ in items])
         x = sampler(model, noise, cond.to(dev), uncond.to(dev))
         out.append(ae.decode(x).cpu())
     return torch.cat(out)
@@ -98,7 +104,7 @@ def main(argv=None):
     model = build_model(args.preset, device=dev, seed=args.seed, weights=args.weights)
     sampler = build_sampler(args.preset, args.steps)
     t0 = time.perf_counter()
-    images = generate(model, sampler, args.num_images, args.batch, args.seed,
+    images = generate(model, sampler, args.num_images, args.batch,
                       PRESETS[args.preset]["image_size"], device=dev)
     seconds = time.perf_counter() - t0  # generate() ends in a copy to the host
     images = fp_to_uint8(images).numpy()

@@ -1,0 +1,153 @@
+"""Run-loop hooks: sample images, the ADM npz, scalar logs
+(``deco_tpu/train/hooks.py``).
+
+- :class:`SaveImagesHook`: each sample's ``save_fn`` on a thread pool (up
+  to ``max_save_images``), and with ``save_compressed`` every image into
+  ``output.npz`` under key ``arr_0``, the file the ADM FID suite reads.
+- :class:`ScalarLogger`: step scalars to ``metrics.jsonl``, one JSON object
+  a line with ``step``, ``time`` and each metric, and to TensorBoard when
+  ``torch.utils.tensorboard`` imports.
+- :class:`ImageLogger`: sample panels as PNG under ``images/``.
+
+One process writes everything. W&B logging and ``ComputeMetricsHook``
+(PSNR/SSIM/FID) are not ported; the loop rejects configs that ask for them.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
+import numpy as np
+
+from deco_tpu_torch.utils import png
+
+
+def _tensorboard(logdir: str):
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:  # the tensorboard package is optional
+        return None
+    return SummaryWriter(logdir)
+
+
+class SaveImagesHook:
+    def __init__(self, save_dir: str, save_compressed: bool = False,
+                 max_save_images: int = 10, num_threads: int = 8):
+        self.save_dir = save_dir
+        self.save_compressed = save_compressed
+        self.max_save_images = max_save_images
+        self.num_threads = num_threads
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._accum = []
+        self._saved = 0
+        self._futures = []
+
+    def on_predict_start(self, workdir: str, step: int = 0):
+        self.root = os.path.join(workdir, self.save_dir, f"iter_{step}")
+        os.makedirs(self.root, exist_ok=True)
+        self._pool = ThreadPoolExecutor(max_workers=self.num_threads)
+        self._accum = []
+        self._saved = 0
+        self._futures = []
+
+    def on_predict_batch_end(self, images_uint8: np.ndarray, metadata: dict):
+        """images: (B, H, W, 3) uint8 on the host; metadata from the loader's collate."""
+        batch = images_uint8.shape[0]
+        save_fns = metadata.get("save_fn", [None] * batch)
+
+        def per_sample(v, i):
+            if isinstance(v, list):
+                return v[i] if len(v) == batch else v
+            if isinstance(v, np.ndarray):
+                return v[i] if v.ndim >= 1 and len(v) == batch else v
+            return v
+
+        for i in range(batch):
+            md = {k: per_sample(v, i) for k, v in metadata.items() if k != "save_fn"}
+            fn = save_fns[i] if isinstance(save_fns, list) else save_fns
+            if fn is not None and self._saved < self.max_save_images:
+                self._futures.append(self._pool.submit(fn, images_uint8[i], md, self.root))
+                self._saved += 1
+        if self.save_compressed:
+            self._accum.append(images_uint8)
+
+    def on_predict_end(self) -> Optional[str]:
+        """Waits for the image writes; returns the npz path (or None)."""
+        try:
+            for f in self._futures:
+                f.result()
+        finally:
+            self._pool.shutdown()
+        if not self.save_compressed or not self._accum:
+            return None
+        out_path = os.path.join(self.root, "output.npz")
+        np.savez(out_path, arr_0=np.concatenate(self._accum, axis=0))  # ADM suite: key arr_0
+        return out_path
+
+
+class ImageLogger:
+    """Predict-time sample panels as PNG under ``<workdir>/<subdir>`` (and
+    TensorBoard when a writer is given)."""
+
+    def __init__(self, workdir: str, subdir: str = "images", max_images: int = 16,
+                 tb_writer=None):
+        self.root = os.path.join(workdir, subdir)
+        os.makedirs(self.root, exist_ok=True)
+        self.max_images = max_images
+        self._tb = tb_writer
+        self._count = 0
+
+    def _write(self, panel_uint8: np.ndarray, name: str, step: int):
+        png.write(os.path.join(self.root, f"{name}_step{step}_{self._count:03d}.png"),
+                  panel_uint8)
+        if self._tb is not None:
+            self._tb.add_image(f"images/{name}", panel_uint8, step, dataformats="HWC")
+
+    def log_images(self, step: int, images_uint8: np.ndarray, name: str = "samples"):
+        """(B, H, W, 3) uint8 generated samples, one panel each."""
+        n = min(len(images_uint8), self.max_images - self._count)
+        for i in range(max(n, 0)):
+            self._write(images_uint8[i], name, step)
+            self._count += 1
+
+
+class ScalarLogger:
+    """``metrics.jsonl`` + optional TensorBoard step-scalar logger.
+
+    :meth:`log` converts the metrics (0-d tensors on the card) to floats only
+    on log steps, so other steps read nothing back from the device.
+    """
+
+    def __init__(self, workdir: str, use_tensorboard: bool = True,
+                 log_every_n_steps: int = 50):
+        os.makedirs(workdir, exist_ok=True)
+        self.path = os.path.join(workdir, "metrics.jsonl")
+        self._fh = open(self.path, "a")
+        self.log_every_n_steps = log_every_n_steps
+        self._tb = _tensorboard(os.path.join(workdir, "tb")) if use_tensorboard else None
+        self._t0 = time.time()
+
+    def log(self, step: int, metrics: dict, force: bool = False):
+        if not force and step % self.log_every_n_steps != 0:
+            return
+        record = {"step": int(step), "time": round(time.time() - self._t0, 3)}
+        for k, v in metrics.items():
+            try:
+                record[k] = float(v)
+            except (TypeError, ValueError):
+                continue
+        self._fh.write(json.dumps(record) + "\n")
+        self._fh.flush()
+        if self._tb is not None:
+            for k, v in record.items():
+                if k not in ("step", "time"):
+                    self._tb.add_scalar(k, v, step)
+
+    def close(self):
+        self._fh.close()
+        if self._tb is not None:
+            self._tb.close()

@@ -1,0 +1,230 @@
+"""Experiment orchestration: config -> model, trainer, sampler, data ->
+fit / predict (``deco_tpu/train/loop.py`` ``Experiment``).
+
+- The workdir is ``<trainer.default_root_dir>/<tags.exp>``; a workdir that
+  is not empty is refused unless the run resumes. Each run writes the
+  config it ran as ``config.yaml``.
+- fit: the folder dataset through the loader, the train step (loss,
+  gradients, clip, AdamW, EMA) with a generator seeded from (seed, step),
+  ``metrics.jsonl``, step checkpoints, a resume that continues the data
+  order, a save on exception and at the end, and SIGTERM as a stop request.
+- predict: the seeded-noise dataset, the config's sampler on the EMA
+  weights, ``vae.decode``, ``fp_to_uint8``, per-sample PNGs and the ADM
+  ``output.npz``, with the next batch launched before the last is read back.
+
+The model keeps fp32 parameters and computes in the config's ``dtype``
+(bf16 unless overridden) on ``device``; a run that does not restore draws
+them from the JAX initializers' distributions, seeded by ``seed``. Neither loop reads a tensor back
+from the card on every step: fit reads the metrics on log steps only, and
+waits on a CUDA event ``_TRAIN_RUNAHEAD`` steps back so the host runs ahead
+of the card by a bounded number of steps.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import deque
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from deco_tpu_torch._device import resolve_device
+from deco_tpu_torch.config import _yaml, registry
+from deco_tpu_torch.data.loader import make_loader
+from deco_tpu_torch.models.autoencoders import fp_to_uint8
+from deco_tpu_torch.models.dit_c2i_deco import init_like_jax_
+from deco_tpu_torch.train.checkpoint import CheckpointManager
+from deco_tpu_torch.train.hooks import ImageLogger, SaveImagesHook, ScalarLogger
+from deco_tpu_torch.train.train_step import make_train_step
+from deco_tpu_torch.utils.pipeline import pipelined_map
+from deco_tpu_torch.utils.preemption import PreemptionGuard
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s generator: a pure function of (seed, step),
+    so a resumed run draws what an uninterrupted one would."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+
+
+class Experiment:
+    # steps the host may launch ahead of the card in fit()
+    _TRAIN_RUNAHEAD = 2
+
+    def __init__(self, config: Dict[str, Any], workdir: Optional[str] = None,
+                 resume: bool = False, device="cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        model_cfg = config["model"]
+        if "conditioner" not in model_cfg:
+            raise registry.not_ported("ImageConditioner (configs without a conditioner)", 8)
+        self.vae = registry.instantiate(model_cfg["vae"])
+        self.model = self._build_model(model_cfg["denoiser"])
+        self.conditioner = registry.instantiate(model_cfg["conditioner"])
+        self.trainer = registry.instantiate(model_cfg["diffusion_trainer"])
+        self.sampler = registry.instantiate(model_cfg["diffusion_sampler"])
+        self.ema_cfg = registry.instantiate(
+            model_cfg.get("ema_tracker", {"class_path": "src.callbacks.simple_ema.SimpleEMA"}))
+        self.opt_cfg = registry.instantiate(
+            model_cfg.get("optimizer", {"class_path": "torch.optim.AdamW"}))
+        self.seed = int(config.get("seed", 0))
+        trainer_cfg = config.get("trainer", {})
+        self.max_steps = trainer_cfg.get("max_steps", 100)
+        self.ckpt_every = 10000
+        self.log_every = trainer_cfg.get("log_every_n_steps", 50)
+        self.grad_clip = trainer_cfg.get("gradient_clip_val")
+        self.accumulate_grad_batches = trainer_cfg.get("accumulate_grad_batches", 1)
+        self.save_images_cfg = {"save_dir": "val"}
+        for cb in trainer_cfg.get("callbacks", []):
+            cp, args = cb.get("class_path", ""), cb.get("init_args") or {}
+            if cp.endswith("CheckpointHook"):
+                self.ckpt_every = args.get("every_n_train_steps", self.ckpt_every)
+            elif cp.endswith("SaveImagesHook"):
+                self.save_images_cfg = dict(args)
+            elif cp.endswith("ComputeMetricsHook"):
+                raise registry.not_ported(cp, 4)
+            else:
+                raise ValueError(f"callback {cp!r}: the port knows CheckpointHook, "
+                                 "SaveImagesHook and ComputeMetricsHook")
+        logger = trainer_cfg.get("logger") or {}
+        if "WandbLogger" in str(logger.get("class_path", "")):
+            raise registry.not_ported(logger["class_path"], 10)
+        # the reference LightningModel's default; the shipped configs set 1 or 4
+        self.diffusion_batch_mul = model_cfg.get("diffusion_batch_mul", 4)
+
+        exp_name = config.get("tags", {}).get("exp", "exp")
+        root = trainer_cfg.get("default_root_dir", "./workdirs")
+        self.workdir = workdir or os.path.join(root, exp_name)
+        if os.path.isdir(self.workdir) and os.listdir(self.workdir) and not resume:
+            raise FileExistsError(f"workdir {self.workdir} is not empty; pass resume=True or "
+                                  "--ckpt_path to continue")
+        os.makedirs(self.workdir, exist_ok=True)
+        with open(os.path.join(self.workdir, "config.yaml"), "w") as f:
+            f.write(_yaml.dump(self.config))
+
+    def _build_model(self, node: dict):
+        """The denoiser with fp32 parameters on this experiment's device."""
+        args = dict(node.get("init_args") or {}, device=str(self.device), param_dtype="float32")
+        return registry.instantiate({**node, "init_args": args})
+
+    def _to_device(self, array) -> torch.Tensor:
+        t = torch.as_tensor(array)
+        if self.device.type == "cuda":
+            # a pinned source lets the copy run without waiting for the card
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _condition(self, by, bmeta):
+        cond, uncond = self.conditioner(by, bmeta)
+        return self._to_device(cond), self._to_device(uncond)
+
+    # ---- fit ----
+
+    def fit(self, ckpt_path: Optional[str] = None, max_steps: Optional[int] = None):
+        data_cfg = self.config["data"]
+        dataset = registry.instantiate(data_cfg["train_dataset"])
+        batch_size = data_cfg.get("train_batch_size", 32) * self.accumulate_grad_batches
+        loader = make_loader(dataset, batch_size,
+                             num_workers=data_cfg.get("train_num_workers", 4), infinite=True)
+        init_like_jax_(self.model, self.seed)  # before the EMA copies the parameters
+        state = self.opt_cfg.create_state(self.model.train())
+        ckpt = CheckpointManager(os.path.join(self.workdir, "checkpoints"),
+                                 every_n_steps=self.ckpt_every)
+        if ckpt_path:
+            CheckpointManager(ckpt_path, 0).restore(state)
+        elif ckpt.latest_step() is not None:
+            ckpt.restore(state)
+        if state.step:
+            # one loader batch per step, and the shuffle is a pure function of
+            # (seed, epoch): the resumed run takes the batches the interrupted
+            # run would have taken
+            loader.set_position(state.step)
+        step_fn = make_train_step(
+            self.trainer, ema_decay=self.ema_cfg.decay, ema_every=self.ema_cfg.every_n_steps,
+            diffusion_batch_mul=self.diffusion_batch_mul, grad_clip=self.grad_clip,
+            accumulate_grad_batches=self.accumulate_grad_batches)
+        logger = ScalarLogger(self.workdir, log_every_n_steps=self.log_every)
+        limit = max_steps if max_steps is not None else self.max_steps
+        inflight: deque = deque()
+        try:
+            with PreemptionGuard() as preempt:
+                for bx, by, bmeta in loader:
+                    if state.step >= limit or preempt.requested:
+                        break
+                    cond, uncond = self._condition(by, bmeta)
+                    batch = dict(x=self._to_device(bx), condition=cond, uncondition=uncond)
+                    gen = torch.Generator(device=self.device).manual_seed(
+                        step_seed(self.seed, state.step))
+                    step = state.step
+                    metrics = step_fn(state, batch, gen)
+                    logger.log(step, metrics)
+                    ckpt.maybe_save(state)
+                    if self.device.type == "cuda":
+                        inflight.append(torch.cuda.Event())
+                        inflight[-1].record()
+                        if len(inflight) > self._TRAIN_RUNAHEAD:
+                            inflight.popleft().synchronize()
+        except BaseException:
+            ckpt.maybe_save(state, force=True)  # crash and preemption recovery
+            raise
+        finally:
+            logger.close()
+        ckpt.maybe_save(state, force=True)
+        return state
+
+    # ---- predict ----
+
+    @torch.no_grad()
+    def predict(self, state=None, ckpt_path: Optional[str] = None, use_ema: bool = True,
+                max_batches: Optional[int] = None, dataset_key: str = "pred_dataset"):
+        """Sample the ``dataset_key`` dataset with the EMA weights (of
+        ``state``, of the checkpoint under ``ckpt_path``, or the model's own);
+        returns the ``output.npz`` path (or None without ``save_compressed``)."""
+        data_cfg = self.config["data"]
+        dataset = registry.instantiate(data_cfg[dataset_key])
+        loader = make_loader(dataset, data_cfg.get("pred_batch_size", 32), shuffle=False,
+                             drop_last=True, num_workers=data_cfg.get("pred_num_workers", 1))
+        step, kept = 0, None
+        if state is not None:
+            step = state.step
+            if use_ema and state.ema_params is not None:
+                # sample with the EMA in the model's parameters; the trained
+                # parameters come back at the end
+                kept = [p.clone() for p in self.model.parameters()]
+                torch._foreach_copy_(list(self.model.parameters()), state.ema_params)
+        elif ckpt_path:
+            step = CheckpointManager(ckpt_path, 0).restore_params(self.model, use_ema=use_ema)
+        else:
+            init_like_jax_(self.model, self.seed)
+        model = self.model.eval()
+        hook = SaveImagesHook(**self.save_images_cfg)
+        hook.on_predict_start(self.workdir, step)
+        imlog = ImageLogger(self.workdir)
+
+        def batches():
+            for bi, (bx, by, bmeta) in enumerate(loader):
+                if max_batches is not None and bi >= max_batches:
+                    return
+                cond, uncond = self._condition(by, bmeta)
+                yield bi, bmeta, self._to_device(bx), cond, uncond
+
+        def dispatch(b):
+            _, _, noise, cond, uncond = b
+            images = self.vae.decode(self.sampler(model, noise, cond, uncond))
+            return fp_to_uint8(images)
+
+        def consume(u8, b):
+            bi, bmeta = b[0], b[1]
+            u8 = u8.cpu().numpy()  # waits for this batch only
+            hook.on_predict_batch_end(u8, bmeta)
+            if bi == 0:
+                imlog.log_images(step, u8)
+
+        try:
+            pipelined_map(batches(), dispatch, consume,
+                          depth=int(data_cfg.get("pred_pipeline_depth", 1)))
+        finally:
+            if kept is not None:
+                torch._foreach_copy_(list(self.model.parameters()), kept)
+            npz = hook.on_predict_end()  # waits for the image writes
+        return npz

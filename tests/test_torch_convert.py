@@ -61,8 +61,9 @@ def test_reference_checkpoint_file_loads(tmp_path):
 
 def test_port_sources_import_no_jax():
     """The port runs on a host without JAX: no module of deco_tpu_torch and
-    not chip_smoke.py imports jax, flax or the JAX package."""
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|deco_tpu)\b", re.M)
+    not chip_smoke.py imports jax, flax, optax, orbax, the JAX package, or
+    PyYAML and PIL (which that host lacks too)."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|deco_tpu|yaml|PIL)\b", re.M)
     files = sorted((ROOT / "deco_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]

@@ -218,3 +218,86 @@ def test_fit_step_on_card(cuda_device):
                      num_cond_blocks=2, num_blocks=5)
     assert all(map(lambda x: x == x and abs(x) < float("inf"), result["losses"]))
     assert result["grad_norms"][0] > 0
+
+
+def _png_folder(root, classes=2, per_class=2):
+    """A PNG image folder written with the port's encoder (the card's host has no PIL)."""
+    import numpy as np
+
+    from deco_tpu_torch.utils import png
+
+    rng = np.random.default_rng(0)
+    for c in range(classes):
+        (root / f"c{c}").mkdir(parents=True)
+        for i in range(per_class):
+            png.write(str(root / f"c{c}" / f"{i}.png"),
+                      rng.integers(0, 256, (288, 320, 3), dtype=np.uint8))
+    return str(root)
+
+
+CUT_DEPTH = ["--model.denoiser.init_args.num_cond_blocks=2",
+             "--model.denoiser.init_args.num_blocks=5"]
+KERNELS = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+           block_dct.freq_mse, fa.flash_attention)
+
+
+def _cli_args(tmp):
+    import os
+
+    config = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "configs_c2i", "DeCo_XL_freq.yaml")
+    return ["-c", config, *CUT_DEPTH, f"--trainer.default_root_dir={tmp / 'work'}"]
+
+
+@pytest.fixture(scope="module")
+def cli_fit_on_card(tmp_path_factory):
+    """DeCo_XL_freq.yaml through the CLI at full width with a 2-block trunk:
+    two train steps at batch 2; the kernels' launches during the fit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU and nvcc")
+    from deco_tpu_torch import cli
+
+    tmp = tmp_path_factory.mktemp("cli")
+    for f in KERNELS:
+        f.launches = 0
+    cli.main(["fit", *_cli_args(tmp), "--max_steps", "2", "--data.train_batch_size=2",
+              f"--data.train_dataset.init_args.root={_png_folder(tmp / 'images')}",
+              "--trainer.log_every_n_steps=1"])
+    torch.cuda.synchronize()
+    return tmp, [f.launches for f in KERNELS]
+
+
+@pytest.mark.cuda
+def test_cli_fit_runs_the_kernels_on_card(cli_fit_on_card):
+    """Per step, with full remat: 4 forward-with-lse, 2 dQ, 2 dK/dV and 1
+    frequency-MSE launches; finite losses and a checkpoint."""
+    import json
+
+    import numpy as np
+
+    tmp, launches = cli_fit_on_card
+    assert launches == [8, 4, 4, 2, 0]
+    workdir = tmp / "work" / "DeCo_256_XL_freq"
+    losses = [json.loads(line)["loss"] for line in open(workdir / "metrics.jsonl")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert (workdir / "checkpoints" / "2.pt").exists()
+
+
+@pytest.mark.cuda
+def test_cli_predict_runs_the_kernels_on_card(cli_fit_on_card):
+    """One predict batch of 2 from the fit's checkpoint, 3 Euler steps: one
+    forward launch per block and network call, and a uint8 output.npz."""
+    import numpy as np
+
+    from deco_tpu_torch import cli
+
+    tmp, _ = cli_fit_on_card
+    for f in KERNELS:
+        f.launches = 0
+    checkpoints = tmp / "work" / "DeCo_256_XL_freq" / "checkpoints"
+    out = cli.main(["predict", *_cli_args(tmp), f"--ckpt_path={checkpoints}",
+                    "--max_batches", "1", "--data.pred_batch_size=2",
+                    "--model.diffusion_sampler.init_args.num_steps=3"])
+    assert [f.launches for f in KERNELS] == [0, 0, 0, 0, 2 * 3]
+    images = np.load(out)["arr_0"]
+    assert images.shape == (2, 256, 256, 3) and images.dtype == np.uint8 and images.std() > 0

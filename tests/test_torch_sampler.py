@@ -115,3 +115,29 @@ def test_flops_match_jax_and_h100_peaks():
     assert tflops.card_peaks("NVIDIA H100 PCIe") == (756e12, 2.0e12)
     with pytest.raises(ValueError):
         tflops.card_peaks("NVIDIA A100-SXM4-80GB")
+
+
+def test_generate_pairs_classes_and_seeds_as_the_fid_protocol():
+    """``sample.generate`` image i is item i of the JAX package's
+    ClassLabelRandomNDataset: class i // num_seeds, noise seed i % num_seeds
+    (here 2 seeds a class, so images 0-4 are classes 0, 0, 1, 1, 2)."""
+    from deco_tpu.data.randn import ClassLabelRandomNDataset as JaxProtocol
+    from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I, init_random_
+    from deco_tpu_torch.sample import generate
+
+    model = init_random_(DeCoC2I(**TINY_C2I, dtype=torch.float32, device="cpu").eval(), 3)
+    _, ts = _samplers(num_steps=2, guidance=3.2, guidance_interval_min=0.1)
+    chw = (3, TINY_IMAGE, TINY_IMAGE)
+    images = generate(model, ts, 5, 2, TINY_IMAGE, device="cpu",
+                      max_num_instances=2 * TINY_C2I["num_classes"])
+    ref = JaxProtocol(latent_shape=chw, num_classes=TINY_C2I["num_classes"],
+                      max_num_instances=2 * TINY_C2I["num_classes"])
+    conditioner = LabelConditioner(TINY_C2I["num_classes"])
+    expected = []
+    for batch in ([0, 1], [2, 3], [4]):  # generate's batches of 2
+        noise = torch.from_numpy(np.stack([ref[i][0] for i in batch]))
+        cond, uncond = conditioner([ref[i][1] for i in batch])
+        with torch.no_grad():
+            expected.append(ts(model, noise, cond, uncond))
+    assert [ref[i][1] for i in range(5)] == [0, 0, 1, 1, 2]
+    torch.testing.assert_close(images, torch.cat(expected), rtol=0, atol=0)
