@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py [--seed N]   # from the repository root; needs CUDA and nvcc
 
-Drives the port's two main paths at the full width of DeCo-XL/16 256 px,
-class-to-image sampling (``configs_c2i/DeCo_XL.yaml``) and training
-(``configs_c2i/DeCo_XL_freq.yaml``), and holds each hand-written kernel
-against its plain PyTorch version. Phases, in the order they run:
+Drives the port's main paths at the full width of DeCo-XL/16, class-to-image
+sampling (``configs_c2i/DeCo_XL.yaml``) and training
+(``configs_c2i/DeCo_XL_freq.yaml``) at 256 px, and training, sampling and
+FID scoring at 512 px (``configs_c2i/DeCo_XL_512.yaml``), and holds each
+hand-written kernel against its plain PyTorch version. Phases, in the order
+they run:
 
 1. build: compile every ``deco_tpu_torch/csrc/*.cu`` with nvcc (one process
    per source, started together); print the card's name and power limit.
@@ -14,7 +16,8 @@ against its plain PyTorch version. Phases, in the order they run:
    shapes, and bit-identical over two runs at each; time the kernel, the
    plain version, each SDPA backend pinned in turn (flash, efficient,
    cuDNN; the fastest is the yardstick, and the port never calls SDPA) and
-   the roofline bound.
+   the roofline bound, at the sampling shape and at 512 px's (B*H 192,
+   N = 1024).
 3. kernels_train: the forward with logsumexp, the dQ backward (which also
    computes delta = rowsum(dO * O)), the dK/dV backward and the
    frequency-weighted MSE against their plain versions at the training
@@ -26,7 +29,8 @@ against its plain PyTorch version. Phases, in the order they run:
    with their resident CTAs per SM from the CUDA runtime. Times at the
    training shape and at N = 4096 beside the plain versions, the bounds and
    the library yardsticks (each SDPA backend's forward with logsumexp, and
-   SDPA's autograd backward), and the forward without lse at N = 4096.
+   SDPA's autograd backward), and the forward without lse at N = 4096;
+   also held and timed at 512 px's training shape (B*H 256, N = 1024).
 4. model: one full-width DeCo-XL/16 forward at batch 2: finite, and exactly
    one attention launch per trunk block.
 5. slice vs plain: a 4-block trunk, full widths, 8 CFG steps, the same
@@ -56,9 +60,24 @@ against its plain PyTorch version. Phases, in the order they run:
    protocol's file names ``0_0`` ... ``0_9``, exactly 2,800 forward
    launches, and the EMA weights loaded equal to those saved. Step times,
    s/step, the device's idle share and images/s; the folder is deleted.
-10. kernels: one JSON line listing every kernel with its launches on its
+10. cli_512: DeCo-XL/16 at 512 px end to end through the CLI and the
+   eval entry points. ``fit`` on ``configs_c2i/DeCo_XL_512.yaml``
+   unmodified but for the image folder (2 x 48 PNGs of 576x544 and
+   544x640), the work directory and 3 steps: batch 16 x accumulation 2,
+   ``decoder_chunks`` 8, full remat, exactly 112 / 56 / 56 / 0 launches a
+   step; s/step, idle share, peak memory. One more step each under
+   ``trunk_remat_policy`` "attn" (56 forward-with-lse launches), "dots",
+   and with ``decoder_chunks`` 0 (the peak memory chunking saves).
+   ``predict`` from the fit's checkpoint: one batch of 6, 100 Euler steps,
+   CFG 5.0 on (0.1, 1], a (6, 512, 512, 3) uint8 npz, 2,800 forward
+   launches. Then ``eval_fid`` and ``ComputeMetricsHook`` on the card
+   against a reference batch cropped from the folder, with the seed-0
+   random tower, held against the same computations on the CPU; what TF32
+   convolutions would change; the tower's images/s at batch 64.
+11. kernels: one JSON line listing every kernel with its launches on its
    path (sampling for the forward, training for the others) and on the CLI
-   path, error, times, bound, library time and the library call's backend.
+   paths, error, times, bound, library time and the library call's
+   backend, and for the attention kernels the same at N = 1024.
 
 ``python3 chip_smoke.py --calibrate-train-slice`` prints, on the CPU, the two
 readings between which the train-slice gates sit, and no result.
@@ -174,6 +193,7 @@ def phase_kernel(card: str):
         "d64": (4, 256, 256, 16, 64),
         "d128": (2, 256, 256, 8, 128),
         "long": (1, 4096, 4096, 16, 72),  # stands for the JAX streaming variant
+        "s512": (12, 1024, 1024, 16, 72),  # 512 px, CFG at batch 6: B*H = 192, N = 1024
     }
     errs = {}
     for name, shape in shapes.items():
@@ -189,18 +209,20 @@ def phase_kernel(card: str):
         check(errs[name] < ATTN_ATOL, f"flash attention {name} error {errs[name]} >= {ATTN_ATOL}")
         check(torch.equal(out, again), f"flash attention {name} differs between two runs")
 
-    b, nq, nkv, h, d = shapes["main"]
-    q, k, v = qkv(*shapes["main"])
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
-    ms = cuda_ms(lambda: flash_attention(q, k, v), 50, flush)
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 50, flush)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    timing = {"ms": ms, "plain_ms": plain_ms,
-              **sdpa_forward_yardsticks(q, k, v, d ** -0.5, False, flush, 50),
-              **_bound(card, nbytes, 4 * b * h * nq * nkv * d),
-              "l2": "flushed before each call", "card": card}
-    emit({"phase": "kernel", "shape": "main", "timing": timing})
-    return {"max_abs_err": errs["main"], **timing}
+    timings = {}
+    for name, iters in (("main", 50), ("s512", 20)):
+        b, nq, nkv, h, d = shapes[name]
+        q, k, v = qkv(*shapes[name])
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        timings[name] = {
+            "ms": cuda_ms(lambda: flash_attention(q, k, v), iters, flush),
+            "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), iters // 2, flush),
+            **sdpa_forward_yardsticks(q, k, v, d ** -0.5, False, flush, iters),
+            **_bound(card, nbytes, 4 * b * h * nq * nkv * d),
+            "l2": "flushed before each call", "card": card}
+        emit({"phase": "kernel", "shape": name, "timing": timings[name]})
+    return {"max_abs_err": errs["main"], **timings["main"], "n1024": timings["s512"]}
 
 
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
@@ -381,6 +403,8 @@ def phase_kernels_train(card: str):
         "d64": (4, 256, 256, 16, 64),
         "d128": (2, 256, 256, 8, 128),
         "long": (1, 4096, 4096, 16, 72),  # stands for the JAX streaming variants
+        # 512 px training, microbatch 16 (batch 16 x accumulation 2 per step): B*H = 256
+        "t512": (16, 1024, 1024, 16, 72),
     }
     kernel_resource_lines(card)
     errs = {"fwd_lse": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
@@ -438,8 +462,8 @@ def phase_kernels_train(card: str):
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     timings = {}
-    for name, iters in (("train", 50), ("long", 10)):  # long N stands for the streaming rows
-        suffix = "" if name == "train" else "_long"
+    for name, iters in (("train", 50), ("long", 10), ("t512", 20)):  # long: the streaming rows
+        suffix = {"train": "", "long": "_long", "t512": "_512"}[name]
         for kernel, timing in _attention_timings(card, operands(*shapes[name]), flush,
                                                  iters).items():
             timings[kernel + suffix] = timing
@@ -808,9 +832,11 @@ CLI_DIR = "build/chip_smoke_cli"  # git-ignored; deleted at the end of the phase
 CLI_CONFIG = "configs_c2i/DeCo_XL_freq.yaml"
 
 
-def write_image_folder(root: str, seed: int) -> int:
-    """2 classes x 32 PNGs of 320x288 and 288x384 from ``seed``, written with
-    the port's encoder: the ADM crop resamples every one of them."""
+def write_image_folder(root: str, seed: int, per_class: int = 32,
+                       sizes=((320, 288), (288, 384))) -> int:
+    """2 classes x ``per_class`` PNGs of the two ``sizes`` (H, W) in turn,
+    from ``seed``, written with the port's encoder: the ADM crop resamples
+    every one of them."""
     import os
 
     from deco_tpu_torch.utils import png
@@ -819,8 +845,8 @@ def write_image_folder(root: str, seed: int) -> int:
     count = 0
     for c in range(2):
         os.makedirs(f"{root}/class_{c}", exist_ok=True)
-        for i in range(32):
-            h, w = (320, 288) if i % 2 else (288, 384)
+        for i in range(per_class):
+            h, w = sizes[i % 2]
             yy, xx = np.mgrid[0:h, 0:w]
             base = np.stack([xx * 255.0 / w, yy * 255.0 / h, np.full((h, w), 128.0 * c)], -1)
             image = np.clip(base + rng.normal(0, 25, (h, w, 3)), 0, 255).astype(np.uint8)
@@ -855,13 +881,23 @@ class Spy:
         return False
 
 
-def _kernel_busy_ms(prof) -> float:
-    """Device milliseconds in kernels (not copies or fills of memory) in a trace."""
+def _kernel_ms_by_kind(prof) -> dict:
+    """Device milliseconds in kernels (not copies or fills of memory) in a
+    trace, by :func:`_kernel_kind`."""
     from torch.autograd import DeviceType
 
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and not ev.key.startswith(("Memcpy", "Memset", "Optimizer."))) / 1e3
+    by_kind: dict = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and not ev.key.startswith(
+                ("Memcpy", "Memset", "Optimizer.")):
+            kind = _kernel_kind(ev.key)
+            by_kind[kind] = by_kind.get(kind, 0.0) + ev.self_device_time_total / 1e3
+    return by_kind
+
+
+def _kernel_busy_ms(prof) -> float:
+    """Device milliseconds in kernels (not copies or fills of memory) in a trace."""
+    return sum(_kernel_ms_by_kind(prof).values())
 
 
 def phase_cli(card: str, seed: int) -> dict:
@@ -974,6 +1010,263 @@ def phase_cli(card: str, seed: int) -> dict:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
 
 
+CLI_512_DIR = "build/chip_smoke_cli_512"  # git-ignored; deleted at the end of the phase
+CLI_512_CONFIG = "configs_c2i/DeCo_XL_512.yaml"
+# The FID tower on the card (fp32, TF32 off) against the same tower on the
+# CPU: fp32 convolutions summed in other orders (and by other algorithms)
+# agree to ~1e-6 of the largest feature; 1e-4 leaves room for cuDNN's
+# algorithm choice and fails a wrong layer. The FID of 6 against 6 images
+# is a difference of O(1e0-1e2) terms built from those features (float64
+# moments on the host): rel 1e-3. SSIM is an fp32 mean of one depthwise
+# convolution's ratios: rel 1e-5. PSNR comes from float64 sums of integer
+# squares on both sides: equal.
+FEATURE_REL = 1e-4
+FID_REL = 1e-3
+SSIM_REL = 1e-5
+
+
+def _one_step(step, state, batch, gen) -> dict:
+    """One train step under the profiler: seconds (host clock, ended by a
+    synchronize), kernel milliseconds, idle share, peak memory, launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deco_tpu_torch.ops import block_dct
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    kernels = {"fwd_lse": fa.flash_attention_fwd_lse, "bwd_dq": fa.flash_attention_bwd_dq,
+               "bwd_dkv": fa.flash_attention_bwd_dkv, "freq_mse": block_dct.freq_mse,
+               "fwd": fa.flash_attention}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels.values():
+        f.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = float(step(state, batch, gen)["loss"])  # waits for the device
+        seconds = time.perf_counter() - t0
+    by_kind = _kernel_ms_by_kind(prof)
+    busy_ms = sum(by_kind.values())
+    return {"s_per_step": seconds, "loss": loss, "device_kernel_ms": busy_ms,
+            "by_kind_ms": by_kind, "idle_share": 1 - busy_ms / 1e3 / seconds,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {k: f.launches for k, f in kernels.items()}}
+
+
+def _reference_batch(root: str, count: int, size: int) -> np.ndarray:
+    """The first ``count`` images of the folder (sorted), ADM-cropped to ``size``."""
+    import os
+
+    from deco_tpu_torch.data.imagenet import adm_center_crop
+    from deco_tpu_torch.utils import png
+
+    paths = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(root) for f in fs)
+    return np.stack([adm_center_crop(png.read(p), size) for p in paths[:count]])
+
+
+def _fid_of(features: np.ndarray, split: int) -> float:
+    from deco_tpu_torch.train.metrics import FIDStats, frechet_distance
+
+    stats = []
+    for part in (features[:split], features[split:]):
+        s = FIDStats(part.shape[1])
+        s.update(part)
+        stats.append(s.finalize())
+    return frechet_distance(*stats[0], *stats[1])
+
+
+def phase_cli_512(card: str, seed: int) -> dict:
+    """DeCo-XL/16 at 512 px end to end, as users run it: ``cli fit`` on
+    DeCo_XL_512.yaml (decoder_chunks 8, batch 16 x accumulation 2), one more
+    step under each other remat policy and without chunks, ``cli predict``
+    from the fit's checkpoint, then ``eval_fid`` and ``ComputeMetricsHook``
+    on the card against the same computations on the CPU."""
+    import json
+    import os
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deco_tpu_torch import cli, eval_fid
+    from deco_tpu_torch.config import registry
+    from deco_tpu_torch.models import inception
+    from deco_tpu_torch.ops import block_dct
+    from deco_tpu_torch.ops import flash_attention as fa
+    from deco_tpu_torch.train import checkpoint
+    from deco_tpu_torch.train.hooks import ComputeMetricsHook
+    from deco_tpu_torch.train.train_step import make_train_step
+
+    config = registry.load_yaml(CLI_512_CONFIG)
+    denoiser = config["model"]["denoiser"]["init_args"]
+    check(denoiser["decoder_chunks"] == 8 and config["trainer"]["accumulate_grad_batches"] == 2
+          and config["data"]["train_batch_size"] == 16, f"{CLI_512_CONFIG} changed")
+    kernels = {"fwd_lse": fa.flash_attention_fwd_lse, "bwd_dq": fa.flash_attention_bwd_dq,
+               "bwd_dkv": fa.flash_attention_bwd_dkv, "freq_mse": block_dct.freq_mse,
+               "fwd": fa.flash_attention}
+    steps, step_batch = 3, 32  # 16 a microbatch, 2 microbatches a step
+    try:
+        # 3 steps of 32 images: one epoch, every image through the ADM crop to 512
+        images = write_image_folder(f"{CLI_512_DIR}/images", seed, per_class=48,
+                                    sizes=((576, 544), (544, 640)))
+        workroot = f"{CLI_512_DIR}/work"
+        torch.cuda.reset_peak_memory_stats()
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "maybe_save") as saves, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state = cli.main(["fit", "-c", CLI_512_CONFIG,
+                              f"--data.train_dataset.init_args.root={CLI_512_DIR}/images",
+                              f"--trainer.default_root_dir={workroot}", "--max_steps", str(steps),
+                              "--trainer.log_every_n_steps=1"])
+        fit_s = time.perf_counter() - t0
+        fit_launches = {k: f.launches for k, f in kernels.items()}
+        peak_mem = torch.cuda.max_memory_allocated()
+        workdir = f"{workroot}/DeCo_512_XL"
+        records = [json.loads(line) for line in open(f"{workdir}/metrics.jsonl")]
+        ends = [r["time"] for r in records]
+        step_s = [ends[0]] + [b - a for a, b in zip(ends, ends[1:])]
+        busy_ms = _kernel_busy_ms(prof)
+        written = [c for c in saves.calls if c["out"]]
+        model = state.model
+        fit = {"phase": "cli_512_fit", "config": CLI_512_CONFIG, "images": images,
+               "image_size": 512, "batch": step_batch, "microbatch": 16,
+               "decoder_chunks": model.decoder_chunks, "remat": model.trunk_remat_policy,
+               "steps": steps, "losses": [r["loss"] for r in records], "step_s": step_s,
+               "s_per_step": float(np.median(step_s[1:])), "device_kernel_ms": busy_ms,
+               "idle_share": 1 - busy_ms / 1e3 / ends[-1], "peak_mem_bytes": peak_mem,
+               "fit_call_s": fit_s, "launches": fit_launches,
+               "launches_per_step": {k: v / steps for k, v in fit_launches.items()},
+               "checkpoint_save_s": [c["seconds"] for c in written], "card": card,
+               "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl"}
+        emit(fit)
+        check(len(model.blocks) == 28 and model.hidden_size == 1152 and model.num_groups == 16
+              and len(model.dec_net.res_blocks) == 3 and model.patch_size == 16,
+              "the cli fit did not build DeCo-XL/16")
+        check(model.trunk_checkpoint and model.trunk_remat_policy == "full"
+              and model.decoder_chunks == 8, "the 512 config's remat and decoder_chunks")
+        check(len(records) == steps and all(np.isfinite(fit["losses"])), f"cli 512 fit {records}")
+        expected = {"fwd_lse": 112 * steps, "bwd_dq": 56 * steps, "bwd_dkv": 56 * steps,
+                    "freq_mse": 0, "fwd": 0}
+        check(fit_launches == expected, f"cli 512 fit launches {fit_launches}, expected {expected}")
+        check(len(written) == 1, f"{len(written)} checkpoint saves, expected the final one")
+
+        # one more step under each remat policy, and without decoder chunks,
+        # on a batch already on the card (the fit's objective, optimizer and EMA)
+        trainer = registry.instantiate(config["model"]["diffusion_trainer"])
+        step = make_train_step(trainer, ema_decay=0.9999, accumulate_grad_batches=2)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.rand(step_batch, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
+        labels = torch.arange(step_batch, device="cuda") % 1000
+        batch = dict(x=x, condition=labels, uncondition=torch.full_like(labels, 1000))
+        variants = {}
+        for policy, chunks in (("full", 8), ("attn", 8), ("dots", 8), ("full", 0)):
+            model.trunk_remat_policy, model.decoder_chunks = policy, chunks
+            row = _one_step(step, state, batch, gen)
+            variants[f"{policy}_chunks{chunks}"] = row
+            emit({"phase": "cli_512_step", "remat": policy, "decoder_chunks": chunks,
+                  "batch": step_batch, "microbatch": 16, **row, "card": card,
+                  "note": "one step on a batch on the card, under torch.profiler"})
+            check(np.isfinite(row["loss"]), f"{policy}/{chunks}: loss not finite")
+            lse = 56 if policy == "attn" else 112
+            want = {"fwd_lse": lse, "bwd_dq": 56, "bwd_dkv": 56, "freq_mse": 0, "fwd": 0}
+            check(row["launches"] == want, f"{policy}/{chunks} launches {row['launches']}, "
+                                           f"expected {want}")
+        model.trunk_remat_policy, model.decoder_chunks = "full", 8
+        del state, model, step, batch, x
+        torch.cuda.empty_cache()
+
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "restore_params") as restores:
+            out = cli.main(["predict", "-c", CLI_512_CONFIG,
+                            f"--trainer.default_root_dir={workroot}",
+                            f"--ckpt_path={workdir}/checkpoints", "--max_batches", "1"])
+        predict_s = time.perf_counter() - t0
+        sampling_s = time.perf_counter() - restores.calls[0]["end"]
+        pred_launches = {k: f.launches for k, f in kernels.items()}
+        samples = np.load(out)["arr_0"]
+        emit({"phase": "cli_512_predict", "config": CLI_512_CONFIG, "batch": int(samples.shape[0]),
+              "steps": config["model"]["diffusion_sampler"]["init_args"]["num_steps"],
+              "guidance": config["model"]["diffusion_sampler"]["init_args"]["guidance"],
+              "predict_call_s": predict_s, "sampling_s": sampling_s,
+              "images_per_s": samples.shape[0] / sampling_s, "launches": pred_launches,
+              "npz_shape": list(samples.shape), "npz_dtype": str(samples.dtype),
+              "pixel_std": float(samples.std()), "card": card})
+        check(samples.shape == (6, 512, 512, 3) and samples.dtype == np.uint8,
+              f"npz {samples.shape} {samples.dtype}")
+        check(samples.std() > 0, "constant output.npz")
+        check(pred_launches["fwd"] == 2800 and sum(pred_launches.values()) == 2800,
+              f"cli 512 predict launches {pred_launches}, expected 2800 forward")
+        torch.cuda.empty_cache()
+
+        # score: eval_fid and ComputeMetricsHook on the card, each against the
+        # same computation on the CPU, with the tower drawn from seed 0
+        reference = _reference_batch(f"{CLI_512_DIR}/images", len(samples), 512)
+        ref_path = f"{CLI_512_DIR}/reference.npz"
+        np.savez(ref_path, arr_0=reference)
+        t0 = time.perf_counter()
+        fid_card = eval_fid.main([out, ref_path])
+        eval_s = time.perf_counter() - t0
+        fid_cpu = eval_fid.main([out, ref_path, "--device", "cpu"])
+        both = np.concatenate([samples, reference]).astype(np.float32) / 255.0
+        tower_cpu = inception.random_inception(0, device="cpu")
+        tower_card = inception.random_inception(0, device="cuda")
+        feats_cpu = inception.compute_fid_features(both, tower_cpu)
+        feats_card = inception.compute_fid_features(both, tower_card)
+        feature_rel = float(np.abs(feats_card - feats_cpu).max() / np.abs(feats_cpu).max())
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True  # what TF32 convolutions would give
+        try:
+            with torch.no_grad():
+                feats_tf32 = tower_card._features(torch.from_numpy(both).cuda()).cpu().numpy()
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        tf32_rel = float(np.abs(feats_tf32 - feats_cpu).max() / np.abs(feats_cpu).max())
+        n = len(samples)
+        hook_card = ComputeMetricsHook(device="cuda")
+        hook_cpu = ComputeMetricsHook(device="cpu", inception=tower_cpu)
+        for hook in (hook_card, hook_cpu):
+            hook.on_batch_end(samples, reference)
+        scores_card, scores_cpu = hook_card.on_epoch_end(), hook_cpu.on_epoch_end()
+        x64 = torch.rand(64, 512, 512, 3, device="cuda")
+        with torch.no_grad():
+            tower_ms = cuda_ms(lambda: tower_card(x64), 10)
+
+        def rel(a, b):
+            return abs(a - b) / abs(b)
+
+        score = {"phase": "cli_512_score", "samples": n, "reference": len(reference),
+                 "tower": "random, seed 0 (no published weights in the repository)",
+                 "fid_card": fid_card, "fid_cpu": fid_cpu, "fid_rel": rel(fid_card, fid_cpu),
+                 "fid_from_features_cpu": _fid_of(feats_cpu, n),
+                 "feature_max_rel_err": feature_rel, "feature_rel_limit": FEATURE_REL,
+                 "fid_rel_limit": FID_REL, "tf32_feature_max_rel_err": tf32_rel,
+                 "tf32_fid": _fid_of(feats_tf32, n),
+                 "tf32_fid_rel": rel(_fid_of(feats_tf32, n), _fid_of(feats_cpu, n)),
+                 "hook_card": scores_card, "hook_cpu": scores_cpu,
+                 "eval_fid_card_s": eval_s, "tower_ms_batch64": tower_ms,
+                 "tower_images_per_s": 64 / tower_ms * 1e3,
+                 "tower_note": "2048-d, fp32, TF32 off, 512 px inputs, CUDA events", "card": card}
+        emit(score)
+        check(np.isfinite([fid_card, fid_cpu]).all(), "FID not finite")
+        check(feature_rel < FEATURE_REL, f"tower features card vs CPU {feature_rel}")
+        check(rel(fid_card, fid_cpu) < FID_REL, f"eval_fid card {fid_card} vs CPU {fid_cpu}")
+        check(scores_card["metrics/psnr"] == scores_cpu["metrics/psnr"], "hook PSNR card vs CPU")
+        check(rel(scores_card["metrics/ssim"], scores_cpu["metrics/ssim"]) < SSIM_REL,
+              "hook SSIM card vs CPU")
+        check(rel(scores_card["metrics/fid"], scores_cpu["metrics/fid"]) < FID_REL,
+              "hook FID card vs CPU")
+        check(rel(scores_card["metrics/fid"], fid_card) < FID_REL, "hook FID vs eval_fid")
+        print(card, flush=True)
+        return {"fit": fit_launches, "predict": pred_launches,
+                "attn": variants["attn_chunks8"]["launches"]}
+    finally:
+        shutil.rmtree(CLI_512_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -999,17 +1292,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase_train(card)
     cli_launches = phase_cli(card, seed)
+    torch.cuda.empty_cache()
+    cli_512_launches = phase_cli_512(card, seed)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    n1024 = {"fwd": kernel["n1024"], "fwd_lse": train_times.get("fwd_lse_512"),
+             "bwd_dq": train_times.get("bwd_dq_512"), "bwd_dkv": train_times.get("bwd_dkv_512")}
 
     def row(name, source, replaces, launches, err, timing):
-        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         key = {"flash_attention_fwd": "fwd"}.get(name, name.replace("flash_attention_", ""))
         path = "predict" if key == "fwd" else "fit"
+        extra = {}
+        if n1024.get(key):  # the 512 px shape, N = 1024
+            extra["n1024"] = {k: v for k, v in n1024[key].items() if k in keys + (
+                "library_backend", "whole_backward_ms", "sdpa_backward_ms")}
         return {"name": name, "route": "cuda", "source": f"deco_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 f"cli_{path}_launches": cli_launches[path][key],
+                f"cli_512_{path}_launches": cli_512_launches[path][key],
                 **{k: timing[k] for k in keys},
                 "library_backend": timing.get("library_backend"),
-                **{k: v for k, v in timing.items() if k.endswith("backward_ms")}}
+                **{k: v for k, v in timing.items() if k.endswith("backward_ms")}, **extra}
 
     emit({"kernels": [
         row("flash_attention_fwd", "flash_attention_fwd.cu", "deco_tpu/ops/flash_attention.py:63",

@@ -77,7 +77,7 @@ def main(argv: Optional[list] = None):
     registry.apply_overrides(config, overrides)
     kind = detect_workload(config)
     if kind != "diffusion":
-        raise registry.not_ported(f"the {kind} workload ({known.config})", 8)
+        raise registry.not_ported(f"the {kind} workload ({known.config})", 5)
 
     from deco_tpu_torch.train.loop import Experiment
 

@@ -36,8 +36,27 @@ _PORTED: Dict[str, str] = {
         "deco_tpu_torch.diffusion.training.FlowMatchingTrainer",
     "src.diffusion.flow_matching.training_repa_DeCo.REPATrainer":
         "deco_tpu_torch.diffusion.training.DeCoTrainer",
+    "src.diffusion.flow_matching.scheduling.GVPScheduler":
+        "deco_tpu_torch.diffusion.scheduling.GVPScheduler",
+    "src.diffusion.flow_matching.scheduling.ConstScheduler":
+        "deco_tpu_torch.diffusion.scheduling.ConstScheduler",
+    "src.diffusion.flow_matching.scheduling.VPBetaScheduler":
+        "deco_tpu_torch.diffusion.scheduling.VPBetaScheduler",
+    "src.diffusion.ddpm.scheduling.VPScheduler": "deco_tpu_torch.diffusion.scheduling.VPScheduler",
+    "src.diffusion.ddpm.scheduling.DDPMScheduler":
+        "deco_tpu_torch.diffusion.scheduling.DDPMScheduler",
     "src.diffusion.flow_matching.sampling.EulerSampler":
         "deco_tpu_torch.diffusion.sampling.EulerSampler",
+    "src.diffusion.flow_matching.sampling.EulerSamplerJiT":
+        "deco_tpu_torch.diffusion.sampling.EulerSamplerJiT",
+    "src.diffusion.flow_matching.sampling.HeunSampler":
+        "deco_tpu_torch.diffusion.sampling.HeunSampler",
+    "src.diffusion.flow_matching.adam_sampling.AdamLMSampler":
+        "deco_tpu_torch.diffusion.adam_sampling.AdamLMSampler",
+    "src.diffusion.ddpm.ddim_sampling.DDIMSampler":
+        "deco_tpu_torch.diffusion.ddpm_sampling.DDIMSampler",
+    "src.diffusion.ddpm.vp_sampling.VPEulerSampler":
+        "deco_tpu_torch.diffusion.ddpm_sampling.VPEulerSampler",
     "src.diffusion.base.guidance.simple_guidance_fn":
         "deco_tpu_torch.diffusion.guidance.simple_guidance_fn",
     "src.diffusion.base.guidance.guidance_fn_with_rescale":
@@ -53,53 +72,43 @@ _PORTED: Dict[str, str] = {
 
 # class path -> the ROADMAP section A item that ports it
 UNPORTED: Dict[str, int] = {
-    "src.models.autoencoder.latent.LatentAE": 7,
-    "src.models.autoencoder.dc_latent.DCLatentAE": 7,
-    "src.models.transformer.dit_c2i_baseline.FlattenDiT": 7,
-    "src.models.transformer.dit_c2i_pixnerd.PixNerDiT": 7,
-    "src.models.transformer.dit_t2i_DeCo.PixNerDiT": 6,
-    "src.models.transformer.dit_t2i_pixnerd.PixNerDiT": 6,
-    "src.models.conditioner.qwen3_text_encoder.Qwen3TextEncoder": 6,
-    "src.models.conditioner.place_holder.PlaceHolderConditioner": 6,
-    "src.models.conditioner.base.ComposeConditioner": 6,
-    "src.diffusion.flow_matching.scheduling.GVPScheduler": 5,
-    "src.diffusion.flow_matching.scheduling.ConstScheduler": 5,
-    "src.diffusion.flow_matching.scheduling.VPBetaScheduler": 5,
-    "src.diffusion.ddpm.scheduling.VPScheduler": 5,
-    "src.diffusion.ddpm.scheduling.DDPMScheduler": 5,
-    "src.diffusion.flow_matching.training_repa.REPATrainer": 7,
-    "src.diffusion.flow_matching.training_repa_JiT.REPATrainer": 7,
-    "src.diffusion.ddpm.training.VPTrainer": 7,
-    "src.diffusion.ddpm.training.DDPMTrainer": 7,
-    "src.diffusion.flow_matching.sampling.EulerSamplerJiT": 5,
-    "src.diffusion.flow_matching.sampling.HeunSampler": 5,
-    "src.diffusion.flow_matching.adam_sampling.AdamLMSampler": 5,
-    "src.diffusion.ddpm.ddim_sampling.DDIMSampler": 5,
-    "src.diffusion.ddpm.vp_sampling.VPEulerSampler": 5,
-    "src.models.encoder.DINOv2": 7,
-    "src.models.encoder.CLIP": 7,
-    "src.models.encoder.SigLIP": 7,
-    "src.models.encoder.SigLIPVision": 7,
-    "src.models.encoder_custom.DINOv2": 7,
-    "src.models.transformer.encoder_ae_sim.VAEModel": 8,
-    "src.models.transformer.encoder_ae.VAEModel": 8,
-    "src.models.modules.vae_loss.VAEReconstructionLoss": 8,
-    "src.models.modules.discriminator.NLayerDiscriminator": 8,
-    "src.data.dataset.imagenet.PixHFDataset": 6,
-    "src.data.dataset.imagenet.PixWebDataset": 6,
-    "src.data.dataset.geneval.GenEvalDataset": 6,
-    "src.data.dataset.dpg.DPGDataset": 6,
-    "src.data.dataset.image_txt.ImageText": 6,
-    "src.data.dataset.imagenet.PixJSONLDataset": 6,
-    "src.data.dataset.imagenet.PixMultiJSONLDataset": 6,
-    "src.data.dataset.blip3o_dataset.PackedParquetDataset": 6,
-    "src.data.dataset.blip3o_dataset.WebDatasetPackedDataset": 6,
-    "src.data.dataset.blip3o_ori_dataset.LazySupervisedMixDataset": 8,
-    "src.models.modules.losses.ReconstructionLoss_Base": 8,
-    "src.models.modules.losses.ReconstructionLoss_Stage1": 8,
-    "src.models.modules.losses.ReconstructionLoss_Stage2": 8,
-    "optax.adafactor": 10,
-    "transformers.Adafactor": 10,
+    "src.models.autoencoder.latent.LatentAE": 4,
+    "src.models.autoencoder.dc_latent.DCLatentAE": 4,
+    "src.models.transformer.dit_c2i_baseline.FlattenDiT": 4,
+    "src.models.transformer.dit_c2i_pixnerd.PixNerDiT": 4,
+    "src.models.transformer.dit_t2i_DeCo.PixNerDiT": 3,
+    "src.models.transformer.dit_t2i_pixnerd.PixNerDiT": 3,
+    "src.models.conditioner.qwen3_text_encoder.Qwen3TextEncoder": 3,
+    "src.models.conditioner.place_holder.PlaceHolderConditioner": 3,
+    "src.models.conditioner.base.ComposeConditioner": 3,
+    "src.diffusion.flow_matching.training_repa.REPATrainer": 4,
+    "src.diffusion.flow_matching.training_repa_JiT.REPATrainer": 4,
+    "src.diffusion.ddpm.training.VPTrainer": 4,
+    "src.diffusion.ddpm.training.DDPMTrainer": 4,
+    "src.models.encoder.DINOv2": 4,
+    "src.models.encoder.CLIP": 4,
+    "src.models.encoder.SigLIP": 4,
+    "src.models.encoder.SigLIPVision": 4,
+    "src.models.encoder_custom.DINOv2": 4,
+    "src.models.transformer.encoder_ae_sim.VAEModel": 5,
+    "src.models.transformer.encoder_ae.VAEModel": 5,
+    "src.models.modules.vae_loss.VAEReconstructionLoss": 5,
+    "src.models.modules.discriminator.NLayerDiscriminator": 5,
+    "src.data.dataset.imagenet.PixHFDataset": 3,
+    "src.data.dataset.imagenet.PixWebDataset": 3,
+    "src.data.dataset.geneval.GenEvalDataset": 3,
+    "src.data.dataset.dpg.DPGDataset": 3,
+    "src.data.dataset.image_txt.ImageText": 3,
+    "src.data.dataset.imagenet.PixJSONLDataset": 3,
+    "src.data.dataset.imagenet.PixMultiJSONLDataset": 3,
+    "src.data.dataset.blip3o_dataset.PackedParquetDataset": 3,
+    "src.data.dataset.blip3o_dataset.WebDatasetPackedDataset": 3,
+    "src.data.dataset.blip3o_ori_dataset.LazySupervisedMixDataset": 5,
+    "src.models.modules.losses.ReconstructionLoss_Base": 5,
+    "src.models.modules.losses.ReconstructionLoss_Stage1": 5,
+    "src.models.modules.losses.ReconstructionLoss_Stage2": 5,
+    "optax.adafactor": 7,
+    "transformers.Adafactor": 7,
 }
 
 

@@ -118,7 +118,7 @@ def read_png(path: str) -> np.ndarray:
     if path.lower().endswith((".jpg", ".jpeg")):
         raise NotImplementedError(
             f"{path}: a full-size JPEG decode (random_crop on JPEG folders) is not ported to "
-            "deco_tpu_torch: ROADMAP §A 5")
+            "deco_tpu_torch: ROADMAP §A 2")
     raise ValueError(f"{path}: the port reads PNG and JPEG images only")
 
 

@@ -162,9 +162,9 @@ class ShardedLoader:
 
 def make_loader(dataset, batch_size: int, **kwargs):
     """A :class:`ShardedLoader` for a map-style dataset. Streaming datasets
-    (the JAX ``IterableLoader``) are not ported: ROADMAP §A 6."""
+    (the JAX ``IterableLoader``) are not ported: ROADMAP §A 3."""
     if not (hasattr(dataset, "__len__") and hasattr(dataset, "__getitem__")):
         raise NotImplementedError(
             f"{type(dataset).__name__}: loading a streaming dataset (IterableLoader) is not "
-            "ported to deco_tpu_torch: ROADMAP §A 6")
+            "ported to deco_tpu_torch: ROADMAP §A 3")
     return ShardedLoader(dataset, batch_size, **kwargs)

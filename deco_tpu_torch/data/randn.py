@@ -58,7 +58,7 @@ class RandomNDataset:
                  deterministic_seeds: bool = True):
         if not deterministic_seeds:
             raise NotImplementedError("RandomNDataset(deterministic_seeds=False): unseeded "
-                                      "per-item seeds are not ported, ROADMAP §A 5")
+                                      "per-item seeds are not ported, ROADMAP §A 2")
         if isinstance(conditions, int):
             conditions = list(range(conditions))
         elif isinstance(conditions, str):

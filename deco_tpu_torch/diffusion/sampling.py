@@ -1,4 +1,4 @@
-"""Flow-matching Euler sampler (``deco_tpu/diffusion/sampling.py``).
+"""Flow-matching Euler and Heun samplers (``deco_tpu/diffusion/sampling.py``).
 
 The per-step scalars (timestep, dt, scheduler coefficients, guidance scale,
 step-function coefficients) are precomputed in numpy exactly as the JAX
@@ -11,6 +11,8 @@ with per-step coefficients (a, b, c) from :data:`STEP_COEFFS`. The CFG batch
 is laid out ``[uncondition; condition]``. Steps whose guidance scale is 1 at
 either end of the schedule run the network on the conditional half only.
 The SDE step types draw ``eps`` from an explicit ``torch.Generator``.
+:class:`EulerSamplerJiT` is the Euler sampler for x-prediction networks;
+:class:`HeunSampler` adds a corrector evaluation per step.
 """
 
 from __future__ import annotations
@@ -59,6 +61,16 @@ class BaseSampler:
 
     def _impl_sampling(self, net, noise, condition, uncondition, generator, collect):
         raise NotImplementedError
+
+    def _guided(self, net, x, t: float, cfg: float, condition, cfg_condition):
+        """The guided network output at ``x``, time ``t``: the CFG-doubled
+        call, or where ``cfg == 1`` (to which every guidance fn reduces) the
+        conditional half alone."""
+        batch = x.shape[0]
+        if cfg == 1.0:
+            return net(x, torch.full((batch,), t, dtype=x.dtype, device=x.device), condition)
+        cfg_t = torch.full((2 * batch,), t, dtype=x.dtype, device=x.device)
+        return self.guidance_fn(net(torch.cat([x, x], dim=0), cfg_t, cfg_condition), cfg)
 
     def _cfg_array(self):
         """The (num_steps,) per-step cfg scales (for _segment_table)."""
@@ -163,21 +175,33 @@ class EulerSampler(BaseSampler):
         """Map raw network output to a velocity field (identity for v-pred)."""
         return out
 
-    def _step_update(self, x, v, i, generator):
+    def _score(self, v, x, i, suffix=""):
+        """s = (inv_doa v - x) / (sigma^2 - inv_doa dsm) from step ``i``'s
+        coefficients (``suffix`` "_h": those at the step's end point)."""
+        sigma, inv_doa, dsm = (self._steps[k + suffix][i] for k in ("sigma", "inv_doa", "dsm"))
+        denom = np.float32(sigma) ** 2 - np.float32(inv_doa) * np.float32(dsm)
+        return (float(inv_doa) * v - x) / (1.0 if denom == 0 else float(denom))
+
+    def _draw(self, x, generator):
+        """Step noise, or None where the step types draw none."""
+        if not self._needs_noise:
+            return None
+        return torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                           device=generator.device).to(x.device)
+
+    def _update(self, x, v, s, i, eps):
+        """x + v dt + a s w dt + b sqrt(c w dt) eps with step ``i``'s coefficients."""
         st = {k: float(arr[i]) for k, arr in self._steps.items()}
-        v = v.to(x.dtype)
-        # score from velocity: s = (inv_doa*v - x) / (sigma^2 - inv_doa*dsm)
-        denom = np.float32(st["sigma"]) ** 2 - np.float32(st["inv_doa"]) * np.float32(st["dsm"])
-        denom = 1.0 if denom == 0 else float(denom)
-        s = (st["inv_doa"] * v - x) / denom
         x_next = x + v * st["dt"] + st["a"] * s * st["w"] * st["dt"]
-        if self._needs_noise:
-            eps = torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                              device=generator.device).to(x.device)
+        if eps is not None:
             x_next = x_next + st["b"] * float(
                 np.sqrt(max(np.float32(st["c"]) * np.float32(st["w"]) * np.float32(st["dt"]), 0.0))
             ) * eps
         return x_next
+
+    def _step_update(self, x, v, i, generator):
+        v = v.to(x.dtype)
+        return self._update(x, v, self._score(v, x, i), i, self._draw(x, generator))
 
     def _impl_sampling(self, net, noise, condition, uncondition, generator,
                        collect=False):
@@ -206,6 +230,71 @@ class EulerSampler(BaseSampler):
                 if collect:
                     xs.append(x)
                     vs.append(v.to(x.dtype))
+        if collect:
+            vs.append(torch.zeros_like(noise))
+            return torch.stack(xs), torch.stack(vs)
+        return x[None], None
+
+
+class EulerSamplerJiT(EulerSampler):
+    """Euler sampler for x-prediction networks: the velocity is
+    ``(out - x_t) / max(1 - t, 5e-2)``, taken before guidance."""
+
+    def _velocity(self, out, x, t):
+        t = t.reshape((-1,) + (1,) * (out.dim() - 1))
+        return (out - x) / torch.clamp(1.0 - t, min=5e-2)
+
+
+class HeunSampler(EulerSampler):
+    """Heun predictor-corrector sampler: each step predicts with the current
+    velocity (the previous step's corrector evaluation unless ``exact_heun``),
+    then corrects with the average of it and the velocity at the predicted
+    point; the last step is plain Euler. Both updates of a step use the same
+    noise draw. The network runs CFG-doubled only where the step's guidance
+    scale is not 1."""
+
+    def __init__(self, scheduler: BaseScheduler = None, exact_heun: bool = False, **kwargs):
+        super().__init__(scheduler=scheduler, **kwargs)
+        self.exact_heun = exact_heun
+
+    def _precompute(self):
+        super()._precompute()
+        t_next = np.asarray(self.timesteps, dtype=np.float32)[1:]
+        self._steps.update(
+            t_hat=t_next,
+            sigma_h=np.asarray(self.scheduler.sigma(t_next), np.float32),
+            inv_doa_h=np.asarray(self.scheduler.alpha(t_next) / self.scheduler.dalpha(t_next),
+                                 np.float32),
+            dsm_h=np.asarray(self.scheduler.dsigma_mul_sigma(t_next), np.float32))
+
+    def _impl_sampling(self, net, noise, condition, uncondition, generator, collect=False):
+        if self._needs_noise and generator is None:
+            raise ValueError(f"step types {self.step_type!r}/{self.last_step_type!r} draw "
+                             "noise: pass a torch.Generator")
+        cfg_condition = torch.cat([uncondition, condition], dim=0)
+        x = noise
+        v_hat = s_hat = None
+        xs, vs = [noise], []
+        for i in range(self.num_steps):
+            cfg = float(self._steps["cfg"][i])
+            if i == 0 or self.exact_heun:
+                v = self._guided(net, x, float(self._steps["t"][i]), cfg, condition,
+                                 cfg_condition).to(x.dtype)
+                s = self._score(v, x, i)
+            else:
+                v, s = v_hat, s_hat
+            eps = self._draw(x, generator)
+            x_hat = self._update(x, v, s, i, eps)
+            if i < self.num_steps - 1:  # the corrector; the last step is Euler
+                v_hat = self._guided(net, x_hat, float(self._steps["t_hat"][i]), cfg, condition,
+                                     cfg_condition).to(x.dtype)
+                s_hat = self._score(v_hat, x_hat, i, "_h")
+                v = (v + v_hat) / 2
+                x_hat = self._update(x, v, (s + s_hat) / 2, i, eps)
+            x = x_hat
+            if collect:
+                xs.append(x)
+                vs.append(v)
         if collect:
             vs.append(torch.zeros_like(noise))
             return torch.stack(xs), torch.stack(vs)

@@ -7,15 +7,18 @@ is a Python loop over an ``nn.ModuleList``; its state-dict keys are those of
 the reference torch model, so ``convert.state_dict_from_jax`` output and
 reference-layout checkpoints load with ``strict=True``.
 
-``grad_checkpoint`` recomputes each trunk block (``trunk_remat_policy``
-"full"; "none" keeps the trunk's activations) and each decoder res block in
-the backward, as ``nn.remat`` does in ``run_dit_blocks`` and
-``SimpleMLPAdaLN``. ``param_dtype`` (default: ``dtype``) is the storage type
-of the parameters: fp32 for training, the compute dtype for sampling.
+``grad_checkpoint`` recomputes each trunk block and each decoder res block
+in the backward, as ``nn.remat`` does in ``run_dit_blocks`` and
+``SimpleMLPAdaLN``. ``trunk_remat_policy`` says what a trunk block keeps:
+"full" nothing, "dots" its matmul outputs, "attn" its attention's output and
+logsumexp, "none" everything (no trunk remat). ``decoder_chunks > 1`` runs
+the pixel decoder over that many patch chunks, each recomputed whole
+(``layers.run_pixel_decoder``). ``param_dtype`` (default: ``dtype``) is the
+storage type of the parameters: fp32 for training, the compute dtype for
+sampling.
 
-Not ported, and rejected when asked for: the "dots" and "attn" remat
-policies, ``decoder_chunks``, ``quantize``, ``trunk_parallel``, and the REPA
-outputs ``return_s``/``return_features`` (``align_layer``).
+Not ported, and rejected when asked for: ``quantize``, ``trunk_parallel``,
+and the REPA outputs ``return_s``/``return_features`` (``align_layer``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ from deco_tpu_torch.models.patching import patchify, unpatchify
 # constructor fields of the JAX model that the port does not implement,
 # with the value that means "off"
 _UNPORTED = {
-    "decoder_chunks": 0,
     "align_layer": 0,
     "trunk_parallel": "none",
     "quantize": None,
@@ -54,12 +56,13 @@ class DeCoC2I(nn.Module):
                  num_classes: int = 1000, max_freqs: int = 8,
                  dtype=torch.bfloat16, rope_scale: float = 16.0,
                  param_dtype=None, grad_checkpoint: bool = False,
-                 trunk_remat_policy: str = "full", device="cuda", **unported):
+                 trunk_remat_policy: str = "full", decoder_chunks: int = 0, device="cuda",
+                 **unported):
         super().__init__()
-        if trunk_remat_policy not in ("full", "none"):
-            raise NotImplementedError(
-                f"DeCoC2I: trunk_remat_policy={trunk_remat_policy!r} is not ported to "
-                f"deco_tpu_torch (it has 'full' and 'none')")
+        if trunk_remat_policy not in (*layers.REMAT_POLICIES, "none"):
+            raise ValueError(
+                f"DeCoC2I: trunk_remat_policy={trunk_remat_policy!r}; expected one of "
+                f"{sorted((*layers.REMAT_POLICIES, 'none'))}")
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"DeCoC2I: unexpected argument {name!r}")
@@ -74,7 +77,9 @@ class DeCoC2I(nn.Module):
         self.hidden_size = hidden_size
         self.dtype = dtype
         self.rope_scale = rope_scale
-        self.trunk_checkpoint = grad_checkpoint and trunk_remat_policy == "full"
+        self.trunk_checkpoint = grad_checkpoint and trunk_remat_policy != "none"
+        self.trunk_remat_policy = trunk_remat_policy
+        self.decoder_chunks = decoder_chunks
         self._rope_cache: dict = {}
         p2c = patch_size * patch_size * in_channels
         kw = dict(dtype=dtype, param_dtype=param_dtype)
@@ -128,11 +133,13 @@ class DeCoC2I(nn.Module):
             rope = self._rope(gh, gw, x.device)
             for block in self.blocks:
                 s = layers.run_checkpointed(block, s, c, rope, mask,
-                                            enabled=self.trunk_checkpoint)
+                                            enabled=self.trunk_checkpoint,
+                                            policy=self.trunk_remat_policy)
             s = F.silu(t_emb + s)
 
         x_pix = x_patches.reshape(b, gh * gw, p * p, self.in_channels)
-        out = self.dec_net(self.x_embedder(x_pix), s)
+        out = layers.run_pixel_decoder(self.dec_net, self.x_embedder(x_pix), s,
+                                       self.decoder_chunks)
         out = out.reshape(b, gh * gw, p * p * self.in_channels)
         return unpatchify(out.float(), gh, gw, p)
 

@@ -14,7 +14,12 @@ with ``strict=True``. Numerics follow the Flax modules:
 - RoPE rotates in the input dtype (the JAX package's deliberate deviation).
 - ``grad_checkpoint`` on :class:`SimpleMLPAdaLN` recomputes each res block in
   the backward (``torch.utils.checkpoint``, non-reentrant), the counterpart
-  of ``nn.remat(AdaLNResBlock)``.
+  of ``nn.remat(AdaLNResBlock)``; :func:`run_pixel_decoder` runs it over
+  patch chunks under whole-chunk remat (``decoder_chunks``).
+- :func:`run_checkpointed` takes the trunk's remat policies: "full" keeps
+  nothing, "dots" keeps the matmul outputs (``checkpoint_dots``), "attn"
+  keeps each attention's output and logsumexp (``save_only_these_names(
+  "attn_out", "attn_lse")``).
 """
 
 from __future__ import annotations
@@ -25,7 +30,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from deco_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
@@ -45,12 +54,38 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
-def run_checkpointed(fn, *args, enabled: bool):
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _policy_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots``: keep what the matmuls give, recompute the rest.
+    The attention forward is one opaque op here, as the Pallas call is to
+    JAX, so it is recomputed."""
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _policy_attn(ctx, op, *args, **kwargs):
+    """``save_only_these_names("attn_out", "attn_lse")``: keep the forward
+    with logsumexp's (o, lse), so the recompute does not launch it again."""
+    if op is torch.ops.deco_tpu_torch.flash_attention_fwd_lse.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = {"full": None, "dots": _policy_dots, "attn": _policy_attn}
+
+
+def run_checkpointed(fn, *args, enabled: bool, policy: str = "full"):
     """``fn(*args)``, recomputed in the backward when ``enabled`` and grad is
-    on (``nn.remat``). No block draws random numbers, so no RNG state is kept."""
-    if enabled and torch.is_grad_enabled():
+    on (``nn.remat``), keeping what the ``policy`` of :data:`REMAT_POLICIES`
+    names. No block draws random numbers, so no RNG state is kept."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    select = REMAT_POLICIES[policy]
+    if select is None:
         return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-    return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(select))
 
 
 def modulate(x, shift, scale):
@@ -361,10 +396,39 @@ class SimpleMLPAdaLN(nn.Module):
             AdaLNResBlock(model_channels, **kw) for _ in range(num_res_blocks))
         self.final_layer = FinalLayer(model_channels, out_channels, **kw)
 
-    def forward(self, x, z):
+    def forward(self, x, z, block_checkpoint: bool | None = None):
+        """``block_checkpoint`` (default ``grad_checkpoint``) recomputes each
+        res block in the backward."""
+        if block_checkpoint is None:
+            block_checkpoint = self.grad_checkpoint
         x = self.input_proj(x)
         c = self.cond_embed(z)
         y = c.reshape(c.shape[:-1] + (self.patch_size**2, self.model_channels))
         for block in self.res_blocks:
-            x = run_checkpointed(block, x, y, enabled=self.grad_checkpoint)
+            x = run_checkpointed(block, x, y, enabled=block_checkpoint)
         return self.final_layer(x)
+
+
+def run_pixel_decoder(dec: SimpleMLPAdaLN, x_pix, s, decoder_chunks: int = 0):
+    """``dec`` over per-patch pixels ``x_pix`` (B, L, P^2, C) with patch
+    conditions ``s`` (B, L, z), optionally in chunks (``layers.run_pixel_decoder``).
+
+    ``decoder_chunks > 1`` runs ``dec`` over L / decoder_chunks patches at a
+    time, each chunk recomputed whole in the backward (the inner per-block
+    remat off), so the per-pixel intermediates, the 512 px training memory
+    peak, live for one chunk at a time. Every patch is decoded on its own,
+    so chunked and unchunked runs compute the same values with the same
+    parameters.
+    """
+    n = x_pix.shape[1]
+    if decoder_chunks > 1 and n % decoder_chunks:
+        raise ValueError(
+            f"decoder_chunks={decoder_chunks} does not divide the {n}-patch grid; pick a "
+            f"divisor of L (the knob bounds the 512px+ decoder memory peak; silently "
+            f"falling back would bring back the peak it prevents)")
+    if decoder_chunks <= 1:
+        return dec(x_pix, s)
+    size = n // decoder_chunks
+    outs = [run_checkpointed(dec, x_pix[:, i:i + size], s[:, i:i + size], False, enabled=True)
+            for i in range(0, n, size)]
+    return torch.cat(outs, dim=1)

@@ -15,6 +15,12 @@ Counterpart of ``deco_tpu/ops/flash_attention.py`` (``flash_attention``
 - otherwise, as in sampling, it launches the plain forward kernel, with no
   logsumexp work.
 
+The autograd Function reaches the forward with logsumexp through the custom
+op :data:`flash_attention_fwd_lse_op` (``deco_tpu_torch::flash_attention_fwd_lse``),
+so a selective-checkpoint policy can name it and keep its (o, lse): the
+counterpart of the ``attn_out``/``attn_lse`` ``checkpoint_name`` tags in
+``_flash_core_fwd``.
+
 The kernels read the operands in place through their strides (no fold to
 (B*H, N, D)) and mask ragged N themselves, so unlike the JAX wrapper they
 need no detour to a library call when N is not a multiple of 8. Every
@@ -282,6 +288,21 @@ def backward_kernel_info(head_dim: int) -> dict:
             for kind, name in enumerate(("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))}
 
 
+@torch.library.custom_op("deco_tpu_torch::flash_attention_fwd_lse", mutates_args=())
+def flash_attention_fwd_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_fwd_lse` as one operator that dispatch (and so a
+    selective-checkpoint policy) sees whole."""
+    return flash_attention_fwd_lse(q, k, v, scale)
+
+
+@flash_attention_fwd_lse_op.register_fake
+def _(q, k, v, scale):
+    b, n_q, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, n_q), dtype=torch.float32))
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention with the flash backward (``_flash_core``'s custom VJP).
 
@@ -291,7 +312,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        o, lse = flash_attention_fwd_lse(q, k, v, scale)
+        o, lse = flash_attention_fwd_lse_op(q, k, v, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = scale
         return o

@@ -1,4 +1,4 @@
-"""Run-loop hooks: sample images, the ADM npz, scalar logs
+"""Run-loop hooks: sample images, the ADM npz, scalar logs, predict metrics
 (``deco_tpu/train/hooks.py``).
 
 - :class:`SaveImagesHook`: each sample's ``save_fn`` on a thread pool (up
@@ -8,9 +8,11 @@
   a line with ``step``, ``time`` and each metric, and to TensorBoard when
   ``torch.utils.tensorboard`` imports.
 - :class:`ImageLogger`: sample panels as PNG under ``images/``.
+- :class:`ComputeMetricsHook`: PSNR, SSIM and FID of predicted against
+  original images, accumulated over a predict run.
 
-One process writes everything. W&B logging and ``ComputeMetricsHook``
-(PSNR/SSIM/FID) are not ported; the loop rejects configs that ask for them.
+One process writes everything. W&B logging is not ported; the loop rejects
+configs that ask for it.
 """
 
 from __future__ import annotations
@@ -23,6 +25,17 @@ from typing import Optional
 
 import numpy as np
 
+import torch
+
+from deco_tpu_torch._device import resolve_device
+from deco_tpu_torch.models import inception
+from deco_tpu_torch.train.metrics import (
+    FIDStats,
+    frechet_distance,
+    psnr_from_stats,
+    squared_error_stats,
+    ssim,
+)
 from deco_tpu_torch.utils import png
 
 
@@ -87,6 +100,87 @@ class SaveImagesHook:
         out_path = os.path.join(self.root, "output.npz")
         np.savez(out_path, arr_0=np.concatenate(self._accum, axis=0))  # ADM suite: key arr_0
         return out_path
+
+
+class ComputeMetricsHook:
+    """Streaming PSNR, SSIM and FID of predicted against original batches,
+    the torchmetrics protocol of the reference's hook: PSNR pools one
+    squared error over the run (``dim=None``), SSIM averages the per-image
+    means, FID compares the Inception statistics of the originals (real)
+    and the predictions (fake). Each batch is scored on ``device``; the
+    sums and the FID moments are float64 on the host.
+
+    ``inception`` is a state-dict path (:func:`~deco_tpu_torch.models.inception.load_inception`),
+    a tower, or None for the tower drawn from seed 0, whose FIDs compare
+    only with each other. One process: there is no cross-host merge.
+    """
+
+    def __init__(self, compute_fid: bool = True, fid_feature_dim: int = 2048,
+                 data_range: float = 255.0, inception=None, device="cuda"):
+        self.compute_fid = compute_fid
+        self.data_range = data_range
+        self.inception = inception
+        self.device = resolve_device(device)
+        self._fid_dim = fid_feature_dim
+        self._tower = None
+        self.reset()
+
+    def reset(self):
+        self._sse = 0.0
+        self._n_obs = 0.0
+        self._ssim_sum = 0.0
+        self._n_images = 0.0
+        self._real = FIDStats(self._fid_dim)
+        self._fake = FIDStats(self._fid_dim)
+
+    @property
+    def has_updates(self) -> bool:
+        """True once a batch went through :meth:`on_batch_end`."""
+        return bool(self._n_images)
+
+    def tower(self):
+        """The Inception tower at this hook's tap, built on first use."""
+        if self._tower is None:
+            if isinstance(self.inception, str):
+                self._tower = inception.load_inception(self.inception, device=self.device,
+                                                       feature_dim=self._fid_dim)
+            elif self.inception is None:
+                self._tower = inception.random_inception(0, device=self.device,
+                                                         feature_dim=self._fid_dim)
+            else:
+                self._tower = self.inception
+        return self._tower
+
+    @torch.no_grad()
+    def on_batch_end(self, pred_uint8: np.ndarray, original_uint8: np.ndarray):
+        """Both (B, H, W, 3) uint8 host arrays (``fp_to_uint8`` output)."""
+        pred = torch.from_numpy(np.asarray(pred_uint8)).to(self.device).float()
+        orig = torch.from_numpy(np.asarray(original_uint8)).to(self.device).float()
+        # torchmetrics with a (0, range) tuple clamps first (a no-op on uint8)
+        p, o = pred.clamp(0, self.data_range), orig.clamp(0, self.data_range)
+        sse, n = squared_error_stats(p, o)
+        self._sse += sse
+        self._n_obs += n
+        self._ssim_sum += float(ssim(p, o, data_range=self.data_range, per_image=True)
+                                .double().sum())
+        self._n_images += float(p.shape[0])
+        if self.compute_fid:
+            tower = self.tower()
+            self._real.update(tower(orig / 255.0).cpu().numpy())
+            self._fake.update(tower(pred / 255.0).cpu().numpy())
+
+    def on_epoch_end(self, prefix: str = "metrics") -> dict:
+        """The run's scores (``{prefix}/psnr``, ``/ssim``, ``/fid``); resets."""
+        out = {}
+        if self._n_images:
+            out[f"{prefix}/psnr"] = psnr_from_stats(self._sse, self._n_obs,
+                                                    data_range=self.data_range)
+            out[f"{prefix}/ssim"] = self._ssim_sum / self._n_images
+        if self.compute_fid and self._real.n > 1:
+            out[f"{prefix}/fid"] = frechet_distance(*self._real.finalize(),
+                                                    *self._fake.finalize())
+        self.reset()
+        return out
 
 
 class ImageLogger:

@@ -10,7 +10,10 @@ fit / predict (``deco_tpu/train/loop.py`` ``Experiment``).
   order, a save on exception and at the end, and SIGTERM as a stop request.
 - predict: the seeded-noise dataset, the config's sampler on the EMA
   weights, ``vae.decode``, ``fp_to_uint8``, per-sample PNGs and the ADM
-  ``output.npz``, with the next batch launched before the last is read back.
+  ``output.npz``, with the next batch launched before the last is read back;
+  with a ``ComputeMetricsHook`` callback, batches whose metadata carry
+  ``raw_image`` are scored against it (PSNR, SSIM, FID) into
+  ``predict_metrics.json``.
 
 The model keeps fp32 parameters and computes in the config's ``dtype``
 (bf16 unless overridden) on ``device``; a run that does not restore draws
@@ -22,6 +25,7 @@ of the card by a bounded number of steps.
 
 from __future__ import annotations
 
+import json
 import os
 from collections import deque
 from typing import Any, Dict, Optional
@@ -35,7 +39,12 @@ from deco_tpu_torch.data.loader import make_loader
 from deco_tpu_torch.models.autoencoders import fp_to_uint8
 from deco_tpu_torch.models.dit_c2i_deco import init_like_jax_
 from deco_tpu_torch.train.checkpoint import CheckpointManager
-from deco_tpu_torch.train.hooks import ImageLogger, SaveImagesHook, ScalarLogger
+from deco_tpu_torch.train.hooks import (
+    ComputeMetricsHook,
+    ImageLogger,
+    SaveImagesHook,
+    ScalarLogger,
+)
 from deco_tpu_torch.train.train_step import make_train_step
 from deco_tpu_torch.utils.pipeline import pipelined_map
 from deco_tpu_torch.utils.preemption import PreemptionGuard
@@ -57,7 +66,7 @@ class Experiment:
         self.device = resolve_device(device)
         model_cfg = config["model"]
         if "conditioner" not in model_cfg:
-            raise registry.not_ported("ImageConditioner (configs without a conditioner)", 8)
+            raise registry.not_ported("ImageConditioner (configs without a conditioner)", 5)
         self.vae = registry.instantiate(model_cfg["vae"])
         self.model = self._build_model(model_cfg["denoiser"])
         self.conditioner = registry.instantiate(model_cfg["conditioner"])
@@ -75,6 +84,7 @@ class Experiment:
         self.grad_clip = trainer_cfg.get("gradient_clip_val")
         self.accumulate_grad_batches = trainer_cfg.get("accumulate_grad_batches", 1)
         self.save_images_cfg = {"save_dir": "val"}
+        self.metrics_hook_cfg = None
         for cb in trainer_cfg.get("callbacks", []):
             cp, args = cb.get("class_path", ""), cb.get("init_args") or {}
             if cp.endswith("CheckpointHook"):
@@ -82,13 +92,13 @@ class Experiment:
             elif cp.endswith("SaveImagesHook"):
                 self.save_images_cfg = dict(args)
             elif cp.endswith("ComputeMetricsHook"):
-                raise registry.not_ported(cp, 4)
+                self.metrics_hook_cfg = dict(args)
             else:
                 raise ValueError(f"callback {cp!r}: the port knows CheckpointHook, "
                                  "SaveImagesHook and ComputeMetricsHook")
         logger = trainer_cfg.get("logger") or {}
         if "WandbLogger" in str(logger.get("class_path", "")):
-            raise registry.not_ported(logger["class_path"], 10)
+            raise registry.not_ported(logger["class_path"], 7)
         # the reference LightningModel's default; the shipped configs set 1 or 4
         self.diffusion_batch_mul = model_cfg.get("diffusion_batch_mul", 4)
 
@@ -200,6 +210,9 @@ class Experiment:
         hook = SaveImagesHook(**self.save_images_cfg)
         hook.on_predict_start(self.workdir, step)
         imlog = ImageLogger(self.workdir)
+        metrics_hook = None
+        if self.metrics_hook_cfg is not None:
+            metrics_hook = ComputeMetricsHook(**self.metrics_hook_cfg, device=self.device)
 
         def batches():
             for bi, (bx, by, bmeta) in enumerate(loader):
@@ -219,10 +232,19 @@ class Experiment:
             hook.on_predict_batch_end(u8, bmeta)
             if bi == 0:
                 imlog.log_images(step, u8)
+            if metrics_hook is not None and "raw_image" in bmeta:
+                raw = np.asarray(bmeta["raw_image"], np.float32)
+                if raw.ndim == 4 and raw.shape[1] in (1, 3):
+                    raw = raw.transpose(0, 2, 3, 1)  # torch-layout datasets
+                metrics_hook.on_batch_end(u8, np.clip(raw * 255.0, 0, 255).astype(np.uint8))
 
         try:
             pipelined_map(batches(), dispatch, consume,
                           depth=int(data_cfg.get("pred_pipeline_depth", 1)))
+            if metrics_hook is not None and metrics_hook.has_updates:
+                scores = metrics_hook.on_epoch_end()
+                with open(os.path.join(self.workdir, "predict_metrics.json"), "w") as f:
+                    json.dump({k: float(v) for k, v in scores.items()}, f)
         finally:
             if kept is not None:
                 torch._foreach_copy_(list(self.model.parameters()), kept)

@@ -150,7 +150,7 @@ def _tiny(config):
     return config
 
 
-@pytest.mark.parametrize("name", ["DeCo_XL", "DeCo_XL_freq", "DeCo_large_cpu"])
+@pytest.mark.parametrize("name", ["DeCo_XL", "DeCo_XL_freq", "DeCo_large_cpu", "DeCo_XL_512"])
 def test_deco_configs_instantiate_like_jax(name):
     path = os.path.join(REPO, "configs_c2i", f"{name}.yaml")
     ours, ref = _tiny(registry.load_yaml(path)), _tiny(jax_registry.load_yaml(path))
@@ -162,6 +162,8 @@ def test_deco_configs_instantiate_like_jax(name):
     assert len(model.dec_net.res_blocks) == model_ref.num_blocks - model_ref.num_cond_blocks
     assert model.y_embedder.embedding_table.num_embeddings == model_ref.num_classes + 1
     assert model.trunk_checkpoint == bool(model_ref.grad_checkpoint)
+    assert model.trunk_remat_policy == model_ref.trunk_remat_policy
+    assert model.decoder_chunks == model_ref.decoder_chunks
 
     m, r = ours["model"], ref["model"]
     trainer, trainer_ref = (registry.instantiate(m["diffusion_trainer"]),
@@ -234,6 +236,86 @@ def test_adamw_node_turns_the_yaml_1_1_lr_string_into_a_float():
         registry.instantiate({"class_path": "torch.optim.AdamW", "init_args": {"lr": "fast"}})
 
 
+# the class paths ported with the eval slice, each as a YAML node of the
+# configs' form, with the arguments a config would give
+PORTED_NODES = {
+    "src.diffusion.flow_matching.scheduling.GVPScheduler": "{}",
+    "src.diffusion.flow_matching.scheduling.ConstScheduler": "{}",
+    "src.diffusion.flow_matching.scheduling.VPBetaScheduler": "{beta_min: 0.1, beta_max: 20.0}",
+    "src.diffusion.ddpm.scheduling.VPScheduler": "{beta_min: 0.1, beta_max: 20.0}",
+    "src.diffusion.ddpm.scheduling.DDPMScheduler": "{num_steps: 1000}",
+    "src.diffusion.flow_matching.sampling.EulerSamplerJiT":
+        "{num_steps: 50, guidance: 2.9, timeshift: 3.0, scheduler: %(linear)s}",
+    "src.diffusion.flow_matching.sampling.HeunSampler":
+        "{num_steps: 25, guidance: 3.0, exact_heun: true, scheduler: %(linear)s, "
+        "w_scheduler: %(linear)s, step_fn: src.diffusion.flow_matching.sampling.ode_step_fn}",
+    "src.diffusion.flow_matching.adam_sampling.AdamLMSampler":
+        "{num_steps: 25, guidance: 4.0, timeshift: 3.0, order: 3, scheduler: %(linear)s, "
+        "lms_transform_fn: src.diffusion.flow_matching.adam_sampling.t2logsnr}",
+    "src.diffusion.ddpm.ddim_sampling.DDIMSampler":
+        "{num_steps: 50, guidance: 1.5, scheduler: src.diffusion.ddpm.scheduling.DDPMScheduler}",
+    "src.diffusion.ddpm.vp_sampling.VPEulerSampler":
+        "{num_steps: 50, guidance: 1.5, scheduler: src.diffusion.ddpm.scheduling.VPScheduler, "
+        "step_fn: sde}",
+}
+
+
+def _node(class_path, tmp_path):
+    text = PORTED_NODES[class_path] % {
+        "linear": "src.diffusion.flow_matching.scheduling.LinearScheduler"}
+    path = tmp_path / "node.yaml"
+    path.write_text(f"node:\n  class_path: {class_path}\n  init_args: {text}\n")
+    return path
+
+
+@pytest.mark.parametrize("class_path", sorted(PORTED_NODES))
+def test_ported_class_path_instantiates_like_jax(class_path, tmp_path):
+    path = str(_node(class_path, tmp_path))
+    ours = registry.instantiate(registry.load_yaml(path)["node"])
+    ref = jax_registry.instantiate(jax_registry.load_yaml(path)["node"])
+    assert type(ours).__name__ == type(ref).__name__
+    assert type(ours).__module__.startswith("deco_tpu_torch.")
+    if "scheduling" in class_path:
+        t = np.linspace(0, 0.99, 16, dtype=np.float32) * (999 if "DDPM" in class_path else 1)
+        np.testing.assert_allclose(ours.w(t), np.asarray(ref.w(t)), rtol=1e-5)
+        return
+    for k in ("num_steps", "guidance", "timesteps", "step_type", "exact_heun", "order",
+              "solver_coeffs", "_ts"):
+        if hasattr(ref, k):
+            np.testing.assert_array_equal(getattr(ours, k), np.asarray(getattr(ref, k)), err_msg=k)
+    assert type(ours.scheduler).__name__ == type(ref.scheduler).__name__
+
+
+def test_t2i_production_sampler_node_instantiates_like_jax():
+    """configs_t2i/sft_res512.yaml's AdamLMSampler, the sampler the port
+    takes over from the t2i configs for the c2i net."""
+    path = os.path.join(REPO, "configs_t2i/sft_res512.yaml")
+    ours = registry.instantiate(registry.load_yaml(path)["model"]["diffusion_sampler"])
+    ref = jax_registry.instantiate(jax_registry.load_yaml(path)["model"]["diffusion_sampler"])
+    assert (ours.num_steps, ours.order, ours.guidance) == (ref.num_steps, ref.order, ref.guidance)
+    np.testing.assert_array_equal(ours.solver_coeffs, ref.solver_coeffs)
+    np.testing.assert_array_equal(ours._cfg_array(), ref._cfg_array())
+
+
+METRICS_CONFIGS = [p for p in CONFIGS if "ComputeMetricsHook" in open(os.path.join(REPO, p)).read()]
+
+
+@pytest.mark.parametrize("path", METRICS_CONFIGS)
+def test_compute_metrics_callback_of_the_reco_configs_parses(path):
+    """The callback node of the ReCo and VAE configs builds the port's hook
+    with the arguments the JAX loop passes its own."""
+    from deco_tpu.train.hooks import ComputeMetricsHook as JaxHook
+    from deco_tpu_torch.train.hooks import ComputeMetricsHook
+
+    callbacks = registry.load_yaml(os.path.join(REPO, path))["trainer"]["callbacks"]
+    (node,) = [c for c in callbacks if c["class_path"].endswith("ComputeMetricsHook")]
+    args = node.get("init_args") or {}
+    hook, ref = ComputeMetricsHook(**args, device="cpu"), JaxHook(**args)
+    assert (hook.compute_fid, hook._fid_dim, hook.data_range) == (
+        ref.compute_fid, ref._fid_dim, ref.data_range)
+    assert not hook.has_updates
+
+
 # ---- CLI ----
 
 @pytest.mark.parametrize("path", CONFIGS)
@@ -250,7 +332,7 @@ def test_cli_parses_override_values_like_jax(token):
 
 
 def test_cli_refuses_unported_workloads(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A 5"):
         cli.main(["fit", "-c", os.path.join(REPO, "configs_flow/uniflow_internvit.yaml"),
                   "--device", "cpu", f"--workdir={tmp_path}"])
 

@@ -310,10 +310,10 @@ def test_collate_matches_jax():
 
 
 def test_make_loader_rejects_streaming_datasets():
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A 3"):
         loader.make_loader(iter([]), 2)
 
 
 def test_unseeded_noise_mode_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A 2"):
         randn.RandomNDataset(latent_shape=(3, 8, 8), conditions=2, deterministic_seeds=False)

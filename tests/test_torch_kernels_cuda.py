@@ -63,6 +63,7 @@ def _rel(out, ref):
     (16, 256, 256, 16, 72), (2, 200, 200, 4, 72), (2, 256, 333, 4, 72),
     (2, 256, 256, 4, 64), (1, 130, 130, 2, 128), (1, 4096, 4096, 2, 72),
     (2, 130, 333, 2, 128),  # D = 128, ragged and Nq != Nkv
+    (12, 1024, 1024, 16, 72),  # DeCo-XL/16 512 px, CFG at batch 6: B*H = 192
 ])
 def test_kernel_matches_plain_on_card(cuda_device, b, nq, nkv, h, d):
     q, k, v, _ = _qkv(cuda_device, b, nq, nkv, h, d)
@@ -122,6 +123,7 @@ def _backward(q, k, v, o, lse, do, scale):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", ATTN_SHAPES + [
     (2, 130, 333, 2, 128),  # D = 128, ragged and Nq != Nkv: the largest shared-memory variant
+    (16, 1024, 1024, 16, 72),  # DeCo-XL/16 512 px training, microbatch 16: B*H = 256
 ])
 def test_fwd_lse_and_backward_match_plain_on_card(cuda_device, shape):
     q, k, v, do = _qkv(cuda_device, *shape)
@@ -301,3 +303,49 @@ def test_cli_predict_runs_the_kernels_on_card(cli_fit_on_card):
     assert [f.launches for f in KERNELS] == [0, 0, 0, 0, 2 * 3]
     images = np.load(out)["arr_0"]
     assert images.shape == (2, 256, 256, 3) and images.dtype == np.uint8 and images.std() > 0
+
+
+def _tiny_c2i(device, **kw):
+    from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I, init_random_
+
+    model = DeCoC2I(in_channels=3, patch_size=16, num_groups=16, hidden_size=1152,
+                    hidden_size_x=32, num_blocks=5, num_cond_blocks=2, num_classes=1000,
+                    param_dtype=torch.float32, grad_checkpoint=True, device=device, **kw)
+    return init_random_(model, 0).train()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy, per_block", [("full", 2), ("dots", 2), ("attn", 1)])
+def test_remat_policy_launches_and_gradients_on_card(cuda_device, policy, per_block):
+    """A 2-block full-width trunk at 512 px with decoder_chunks 8: under
+    "attn" the backward takes the kept (o, lse), so the forward with lse
+    launches once per block; every policy gives the gradients of "none"
+    (the same kernels on the same inputs: bit-equal)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(2, 512, 512, 3, generator=gen, device=cuda_device)
+    t, y = torch.tensor([0.3, 0.8], device=cuda_device), torch.tensor([5, 1000], device=cuda_device)
+    grads = []
+    for name in ("none", policy):
+        model = _tiny_c2i(cuda_device, trunk_remat_policy=name, decoder_chunks=8)
+        before = fa.flash_attention_fwd_lse.launches
+        model(x, t, y).float().square().mean().backward()
+        torch.cuda.synchronize()
+        launches = fa.flash_attention_fwd_lse.launches - before
+        grads.append([p.grad for p in model.parameters()])
+    assert launches == per_block * 2
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.cuda
+def test_inception_features_match_the_cpu_on_card(cuda_device):
+    """The FID tower on the card (fp32, TF32 off) against the same tower on
+    the CPU: features within 1e-4 of their largest value."""
+    import numpy as np
+
+    from deco_tpu_torch.models import inception
+
+    tower = inception.random_inception(0, device="cpu")
+    images = np.random.default_rng(0).uniform(0, 1, (4, 512, 512, 3)).astype(np.float32)
+    ref = inception.compute_fid_features(images, tower)
+    got = inception.compute_fid_features(images, tower.to(cuda_device))
+    assert np.abs(got - ref).max() < 1e-4 * np.abs(ref).max()

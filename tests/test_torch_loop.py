@@ -240,15 +240,52 @@ def test_workdir_guard_refuses_a_used_workdir_unless_resuming(tmp_path):
 
 
 def test_unported_callbacks_and_loggers_raise(tmp_path):
+    """ComputeMetricsHook is ported now (tests/test_torch_metrics.py); a
+    callback the port does not know and the W&B logger raise."""
     config = tiny_config(str(tmp_path))
     config["trainer"]["callbacks"].append(
-        {"class_path": "src.callbacks.compute_metrics.ComputeMetricsHook"})
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 4"):
+        {"class_path": "src.callbacks.compute_metrics.ComputeMetricsHook",
+         "init_args": {"compute_fid": True, "fid_feature_dim": 2048}})
+    assert Experiment(config, device="cpu").metrics_hook_cfg == {
+        "compute_fid": True, "fid_feature_dim": 2048}
+    config = tiny_config(str(tmp_path / "unknown"))
+    config["trainer"]["callbacks"].append({"class_path": "src.callbacks.grad.GradientMonitor"})
+    with pytest.raises(ValueError, match="GradientMonitor"):
         Experiment(config, device="cpu")
     config = tiny_config(str(tmp_path))
     config["trainer"]["logger"] = {"class_path": "lightning.pytorch.loggers.WandbLogger"}
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A 7"):
         Experiment(config, device="cpu")
+
+
+def test_predict_scores_raw_images_into_predict_metrics_json(tmp_path, image_root):
+    """A ComputeMetricsHook callback and a predict dataset whose metadata
+    carry ``raw_image`` (an image folder): predict scores its output
+    against the originals, as the JAX loop does, and writes the scores to
+    ``predict_metrics.json``; they equal the hook run on output.npz and the
+    dataset's images."""
+    from deco_tpu_torch.data.imagenet import PixImageNet
+    from deco_tpu_torch.models.inception import random_inception
+
+    config = tiny_config(str(tmp_path), image_root)
+    config["trainer"]["callbacks"].append(
+        {"class_path": "src.callbacks.compute_metrics.ComputeMetricsHook",
+         "init_args": {"compute_fid": True, "fid_feature_dim": 64}})
+    config["data"]["pred_dataset"] = copy.deepcopy(config["data"]["train_dataset"])
+    config["data"]["pred_batch_size"] = 3
+    exp = Experiment(config, device="cpu")
+    out = exp.predict(max_batches=1)
+    with open(os.path.join(exp.workdir, "predict_metrics.json")) as f:
+        scores = json.load(f)
+    assert sorted(scores) == ["metrics/fid", "metrics/psnr", "metrics/ssim"]
+    dataset = PixImageNet(root=image_root, resolution=TINY_IMAGE)
+    raw = np.stack([dataset[i][2]["raw_image"] for i in range(3)])
+    hook = hooks.ComputeMetricsHook(fid_feature_dim=64, device="cpu",
+                                    inception=random_inception(0, device="cpu", feature_dim=64))
+    hook.on_batch_end(np.load(out)["arr_0"], np.clip(raw * 255.0, 0, 255).astype(np.uint8))
+    want = hook.on_epoch_end()
+    for key, value in want.items():
+        assert scores[key] == pytest.approx(value, rel=1e-9), key
 
 
 # ---- checkpoints ----

@@ -71,8 +71,8 @@ def test_trunk_output_reaches_the_image():
     assert np.abs(_port(model, x, t, y) - full).max() > 1e-2 * np.abs(full).max()
 
 
-@pytest.mark.parametrize("kwarg", [
-    dict(trunk_remat_policy="dots"), dict(decoder_chunks=2), dict(quantize="int8"),
+@pytest.mark.parametrize("kwarg", [  # decoder_chunks and the remat policies are ported now
+    dict(trunk_parallel="tp"), dict(quantize=True), dict(quantize="int8"),
     dict(trunk_parallel="sp"), dict(align_layer=4),
 ])
 def test_unported_options_raise(kwarg):

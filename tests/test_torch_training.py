@@ -188,8 +188,13 @@ def test_remat_gives_the_same_gradients(remat):
 
 @pytest.mark.parametrize("policy", ["dots", "attn"])
 def test_unported_remat_policies_raise(policy):
-    with pytest.raises(NotImplementedError, match="trunk_remat_policy"):
-        DeCoC2I(**TINY_C2I, grad_checkpoint=True, trunk_remat_policy=policy, device="cpu")
+    """Every policy of the JAX package is ported now (tests/test_torch_remat.py);
+    a name it does not know raises."""
+    assert DeCoC2I(**TINY_C2I, grad_checkpoint=True, trunk_remat_policy=policy,
+                   device="cpu").trunk_checkpoint
+    with pytest.raises(ValueError, match="trunk_remat_policy"):
+        DeCoC2I(**TINY_C2I, grad_checkpoint=True, trunk_remat_policy=policy.upper(),
+                device="cpu")
 
 
 def test_param_dtype_keeps_fp32_master_weights():

@@ -4,6 +4,8 @@ Inputs and parameters are drawn with numpy from a seed and handed to both
 the JAX package and the port as numpy arrays.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,7 @@ import torch
 
 from deco_tpu.models.dit_c2i_deco import DeCoC2I as JaxDeCoC2I
 from deco_tpu_torch.convert import state_dict_from_jax
+from deco_tpu_torch.models import inception
 from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I
 
 # hidden 144 over 2 heads: head_dim 72, the DeCo-XL head width
@@ -47,7 +50,8 @@ def tiny_jax_c2i(seed: int = 0, dtype=jnp.float32):
     """(JAX DeCoC2I module, redrawn params) at the tiny config."""
     model = JaxDeCoC2I(**TINY_C2I, dtype=dtype)
     x = jnp.zeros((1, TINY_IMAGE, TINY_IMAGE, 3), jnp.float32)
-    params = model.init(jax.random.PRNGKey(0), x, jnp.zeros((1,)), jnp.zeros((1,), jnp.int32))
+    params = jax.jit(model.init)(jax.random.PRNGKey(0), x, jnp.zeros((1,)),
+                                 jnp.zeros((1,), jnp.int32))
     return model, redraw(params, seed)
 
 
@@ -59,3 +63,32 @@ def port_c2i_from_jax(params, dtype=torch.float32) -> DeCoC2I:
                              patch_size=TINY_C2I["patch_size"])
     model.load_state_dict(sd, strict=True)
     return model
+
+
+@functools.lru_cache(maxsize=None)
+def inception_state_dict():
+    """An InceptionV3 state dict in the pytorch-fid / torchvision layout from a
+    numpy seed: He-normal convs, BatchNorm statistics and affines away from
+    the identity, ``num_batches_tracked``, and the ``AuxLogits``/``fc``
+    heads a real file carries (the JAX converter reads ``AuxLogits`` too)."""
+    rng = np.random.default_rng(0)
+    sd = {}
+    for key, value in inception.InceptionV3Features().state_dict().items():
+        shape = tuple(value.shape)
+        if key.endswith("conv.weight"):
+            arr = rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        elif key.endswith("running_var"):
+            arr = 1.0 + 0.2 * np.abs(rng.standard_normal(shape))
+        elif key.endswith("bn.weight"):
+            arr = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:  # bn.bias, running_mean
+            arr = 0.1 * rng.standard_normal(shape)
+        sd[key] = torch.from_numpy(arr.astype(np.float32))
+        if key.endswith("running_var"):
+            sd[key.replace("running_var", "num_batches_tracked")] = torch.tensor(0)
+    sd["AuxLogits.conv0.conv.weight"] = torch.zeros(128, 768, 1, 1)
+    for name, fill in (("weight", 1.0), ("bias", 0.0), ("running_mean", 0.0),
+                       ("running_var", 1.0)):
+        sd[f"AuxLogits.conv0.bn.{name}"] = torch.full((128,), fill)
+    sd["fc.weight"], sd["fc.bias"] = torch.zeros(1008, 2048), torch.zeros(1008)
+    return sd
