@@ -5,8 +5,9 @@
 Drives the port's main paths at the full width of DeCo-XL/16, class-to-image
 sampling (``configs_c2i/DeCo_XL.yaml``) and training
 (``configs_c2i/DeCo_XL_freq.yaml``) at 256 px, and training, sampling and
-FID scoring at 512 px (``configs_c2i/DeCo_XL_512.yaml``), and holds each
-hand-written kernel against its plain PyTorch version. Phases, in the order
+FID scoring at 512 px (``configs_c2i/DeCo_XL_512.yaml``), and text-to-image
+serving and prompt-set predict with DeCo-XXL/16 (``configs_t2i/sft_res512.yaml``),
+and holds each hand-written kernel against its plain PyTorch version. Phases, in the order
 they run:
 
 1. build: compile every ``deco_tpu_torch/csrc/*.cu`` with nvcc (one process
@@ -74,13 +75,32 @@ they run:
    against a reference batch cropped from the folder, with the seed-0
    random tower, held against the same computations on the CPU; what TF32
    convolutions would change; the tower's images/s at batch 64.
-11. kernels: one JSON line listing every kernel with its launches on its
+11. t2i: DeCo-XXL/16 text-to-image serving (``configs_t2i/sft_res512.yaml``,
+   1.12B parameters, 24 heads of 64). ``t2i_kernel``: the flash forward at
+   the D = 64 shapes of the joint attention (image queries over 1,024 image
+   and 128 text keys), the text refinement (128 x 128) and a ragged
+   544x480 canvas (1,020 queries over 1,148 keys), at the serve and the
+   CLI predict batch, against its plain version, timed beside bound and
+   cuDNN. ``t2i_slice_vs_plain``: a 2 joint + 1 text block model at full
+   width, 4 AdamLM steps on a 512x512 and the 544x480 canvas, card against
+   CPU (both bf16), 12 launches a canvas. ``t2i_serve``:
+   ``serve.load_pipeline`` with random weights and the hash text encoder,
+   2 prompts at 512x512, 25 steps, order 2, CFG 4.0, time shift 3.0, with
+   trajectories: exactly 500 launches a call, s/image, images/s, a
+   network call's device time by kind, idle share, peak memory, the
+   trajectory's 26 frames back from the APNG; then ``serve.main`` once.
+   ``t2i_predict``: ``cli predict`` on the config, one batch of 8 (2 DPG
+   prompts x 4 seeds), 500 launches, the 8 PNGs. The files go under
+   ``build/chip_smoke_t2i/``, which is deleted.
+12. kernels: one JSON line listing every kernel with its launches on its
    path (sampling for the forward, training for the others) and on the CLI
    paths, error, times, bound, library time and the library call's
-   backend, and for the attention kernels the same at N = 1024.
+   backend, for the attention kernels the same at N = 1024, and for the
+   forward its t2i launches and its times at the D = 64 t2i shapes.
 
-``python3 chip_smoke.py --calibrate-train-slice`` prints, on the CPU, the two
-readings between which the train-slice gates sit, and no result.
+``python3 chip_smoke.py --calibrate-train-slice`` (and ``--calibrate-t2i-slice``)
+prints, on the CPU, the two readings between which the train-slice (t2i
+slice) gates sit, and no result.
 
 Every phase prints JSON lines; a failed phase raises and the script exits
 non-zero without the last line. The last line is
@@ -1267,11 +1287,364 @@ def phase_cli_512(card: str, seed: int) -> dict:
         shutil.rmtree(CLI_512_DIR, ignore_errors=True)
 
 
+# ---- t2i: DeCo-XXL/16 text-to-image serving (configs_t2i/sft_res512.yaml) ----
+
+T2I_CONFIG = "configs_t2i/sft_res512.yaml"
+T2I_DIR = "build/chip_smoke_t2i"  # git-ignored; deleted at the end of the phase
+# The t2i slice, card vs CPU, both bf16: 4 AdamLM steps of a 2 joint + 1 text
+# block DeCoT2I at full width on two canvases. On the CPU
+# (`--calibrate-t2i-slice`) its bf16 images differ from fp32 by rel L2 0.0232,
+# and zeroing every attention of the trunk moves them by 0.0755; 0.045 sits
+# between (1.9x the first, 1/1.7 of the second), so it passes rounding and
+# fails a wrong attention, as SLICE_REL_L2 does for c2i.
+T2I_SLICE_REL_L2 = 0.045
+T2I_SLICE_READINGS = {"bf16_vs_fp32": 0.0232, "zero_attention_vs_bf16": 0.0755}
+T2I_SLICE = dict(num_encoder_blocks=2, num_text_blocks=1)  # full width, cut depth
+T2I_CANVASES = ((512, 512), (544, 480))  # the second: 1,020 image tokens, both lengths ragged
+T2I_SLICE_STEPS = 4
+
+
+def t2i_flops_per_call(image_tokens: int, text_tokens: int = 128, hidden: int = 1536,
+                       joint_blocks: int = 16, text_blocks: int = 4, patch: int = 16,
+                       decoder_width: int = 32, decoder_blocks: int = 3,
+                       txt_embed_dim: int = 2048) -> float:
+    """Matmul FLOPs of one DeCo-XXL/16 t2i network call, per row (one image).
+
+    A joint block: qkv_x 2NC*3C, kv_y 2MC*2C, attention 4N(N+M)C, proj 2NC^2,
+    the fused SwiGLU of width 4C 3*2NC*4C, adaLN 2C*6C; a text block the same
+    over M tokens with qkv 2MC*3C and attention 4M^2C; the embedders 2N(P^2*3)C
+    and 2M*txt*C; the decoder as in ``utils/flops.deco_pixel_decoder_flops``.
+    At 512 px (N = 1024, M = 128): 16 joint blocks 1.373 TFLOP, 4 text blocks
+    0.039, decoder 0.036, embedders 0.003: 1.45 TFLOP.
+    """
+    from deco_tpu_torch.utils.flops import deco_pixel_decoder_flops
+
+    n, m, c = image_tokens, text_tokens, hidden
+    mlp = 3 * 2 * c * 4 * c
+    adaln = 2 * c * 6 * c
+    joint = n * (2 * c * 3 * c + 2 * c * c + mlp) + m * 2 * c * 2 * c + 4 * n * (n + m) * c + adaln
+    text = m * (2 * c * 3 * c + 2 * c * c + mlp) + 4 * m * m * c + adaln
+    embed = 2 * n * patch * patch * 3 * c + 2 * m * txt_embed_dim * c
+    dec = deco_pixel_decoder_flops(n, patch, decoder_width, c, decoder_blocks)
+    return float(joint_blocks * joint + text_blocks * text + embed + dec)
+
+
+def phase_t2i_kernel(card: str) -> dict:
+    """The flash forward at the t2i shapes (D = 64): joint attention (image
+    queries over 1,024 image + 128 text keys), text refinement (128 x 128),
+    at the serve batch (2 prompts, CFG: B*H 96) and the CLI predict batch (8
+    prompts: B*H 384), and the ragged 544x480 canvas; against the plain
+    version, bit-identical over two runs, timed beside bound and cuDNN."""
+    import torch
+
+    from deco_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    shapes = {  # (B, Nq, Nkv, H, D)
+        "joint_96": (4, 1024, 1152, 24, 64), "text_96": (4, 128, 128, 24, 64),
+        "joint_384": (16, 1024, 1152, 24, 64), "text_384": (16, 128, 128, 24, 64),
+        "ragged_96": (4, 1020, 1148, 24, 64),
+    }
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    rows, worst = {}, 0.0
+    for name, (b, nq, nkv, h, d) in shapes.items():
+        q = torch.randn(b, nq, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(b, nkv, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        out, again = flash_attention(q, k, v), flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = flash_attention_plain(q, k, v)
+        err = (out.float() - ref.float()).abs().max().item()
+        check(bool(torch.isfinite(out).all()), f"t2i attention {name}: not finite")
+        check(err < ATTN_ATOL, f"t2i attention {name} error {err} >= {ATTN_ATOL}")
+        check(torch.equal(out, again), f"t2i attention {name} differs between two runs")
+        worst = max(worst, err)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        rows[name] = {
+            "b_nq_nkv_h_d": [b, nq, nkv, h, d], "bh": b * h, "max_abs_err": err,
+            "bit_identical": True, "ms": cuda_ms(lambda: flash_attention(q, k, v), 30, flush),
+            "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 5, flush),
+            **sdpa_forward_yardsticks(q, k, v, d ** -0.5, False, flush, 30),
+            **_bound(card, nbytes, 4 * b * h * nq * nkv * d)}
+        emit({"phase": "t2i_kernel", "shape": name, **rows[name], "atol": ATTN_ATOL,
+              "l2": "flushed before each call", "card": card})
+        del q, k, v, out, again, ref
+    return {"max_abs_err": worst, "timings": rows}
+
+
+def t2i_slice_images(device: str, dtype=None, zero_attention: bool = False) -> list:
+    """The cut-depth DeCoT2I (full width, 2 joint + 1 text blocks, seeded
+    random weights) sampled with ``T2I_SLICE_STEPS`` AdamLM steps (order 2,
+    CFG 4.0, time shift 3.0) on each canvas of ``T2I_CANVASES``, from seeded
+    noise and seeded text embeddings (0.02 * randn, the hash encoder's scale;
+    Python's salted ``hash()`` would tie the prompt to the process): the
+    final images, float32 on the CPU. ``zero_attention`` makes every
+    attention of the trunk return zeros (the reading that sets the gate)."""
+    import torch
+
+    from deco_tpu_torch.diffusion.adam_sampling import AdamLMSampler
+    from deco_tpu_torch.diffusion.scheduling import LinearScheduler
+    from deco_tpu_torch.models import layers
+    from deco_tpu_torch.models.dit_c2i_deco import init_random_
+    from deco_tpu_torch.models.dit_t2i import DeCoT2I
+
+    model = init_random_(DeCoT2I(**T2I_SLICE, dtype=dtype or torch.bfloat16, device=device),
+                         seed=1).eval()
+    sampler = AdamLMSampler(scheduler=LinearScheduler(), order=2, num_steps=T2I_SLICE_STEPS,
+                            guidance=4.0, timeshift=3.0)
+    gen = torch.Generator().manual_seed(2)
+    cond = (torch.randn(1, 128, 2048, generator=gen) * 0.02).to(torch.bfloat16).to(device)
+    uncond = (torch.randn(1, 128, 2048, generator=gen) * 0.02).to(torch.bfloat16).to(device)
+    saved = layers.sdpa
+    if zero_attention:
+        layers.sdpa = lambda q, k, v, mask=None: torch.zeros_like(q)
+    try:
+        images = []
+        for h, w in T2I_CANVASES:
+            noise = torch.randn(1, h, w, 3, generator=gen).to(device)
+            scale = (h / 512, w / 512)
+            x = sampler(lambda x, t, y: model(x, t, y, patch_scaling_hw=scale), noise, cond,
+                        uncond)
+            images.append(x.float().cpu())
+    finally:
+        layers.sdpa = saved
+    return images
+
+
+def _rel_l2_images(a: list, b: list) -> float:
+    """Relative L2 distance of two lists of images, taken as one vector each."""
+    import torch
+
+    return _rel_l2(*(torch.cat([x.reshape(-1) for x in images]) for images in (a, b)))
+
+
+def calibrate_t2i_slice() -> None:
+    """The two CPU readings between which T2I_SLICE_REL_L2 sits."""
+    import torch
+
+    fp32 = t2i_slice_images("cpu", torch.float32)
+    bf16 = t2i_slice_images("cpu")
+    zero = t2i_slice_images("cpu", zero_attention=True)
+    emit({"phase": "calibrate_t2i_slice", "bf16_vs_fp32_rel_l2": _rel_l2_images(bf16, fp32),
+          "zero_attention_vs_bf16_rel_l2": _rel_l2_images(zero, bf16)})
+
+
+def phase_t2i_slice():
+    from deco_tpu_torch.ops.flash_attention import flash_attention
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        before = flash_attention.launches
+        t0 = time.perf_counter()
+        results[device] = t2i_slice_images(device)
+        results[device + "_s"] = time.perf_counter() - t0
+        results[device + "_launches"] = flash_attention.launches - before
+    rel_l2 = _rel_l2_images(results["cuda"], results["cpu"])
+    per_canvas = [_rel_l2(a.reshape(-1), b.reshape(-1))
+                  for a, b in zip(results["cuda"], results["cpu"])]
+    want = len(T2I_CANVASES) * T2I_SLICE_STEPS * 3  # 2 joint + 1 text attention a call
+    emit({"phase": "t2i_slice_vs_plain", **T2I_SLICE, "steps": T2I_SLICE_STEPS,
+          "canvases": T2I_CANVASES, "rel_l2": rel_l2, "rel_l2_per_canvas": per_canvas,
+          "rel_l2_limit": T2I_SLICE_REL_L2, "calibration": T2I_SLICE_READINGS,
+          "cuda_flash_launches": results["cuda_launches"],
+          "cpu_flash_launches": results["cpu_launches"], "cuda_s": results["cuda_s"],
+          "cpu_s": results["cpu_s"]})
+    check(all(bool(x.isfinite().all()) for x in results["cuda"]), "t2i slice images not finite")
+    check(results["cuda_launches"] == want,
+          f"t2i slice launched {results['cuda_launches']} kernels, expected {want}")
+    check(results["cpu_launches"] == 0, "the CPU t2i slice launched a kernel")
+    check(rel_l2 < T2I_SLICE_REL_L2, f"t2i slice card vs CPU rel L2 {rel_l2} >= "
+                                     f"{T2I_SLICE_REL_L2}")
+
+
+def _t2i_call_breakdown(pipe, rows: int, wall_ms: float) -> dict:
+    """Device time of one CFG network call of ``rows`` rows at 512 px by kind:
+    the 4 text attentions run before the 16 joint ones, so the first 4
+    forward kernels in time order are the text attention's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(rows, 512, 512, 3, generator=gen, device="cuda")
+    t = torch.full((rows,), 0.5, device="cuda")
+    y = (torch.randn(rows, 128, 2048, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            pipe.denoiser(x, t, y)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    kinds = {"text_attention": 0.0, "joint_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    attention = [e for e in kernels if "flash_fwd_kernel" in e.name]
+    text = set(map(id, attention[:4]))
+    for e in kernels:
+        ms = e.time_range.elapsed_us() / 1e3
+        if "flash_fwd_kernel" in e.name:
+            kinds["text_attention" if id(e) in text else "joint_attention"] += ms
+        else:
+            kinds["gemm" if _kernel_kind(e.name) == "gemm" else "other"] += ms
+    busy = sum(kinds.values())
+    return {"rows": rows, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms, "kernels": len(kernels),
+            "attention_kernels": len(attention), "by_kind_ms": kinds}
+
+
+def phase_t2i_serve(card: str) -> int:
+    """``serve.load_pipeline(sft_res512.yaml)`` at full width (DeCo-XXL/16,
+    random init_like_jax_ weights, the hash text encoder): 2 prompts at
+    512x512, 25 AdamLM steps, order 2, CFG 4.0, time shift 3.0, with
+    trajectories; then ``serve.main`` once as a user runs it."""
+    import os
+    import shutil
+
+    import torch
+
+    from deco_tpu_torch import serve
+    from deco_tpu_torch.ops.flash_attention import flash_attention
+    from deco_tpu_torch.utils import png
+    from deco_tpu_torch.utils.flops import card_peaks
+
+    prompts = ["a photo of a red fox in the snow", "two cups of coffee on a wooden table"]
+    steps = 25
+    try:
+        t0 = time.perf_counter()
+        pipe = serve.load_pipeline(T2I_CONFIG)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        model = pipe.denoiser
+        params = sum(p.numel() for p in model.parameters())
+        check(len(model.blocks) == 16 and len(model.text_refine_blocks) == 4
+              and model.hidden_size == 1536 and model.num_groups == 24,
+              "serve did not build DeCo-XXL/16")
+        pipe(prompts, num_steps=2)  # warm-up: the caches and the cuBLAS handles
+        calls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            images, trajs = pipe(prompts, height=512, width=512, num_steps=steps, order=2,
+                                 cfg=4.0, timeshift=3.0, seed=0, return_trajectories=True)
+            seconds = time.perf_counter() - t0  # ends in copies to the host
+            calls.append({"seconds": seconds, "s_per_image": seconds / len(prompts),
+                          "images_per_s": len(prompts) / seconds,
+                          "launches": flash_attention.launches,
+                          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+        images = np.stack(images)
+        # step 0 runs conditional-only (t = 0 is outside the open guidance
+        # interval), the other 24 CFG-doubled
+        flops = t2i_flops_per_call(1024) * (1 + 2 * (steps - 1))
+        for c in calls:
+            c["mfu"] = c["images_per_s"] * flops / card_peaks(card)[0]
+        os.makedirs(T2I_DIR, exist_ok=True)
+        png.write_apng(f"{T2I_DIR}/traj.png", trajs[0])
+        frames, delays = png.read_apng(f"{T2I_DIR}/traj.png")
+        frames_ok = len(frames) == steps + 1 and all(
+            np.array_equal(a, b) for a, b in zip(frames, trajs[0]))
+        walls = []
+        for _ in range(4):
+            gen = torch.Generator(device="cuda").manual_seed(4)
+            x = torch.randn(4, 512, 512, 3, generator=gen, device="cuda")
+            y = torch.zeros(4, 128, 2048, device="cuda", dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model(x, torch.full((4,), 0.5, device="cuda"), y)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        breakdown = _t2i_call_breakdown(pipe, 4, float(np.median(walls[1:])))
+        emit({"phase": "t2i_serve", "config": T2I_CONFIG, "params": params,
+              "prompts": len(prompts), "size": [512, 512], "steps": steps, "order": 2,
+              "cfg": 4.0, "timeshift": 3.0, "load_s": load_s, "calls": calls,
+              "flops_per_image": flops, "images_shape": list(images.shape),
+              "images_dtype": str(images.dtype), "frames": len(trajs[0]),
+              "apng_frames_equal": frames_ok, "apng_delays_ms": sorted(set(delays)),
+              "one_network_call": breakdown, "card": card})
+        check(images.shape == (2, 512, 512, 3) and images.dtype == np.uint8, "serve images")
+        check(all(c["launches"] == 20 * steps for c in calls),
+              f"serve launches {[c['launches'] for c in calls]}, expected {20 * steps}")
+        check(frames_ok and delays == [100.0] * (steps + 1), "the trajectory APNG")
+        check(breakdown["attention_kernels"] == 20, f"one network call ran "
+                                                    f"{breakdown['attention_kernels']} attentions")
+        del pipe, model
+        torch.cuda.empty_cache()
+
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        paths = serve.main(["--config", T2I_CONFIG, "--prompt", prompts[0], "--prompt",
+                            prompts[1], "--negative_prompt", "blurry", "--out_dir",
+                            f"{T2I_DIR}/serve"])
+        main_s = time.perf_counter() - t0
+        written = sorted(os.listdir(f"{T2I_DIR}/serve"))
+        samples = [png.read(p) for p in paths]
+        traj_frames = [len(png.read_apng(f"{T2I_DIR}/serve/traj_{i}.png")[0]) for i in range(2)]
+        emit({"phase": "t2i_serve_main", "seconds": main_s, "files": written,
+              "launches": flash_attention.launches, "traj_frames": traj_frames,
+              "sample_shapes": [list(x.shape) for x in samples], "card": card})
+        check(written == ["sample_0.png", "sample_1.png", "traj_0.png", "traj_1.png"],
+              f"serve.main wrote {written}")
+        check(traj_frames == [steps + 1] * 2 and all(x.shape == (512, 512, 3) for x in samples),
+              "serve.main outputs")
+        check(flash_attention.launches == 20 * steps, "serve.main launches")
+        print(card, flush=True)
+        return calls[-1]["launches"]
+    finally:
+        shutil.rmtree(T2I_DIR, ignore_errors=True)
+
+
+def phase_t2i_predict(card: str) -> int:
+    """``python -m deco_tpu_torch.cli predict -c configs_t2i/sft_res512.yaml``
+    in this process: one batch of 8 (the first 2 DPG prompts x 4 seeds), 25
+    AdamLM steps with CFG on 16 rows, the JAX initializers' random weights
+    (no checkpoint) and the hash text encoder; 8 PNGs named
+    ``<prompt file>_<seed>.png``."""
+    import os
+    import shutil
+
+    import torch
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.ops.flash_attention import flash_attention
+    from deco_tpu_torch.train import loop
+    from deco_tpu_torch.utils import png
+
+    try:
+        flash_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with Spy(loop, "init_like_jax_") as inits:
+            cli.main(["predict", "-c", T2I_CONFIG, f"--trainer.default_root_dir={T2I_DIR}",
+                      "--max_batches", "1"])
+        predict_s = time.perf_counter() - t0
+        sampling_s = time.perf_counter() - inits.calls[0]["end"]  # after the weights
+        out_dir = f"{T2I_DIR}/sftpix512ema/val_200k/iter_0"
+        names = sorted(os.listdir(out_dir))
+        images = [png.read(os.path.join(out_dir, n)) for n in names]
+        want = sorted(f"{p}_{s}.png" for p in ("0", "1") for s in range(4))
+        emit({"phase": "t2i_predict", "config": T2I_CONFIG, "batch": len(images),
+              "predict_call_s": predict_s, "sampling_s": sampling_s,
+              "images_per_s": len(images) / sampling_s, "launches": flash_attention.launches,
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(), "files": names,
+              "pixel_std": float(np.std(images)), "card": card})
+        check(names == want, f"predict wrote {names}")
+        check(all(x.shape == (512, 512, 3) and x.dtype == np.uint8 for x in images),
+              "predict images")
+        check(flash_attention.launches == 500, f"predict launches {flash_attention.launches}")
+        print(card, flush=True)
+        return flash_attention.launches
+    finally:
+        shutil.rmtree(T2I_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
     if sys.argv[1:] == ["--calibrate-train-slice"]:
         calibrate_train_slice()  # on the CPU; sets no result
+        return 2
+    if sys.argv[1:] == ["--calibrate-t2i-slice"]:
+        calibrate_t2i_slice()  # on the CPU; sets no result
         return 2
     seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
     if not torch.cuda.is_available():
@@ -1294,6 +1667,11 @@ def main() -> int:
     cli_launches = phase_cli(card, seed)
     torch.cuda.empty_cache()
     cli_512_launches = phase_cli_512(card, seed)
+    torch.cuda.empty_cache()
+    t2i_kernel = phase_t2i_kernel(card)
+    phase_t2i_slice()
+    t2i_serve_launches = phase_t2i_serve(card)
+    t2i_predict_launches = phase_t2i_predict(card)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     n1024 = {"fwd": kernel["n1024"], "fwd_lse": train_times.get("fwd_lse_512"),
              "bwd_dq": train_times.get("bwd_dq_512"), "bwd_dkv": train_times.get("bwd_dkv_512")}
@@ -1313,9 +1691,18 @@ def main() -> int:
                 "library_backend": timing.get("library_backend"),
                 **{k: v for k, v in timing.items() if k.endswith("backward_ms")}, **extra}
 
+    fwd = row("flash_attention_fwd", "flash_attention_fwd.cu",
+              "deco_tpu/ops/flash_attention.py:63", launches,
+              max(kernel["max_abs_err"], t2i_kernel["max_abs_err"]), kernel)
+    # DeCo-XXL/16 t2i (D = 64): launches per serve and per CLI predict call
+    # (the Pipeline of 2 prompts, one batch of 8), and the times at its shapes
+    fwd.update(t2i_serve_launches=t2i_serve_launches,
+               t2i_predict_launches=t2i_predict_launches,
+               d64={name: {k: v for k, v in t.items() if k in keys + (
+                   "library_backend", "b_nq_nkv_h_d", "max_abs_err")}
+                   for name, t in t2i_kernel["timings"].items()})
     emit({"kernels": [
-        row("flash_attention_fwd", "flash_attention_fwd.cu", "deco_tpu/ops/flash_attention.py:63",
-            launches, kernel["max_abs_err"], kernel),
+        fwd,
         row("flash_attention_fwd_lse", "flash_attention_fwd.cu",
             "deco_tpu/ops/flash_attention.py:270", train_launches["fwd_lse"],
             train_errs["fwd_lse"], train_times["fwd_lse"]),

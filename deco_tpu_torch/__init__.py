@@ -13,5 +13,8 @@ block-DCT frequency loss, AdamW, EMA, per-block remat: ``fit.py``), with the
 flash-attention forward (with and without logsumexp), its dQ and dK/dV
 backward and the fused frequency-weighted MSE as kernels; and both run
 from the reference YAML configs through ``python -m deco_tpu_torch.cli``
-(image-folder data, loader, step checkpoints, hooks, the run loop).
+(image-folder data, loader, step checkpoints, hooks, the run loop), with FID
+scoring at 512 px; and DeCo-XXL/16 text-to-image serving (``DeCoT2I``, the
+text conditioners, ``python -m deco_tpu_torch.serve``, and the DPG/GenEval
+predict through the CLI), whose joint attention runs the same forward kernel.
 """

@@ -7,7 +7,9 @@
     python -m deco_tpu_torch.cli predict -c configs_c2i/DeCo_XL.yaml \\
         --ckpt_path D/checkpoints [--max_batches N]
 
-The reference configs under ``configs_c2i/`` drive it unchanged; their
+The reference configs under ``configs_c2i/`` and ``configs_t2i/`` drive it
+unchanged (``predict -c configs_t2i/sft_res512.yaml`` writes the DPG-Bench
+images, ``validate`` the GenEval ones); their
 class paths resolve through ``config.registry``. ``--key=value`` overrides a
 config entry by its dotted path. ``--device`` defaults to ``cuda`` and
 raises where there is no card; ``--device cpu`` runs the plain PyTorch
@@ -35,6 +37,17 @@ def _parse_value(v: str):
     if v.lower() in ("null", "none"):
         return None
     return v
+
+
+def parse_overrides(tokens) -> Dict[str, Any]:
+    """``--a.b.c=value`` tokens as {dotted path: value}; others raise."""
+    overrides = {}
+    for tok in tokens:
+        if not (tok.startswith("--") and "=" in tok):
+            raise SystemExit(f"unrecognized argument: {tok}")
+        k, v = tok[2:].split("=", 1)
+        overrides[k] = _parse_value(v)
+    return overrides
 
 
 def build_parser():
@@ -65,16 +78,8 @@ def detect_workload(config: Dict[str, Any]) -> str:
 def main(argv: Optional[list] = None):
     argv = argv if argv is not None else sys.argv[1:]
     known, unknown = build_parser().parse_known_args(argv)
-    overrides = {}
-    for tok in unknown:
-        if tok.startswith("--") and "=" in tok:
-            k, v = tok[2:].split("=", 1)
-            overrides[k] = _parse_value(v)
-        else:
-            raise SystemExit(f"unrecognized argument: {tok}")
-
     config = registry.load_yaml(known.config)
-    registry.apply_overrides(config, overrides)
+    registry.apply_overrides(config, parse_overrides(unknown))
     kind = detect_workload(config)
     if kind != "diffusion":
         raise registry.not_ported(f"the {kind} workload ({known.config})", 5)

@@ -28,8 +28,16 @@ from deco_tpu_torch.config import _yaml
 _PORTED: Dict[str, str] = {
     "src.models.autoencoder.pixel.PixelAE": "deco_tpu_torch.models.autoencoders.PixelAE",
     "src.models.transformer.dit_c2i_DeCo.PixNerDiT": "deco_tpu_torch.config.registry._deco_c2i",
+    "src.models.transformer.dit_t2i_DeCo.PixNerDiT":
+        "deco_tpu_torch.config.registry._dit_t2i_deco_dispatch",
     "src.models.conditioner.class_label.LabelConditioner":
         "deco_tpu_torch.models.conditioners.LabelConditioner",
+    "src.models.conditioner.qwen3_text_encoder.Qwen3TextEncoder":
+        "deco_tpu_torch.models.conditioners.Qwen3TextEncoder",
+    "src.models.conditioner.place_holder.PlaceHolderConditioner":
+        "deco_tpu_torch.models.conditioners.PlaceHolderConditioner",
+    "src.models.conditioner.base.ComposeConditioner":
+        "deco_tpu_torch.models.conditioners.ComposeConditioner",
     "src.diffusion.flow_matching.scheduling.LinearScheduler":
         "deco_tpu_torch.diffusion.scheduling.LinearScheduler",
     "src.diffusion.flow_matching.training.FlowMatchingTrainer":
@@ -66,6 +74,8 @@ _PORTED: Dict[str, str] = {
     "src.data.dataset.randn.RandomNDataset": "deco_tpu_torch.data.randn.RandomNDataset",
     "src.data.dataset.randn.ClassLabelRandomNDataset":
         "deco_tpu_torch.data.randn.ClassLabelRandomNDataset",
+    "src.data.dataset.geneval.GenEvalDataset": "deco_tpu_torch.data.geneval.GenEvalDataset",
+    "src.data.dataset.dpg.DPGDataset": "deco_tpu_torch.data.dpg.DPGDataset",
     "src.callbacks.simple_ema.SimpleEMA": "deco_tpu_torch.config.registry._SimpleEMAConfig",
     "torch.optim.AdamW": "deco_tpu_torch.config.registry._AdamWConfig",
 }
@@ -76,11 +86,7 @@ UNPORTED: Dict[str, int] = {
     "src.models.autoencoder.dc_latent.DCLatentAE": 4,
     "src.models.transformer.dit_c2i_baseline.FlattenDiT": 4,
     "src.models.transformer.dit_c2i_pixnerd.PixNerDiT": 4,
-    "src.models.transformer.dit_t2i_DeCo.PixNerDiT": 3,
-    "src.models.transformer.dit_t2i_pixnerd.PixNerDiT": 3,
-    "src.models.conditioner.qwen3_text_encoder.Qwen3TextEncoder": 3,
-    "src.models.conditioner.place_holder.PlaceHolderConditioner": 3,
-    "src.models.conditioner.base.ComposeConditioner": 3,
+    "src.models.transformer.dit_t2i_pixnerd.PixNerDiT": 4,
     "src.diffusion.flow_matching.training_repa.REPATrainer": 4,
     "src.diffusion.flow_matching.training_repa_JiT.REPATrainer": 4,
     "src.diffusion.ddpm.training.VPTrainer": 4,
@@ -96,8 +102,6 @@ UNPORTED: Dict[str, int] = {
     "src.models.modules.discriminator.NLayerDiscriminator": 5,
     "src.data.dataset.imagenet.PixHFDataset": 3,
     "src.data.dataset.imagenet.PixWebDataset": 3,
-    "src.data.dataset.geneval.GenEvalDataset": 3,
-    "src.data.dataset.dpg.DPGDataset": 3,
     "src.data.dataset.image_txt.ImageText": 3,
     "src.data.dataset.imagenet.PixJSONLDataset": 3,
     "src.data.dataset.imagenet.PixMultiJSONLDataset": 3,
@@ -157,6 +161,20 @@ def _deco_c2i(dtype="bfloat16", param_dtype=None, **kw):
     from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I
 
     return DeCoC2I(dtype=torch_dtype(dtype),
+                   param_dtype=None if param_dtype is None else torch_dtype(param_dtype), **kw)
+
+
+def _dit_t2i_deco_dispatch(dtype="bfloat16", param_dtype=None, **kw):
+    """The reference's ``dit_t2i_DeCo.PixNerDiT`` names two models: the
+    config-implied t2i DeCo (``txt_*`` arguments), which is ``DeCoT2I``
+    with the config's dtypes as torch dtypes, and the ReCo reconstruction
+    model (``config_path``/``select_layer`` arguments), which is not ported."""
+    if "config_path" in kw or "select_layer" in kw:
+        raise not_ported("src.models.transformer.dit_t2i_DeCo.PixNerDiT (the ReCo model: "
+                         "config_path/select_layer)", 5)
+    from deco_tpu_torch.models.dit_t2i import DeCoT2I
+
+    return DeCoT2I(dtype=torch_dtype(dtype),
                    param_dtype=None if param_dtype is None else torch_dtype(param_dtype), **kw)
 
 

@@ -1,4 +1,4 @@
-"""Weight bridge from the JAX ``DeCoC2I`` parameter tree to the port.
+"""Weight bridge from the JAX ``DeCoC2I`` and ``DeCoT2I`` parameter trees to the port.
 
 :func:`state_dict_from_jax` writes the keys and layouts of the reference
 torch model (those of ``deco_tpu/convert/flax_to_torch.py``
@@ -6,6 +6,10 @@ torch model (those of ``deco_tpu/convert/flax_to_torch.py``
 kernels (in, out) become Linear weights (out, in), the ``nn.scan``-stacked
 trunk unstacks into ``blocks.{i}``, and the ``s_embedder`` weight is written
 channel-major, the order of torch ``unfold`` patches.
+:func:`state_dict_from_jax_t2i` is the port's copy of
+``export_deco_t2i(prefix="")``: the same transforms, the fused SwiGLU layout
+(``w12 = [w1; gate]``, ``w3`` = the JAX ``w2``), and the text-refine
+blocks' flat ``attn_*`` parameters under ``attn.``.
 
 :func:`train_checkpoint_from_jax` turns a JAX training state (params, EMA,
 optax AdamW moments and count) into the port's step checkpoint
@@ -92,6 +96,62 @@ def state_dict_from_jax(params: dict, in_channels: int = 3,
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
 
 
+def _t2i_block(blocks: dict, out: dict, prefix: str, i: int, joint: bool):
+    def g(*path):
+        node = blocks
+        for p in path:
+            node = node[p]
+        return np.asarray(node[i])
+
+    out[f"{prefix}adaLN_modulation.0.weight"] = _t(g("adaLN_modulation", "kernel"))
+    out[f"{prefix}adaLN_modulation.0.bias"] = g("adaLN_modulation", "bias")
+    out[f"{prefix}norm1.weight"] = g("norm1", "weight")
+    out[f"{prefix}norm2.weight"] = g("norm2", "weight")
+    out[f"{prefix}mlp.w12.weight"] = np.concatenate(
+        [_t(g("mlp", "w1", "kernel")), _t(g("mlp", "w3", "kernel"))], axis=0)
+    out[f"{prefix}mlp.w3.weight"] = _t(g("mlp", "w2", "kernel"))
+    if joint:
+        names = ("qkv_x", "kv_y", "q_norm", "k_norm", "proj")
+        path = lambda name: ("attn", name)  # noqa: E731
+    else:  # the text-refine block's attention parameters are flat in JAX
+        names = ("qkv", "q_norm", "k_norm", "proj")
+        path = lambda name: ("attn_" + name,)  # noqa: E731
+    for name in names:
+        key = f"{prefix}attn.{name}.weight"
+        if name.endswith("norm"):
+            out[key] = g(*path(name), "weight")
+        else:
+            out[key] = _t(g(*path(name), "kernel"))
+    out[f"{prefix}attn.proj.bias"] = g(*path("proj"), "bias")
+
+
+def state_dict_from_jax_t2i(params: dict, in_channels: int = 3,
+                            patch_size: int = 16) -> dict[str, torch.Tensor]:
+    """JAX ``DeCoT2I`` params (optionally under ``"params"``) -> the port's
+    ``DeCoT2I`` state dict (fp32 tensors), the keys and arrays of
+    ``export_deco_t2i(prefix="")``."""
+    p = params.get("params", params)
+    trunk = p["trunk"]
+    out: dict = {}
+    out["s_embedder.proj.weight"] = _unfold_perm_inv(
+        trunk["s_embedder"]["proj"]["kernel"], in_channels, patch_size)
+    out["s_embedder.proj.bias"] = np.asarray(trunk["s_embedder"]["proj"]["bias"])
+    _dense(trunk["t_embedder"]["mlp_0"], out, "t_embedder.mlp.0")
+    _dense(trunk["t_embedder"]["mlp_2"], out, "t_embedder.mlp.2")
+    _dense(trunk["y_embedder"]["proj"], out, "y_embedder.proj")
+    out["y_embedder.norm.weight"] = np.asarray(trunk["y_embedder"]["norm"]["weight"])
+    out["y_pos_embedding"] = np.asarray(trunk["y_pos_embedding"])
+    text = trunk["text_refine_blocks"]["block"]
+    for i in range(np.asarray(text["norm1"]["weight"]).shape[0]):
+        _t2i_block(text, out, f"text_refine_blocks.{i}.", i, joint=False)
+    blocks = trunk["blocks"]["block"]
+    for i in range(np.asarray(blocks["norm1"]["weight"]).shape[0]):
+        _t2i_block(blocks, out, f"blocks.{i}.", i, joint=True)
+    _dense(p["x_embedder"]["embedder"], out, "x_embedder.embedder.0")
+    _pixel_decoder(p["dec_net"], out, "dec_net.")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
 def train_checkpoint_from_jax(params: dict, ema_params, mu: dict, nu: dict, count, step: int,
                               in_channels: int = 3, patch_size: int = 16) -> dict:
     """A port step checkpoint (``train.checkpoint.payload``) from numpy trees
@@ -114,7 +174,8 @@ def train_checkpoint_from_jax(params: dict, ema_params, mu: dict, nu: dict, coun
 
 
 def load_checkpoint(path: str, ema: bool = True) -> dict[str, torch.Tensor]:
-    """A reference-layout checkpoint (``.pt``) as the port's state dict.
+    """A reference-layout checkpoint (``.pt`` or ``.ckpt``, c2i or t2i) as
+    the port's state dict.
 
     Accepts a bare state dict or ``{"state_dict": ...}``; keys under
     ``ema_denoiser.`` (preferred when ``ema``) or ``denoiser.`` lose that

@@ -8,6 +8,7 @@ transformed time coordinate (``lms_transform_fn``: "nop", "snr", "logsnr",
 loop over the steps that keeps the last ``order`` predictions; steps whose
 guidance scale is 1 at either end of the schedule run the network on the
 conditional half only, as in :class:`~deco_tpu_torch.diffusion.sampling.EulerSampler`.
+Its loop state, for ``sample_chunked``, is x and the predictions kept.
 """
 
 from __future__ import annotations
@@ -90,14 +91,18 @@ class AdamLMSampler(BaseSampler):
     def _cfg_array(self):
         return self._cfg_per_step
 
-    def _impl_sampling(self, net, noise, condition, uncondition, generator, collect=False):
-        cfg_condition = torch.cat([uncondition, condition], dim=0)
+    def _init_carry(self, noise):
+        return noise, []  # x and the last `order` predictions, oldest first
+
+    def _carry_x(self, carry):
+        return carry[0]
+
+    def _run_steps(self, net, carry, start, end, condition, cfg_condition, generator, collect):
         t_cur = self.timesteps[:-1].astype(np.float32)
         dts = self.timedeltas.astype(np.float32)
-        x = noise
-        history = []  # the last `order` predictions, oldest first
-        xs, vs = [noise], []
-        for i in range(self.num_steps):
+        x, history = carry
+        xs, vs = [], []
+        for i in range(start, end):
             pred = self._guided(net, x, float(t_cur[i]), float(self._cfg_per_step[i]),
                                 condition, cfg_condition).to(x.dtype)
             history = (history + [pred])[-self.order:]
@@ -107,6 +112,13 @@ class AdamLMSampler(BaseSampler):
             if collect:
                 xs.append(x)
                 vs.append(v)
+        return (x, history), xs, vs
+
+    def _impl_sampling(self, net, noise, condition, uncondition, generator, collect=False):
+        cfg_condition = torch.cat([uncondition, condition], dim=0)
+        (x, _), xs, vs = self._run_steps(net, self._init_carry(noise), 0, self.num_steps,
+                                         condition, cfg_condition, generator, collect)
+        xs = [noise] + xs
         if collect:
             vs.append(torch.zeros_like(noise))
             return torch.stack(xs), torch.stack(vs)

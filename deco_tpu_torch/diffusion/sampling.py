@@ -11,6 +11,11 @@ with per-step coefficients (a, b, c) from :data:`STEP_COEFFS`. The CFG batch
 is laid out ``[uncondition; condition]``. Steps whose guidance scale is 1 at
 either end of the schedule run the network on the conditional half only.
 The SDE step types draw ``eps`` from an explicit ``torch.Generator``.
+:meth:`BaseSampler.sample_chunked` runs the same step loop in
+``num_dispatches`` segments (the JAX package's split of its one-dispatch
+scan, for transports that cap a dispatch's time); each segment continues
+the last one's state, so the result equals the unsegmented call bit for
+bit. The Euler samplers and ``AdamLMSampler`` take it, as in the JAX package.
 :class:`EulerSamplerJiT` is the Euler sampler for x-prediction networks;
 :class:`HeunSampler` adds a corrector evaluation per step.
 """
@@ -88,6 +93,38 @@ class BaseSampler:
         else:
             lo = hi = self.num_steps
         return [(0, lo, "skip"), (lo, hi, "cfg"), (hi, self.num_steps, "skip")]
+
+    def _init_carry(self, noise):
+        """The loop state before step 0."""
+        return noise
+
+    def _carry_x(self, carry):
+        return carry
+
+    def _run_steps(self, net, carry, start: int, end: int, condition, cfg_condition,
+                   generator, collect: bool):
+        """Steps ``start`` to ``end - 1`` from the loop state ``carry``:
+        (carry, the x after each step, the velocity of each step), the
+        lists empty unless ``collect``."""
+        raise NotImplementedError(f"{type(self).__name__} has no segmented step loop")
+
+    @torch.no_grad()
+    def sample_chunked(self, net, noise, condition, uncondition,
+                       generator: Optional[torch.Generator] = None, num_dispatches: int = 2):
+        """The sampler's step loop run as ``num_dispatches`` segments of
+        ``linspace(0, num_steps, num_dispatches + 1)`` steps, each from the
+        last one's state: the final x equals ``__call__``'s bit for bit.
+        Trajectories are not collected here."""
+        if num_dispatches < 1:
+            raise ValueError(f"num_dispatches={num_dispatches}: need >= 1 (use the plain "
+                             "__call__ for a single dispatch)")
+        cfg_condition = torch.cat([uncondition, condition], dim=0)
+        bounds = np.linspace(0, self.num_steps, num_dispatches + 1).astype(int)
+        carry = self._init_carry(noise)
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            carry, _, _ = self._run_steps(net, carry, int(lo), int(hi), condition, cfg_condition,
+                                          generator, collect=False)
+        return self._carry_x(carry)
 
     @torch.no_grad()
     def __call__(self, net, noise, condition, uncondition,
@@ -203,33 +240,38 @@ class EulerSampler(BaseSampler):
         v = v.to(x.dtype)
         return self._update(x, v, self._score(v, x, i), i, self._draw(x, generator))
 
-    def _impl_sampling(self, net, noise, condition, uncondition, generator,
-                       collect=False):
+    def _run_steps(self, net, x, start, end, condition, cfg_condition, generator, collect):
         if self._needs_noise and generator is None:
             raise ValueError(
                 f"step types {self.step_type!r}/{self.last_step_type!r} draw "
                 "noise: pass a torch.Generator")
-        batch = noise.shape[0]
-        cfg_condition = torch.cat([uncondition, condition], dim=0)
-        x = noise
-        xs, vs = [noise], []
-        for start, end, kind in self._segment_table():
-            for i in range(start, end):
+        batch = x.shape[0]
+        xs, vs = [], []
+        for seg_start, seg_end, kind in self._segment_table():
+            for i in range(max(seg_start, start), min(seg_end, end)):
                 t = float(self._steps["t"][i])
                 if kind == "cfg":
                     cfg_x = torch.cat([x, x], dim=0)
-                    cfg_t = torch.full((2 * batch,), t, dtype=noise.dtype, device=x.device)
+                    cfg_t = torch.full((2 * batch,), t, dtype=x.dtype, device=x.device)
                     out = self._velocity(net(cfg_x, cfg_t, cfg_condition), cfg_x, cfg_t)
                     v = self.guidance_fn(out, float(self._steps["cfg"][i]))
                 else:
                     # cfg == 1: every guidance fn reduces to the conditional
                     # branch, so the unconditional half is skipped
-                    t_vec = torch.full((batch,), t, dtype=noise.dtype, device=x.device)
+                    t_vec = torch.full((batch,), t, dtype=x.dtype, device=x.device)
                     v = self._velocity(net(x, t_vec, condition), x, t_vec)
                 x = self._step_update(x, v, i, generator)
                 if collect:
                     xs.append(x)
                     vs.append(v.to(x.dtype))
+        return x, xs, vs
+
+    def _impl_sampling(self, net, noise, condition, uncondition, generator,
+                       collect=False):
+        cfg_condition = torch.cat([uncondition, condition], dim=0)
+        x, xs, vs = self._run_steps(net, noise, 0, self.num_steps, condition, cfg_condition,
+                                    generator, collect)
+        xs = [noise] + xs
         if collect:
             vs.append(torch.zeros_like(noise))
             return torch.stack(xs), torch.stack(vs)
@@ -266,6 +308,10 @@ class HeunSampler(EulerSampler):
             inv_doa_h=np.asarray(self.scheduler.alpha(t_next) / self.scheduler.dalpha(t_next),
                                  np.float32),
             dsm_h=np.asarray(self.scheduler.dsigma_mul_sigma(t_next), np.float32))
+
+    def _run_steps(self, *args, **kwargs):
+        raise NotImplementedError("HeunSampler has no segmented step loop (sample_chunked), "
+                                  "as in the JAX package")
 
     def _impl_sampling(self, net, noise, condition, uncondition, generator, collect=False):
         if self._needs_noise and generator is None:

@@ -167,24 +167,28 @@ def init_random_(model: nn.Module, seed: int, scale: float = 1.0) -> nn.Module:
     return model
 
 
-# parameters whose JAX initializer is xavier_uniform / normal(0.02) / zeros;
-# every other weight is a default nn.Dense kernel (lecun_normal), every bias
-# is zero and every norm scale one
-_XAVIER = ("s_embedder.proj.weight", "x_embedder.embedder.0.weight", "dec_net.input_proj.weight",
-           "dec_net.cond_embed.weight", ".mlp.0.weight", ".mlp.2.weight")
+# parameters whose JAX initializer is xavier_uniform / normal(0.02) /
+# normal(1.0) / zeros, in DeCoC2I and DeCoT2I; every other weight is a
+# default nn.Dense kernel (lecun_normal), every bias is zero and every norm
+# scale one
+_XAVIER = ("s_embedder.proj.weight", "y_embedder.proj.weight", "x_embedder.embedder.0.weight",
+           "dec_net.input_proj.weight", "dec_net.cond_embed.weight", ".mlp.0.weight",
+           ".mlp.2.weight")
 _NORMAL_002 = ("y_embedder.embedding_table.weight", "t_embedder.mlp.0.weight",
                "t_embedder.mlp.2.weight")
+_NORMAL_1 = ("y_pos_embedding",)
 _ZEROS = (".adaLN_modulation.1.weight", "dec_net.final_layer.linear.weight")
 
 
 def init_like_jax_(model: nn.Module, seed: int) -> nn.Module:
-    """Draw every parameter from the distribution the JAX ``DeCoC2I``'s
-    initializers use for it (the reference model's): lecun-normal
-    (truncated) trunk kernels, xavier-uniform embedders and decoder MLPs,
-    normal(0.02) label table and timestep MLP, zero biases, zero decoder
-    modulations and final linear, unit norm scales. The values come from a
-    CPU generator seeded with ``seed``, so they do not depend on the device;
-    they are not the JAX package's values (another generator)."""
+    """Draw every parameter of a ``DeCoC2I`` or ``DeCoT2I`` from the
+    distribution the JAX model's initializers use for it (the reference
+    model's): lecun-normal (truncated) trunk kernels, xavier-uniform
+    embedders and decoder MLPs, normal(0.02) label table and timestep MLP,
+    normal(1.0) text position table, zero biases, zero decoder modulations
+    and final linear, unit norm scales. The values come from a CPU generator
+    seeded with ``seed``, so they do not depend on the device; they are not
+    the JAX package's values (another generator)."""
     gen = torch.Generator().manual_seed(seed)
     norms = {m for m in model.modules() if isinstance(m, (layers.RMSNorm, layers.LayerNorm))}
     with torch.no_grad():
@@ -198,6 +202,8 @@ def init_like_jax_(model: nn.Module, seed: int) -> nn.Module:
                     r.zero_()
                 elif name.endswith(_NORMAL_002):
                     r.normal_(0.0, 0.02, generator=gen)
+                elif name.endswith(_NORMAL_1):
+                    r.normal_(0.0, 1.0, generator=gen)
                 elif name.endswith(_XAVIER):
                     fan_out, fan_in = param.shape
                     bound = (6.0 / (fan_in + fan_out)) ** 0.5

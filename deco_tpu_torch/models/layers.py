@@ -1,4 +1,4 @@
-"""The c2i layer set of ``deco_tpu/models/layers.py`` as PyTorch modules.
+"""The c2i and t2i layer sets of ``deco_tpu/models/layers.py`` as PyTorch modules.
 
 Module and parameter names follow the reference torch state-dict keys that
 ``convert.state_dict_from_jax`` writes, so reference-layout checkpoints load
@@ -12,6 +12,10 @@ with ``strict=True``. Numerics follow the Flax modules:
 - :class:`RMSNorm` and :class:`LayerNorm` compute in fp32 with fp32
   parameters and cast back to the input dtype.
 - RoPE rotates in the input dtype (the JAX package's deliberate deviation).
+- The t2i blocks (:class:`JointDiTBlock`, :class:`TextRefineBlock`) use the
+  fused SwiGLU of exact width (:class:`SwiGLUFused`, ``w12 = [w1; gate]``,
+  ``w3`` the output projection), the layout of the reference's
+  ``src/models/layers/swiglu.py`` that ``export_deco_t2i`` writes.
 - ``grad_checkpoint`` on :class:`SimpleMLPAdaLN` recomputes each res block in
   the backward (``torch.utils.checkpoint``, non-reentrant), the counterpart
   of ``nn.remat(AdaLNResBlock)``; :func:`run_pixel_decoder` runs it over
@@ -150,6 +154,22 @@ class SwiGLU(nn.Module):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
+class SwiGLUFused(nn.Module):
+    """SwiGLU of exact width ``hidden_dim`` (``SwiGLU(exact_hidden=True)``)
+    with one fused input GEMM: ``w12`` is ``[w1; gate]``, (2 * hidden, dim),
+    silu goes on its first half, and ``w3`` is the output projection."""
+
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32, param_dtype=None):
+        super().__init__()
+        kw = dict(bias=False, dtype=dtype, param_dtype=param_dtype)
+        self.w12 = Linear(dim, 2 * hidden_dim, **kw)
+        self.w3 = Linear(hidden_dim, dim, **kw)
+
+    def forward(self, x):
+        h1, gate = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(h1) * gate)
+
+
 class TimestepEmbedder(nn.Module):
     """Sinusoidal timestep embedding (cos before sin, ``max_period`` 10) + MLP."""
 
@@ -183,15 +203,18 @@ class TimestepEmbedder(nn.Module):
 
 
 class Embed(nn.Module):
-    """Linear patch/feature embed (``Embed`` without the optional norm)."""
+    """Linear patch/feature embed, then an :class:`RMSNorm` under ``norm``
+    when ``use_norm``."""
 
-    def __init__(self, in_dim: int, embed_dim: int, bias: bool = True,
+    def __init__(self, in_dim: int, embed_dim: int, bias: bool = True, use_norm: bool = False,
                  dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.proj = Linear(in_dim, embed_dim, bias=bias, dtype=dtype, param_dtype=param_dtype)
+        self.norm = RMSNorm(embed_dim) if use_norm else None
 
     def forward(self, x):
-        return self.proj(x)
+        x = self.proj(x)
+        return x if self.norm is None else self.norm(x)
 
 
 class LabelEmbedder(nn.Module):
@@ -209,14 +232,24 @@ class LabelEmbedder(nn.Module):
 
 
 def precompute_rope_2d(dim: int, height: int, width: int,
-                       theta: float = 10000.0, scale: float = 16.0):
+                       theta: float = 10000.0, scale=16.0, extrapolate: bool = False):
     """Axial 2-D RoPE tables as float32 numpy (cos, sin), each (N, dim/2).
 
     Positions span [0, scale] on both axes; angle columns interleave x/y
-    frequencies: [x_f0, y_f0, x_f1, y_f1, ...].
+    frequencies: [x_f0, y_f0, x_f1, y_f1, ...]. ``extrapolate`` gives the
+    t2i tables, which grow with the grid: ``scale`` is (scale_h, scale_w)
+    (a number means both), x spans [0, height * scale_h] over ``width``
+    points and y [0, width * scale_w] over ``height`` points. The height
+    sets the span of x and the width that of y, as in the JAX package.
     """
-    x_pos = np.linspace(0, scale, width)
-    y_pos = np.linspace(0, scale, height)
+    if extrapolate:
+        if isinstance(scale, (int, float)):
+            scale = (float(scale), float(scale))
+        x_pos = np.linspace(0, height * scale[0], width)
+        y_pos = np.linspace(0, width * scale[1], height)
+    else:
+        x_pos = np.linspace(0, scale, width)
+        y_pos = np.linspace(0, scale, height)
     y_grid, x_grid = np.meshgrid(y_pos, x_pos, indexing="ij")
     y_flat, x_flat = y_grid.reshape(-1), x_grid.reshape(-1)
     freqs = 1.0 / (theta ** (np.arange(0, dim, 4)[: dim // 4] / dim))
@@ -244,11 +277,11 @@ def apply_rope(xq, xk, rope):
 
 
 def sdpa(q, k, v, mask=None):
-    """Unmasked c2i attention dispatch. q/k/v: (B, N, H, Hc).
+    """Unmasked attention dispatch. q: (B, Nq, H, Hc); k/v: (B, Nkv, H, Hc).
 
     Without a mask this is :func:`flash_attention` (the kernel on CUDA, its
     plain version on CPU). A mask takes the plain version on CPU and raises
-    on CUDA: the kernel is unmasked and c2i never passes one.
+    on CUDA: the kernel is unmasked and neither c2i nor t2i passes one.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
     if mask is None:
@@ -259,7 +292,8 @@ def sdpa(q, k, v, mask=None):
 
 
 class RAttention(nn.Module):
-    """RoPE + qk-RMSNorm multi-head self-attention."""
+    """RoPE + qk-RMSNorm multi-head self-attention; ``rope=None`` (the t2i
+    text-refine blocks) rotates nothing."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32, param_dtype=None):
         super().__init__()
@@ -272,8 +306,9 @@ class RAttention(nn.Module):
     def forward(self, x, rope, mask=None):
         b, n, c = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        q, k = apply_rope(self.q_norm(q), self.k_norm(k), rope)
+        q, k, v = self.q_norm(qkv[:, :, 0]), self.k_norm(qkv[:, :, 1]), qkv[:, :, 2]
+        if rope is not None:
+            q, k = apply_rope(q, k, rope)
         out = sdpa(q, k, v, mask=mask)
         return self.proj(out.reshape(b, n, c))
 
@@ -298,6 +333,87 @@ class FlattenDiTBlock(nn.Module):
         x = x + gate_msa * self.attn(h, rope, mask)
         h = modulate(self.norm2(x), shift_mlp, scale_mlp)
         return x + gate_mlp * self.mlp(h)
+
+
+class JointAttention(nn.Module):
+    """t2i attention: image queries over concat(image k/v, text k/v).
+
+    ``qkv_x`` projects the image tokens and ``kv_y`` the text tokens (no
+    bias on either); one ``k_norm`` normalises both keys; RoPE rotates the
+    image q and k only; the text keys and values follow the image ones on
+    the key axis (the JAX ``sdpa(..., extra_kv=...)`` concatenation), so
+    Nkv = N + M.
+    """
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, param_dtype=None):
+        super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        self.num_heads = num_heads
+        self.qkv_x = Linear(dim, 3 * dim, bias=False, **kw)
+        self.kv_y = Linear(dim, 2 * dim, bias=False, **kw)
+        self.q_norm = RMSNorm(dim // num_heads)
+        self.k_norm = RMSNorm(dim // num_heads)
+        self.proj = Linear(dim, dim, **kw)
+
+    def forward(self, x, y, rope):
+        b, n, c = x.shape
+        head_dim = c // self.num_heads
+        qkv = self.qkv_x(x).reshape(b, n, 3, self.num_heads, head_dim)
+        q, kx, vx = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q, kx = apply_rope(self.q_norm(q), self.k_norm(kx), rope)
+        kv = self.kv_y(y).reshape(b, y.shape[1], 2, self.num_heads, head_dim)
+        ky, vy = self.k_norm(kv[:, :, 0]), kv[:, :, 1]
+        out = sdpa(q, torch.cat([kx, ky], dim=1), torch.cat([vx, vy], dim=1))
+        return self.proj(out.reshape(b, n, c))
+
+
+class _T2IBlock(nn.Module):
+    """adaLN-gated t2i block: ``attn`` (built by the subclass) and the fused
+    SwiGLU of exact width ``hidden * mlp_ratio``."""
+
+    def __init__(self, hidden: int, attn: nn.Module, mlp_ratio: float = 4.0,
+                 dtype=torch.float32, param_dtype=None):
+        super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        self.adaLN_modulation = nn.Sequential(Linear(hidden, 6 * hidden, **kw))
+        self.norm1 = RMSNorm(hidden)
+        self.attn = attn
+        self.norm2 = RMSNorm(hidden)
+        self.mlp = SwiGLUFused(hidden, int(hidden * mlp_ratio), **kw)
+
+    def _forward(self, x, c, *attn_args):
+        (shift_msa, scale_msa, gate_msa,
+         shift_mlp, scale_mlp, gate_mlp) = self.adaLN_modulation(c).chunk(6, dim=-1)
+        x = x + gate_msa * self.attn(modulate(self.norm1(x), shift_msa, scale_msa), *attn_args)
+        return x + gate_mlp * self.mlp(modulate(self.norm2(x), shift_mlp, scale_mlp))
+
+
+class JointDiTBlock(_T2IBlock):
+    """t2i encoder block: :class:`JointAttention` + fused SwiGLU."""
+
+    def __init__(self, hidden: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dtype=torch.float32, param_dtype=None):
+        super().__init__(hidden, JointAttention(hidden, num_heads, dtype, param_dtype),
+                         mlp_ratio, dtype, param_dtype)
+
+    def forward(self, x, y, c, rope):
+        """x: (B, N, C) image tokens; y: (B, M, C) text tokens; c: (B, 1, C)."""
+        return self._forward(x, c, y, rope)
+
+
+class TextRefineBlock(_T2IBlock):
+    """Text self-attention refinement block: :class:`RAttention` without
+    RoPE (the JAX block's flat ``attn_*`` parameters, under ``attn.``) +
+    fused SwiGLU."""
+
+    def __init__(self, hidden: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dtype=torch.float32, param_dtype=None):
+        super().__init__(hidden, RAttention(hidden, num_heads, dtype, param_dtype),
+                         mlp_ratio, dtype, param_dtype)
+
+    def forward(self, x, c):
+        """x: (B, M, C) text tokens; c: (B, 1, C)."""
+        return self._forward(x, c, None)
 
 
 def nerf_dct_basis(patch_size: int, max_freqs: int) -> np.ndarray:

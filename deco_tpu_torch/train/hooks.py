@@ -73,10 +73,15 @@ class SaveImagesHook:
         save_fns = metadata.get("save_fn", [None] * batch)
 
         def per_sample(v, i):
+            # the text conditioner writes tensors (valid_length_y): anything
+            # array-like with a leading batch dim is sliced per sample
             if isinstance(v, list):
                 return v[i] if len(v) == batch else v
             if isinstance(v, np.ndarray):
                 return v[i] if v.ndim >= 1 and len(v) == batch else v
+            if hasattr(v, "__array__") and not isinstance(v, (str, bytes)):
+                arr = np.asarray(v)
+                return arr[i] if arr.ndim >= 1 and len(arr) == batch else arr
             return v
 
         for i in range(batch):

@@ -8,16 +8,22 @@ fit / predict (``deco_tpu/train/loop.py`` ``Experiment``).
   gradients, clip, AdamW, EMA) with a generator seeded from (seed, step),
   ``metrics.jsonl``, step checkpoints, a resume that continues the data
   order, a save on exception and at the end, and SIGTERM as a stop request.
-- predict: the seeded-noise dataset, the config's sampler on the EMA
-  weights, ``vae.decode``, ``fp_to_uint8``, per-sample PNGs and the ADM
-  ``output.npz``, with the next batch launched before the last is read back;
+- predict: the seeded-noise dataset (class labels, or the GenEval/DPG
+  prompts of the t2i configs, which the text conditioner encodes on the
+  host and whose ``valid_length_y`` rides in the metadata), the config's
+  sampler on the EMA weights, ``vae.decode``, ``fp_to_uint8``, each
+  sample's own ``save_fn`` (the FID protocol's ``<class>_<seed>.png``,
+  DPG's ``<prompt>_<seed>.png``, GenEval's ``<idx>/samples/<seed>.png``)
+  and the ADM ``output.npz``, with the next batch launched before the last
+  is read back;
   with a ``ComputeMetricsHook`` callback, batches whose metadata carry
   ``raw_image`` are scored against it (PSNR, SSIM, FID) into
   ``predict_metrics.json``.
 
 The model keeps fp32 parameters and computes in the config's ``dtype``
 (bf16 unless overridden) on ``device``; a run that does not restore draws
-them from the JAX initializers' distributions, seeded by ``seed``. Neither loop reads a tensor back
+them from the JAX initializers' distributions (``init_like_jax_``, for
+``DeCoC2I`` and ``DeCoT2I`` alike), seeded by ``seed``. Neither loop reads a tensor back
 from the card on every step: fit reads the metrics on log steps only, and
 waits on a CUDA event ``_TRAIN_RUNAHEAD`` steps back so the host runs ahead
 of the card by a bounded number of steps.

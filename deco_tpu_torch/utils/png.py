@@ -4,6 +4,11 @@ The port writes its sample images and reads PNG image folders without PIL.
 :func:`encode` writes 8-bit RGB with no row filter. :func:`decode` reads
 8-bit gray, RGB and RGBA non-interlaced files with any of the five row
 filters and returns RGB; any other PNG raises ``ValueError``.
+:func:`encode_apng` writes frames as an animated PNG (APNG: ``acTL``,
+``fcTL`` and ``fdAT`` chunks; the first frame is the ``IDAT`` image, which
+readers without APNG support show), and :func:`decode_apng` reads back the
+full-canvas frames that :func:`encode_apng` writes. The frames stay exact,
+where a GIF would quantise them to a palette.
 """
 
 from __future__ import annotations
@@ -23,17 +28,59 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def encode(image: np.ndarray) -> bytes:
-    """An (H, W, 3) uint8 image as PNG bytes (filter 0 on every row)."""
+def _rgb(image, what: str) -> np.ndarray:
     image = np.asarray(image)
     if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
-        raise ValueError(f"png.encode: expected (H, W, 3) uint8, got {image.dtype} {image.shape}")
+        raise ValueError(f"png.{what}: expected (H, W, 3) uint8, got {image.dtype} {image.shape}")
+    return image
+
+
+def _image_data(image: np.ndarray) -> bytes:
+    """The zlib stream of an (H, W, 3) image, filter 0 on every row."""
     h, w, _ = image.shape
     rows = np.zeros((h, 1 + 3 * w), np.uint8)  # a leading 0 on each row: filter "None"
     rows[:, 1:] = image.reshape(h, 3 * w)
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (SIGNATURE + _chunk(b"IHDR", header)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes())) + _chunk(b"IEND", b""))
+    return zlib.compress(rows.tobytes())
+
+
+def _header(h: int, w: int) -> bytes:
+    return _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+
+
+def encode(image: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 image as PNG bytes (filter 0 on every row)."""
+    image = _rgb(image, "encode")
+    return (SIGNATURE + _header(*image.shape[:2]) + _chunk(b"IDAT", _image_data(image))
+            + _chunk(b"IEND", b""))
+
+
+def encode_apng(frames, delay_ms: int = 100, loops: int = 0) -> bytes:
+    """(H, W, 3) uint8 frames of one size as an animated PNG that shows each
+    for ``delay_ms`` and plays ``loops`` times (0: forever)."""
+    frames = [_rgb(f, "encode_apng") for f in frames]
+    if not frames or any(f.shape != frames[0].shape for f in frames):
+        raise ValueError("png.encode_apng: needs one or more frames of one size")
+    h, w, _ = frames[0].shape
+    out = [SIGNATURE, _header(h, w), _chunk(b"acTL", struct.pack(">II", len(frames), loops))]
+    seq = 0
+    for i, frame in enumerate(frames):
+        # full canvas at (0, 0), delay delay_ms / 1000 s, dispose none, blend source
+        out.append(_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, w, h, 0, 0, delay_ms, 1000,
+                                               0, 0)))
+        seq += 1
+        data = _image_data(frame)
+        if i == 0:
+            out.append(_chunk(b"IDAT", data))
+        else:
+            out.append(_chunk(b"fdAT", struct.pack(">I", seq) + data))
+            seq += 1
+    out.append(_chunk(b"IEND", b""))
+    return b"".join(out)
+
+
+def write_apng(path: str, frames, delay_ms: int = 100, loops: int = 0) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_apng(frames, delay_ms, loops))
 
 
 def write(path: str, image: np.ndarray) -> None:
@@ -91,21 +138,12 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 def decode(data: bytes) -> np.ndarray:
     """PNG bytes -> (H, W, 3) uint8 RGB. Gray is repeated over the three
     channels and alpha dropped, as PIL's ``convert("RGB")`` does."""
-    if data[:8] != SIGNATURE:
-        raise ValueError("png: not a PNG file")
-    pos, header, idat = 8, None, []
-    while pos + 8 <= len(data):
-        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        if len(body) != length:
-            raise ValueError("png: truncated chunk")
-        pos += 12 + length
+    header, idat = None, []
+    for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
-        elif kind == b"IEND":
-            break
         elif kind == b"PLTE":
             raise ValueError("png: palette images are not supported")
     if header is None or not idat:
@@ -124,3 +162,55 @@ def decode(data: bytes) -> np.ndarray:
 def read(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         return decode(f.read())
+
+
+def _chunks(data: bytes):
+    """(kind, body) of each chunk after the signature."""
+    if data[:8] != SIGNATURE:
+        raise ValueError("png: not a PNG file")
+    pos = 8
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if len(body) != length:
+            raise ValueError("png: truncated chunk")
+        pos += 12 + length
+        yield kind, body
+        if kind == b"IEND":
+            return
+
+
+def decode_apng(data: bytes) -> tuple[list, list]:
+    """An animated PNG from :func:`encode_apng` -> (frames, delays in ms):
+    8-bit RGB frames that each cover the whole canvas."""
+    header, frames, delays, parts = None, [], [], None
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"fcTL":
+            if parts is not None:
+                frames.append(parts)
+            _, fw, fh, x, y, num, den, _, _ = struct.unpack(">IIIIIHHBB", body)
+            if header is None or (fw, fh, x, y) != (header[0], header[1], 0, 0):
+                raise ValueError("png: only full-canvas APNG frames are supported")
+            delays.append(1000.0 * num / (den or 100))
+            parts = []
+        elif kind == b"IDAT" and parts is not None:
+            parts.append(body)
+        elif kind == b"fdAT":
+            parts.append(body[4:])  # after the sequence number
+    if parts is not None:
+        frames.append(parts)
+    if header is None or not frames:
+        raise ValueError("png: not an animated PNG")
+    w, h, depth, color = header[:4]
+    if depth != 8 or color != 2:
+        raise ValueError("png: decode_apng reads 8-bit RGB only")
+    images = [_unfilter(zlib.decompress(b"".join(p)), h, 3 * w, 3).reshape(h, w, 3)
+              for p in frames]
+    return images, delays
+
+
+def read_apng(path: str) -> tuple[list, list]:
+    with open(path, "rb") as f:
+        return decode_apng(f.read())

@@ -297,6 +297,72 @@ def test_t2i_production_sampler_node_instantiates_like_jax():
     np.testing.assert_array_equal(ours._cfg_array(), ref._cfg_array())
 
 
+TINY_T2I_DENOISER = dict(hidden_size=32, num_groups=2, num_encoder_blocks=2, num_text_blocks=1,
+                         decoder_hidden_size=8, num_decoder_blocks=1)
+
+
+@pytest.mark.parametrize("name", ["sft_res512", "pretraining_res256", "pretraining_res512"])
+def test_t2i_configs_instantiate_like_jax(name):
+    """Every configs_t2i/ denoiser node at a tiny width builds the port's
+    DeCoT2I with the JAX model's fields; the text encoder node (its
+    weight_path dropped, as in the JAX registry) the hash-embedding
+    Qwen3TextEncoder of the same width and length."""
+    path = os.path.join(REPO, "configs_t2i", f"{name}.yaml")
+    ours, ref = registry.load_yaml(path), jax_registry.load_yaml(path)
+    for config in (ours, ref):
+        config["model"]["denoiser"]["init_args"].update(TINY_T2I_DENOISER)
+    model_ref = jax_registry.instantiate(ref["model"]["denoiser"])
+    node = ours["model"]["denoiser"]
+    model = registry.instantiate({**node, "init_args": {**node["init_args"], "device": "cpu"}})
+    assert type(model).__name__ == type(model_ref).__name__ == "DeCoT2I"
+    assert model.dtype == torch.bfloat16
+    assert (model.hidden_size, model.num_groups, model.patch_size, model.txt_max_length) == (
+        model_ref.hidden_size, model_ref.num_groups, model_ref.patch_size,
+        model_ref.txt_max_length)
+    assert len(model.blocks) == model_ref.num_encoder_blocks
+    assert len(model.text_refine_blocks) == model_ref.num_text_blocks
+    assert len(model.dec_net.res_blocks) == model_ref.num_decoder_blocks
+    assert model.y_embedder.proj.in_features == model_ref.txt_embed_dim
+    assert model.dec_net.model_channels == model_ref.decoder_hidden_size
+    assert model.decoder_chunks == model_ref.decoder_chunks
+    enc = registry.instantiate(ours["model"]["conditioner"])
+    enc_ref = jax_registry.instantiate(ref["model"]["conditioner"])
+    assert type(enc).__name__ == type(enc_ref).__name__ == "Qwen3TextEncoder"
+    assert (enc.embed_dim, enc.max_length, enc._model) == (
+        enc_ref.embed_dim, enc_ref.max_length, None)
+
+
+def test_t2i_full_width_node_is_deco_xxl():
+    """sft_res512.yaml's denoiser as the CLI builds it: 1.12B parameters
+    (built on the meta device, no memory)."""
+    node = registry.load_yaml(os.path.join(REPO, "configs_t2i/sft_res512.yaml"))["model"][
+        "denoiser"]
+    with torch.device("meta"):
+        model = registry._dit_t2i_deco_dispatch(**node["init_args"], device="cpu")
+    params = sum(p.numel() for p in model.parameters())
+    assert 1.10e9 < params < 1.14e9, params
+    assert model.hidden_size // model.num_groups == 64
+
+
+def test_the_reco_branch_of_dit_t2i_deco_raises_its_roadmap_item():
+    for args in ({"config_path": "./InternVL3-2B", "select_layer": -1}, {"select_layer": 18}):
+        with pytest.raises(NotImplementedError, match="ROADMAP §A 5") as err:
+            registry.instantiate({"class_path": "src.models.transformer.dit_t2i_DeCo.PixNerDiT",
+                                  "init_args": args})
+        assert "ReCo" in str(err.value)
+
+
+def test_t2i_prompt_dataset_nodes_instantiate_like_jax():
+    """sft_res512.yaml's eval (GenEval) and pred (DPG) dataset nodes."""
+    path = os.path.join(REPO, "configs_t2i/sft_res512.yaml")
+    ours, ref = registry.load_yaml(path)["data"], jax_registry.load_yaml(path)["data"]
+    for key, name in (("eval_dataset", "GenEvalDataset"), ("pred_dataset", "DPGDataset")):
+        a, b = registry.instantiate(ours[key]), jax_registry.instantiate(ref[key])
+        assert type(a).__name__ == type(b).__name__ == name
+        assert type(a).__module__.startswith("deco_tpu_torch.")
+        assert len(a) == len(b) > 0 and a.latent_shape == b.latent_shape == (3, 512, 512)
+
+
 METRICS_CONFIGS = [p for p in CONFIGS if "ComputeMetricsHook" in open(os.path.join(REPO, p)).read()]
 
 

@@ -317,3 +317,86 @@ def test_make_loader_rejects_streaming_datasets():
 def test_unseeded_noise_mode_is_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP §A 2"):
         randn.RandomNDataset(latent_shape=(3, 8, 8), conditions=2, deterministic_seeds=False)
+
+
+# ---- animated PNG (serve's trajectories) ----
+
+def test_apng_frames_read_back_here_and_in_pil():
+    """Every frame exact, 100 ms each, looping: read back by the port's
+    reader and by PIL's APNG decoder."""
+    rng = np.random.default_rng(4)
+    frames = [_smooth_image(rng, 13, 21) for _ in range(5)]
+    data = png.encode_apng(frames, delay_ms=100)
+    ours, delays = png.decode_apng(data)
+    assert delays == [100.0] * 5
+    for a, b in zip(ours, frames):
+        np.testing.assert_array_equal(a, b)
+    im = Image.open(io.BytesIO(data))
+    assert im.n_frames == 5 and im.info.get("loop") == 0
+    for i, frame in enumerate(frames):
+        im.seek(i)
+        assert im.info["duration"] == 100
+        np.testing.assert_array_equal(np.array(im.convert("RGB")), frame)
+    np.testing.assert_array_equal(png.decode(data), frames[0])  # a plain reader: the first
+    with pytest.raises(ValueError):
+        png.encode_apng([frames[0], frames[1][:5]])
+
+
+# ---- GenEval and DPG prompt datasets (t2i predict) ----
+
+from deco_tpu.data import dpg as jax_dpg  # noqa: E402
+from deco_tpu.data import geneval as jax_geneval  # noqa: E402
+from deco_tpu_torch.data import dpg, geneval  # noqa: E402
+
+GENEVAL = os.path.join(REPO, "evaluations/geneval/evaluation_metadata.jsonl")
+DPG = os.path.join(REPO, "evaluations/dpg/prompts")
+
+
+@pytest.mark.parametrize("idx", [0, 5, 2211])  # the last item has an "exclude" list
+def test_geneval_items_and_files_match_jax(tmp_path, idx):
+    ours = geneval.GenEvalDataset(GENEVAL, 4, (3, 8, 12))
+    ref = jax_geneval.GenEvalDataset(GENEVAL, 4, (3, 8, 12))
+    assert len(ours) == len(ref) == 553 * 4
+    (x, y, md), (rx, ry, rmd) = ours[idx], ref[idx]
+    np.testing.assert_array_equal(x, rx)
+    assert x.shape == (8, 12, 3) and y == ry
+    assert {k: v for k, v in md.items() if k != "save_fn"} == {
+        k: v for k, v in rmd.items() if k != "save_fn"}
+    image = _smooth_image(np.random.default_rng(idx), 8, 12)
+    # a collated record: numpy scalars and the text encoder's valid_length_y tensor
+    import torch
+
+    record = {**md, "seed": np.int64(md["seed"]), "valid_length_y": torch.tensor(5)}
+    for fn, root in ((md["save_fn"], tmp_path / "ours"), (rmd["save_fn"], tmp_path / "ref")):
+        root.mkdir()
+        fn(image, {**record, "save_fn": fn}, str(root))
+    sample = f"{idx}/samples/{idx % 4}.png"
+    np.testing.assert_array_equal(np.array(Image.open(tmp_path / "ours" / sample)),
+                                  np.array(Image.open(tmp_path / "ref" / sample)))
+    assert (tmp_path / "ours" / f"{idx}/metadata.jsonl").read_text() == (
+        tmp_path / "ref" / f"{idx}/metadata.jsonl").read_text()
+
+
+def test_dpg_items_files_and_grids_match_jax(tmp_path):
+    ours, ref = dpg.DPGDataset(DPG, 4, (3, 8, 8)), jax_dpg.DPGDataset(DPG, 4, (3, 8, 8))
+    assert len(ours) == len(ref) == 1065 * 4
+    assert ours.filenames == ref.filenames and ours.prompts == ref.prompts
+    rng = np.random.default_rng(0)
+    for idx in (0, 1, 2, 3, 4, 4259):
+        (x, y, md), (rx, ry, rmd) = ours[idx], ref[idx]
+        np.testing.assert_array_equal(x, rx)
+        assert y == ry and {k: md[k] for k in ("prompt", "filename", "seed")} == {
+            k: rmd[k] for k in ("prompt", "filename", "seed")}
+        image = _smooth_image(rng, 8, 8)
+        for fn, root in ((md["save_fn"], tmp_path / "ours"), (rmd["save_fn"], tmp_path / "ref")):
+            root.mkdir(exist_ok=True)
+            fn(image, md, str(root))
+    assert sorted(os.listdir(tmp_path / "ours")) == sorted(os.listdir(tmp_path / "ref"))
+    dpg.concat_dpg_grids(str(tmp_path / "ours"), str(tmp_path / "grid_ours"))
+    jax_dpg.concat_dpg_grids(str(tmp_path / "ref"), str(tmp_path / "grid_ref"))
+    names = sorted(os.listdir(tmp_path / "grid_ref"))
+    assert sorted(os.listdir(tmp_path / "grid_ours")) == names and len(names) == 3
+    for name in names:
+        grid = png.read(str(tmp_path / "grid_ours" / name))
+        assert grid.shape == (16, 16, 3)
+        np.testing.assert_array_equal(grid, np.array(Image.open(tmp_path / "grid_ref" / name)))

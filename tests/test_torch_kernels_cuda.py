@@ -64,6 +64,9 @@ def _rel(out, ref):
     (2, 256, 256, 4, 64), (1, 130, 130, 2, 128), (1, 4096, 4096, 2, 72),
     (2, 130, 333, 2, 128),  # D = 128, ragged and Nq != Nkv
     (12, 1024, 1024, 16, 72),  # DeCo-XL/16 512 px, CFG at batch 6: B*H = 192
+    # DeCo-XXL/16 t2i at 512 px, CFG at batch 1: joint (N + 128 text keys), text refine
+    (2, 1024, 1152, 24, 64), (2, 128, 128, 24, 64),
+    (1, 1020, 1148, 4, 64),  # 544x480 canvas: Nq and Nkv both ragged
 ])
 def test_kernel_matches_plain_on_card(cuda_device, b, nq, nkv, h, d):
     q, k, v, _ = _qkv(cuda_device, b, nq, nkv, h, d)
@@ -83,6 +86,32 @@ def test_kernel_reads_strided_qkv_on_card(cuda_device):
     out = fa.flash_attention(q, k, v)
     ref = fa.flash_attention_plain(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+def test_t2i_model_runs_the_kernel_at_joint_and_text_shapes_on_card(cuda_device):
+    """A 2 joint + 1 text block DeCoT2I at full width (hidden 1536, 24 heads
+    of 64) on a 544x480 canvas, whose 1,020 image tokens and 1,148 keys are
+    both ragged: 3 launches a call, finite, and within the slice gate of the
+    same model on the CPU (both bf16)."""
+    from deco_tpu_torch.models.dit_c2i_deco import init_random_
+    from deco_tpu_torch.models.dit_t2i import DeCoT2I
+
+    kw = dict(num_encoder_blocks=2, num_text_blocks=1)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 544, 480, 3, generator=gen)
+    y = torch.randn(2, 128, 2048, generator=gen) * 0.02
+    t = torch.tensor([0.3, 0.8])
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = init_random_(DeCoT2I(**kw, device=device), seed=0).eval()
+        before = fa.flash_attention.launches
+        with torch.no_grad():
+            outs[device] = model(x.to(device), t.to(device), y.to(device)).cpu()
+        assert fa.flash_attention.launches - before == (3 if device == "cuda" else 0)
+    assert bool(torch.isfinite(outs["cuda"]).all())
+    rel = ((outs["cuda"] - outs["cpu"]).norm() / outs["cpu"].norm()).item()
+    assert rel < 0.03, rel
 
 
 @pytest.mark.cuda

@@ -32,7 +32,8 @@ from deco_tpu_torch.train.loop import Experiment, step_seed
 from deco_tpu_torch.train.state import TrainState
 from deco_tpu_torch.utils.pipeline import pipelined_map
 from deco_tpu_torch.utils.preemption import PreemptionGuard
-from torch_port_util import TINY_C2I, TINY_IMAGE, redraw
+from deco_tpu_torch.utils.png import read as png_read
+from torch_port_util import TINY_C2I, TINY_IMAGE, TINY_T2I, redraw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -161,6 +162,81 @@ def test_cli_predict_matches_jax_predict_from_the_same_weights(tmp_path):
     assert names == ["0_0.png", "0_1.png", "1_0.png", "output.npz"]  # max_save_images 3
     np.testing.assert_array_equal(np.array(Image.open(os.path.join(os.path.dirname(out),
                                                                    "1_0.png"))), ours[2])
+
+
+def tiny_t2i_config(root_dir: str, prompt_dir: str) -> dict:
+    """configs_t2i/sft_res512.yaml at the tiny t2i widths, in fp32: predict
+    on the DPG prompts in ``prompt_dir``, 2 seeds a prompt, 32 px, 3 steps."""
+    config = _yaml.load(os.path.join(REPO, "configs_t2i/sft_res512.yaml"))
+    config["trainer"]["default_root_dir"] = root_dir
+    config["trainer"]["callbacks"][1]["init_args"].update(save_compressed=True,
+                                                          max_save_images=8)
+    m = config["model"]
+    m["denoiser"]["init_args"].update(TINY_T2I, dtype="float32")
+    m["conditioner"]["init_args"].update(embed_dim=TINY_T2I["txt_embed_dim"],
+                                         max_length=TINY_T2I["txt_max_length"])
+    m["diffusion_sampler"]["init_args"]["num_steps"] = 3
+    config["data"]["pred_dataset"]["init_args"].update(
+        prompt_path=prompt_dir, num_samples_per_instance=2, latent_shape=[3, 32, 32])
+    config["data"]["pred_batch_size"] = 1
+    return config
+
+
+@pytest.mark.parametrize("dataset_key", ["pred_dataset", "eval_dataset"])
+def test_t2i_predict_writes_the_files_of_the_jax_predict(tmp_path, dataset_key):
+    """configs_t2i/sft_res512.yaml's predict (2 DPG prompts) and validate (2
+    GenEval prompts) with the hash text encoder and AdamLM at CFG 4, from
+    the same weights: the JAX loop from a TrainState, the port's from a
+    step checkpoint of the converted weights. Images within 1 LSB, the DPG
+    files named ``<prompt file>_<seed>.png``, and GenEval's
+    ``metadata.jsonl`` equal to the JAX loop's, ``valid_length_y`` (which
+    the text encoder writes into the batch metadata) included."""
+    from deco_tpu_torch.train.checkpoint import payload
+    from torch_port_util import tiny_jax_t2i
+
+    prompts = tmp_path / "prompts"
+    prompts.mkdir()
+    (prompts / "a.txt").write_text("A red cube on a wooden table.\nsecond line\n")
+    (prompts / "b.txt").write_text("Two cats asleep in the sun.\n")
+    geneval = tmp_path / "geneval.jsonl"
+    with open(os.path.join(REPO, "evaluations/geneval/evaluation_metadata.jsonl")) as f:
+        lines = f.readlines()
+    geneval.write_text(lines[0] + lines[-1])  # the last one has an "exclude" list
+    config = tiny_t2i_config(str(tmp_path / "jax"), str(prompts))
+    config["data"]["eval_dataset"]["init_args"].update(
+        meta_json_path=str(geneval), num_samples_per_instance=2, latent_shape=[3, 32, 32])
+    _, params = tiny_jax_t2i(0)
+    state = JaxTrainState.create(params, optax.adamw(1e-3)).replace(ema_params=params)
+    ref_npz = JaxExperiment(copy.deepcopy(config)).predict(state=state, dataset_key=dataset_key)
+    ref = np.load(ref_npz)["arr_0"]
+
+    sd = convert.state_dict_from_jax_t2i(jax.tree_util.tree_map(np.asarray, params),
+                                         patch_size=TINY_T2I["patch_size"])
+    CheckpointManager(str(tmp_path / "ckpt")).save(payload(sd, sd, {}, 3), 3)
+    config["trainer"]["default_root_dir"] = str(tmp_path / "port")
+    out = Experiment(config, device="cpu").predict(ckpt_path=str(tmp_path / "ckpt"),
+                                                   dataset_key=dataset_key)
+    ours = np.load(out)["arr_0"]
+    assert ours.shape == (4, 32, 32, 3) and ours.dtype == np.uint8 and ours.std() > 0
+    # the JAX loader pads the batch to its 8 virtual devices; items 0-3 lead
+    assert np.abs(ours.astype(int) - ref[:4]).max() <= 1
+    root, ref_root = os.path.dirname(out), os.path.dirname(ref_npz)
+    if dataset_key == "pred_dataset":
+        assert sorted(os.listdir(root)) == ["a_0.png", "a_1.png", "b_0.png", "b_1.png",
+                                            "output.npz"]
+        np.testing.assert_array_equal(png_read(os.path.join(root, "b_0.png")), ours[2])
+        return
+    assert sorted(os.listdir(root)) == ["0", "1", "2", "3", "output.npz"]
+    for idx in range(4):
+        with open(os.path.join(root, str(idx), "metadata.jsonl")) as f:
+            text = f.read()
+        with open(os.path.join(ref_root, str(idx), "metadata.jsonl")) as f:
+            assert text == f.read()
+        meta = json.loads(text)
+        assert meta["valid_length_y"] == min(len(meta["prompt"].split()),
+                                             TINY_T2I["txt_max_length"])
+        np.testing.assert_array_equal(
+            png_read(os.path.join(root, str(idx), "samples", f"{idx % 2}.png")), ours[idx])
 
 
 # ---- fit: resume equals an uninterrupted run ----

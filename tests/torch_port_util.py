@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from deco_tpu.models.dit_c2i_deco import DeCoC2I as JaxDeCoC2I
+from deco_tpu.models.dit_t2i import DeCoT2I as JaxDeCoT2I
 from deco_tpu_torch.convert import state_dict_from_jax
 from deco_tpu_torch.models import inception
 from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I
@@ -20,6 +21,11 @@ from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I
 TINY_C2I = dict(in_channels=3, patch_size=4, num_groups=2, hidden_size=144,
                 hidden_size_x=16, num_blocks=4, num_cond_blocks=2, num_classes=10)
 TINY_IMAGE = 16
+# tests/test_serve.py's tiny t2i model: hidden 32 over 2 heads, 2 joint and
+# 1 text blocks, patch 4, 6 text tokens of 16
+TINY_T2I = dict(in_channels=3, patch_size=4, num_groups=2, hidden_size=32,
+                decoder_hidden_size=8, num_encoder_blocks=2, num_decoder_blocks=1,
+                num_text_blocks=1, txt_embed_dim=16, txt_max_length=6)
 
 
 def redraw(params, seed: int, scale: float = 1.0):
@@ -52,6 +58,15 @@ def tiny_jax_c2i(seed: int = 0, dtype=jnp.float32):
     x = jnp.zeros((1, TINY_IMAGE, TINY_IMAGE, 3), jnp.float32)
     params = jax.jit(model.init)(jax.random.PRNGKey(0), x, jnp.zeros((1,)),
                                  jnp.zeros((1,), jnp.int32))
+    return model, redraw(params, seed)
+
+
+def tiny_jax_t2i(seed: int = 0, dtype=jnp.float32):
+    """(JAX DeCoT2I module, redrawn params) at the tiny t2i config."""
+    model = JaxDeCoT2I(**TINY_T2I, dtype=dtype)
+    params = jax.jit(model.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, TINY_IMAGE, TINY_IMAGE, 3), jnp.float32),
+        jnp.zeros((1,)), jnp.zeros((1, TINY_T2I["txt_max_length"], TINY_T2I["txt_embed_dim"])))
     return model, redraw(params, seed)
 
 
