@@ -6,9 +6,9 @@ Drives the port's main paths at the full width of DeCo-XL/16, class-to-image
 sampling (``configs_c2i/DeCo_XL.yaml``) and training
 (``configs_c2i/DeCo_XL_freq.yaml``) at 256 px, and training, sampling and
 FID scoring at 512 px (``configs_c2i/DeCo_XL_512.yaml``), and text-to-image
-serving and prompt-set predict with DeCo-XXL/16 (``configs_t2i/sft_res512.yaml``),
-and holds each hand-written kernel against its plain PyTorch version. Phases, in the order
-they run:
+serving, prompt-set predict and training with DeCo-XXL/16
+(``configs_t2i/sft_res512.yaml``), and holds each hand-written kernel
+against its plain PyTorch version. Phases, in the order they run:
 
 1. build: compile every ``deco_tpu_torch/csrc/*.cu`` with nvcc (one process
    per source, started together); print the card's name and power limit.
@@ -92,15 +92,35 @@ they run:
    ``t2i_predict``: ``cli predict`` on the config, one batch of 8 (2 DPG
    prompts x 4 seeds), 500 launches, the 8 PNGs. The files go under
    ``build/chip_smoke_t2i/``, which is deleted.
-12. kernels: one JSON line listing every kernel with its launches on its
+12. t2i_fit: DeCo-XXL/16 text-to-image training on
+   ``configs_t2i/sft_res512.yaml``. ``t2i_train_kernels``: the forward with
+   lse, dQ and dK/dV at D = 64 at the training shapes of microbatch 16
+   (joint: 1,024 queries over 1,152 keys; the 544x480 canvas: 1,020 over
+   1,148; text: 128 x 128) against their plain versions, bit-identical over
+   two runs, timed beside bound, plain versions and SDPA.
+   ``t2i_train_slice_vs_plain``: one training step of a 2 joint + 1 text
+   block model at full width (batch 2, 512 px), card against CPU: the loss
+   and the gradients, those of every ``kv_y`` and of the ``y_embedder`` by
+   name. ``t2i_fit``: ``cli fit`` on the YAML as shipped (batch 16 x
+   accumulation 4, no remat) but for the folder (64 seeded PNG + caption
+   pairs of 512-640 px, non-square), the work directory and 3 steps:
+   finite losses, exactly 80 / 80 / 80 forward-with-lse / dQ / dK-dV
+   launches a step, s/step, images/s, MFU, idle share, peak memory and the
+   18 GB checkpoint's save time; then one more step each without and with
+   ``grad_checkpoint`` (80 and 160 forward-with-lse launches) for the
+   memory and time the remat trades; then ``cli predict`` from the
+   checkpoint, one DPG batch of 8 with 500 forward launches. The files go
+   under ``build/chip_smoke_t2i_fit/``, which is deleted.
+13. kernels: one JSON line listing every kernel with its launches on its
    path (sampling for the forward, training for the others) and on the CLI
    paths, error, times, bound, library time and the library call's
-   backend, for the attention kernels the same at N = 1024, and for the
-   forward its t2i launches and its times at the D = 64 t2i shapes.
+   backend, for the attention kernels the same at N = 1024, for the
+   forward its t2i serving launches and its times at the D = 64 t2i
+   shapes, and for the training kernels their t2i fit launches and times.
 
-``python3 chip_smoke.py --calibrate-train-slice`` (and ``--calibrate-t2i-slice``)
-prints, on the CPU, the two readings between which the train-slice (t2i
-slice) gates sit, and no result.
+``python3 chip_smoke.py --calibrate-train-slice`` (and ``--calibrate-t2i-slice``,
+``--calibrate-t2i-train-slice``) prints, on the CPU, the two readings between
+which the train-slice (t2i slice, t2i train slice) gates sit, and no result.
 
 Every phase prints JSON lines; a failed phase raises and the script exits
 non-zero without the last line. The last line is
@@ -109,6 +129,7 @@ non-zero without the last line. The last line is
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import sys
@@ -402,6 +423,58 @@ def kernel_resource_lines(card: str) -> None:
         emit({"phase": "kernels_train", key: rows, "card": card})
 
 
+def attention_operands(gen, b, nq, nkv, h, d) -> list:
+    """Seeded bf16 (q, k, v, dO) on the card for a (B, Nq, Nkv, H, D) shape."""
+    import torch
+
+    shapes = ((b, nq, h, d), (b, nkv, h, d), (b, nkv, h, d), (b, nq, h, d))
+    return [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes]
+
+
+def hold_attention_training(phase: str, name: str, shape, operands) -> dict:
+    """The forward with lse, dQ (with delta) and dK/dV at one shape against
+    their plain versions, each bit-identical over two runs; emits and checks
+    the row, and returns it with the worst error of each kernel."""
+    import torch
+
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = operands
+    scale = shape[-1] ** -0.5
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
+    o2, lse2 = fa.flash_attention_fwd_lse(q, k, v, scale)
+    dq, delta, dk, dv = _backward(q, k, v, o, lse, do, scale)
+    again = _backward(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    fwd_bit_identical = torch.equal(o, o2) and torch.equal(lse, lse2)
+    bit_identical = all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), again))
+    o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
+    dq_ref, delta_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    for x in (o, lse, dq, delta, dk, dv):
+        check(bool(torch.isfinite(x).all()), f"{name}: a training kernel output is not finite")
+    row = {"o_max_abs_err": (o.float() - o_ref.float()).abs().max().item(),
+           "lse_max_abs_err": (lse - lse_ref).abs().max().item(),
+           "delta_max_rel_err": _max_rel(delta, delta_ref)}
+    for key, out, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        row[key + "_max_abs_err"] = (out.float() - ref.float()).abs().max().item()
+        row[key + "_max_rel_err"] = _max_rel(out, ref)
+    emit({"phase": phase, "shape": name, "b_nq_nkv_h_d": shape, **row,
+          "forward_bit_identical": fwd_bit_identical,
+          "backward_bit_identical": bit_identical, "atol": ATTN_ATOL,
+          "lse_atol": LSE_ATOL, "bwd_rel": BWD_REL, "delta_rel": DELTA_REL})
+    check(row["o_max_abs_err"] < ATTN_ATOL and row["lse_max_abs_err"] < LSE_ATOL,
+          f"forward with lse {name}: {row}")
+    check(row["delta_max_rel_err"] < DELTA_REL, f"delta {name}: {row}")
+    check(max(row["dq_max_rel_err"], row["dk_max_rel_err"], row["dv_max_rel_err"]) < BWD_REL,
+          f"attention backward {name}: {row}")
+    check(fwd_bit_identical, f"forward with lse {name} differs between two runs")
+    check(bit_identical, f"attention backward {name} differs between two runs")
+    row["errs"] = {"fwd_lse": row["o_max_abs_err"], "bwd_dq": row["dq_max_abs_err"],
+                   "bwd_dkv": max(row["dk_max_abs_err"], row["dv_max_abs_err"])}
+    return row
+
+
 def phase_kernels_train(card: str):
     """Forward with lse, dQ, dK/dV and the frequency MSE against their plain
     versions, then their times at the training shape and at N = 4096."""
@@ -411,11 +484,7 @@ def phase_kernels_train(card: str):
     from deco_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-
-    def operands(b, nq, nkv, h, d):
-        shapes = ((b, nq, h, d), (b, nkv, h, d), (b, nkv, h, d), (b, nq, h, d))
-        return [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes]
-
+    operands = functools.partial(attention_operands, gen)
     shapes = {  # (B, Nq, Nkv, H, D)
         "train": (32, 256, 256, 16, 72),  # DeCo-XL/16 256 px at batch 32: B*H = 512
         "ragged": (2, 200, 200, 16, 72),
@@ -429,42 +498,9 @@ def phase_kernels_train(card: str):
     kernel_resource_lines(card)
     errs = {"fwd_lse": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
     for name, shape in shapes.items():
-        q, k, v, do = operands(*shape)
-        scale = shape[-1] ** -0.5
-        o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
-        o2, lse2 = fa.flash_attention_fwd_lse(q, k, v, scale)
-        dq, delta, dk, dv = _backward(q, k, v, o, lse, do, scale)
-        again = _backward(q, k, v, o, lse, do, scale)
-        torch.cuda.synchronize()
-        fwd_bit_identical = torch.equal(o, o2) and torch.equal(lse, lse2)
-        bit_identical = all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), again))
-        o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
-        dq_ref, delta_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
-        dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
-        for x in (o, lse, dq, delta, dk, dv):
-            check(bool(torch.isfinite(x).all()), f"{name}: a training kernel output is not finite")
-        row = {"o_max_abs_err": (o.float() - o_ref.float()).abs().max().item(),
-               "lse_max_abs_err": (lse - lse_ref).abs().max().item(),
-               "delta_max_rel_err": _max_rel(delta, delta_ref)}
-        for key, out, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
-            row[key + "_max_abs_err"] = (out.float() - ref.float()).abs().max().item()
-            row[key + "_max_rel_err"] = _max_rel(out, ref)
-        emit({"phase": "kernels_train", "shape": name, "b_nq_nkv_h_d": shape, **row,
-              "forward_bit_identical": fwd_bit_identical,
-              "backward_bit_identical": bit_identical, "atol": ATTN_ATOL,
-              "lse_atol": LSE_ATOL, "bwd_rel": BWD_REL, "delta_rel": DELTA_REL})
-        check(row["o_max_abs_err"] < ATTN_ATOL and row["lse_max_abs_err"] < LSE_ATOL,
-              f"forward with lse {name}: {row}")
-        check(row["delta_max_rel_err"] < DELTA_REL, f"delta {name}: {row}")
-        check(max(row["dq_max_rel_err"], row["dk_max_rel_err"], row["dv_max_rel_err"]) < BWD_REL,
-              f"attention backward {name}: {row}")
-        check(fwd_bit_identical, f"forward with lse {name} differs between two runs")
-        check(bit_identical, f"attention backward {name} differs between two runs")
-        errs["fwd_lse"] = max(errs["fwd_lse"], row["o_max_abs_err"])
-        errs["bwd_dq"] = max(errs["bwd_dq"], row["dq_max_abs_err"])
-        errs["bwd_dkv"] = max(errs["bwd_dkv"], row["dk_max_abs_err"], row["dv_max_abs_err"])
-        del q, k, v, do, o, lse, o2, lse2, delta, dq, dk, dv, again
-        del o_ref, lse_ref, dq_ref, delta_ref, dk_ref, dv_ref
+        row = hold_attention_training("kernels_train", name, shape, operands(*shape))
+        for key, value in row["errs"].items():
+            errs[key] = max(errs[key], value)
 
     w = block_dct.build_freq_weight()
     errs["freq_mse"] = 0.0
@@ -1637,6 +1673,341 @@ def phase_t2i_predict(card: str) -> int:
         shutil.rmtree(T2I_DIR, ignore_errors=True)
 
 
+# ---- phase 12: t2i training (configs_t2i/sft_res512.yaml) ----
+
+# (B, Nq, Nkv, H, D) of sft_res512.yaml's attention at microbatch 16 (batch
+# 16 x accumulation 4): joint (1,024 image queries over 1,024 image + 128
+# text keys), a 544x480 canvas (1,020 over 1,148), the text refinement
+T2I_TRAIN_SHAPES = {"joint": (16, 1024, 1152, 24, 64), "ragged": (16, 1020, 1148, 24, 64),
+                    "text": (16, 128, 128, 24, 64)}
+# The one-step t2i train slice (2 joint + 1 text blocks at full width, batch
+# 2 at 512 px), card vs CPU, both bf16 compute with fp32 parameters. The
+# gates sit between the CPU readings of --calibrate-t2i-train-slice (bf16 vs
+# fp32, and a zeroed attention backward vs bf16; T2I_TRAIN_SLICE_READINGS),
+# set before the first card run: the gradients of all parameters and, by
+# name, of the text side (every kv_y, the y_embedder), which only the text
+# half of dK/dV reaches. The loss, which the backward cannot move, is held to
+# 10x its bf16-vs-fp32 reading. Two independent bf16 roundings (card, CPU)
+# should read ~1.4x the bf16-vs-fp32 numbers.
+T2I_TRAIN_SLICE_GATES = {"loss_rel": 8e-3, "all": 0.015, "kv_y": 0.05, "y_embedder": 0.05}
+T2I_TRAIN_SLICE_READINGS = {
+    "bf16_vs_fp32": {"loss_rel": 7.6e-4, "all": 0.0043, "kv_y": 0.0079, "y_embedder": 0.0081},
+    "zero_attention_backward_vs_bf16": {"loss_rel": 0.0, "all": 0.0326, "kv_y": 1.0,
+                                        "y_embedder": 1.0}}
+T2I_FIT_DIR = "build/chip_smoke_t2i_fit"  # git-ignored; deleted at the end of the phase
+T2I_FIT_STEPS = 3
+# per optimizer step at batch 16 x 4 (no remat): 4 microbatches x (16 joint + 4 text)
+T2I_FIT_LAUNCHES = {"fwd_lse": 80, "bwd_dq": 80, "bwd_dkv": 80, "fwd": 0, "freq_mse": 0}
+
+
+def phase_t2i_train_kernels(card: str) -> dict:
+    """The forward with lse, dQ and dK/dV at the t2i training shapes
+    (D = 64) against their plain versions, then timed beside their bounds,
+    the plain versions and the SDPA yardsticks."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    errs = {"fwd_lse": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
+    timings: dict = {"fwd_lse": {}, "bwd_dq": {}, "bwd_dkv": {}}
+    for name, shape in T2I_TRAIN_SHAPES.items():
+        row = hold_attention_training("t2i_train_kernels", name, shape,
+                                      attention_operands(gen, *shape))
+        for key, value in row["errs"].items():
+            errs[key] = max(errs[key], value)
+        for kernel, timing in _attention_timings(card, attention_operands(gen, *shape), flush,
+                                                 20).items():
+            timings[kernel][name] = timing
+            emit({"phase": "t2i_train_kernels", "timing": f"{kernel}_{name}",
+                  "b_nq_nkv_h_d": shape, **timing, "l2": "flushed before each call",
+                  "card": card})
+    return {"errs": errs, "timings": timings}
+
+
+def t2i_train_slice_step(device: str, dtype=None, zero_attention_backward: bool = False):
+    """One sft_res512.yaml training step (its DeCoTrainer, AdamW and
+    gradient clip) of the cut-depth DeCoT2I (2 joint + 1 text blocks, full
+    width, fp32 parameters, seeded random weights) at batch 2 on 512x512:
+    (loss, {"all", "kv_y", "y_embedder": flat gradient}) as fp32 on the CPU.
+    The batch, the text embeddings (0.02 * randn, the hash encoder's
+    scale) and the draws (one row's condition dropped, both t branches) come
+    from fixed seeds; ``zero_attention_backward`` makes the attention
+    backward return zeros (the reading that sets the gates)."""
+    import torch
+
+    from deco_tpu_torch.config import registry
+    from deco_tpu_torch.models.dit_c2i_deco import init_random_
+    from deco_tpu_torch.models.dit_t2i import DeCoT2I
+    from deco_tpu_torch.ops import flash_attention as fa
+    from deco_tpu_torch.train.train_step import make_train_step
+
+    config = registry.load_yaml(T2I_CONFIG)
+    model = init_random_(DeCoT2I(**T2I_SLICE, dtype=dtype or torch.bfloat16,
+                                 param_dtype=torch.float32, device=device), seed=1)
+    state = registry.instantiate(config["model"]["optimizer"]).create_state(model.train())
+    step = make_train_step(registry.instantiate(config["model"]["diffusion_trainer"]),
+                           grad_clip=config["trainer"]["gradient_clip_val"])
+    rng = np.random.default_rng(2)
+    batch = {"x": rng.uniform(-1, 1, (2, 512, 512, 3)),
+             "condition": rng.standard_normal((2, 128, 2048)) * 0.02,
+             "uncondition": rng.standard_normal((2, 128, 2048)) * 0.02}
+    batch = {k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in batch.items()}
+    draws = dict(drop_u=np.array([0.9, 0.05], np.float32),  # p = 0.1: the second row dropped
+                 t_normal=rng.standard_normal(2).astype(np.float32),
+                 t_uniform=rng.uniform(size=2).astype(np.float32),
+                 mix_u=np.array([0.5, 0.95], np.float32),  # both t branches
+                 noise=rng.standard_normal((2, 512, 512, 3)).astype(np.float32))
+    saved = fa.flash_attention_bwd
+    if zero_attention_backward:
+        fa.flash_attention_bwd = lambda q, k, v, *_: tuple(map(torch.zeros_like, (q, k, v)))
+    try:
+        metrics = step(state, batch, draws=[draws])
+    finally:
+        fa.flash_attention_bwd = saved
+    named = [(n, p.grad.reshape(-1).float().cpu()) for n, p in model.named_parameters()]
+    groups = {"all": torch.cat([g for _, g in named]),
+              "kv_y": torch.cat([g for n, g in named if ".attn.kv_y." in n]),
+              "y_embedder": torch.cat([g for n, g in named if n.startswith("y_embedder.")])}
+    return float(metrics["loss"]), groups
+
+
+def _t2i_slice_rows(a, b) -> dict:
+    (loss, grads), (loss_ref, grads_ref) = a, b
+    return {"loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+            **{k: _rel_l2(grads[k], grads_ref[k]) for k in grads}}
+
+
+def calibrate_t2i_train_slice() -> None:
+    """The two CPU readings between which the T2I_TRAIN_SLICE_GATES sit."""
+    import torch
+
+    fp32 = t2i_train_slice_step("cpu", torch.float32)
+    bf16 = t2i_train_slice_step("cpu")
+    zero = t2i_train_slice_step("cpu", zero_attention_backward=True)
+    emit({"phase": "calibrate_t2i_train_slice", "bf16_vs_fp32": _t2i_slice_rows(bf16, fp32),
+          "zero_attention_backward_vs_bf16": _t2i_slice_rows(zero, bf16)})
+
+
+def phase_t2i_train_slice():
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    results = {}
+    for device in ("cuda", "cpu"):
+        before = [f.launches for f in kernels]
+        t0 = time.perf_counter()
+        results[device] = t2i_train_slice_step(device)
+        results[device + "_s"] = time.perf_counter() - t0
+        results[device + "_launches"] = [f.launches - n for f, n in zip(kernels, before)]
+    row = _t2i_slice_rows(results["cuda"], results["cpu"])
+    emit({"phase": "t2i_train_slice_vs_plain", **T2I_SLICE, "batch": 2, "size": [512, 512],
+          "loss": results["cuda"][0], "loss_cpu": results["cpu"][0], **row,
+          "limits": T2I_TRAIN_SLICE_GATES, "calibration": T2I_TRAIN_SLICE_READINGS,
+          "cuda_launches_fwd_lse_dq_dkv": results["cuda_launches"],
+          "cpu_launches": results["cpu_launches"], "cuda_s": results["cuda_s"],
+          "cpu_s": results["cpu_s"]})
+    check(all(np.isfinite([results["cuda"][0], results["cpu"][0]])), "t2i train slice loss")
+    check(results["cuda_launches"] == [3, 3, 3],
+          f"t2i train slice launches {results['cuda_launches']}, expected [3, 3, 3]")
+    check(results["cpu_launches"] == [0, 0, 0], "the CPU t2i train slice launched a kernel")
+    for key, limit in T2I_TRAIN_SLICE_GATES.items():
+        check(row[key] < limit, f"t2i train slice {key} {row[key]} >= {limit}")
+
+
+def write_caption_folder(root: str, seed: int, count: int = 64) -> int:
+    """``count`` PNG + caption pairs from ``seed``: non-square images with
+    short sides of 512-576 px (so ImageText's bicubic resize and crop are
+    real work) and short seeded captions."""
+    import os
+
+    from deco_tpu_torch.utils import png
+
+    rng = np.random.default_rng(seed)
+    sizes = ((512, 640), (600, 520), (640, 576), (560, 608))  # (H, W)
+    words = ("red", "blue", "small", "old", "fox", "cup", "house", "tree", "on", "a", "table",
+             "in", "the", "snow", "river", "city")
+    os.makedirs(root, exist_ok=True)
+    for i in range(count):
+        h, w = sizes[i % len(sizes)]
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = np.stack([xx * 255.0 / w, yy * 255.0 / h, np.full((h, w), 20.0 * (i % 12))], -1)
+        image = np.clip(base + rng.normal(0, 25, (h, w, 3)), 0, 255).astype(np.uint8)
+        png.write(f"{root}/{i:03d}.png", image)
+        with open(f"{root}/{i:03d}.txt", "w") as f:
+            f.write("a photo of " + " ".join(rng.choice(words, size=8)))
+    return count
+
+
+def phase_t2i_fit(card: str, seed: int) -> dict:
+    """``cli fit -c configs_t2i/sft_res512.yaml`` at full width as shipped
+    (DeCo-XXL/16, batch 16 x accumulation 4, no remat) for 3 steps on a
+    seeded PNG + caption folder, then ``cli predict`` of one DPG batch of 8
+    from the checkpoint it wrote."""
+    import json
+    import os
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.config import registry
+    from deco_tpu_torch.ops import block_dct
+    from deco_tpu_torch.ops import flash_attention as fa
+    from deco_tpu_torch.train import checkpoint
+    from deco_tpu_torch.utils import png
+    from deco_tpu_torch.utils.flops import card_peaks
+
+    config = registry.load_yaml(T2I_CONFIG)
+    kernels = {"fwd_lse": fa.flash_attention_fwd_lse, "bwd_dq": fa.flash_attention_bwd_dq,
+               "bwd_dkv": fa.flash_attention_bwd_dkv, "freq_mse": block_dct.freq_mse,
+               "fwd": fa.flash_attention}
+    batch = config["data"]["train_batch_size"] * config["trainer"]["accumulate_grad_batches"]
+    try:
+        images = write_caption_folder(f"{T2I_FIT_DIR}/images", seed)
+        workroot = f"{T2I_FIT_DIR}/work"
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        # log_every_n_steps=1: a loss read (and so a sync) each step, for the step times
+        with Spy(checkpoint.CheckpointManager, "maybe_save") as saves, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state = cli.main(["fit", "-c", T2I_CONFIG,
+                              f"--data.train_dataset.init_args.root={T2I_FIT_DIR}/images",
+                              f"--trainer.default_root_dir={workroot}",
+                              "--max_steps", str(T2I_FIT_STEPS), "--trainer.log_every_n_steps=1"])
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: f.launches for k, f in kernels.items()}
+        model = state.model
+        xxl = (len(model.blocks) == 16 and len(model.text_refine_blocks) == 4
+               and model.hidden_size == 1536 and model.num_groups == 24
+               and not model.grad_checkpoint)
+        params = sum(p.numel() for p in model.parameters())
+        workdir = f"{workroot}/sftpix512ema"
+        records = [json.loads(line) for line in open(f"{workdir}/metrics.jsonl")]
+        ends = [r["time"] for r in records]  # each log reads the loss: the end of step k
+        step_s = [ends[0]] + [b - a for a, b in zip(ends, ends[1:])]
+        s_per_step = float(np.median(step_s[1:]))
+        busy_ms = _kernel_busy_ms(prof)
+        by_kind = _kernel_ms_by_kind(prof)
+        ckpt_path = f"{workdir}/checkpoints/{T2I_FIT_STEPS}.pt"
+        written = [c for c in saves.calls if c["out"]]
+        names = [n for n, _ in model.named_parameters()]
+        obj = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)
+        keys_ok = (set(obj["state_dict"]) == {f"{p}{n}" for p in ("denoiser.", "ema_denoiser.")
+                                              for n in names}
+                   and set(obj["optimizer"]) == set(names) and obj["step"] == T2I_FIT_STEPS)
+        flops = 3 * t2i_flops_per_call(1024) * batch  # forward + backward, remat not counted
+        fit = {"phase": "t2i_fit", "config": T2I_CONFIG, "params": params, "images": images,
+               "batch": batch, "microbatch": config["data"]["train_batch_size"],
+               "grad_checkpoint": model.grad_checkpoint, "steps": T2I_FIT_STEPS,
+               "losses": [r["loss"] for r in records], "step_s": step_s,
+               "s_per_step": s_per_step, "images_per_s": batch / s_per_step,
+               "mfu": flops / s_per_step / card_peaks(card)[0],
+               "device_kernel_ms": busy_ms, "kernel_ms_by_kind": by_kind,
+               "idle_share": 1 - busy_ms / 1e3 / ends[-1], "peak_mem_bytes": peak,
+               "fit_call_s": fit_s, "launches": launches,
+               "launches_per_step": {k: v / T2I_FIT_STEPS for k, v in launches.items()},
+               "checkpoint_bytes": os.path.getsize(ckpt_path),
+               "checkpoint_save_s": [c["seconds"] for c in written],
+               "checkpoint_keys_ok": keys_ok, "card": card,
+               "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl"}
+        emit(fit)
+        check(xxl, "the t2i fit did not build DeCo-XXL/16 as shipped (no grad_checkpoint)")
+        check(len(records) == T2I_FIT_STEPS and all(np.isfinite(fit["losses"])),
+              f"t2i fit losses {records}")
+        expected = {k: v * T2I_FIT_STEPS for k, v in T2I_FIT_LAUNCHES.items()}
+        check(launches == expected, f"t2i fit launches {launches}, expected {expected}")
+        check(keys_ok, "the t2i checkpoint lacks keys")
+        check(len(written) == 1, f"{len(written)} checkpoint saves, expected the final one")
+        ema_saved = {n[len("ema_denoiser."):]: t for n, t in obj["state_dict"].items()
+                     if n.startswith("ema_denoiser.")}
+        del obj
+        remat = t2i_remat_steps(state, config, card)
+        del state, model
+        torch.cuda.empty_cache()
+
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "restore_params") as restores:
+            cli.main(["predict", "-c", T2I_CONFIG, f"--trainer.default_root_dir={workroot}",
+                      f"--ckpt_path={workdir}/checkpoints", "--max_batches", "1"])
+        predict_s = time.perf_counter() - t0
+        sampling_s = time.perf_counter() - restores.calls[0]["end"]  # after the weights load
+        pred_launches = {k: f.launches for k, f in kernels.items()}
+        loaded = restores.calls[0]["args"][1]
+        ema_equal = all(torch.equal(p.detach().cpu(), ema_saved[n])
+                        for n, p in loaded.named_parameters())
+        out_dir = f"{workdir}/val_200k/iter_{T2I_FIT_STEPS}"
+        files = sorted(os.listdir(out_dir))
+        samples = [png.read(os.path.join(out_dir, n)) for n in files]
+        want = sorted(f"{p}_{s}.png" for p in ("0", "1") for s in range(4))
+        emit({"phase": "t2i_fit_predict", "batch": len(samples), "predict_call_s": predict_s,
+              "sampling_s": sampling_s, "images_per_s": len(samples) / sampling_s,
+              "launches": pred_launches, "files": files, "ema_loaded_equal": ema_equal,
+              "pixel_std": float(np.std(samples)), "card": card})
+        check(files == want, f"t2i predict wrote {files}")
+        check(all(x.shape == (512, 512, 3) for x in samples), "t2i predict images")
+        check(pred_launches["fwd"] == 500 and sum(pred_launches.values()) == 500,
+              f"t2i predict launches {pred_launches}, expected 500 forward")
+        check(ema_equal, "the predict's weights differ from the saved EMA")
+        print(card, flush=True)
+        return {"fit": launches, "predict": pred_launches, "remat": remat}
+    finally:
+        shutil.rmtree(T2I_FIT_DIR, ignore_errors=True)
+
+
+def t2i_remat_steps(state, config: dict, card: str) -> dict:
+    """After the fit: one more step of its model each without and with
+    ``grad_checkpoint`` (trunk blocks and decoder res blocks recomputed) on
+    one seeded batch of 16 x 4 on the card: step time, peak memory and
+    launches, the memory the remat would save and the time it costs."""
+    import torch
+
+    from deco_tpu_torch.config import registry
+    from deco_tpu_torch.ops import flash_attention as fa
+    from deco_tpu_torch.train.train_step import make_train_step
+
+    k = config["trainer"]["accumulate_grad_batches"]
+    n = config["data"]["train_batch_size"] * k
+    step = make_train_step(registry.instantiate(config["model"]["diffusion_trainer"]),
+                           grad_clip=config["trainer"]["gradient_clip_val"],
+                           accumulate_grad_batches=k)
+    model, rows = state.model, {}
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(5)
+    cond = torch.randn(n, model.txt_max_length, model.y_embedder.proj.in_features,
+                       generator=gen, device=device) * 0.02
+    batch = {"x": torch.rand(n, 512, 512, 3, generator=gen, device=device) * 2 - 1,
+             "condition": cond, "uncondition": torch.zeros_like(cond)}
+    kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    try:
+        for remat in (False, True):
+            model.grad_checkpoint = model.dec_net.grad_checkpoint = remat
+            before = [f.launches for f in kernels]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = float(step(state, batch, gen)["loss"])
+            torch.cuda.synchronize()
+            rows["remat" if remat else "none"] = {
+                "step_s": time.perf_counter() - t0,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "launches_fwd_lse_dq_dkv": [f.launches - b for f, b in zip(kernels, before)],
+                "loss": loss}
+    finally:
+        model.grad_checkpoint = model.dec_net.grad_checkpoint = False
+    emit({"phase": "t2i_fit_remat", "batch": n, **rows, "card": card})
+    check(rows["none"]["launches_fwd_lse_dq_dkv"] == [80, 80, 80]
+          and rows["remat"]["launches_fwd_lse_dq_dkv"] == [160, 80, 80],
+          f"t2i launches per step without/with remat {rows}")
+    check(all(np.isfinite(r["loss"]) for r in rows.values()), "t2i remat step losses")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1645,6 +2016,9 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--calibrate-t2i-slice"]:
         calibrate_t2i_slice()  # on the CPU; sets no result
+        return 2
+    if sys.argv[1:] == ["--calibrate-t2i-train-slice"]:
+        calibrate_t2i_train_slice()  # on the CPU; sets no result
         return 2
     seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
     if not torch.cuda.is_available():
@@ -1672,6 +2046,10 @@ def main() -> int:
     phase_t2i_slice()
     t2i_serve_launches = phase_t2i_serve(card)
     t2i_predict_launches = phase_t2i_predict(card)
+    torch.cuda.empty_cache()
+    t2i_train = phase_t2i_train_kernels(card)
+    phase_t2i_train_slice()
+    t2i_fit_launches = phase_t2i_fit(card, seed)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     n1024 = {"fwd": kernel["n1024"], "fwd_lse": train_times.get("fwd_lse_512"),
              "bwd_dq": train_times.get("bwd_dq_512"), "bwd_dkv": train_times.get("bwd_dkv_512")}
@@ -1701,17 +2079,22 @@ def main() -> int:
                d64={name: {k: v for k, v in t.items() if k in keys + (
                    "library_backend", "b_nq_nkv_h_d", "max_abs_err")}
                    for name, t in t2i_kernel["timings"].items()})
+    training = []
+    for key, source, line in (("fwd_lse", "flash_attention_fwd.cu", 270),
+                              ("bwd_dq", "flash_attention_bwd.cu", 344),
+                              ("bwd_dkv", "flash_attention_bwd.cu", 379)):
+        r = row(f"flash_attention_{key}", source, f"deco_tpu/ops/flash_attention.py:{line}",
+                train_launches[key], max(train_errs[key], t2i_train["errs"][key]),
+                train_times[key])
+        # DeCo-XXL/16 t2i training (D = 64): launches in the 3-step CLI fit, and
+        # the times at its joint, ragged and text shapes
+        r.update(t2i_fit_launches=t2i_fit_launches["fit"][key],
+                 t2i={name: {k: v for k, v in t.items() if k in keys + (
+                     "library_backend", "whole_backward_ms", "sdpa_backward_ms")}
+                     for name, t in t2i_train["timings"][key].items()})
+        training.append(r)
     emit({"kernels": [
-        fwd,
-        row("flash_attention_fwd_lse", "flash_attention_fwd.cu",
-            "deco_tpu/ops/flash_attention.py:270", train_launches["fwd_lse"],
-            train_errs["fwd_lse"], train_times["fwd_lse"]),
-        row("flash_attention_bwd_dq", "flash_attention_bwd.cu",
-            "deco_tpu/ops/flash_attention.py:344", train_launches["bwd_dq"],
-            train_errs["bwd_dq"], train_times["bwd_dq"]),
-        row("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
-            "deco_tpu/ops/flash_attention.py:379", train_launches["bwd_dkv"],
-            train_errs["bwd_dkv"], train_times["bwd_dkv"]),
+        fwd, *training,
         row("freq_mse", "freq_mse.cu", "deco_tpu/ops/block_dct.py:175",
             train_launches["freq_mse"], train_errs["freq_mse"], train_times["freq_mse"]),
     ]})

@@ -76,6 +76,11 @@ _PORTED: Dict[str, str] = {
         "deco_tpu_torch.data.randn.ClassLabelRandomNDataset",
     "src.data.dataset.geneval.GenEvalDataset": "deco_tpu_torch.data.geneval.GenEvalDataset",
     "src.data.dataset.dpg.DPGDataset": "deco_tpu_torch.data.dpg.DPGDataset",
+    "src.data.dataset.image_txt.ImageText": "deco_tpu_torch.data.image_txt.ImageText",
+    "src.data.dataset.blip3o_dataset.PackedParquetDataset":
+        "deco_tpu_torch.data.packed.PackedParquetDataset",
+    "src.data.dataset.blip3o_dataset.WebDatasetPackedDataset":
+        "deco_tpu_torch.data.packed.WebDatasetPacked",
     "src.callbacks.simple_ema.SimpleEMA": "deco_tpu_torch.config.registry._SimpleEMAConfig",
     "torch.optim.AdamW": "deco_tpu_torch.config.registry._AdamWConfig",
 }
@@ -100,13 +105,10 @@ UNPORTED: Dict[str, int] = {
     "src.models.transformer.encoder_ae.VAEModel": 5,
     "src.models.modules.vae_loss.VAEReconstructionLoss": 5,
     "src.models.modules.discriminator.NLayerDiscriminator": 5,
-    "src.data.dataset.imagenet.PixHFDataset": 3,
-    "src.data.dataset.imagenet.PixWebDataset": 3,
-    "src.data.dataset.image_txt.ImageText": 3,
-    "src.data.dataset.imagenet.PixJSONLDataset": 3,
-    "src.data.dataset.imagenet.PixMultiJSONLDataset": 3,
-    "src.data.dataset.blip3o_dataset.PackedParquetDataset": 3,
-    "src.data.dataset.blip3o_dataset.WebDatasetPackedDataset": 3,
+    "src.data.dataset.imagenet.PixHFDataset": 2,
+    "src.data.dataset.imagenet.PixWebDataset": 2,
+    "src.data.dataset.imagenet.PixJSONLDataset": 2,
+    "src.data.dataset.imagenet.PixMultiJSONLDataset": 2,
     "src.data.dataset.blip3o_ori_dataset.LazySupervisedMixDataset": 5,
     "src.models.modules.losses.ReconstructionLoss_Base": 5,
     "src.models.modules.losses.ReconstructionLoss_Stage1": 5,

@@ -11,7 +11,7 @@ channel-major, the order of torch ``unfold`` patches.
 (``w12 = [w1; gate]``, ``w3`` = the JAX ``w2``), and the text-refine
 blocks' flat ``attn_*`` parameters under ``attn.``.
 
-:func:`train_checkpoint_from_jax` turns a JAX training state (params, EMA,
+:func:`train_checkpoint_from_jax` turns a JAX c2i or t2i training state (params, EMA,
 optax AdamW moments and count) into the port's step checkpoint
 (``train/checkpoint.py``), so a run started in the JAX package resumes in
 the port.
@@ -159,11 +159,17 @@ def train_checkpoint_from_jax(params: dict, ema_params, mu: dict, nu: dict, coun
     AdamW first and second moments ``mu``/``nu`` of optax's
     ``ScaleByAdamState`` and its ``count``, and the train step. The moments
     have the parameters' layout and go through the same transforms; optax's
-    ``count`` (updates taken) is torch AdamW's ``step``."""
+    ``count`` (updates taken) is torch AdamW's ``step``. A ``DeCoT2I`` tree
+    (its parameters under ``trunk``) goes through
+    :func:`state_dict_from_jax_t2i`, a ``DeCoC2I`` tree through
+    :func:`state_dict_from_jax`."""
     from deco_tpu_torch.train.checkpoint import payload
 
+    t2i = "trunk" in params.get("params", params)
+    bridge = state_dict_from_jax_t2i if t2i else state_dict_from_jax
+
     def convert(tree):
-        return state_dict_from_jax(tree, in_channels=in_channels, patch_size=patch_size)
+        return bridge(tree, in_channels=in_channels, patch_size=patch_size)
 
     exp_avg, exp_avg_sq = convert(mu), convert(nu)
     adam_step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)

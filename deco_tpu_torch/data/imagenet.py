@@ -15,7 +15,8 @@ result equals PIL's.
 Images are read with :mod:`deco_tpu_torch.utils.png` (``.png``) or the
 native library (``.jpg``/``.jpeg``, decode and crop in one call); other
 formats raise. Items are NHWC float32 in [-1, 1] with
-``metadata['raw_image']`` the [0, 1] image.
+``metadata['raw_image']`` the [0, 1] image; :class:`LocalCachedDataset`
+gives VAE latents sampled from a cache of ``.npz`` posteriors instead.
 """
 
 from __future__ import annotations
@@ -96,29 +97,39 @@ def resample(image: np.ndarray, out_w: int, out_h: int, kind: str = "bicubic") -
     return out
 
 
+def resize_short_side(image: np.ndarray, resolution: int) -> np.ndarray:
+    """PIL ``resize((round(w * s), round(h * s)), BICUBIC)`` of an (H, W, C)
+    uint8 image, with s = resolution / its short side."""
+    h, w = image.shape[:2]
+    scale = resolution / min(h, w)
+    return resample(image, round(w * scale), round(h * scale), "bicubic")
+
+
+def center_crop(image: np.ndarray, size: int) -> np.ndarray:
+    y0 = (image.shape[0] - size) // 2
+    x0 = (image.shape[1] - size) // 2
+    return image[y0:y0 + size, x0:x0 + size]
+
+
 def adm_center_crop(image: np.ndarray, image_size: int) -> np.ndarray:
     """ADM/guided-diffusion center crop of an (H, W, 3) uint8 image."""
     arr = np.asarray(image, np.uint8)
     while min(arr.shape[0], arr.shape[1]) >= 2 * image_size:
         arr = resample(arr, arr.shape[1] // 2, arr.shape[0] // 2, "box")
-    h, w = arr.shape[:2]
-    scale = image_size / min(h, w)
-    arr = resample(arr, round(w * scale), round(h * scale), "bicubic")
-    crop_y = (arr.shape[0] - image_size) // 2
-    crop_x = (arr.shape[1] - image_size) // 2
-    return arr[crop_y:crop_y + image_size, crop_x:crop_x + image_size]
+    return center_crop(resize_short_side(arr, image_size), image_size)
 
 
 def read_png(path: str) -> np.ndarray:
     """A PNG file as (H, W, 3) uint8 RGB. JPEG is read only through the
     native library's decode-and-crop (:func:`PixImageNet._load_center_cropped`),
-    which exposes no full-size decode; other formats raise."""
+    which exposes no full-size decode, so a JPEG path raises, as do other
+    formats."""
     if path.lower().endswith(".png"):
         return png.read(path)
     if path.lower().endswith((".jpg", ".jpeg")):
         raise NotImplementedError(
-            f"{path}: a full-size JPEG decode (random_crop on JPEG folders) is not ported to "
-            "deco_tpu_torch: ROADMAP §A 2")
+            f"{path}: a full-size JPEG decode is not ported to deco_tpu_torch (the native "
+            "library decodes JPEG only behind the ADM crop): ROADMAP §A 2")
     raise ValueError(f"{path}: the port reads PNG and JPEG images only")
 
 
@@ -164,10 +175,7 @@ class PixImageNet:
     def __getitem__(self, idx: int):
         path, target = self.samples[idx]
         if self.random_crop:
-            arr = read_png(path)
-            h, w = arr.shape[:2]
-            scale = self.resolution / min(w, h)
-            arr = resample(arr, round(w * scale), round(h * scale), "bicubic")
+            arr = resize_short_side(read_png(path), self.resolution)
             max_y = arr.shape[0] - self.resolution
             max_x = arr.shape[1] - self.resolution
             y0 = self._rng.randint(0, max_y + 1) if max_y > 0 else 0
@@ -182,3 +190,31 @@ class PixImageNet:
         raw = arr.astype(np.float32) / 255.0  # [0, 1] HWC
         x = raw * 2.0 - 1.0
         return x, target, {"raw_image": raw, "class": target}
+
+
+class LocalCachedDataset(PixImageNet):
+    """:class:`PixImageNet` with a precomputed VAE-latent cache
+    (``deco_tpu/data/imagenet.py`` ``LocalCachedDataset``): the latent of
+    ``<image path>`` is ``<the same path under cache_root>.npz`` with
+    ``mean`` and ``logvar`` arrays, sampled at each read as mean + std *
+    ``RandomState(seed)`` normal draws (logvar clipped to [-30, 20]).
+    Without ``cache_root`` the item is the [0, 1] ADM crop itself.
+    ``metadata['raw_image']`` is the crop in either case."""
+
+    def __init__(self, root: str, resolution: int = 256, cache_root: str | None = None,
+                 seed: int = 0):
+        super().__init__(root, resolution=resolution, seed=seed)
+        self.root = root
+        self.cache_root = cache_root
+
+    def __getitem__(self, idx: int):
+        path, target = self.samples[idx]
+        raw = self._load_center_cropped(path).astype(np.float32) / 255.0
+        latent = raw
+        if self.cache_root is not None:
+            with np.load(path.replace(self.root, self.cache_root) + ".npz") as pk:
+                mean = pk["mean"].astype(np.float32)
+                logvar = np.clip(pk["logvar"].astype(np.float32), -30.0, 20.0)
+            noise = self._rng.randn(*mean.shape).astype(np.float32)
+            latent = mean + noise * np.exp(0.5 * logvar)
+        return latent, target, {"raw_image": raw, "class": target}

@@ -7,6 +7,11 @@ gives ``process_index``/``process_count``. The per-epoch shuffle is
 loader's, so the same dataset gives the same batches in the same order.
 Batches are prepared on a thread pool; image decode (``zlib``, libjpeg) and
 the resampler's matmuls release the interpreter lock.
+
+Streaming datasets (no ``__len__``/``__getitem__``: the packed t2i
+readers) go through :class:`IterableLoader`, which batches and prefetches
+on one thread and shards nothing (the dataset shards itself). It has no
+``set_position``: a resumed run restarts its stream, as the JAX loop does.
 """
 
 from __future__ import annotations
@@ -41,6 +46,48 @@ def collate(samples):
         else:
             metadata[k] = vals
     return xs, ys, metadata
+
+
+def _prefetched(batches: Iterator, prefetch: int) -> Iterator:
+    """The items of ``batches``, produced on a daemon thread at most
+    ``prefetch`` ahead of the consumer. An error raised while producing
+    them is raised to the consumer at its place in the stream; once the
+    consumer has left, the producer stops at its next item."""
+    q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+
+    def producer():
+        try:
+            for b in batches:
+                if stop.is_set():
+                    return
+                q.put(b)
+                if stop.is_set():
+                    return
+            q.put(None)
+        except BaseException as e:  # raised again in the consumer
+            # once the consumer has left (e.g. its pool shut down mid-submit),
+            # nobody reads the queue: dropped
+            if not stop.is_set():
+                q.put(e)
+
+    threading.Thread(target=producer, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        # unblock a producer stuck in q.put so it can see stop
+        while True:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
 
 
 class ShardedLoader:
@@ -103,50 +150,15 @@ class ShardedLoader:
         def fetch(bidx):
             return collate([self.dataset[int(i)] for i in bidx])
 
+        def fetched(pool):
+            futures = [pool.submit(fetch, b) for b in batches[:self.prefetch]]
+            for i in range(len(batches)):
+                yield futures[i].result()
+                if i + self.prefetch < len(batches):
+                    futures.append(pool.submit(fetch, batches[i + self.prefetch]))
+
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-            q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
-            stop = threading.Event()
-
-            def producer():
-                try:
-                    futures = [pool.submit(fetch, b) for b in batches[:self.prefetch]]
-                    next_submit = self.prefetch
-                    for i in range(len(batches)):
-                        if stop.is_set():
-                            return
-                        q.put(futures[i].result())
-                        if stop.is_set():
-                            return
-                        if next_submit < len(batches):
-                            futures.append(pool.submit(fetch, batches[next_submit]))
-                            next_submit += 1
-                    q.put(None)
-                except RuntimeError:
-                    # the pool shut down mid-submit: the consumer left the
-                    # epoch (e.g. fit reached max_steps on an infinite loader)
-                    if not stop.is_set():
-                        raise
-                except BaseException as e:  # deliver fetch errors in the stream
-                    q.put(e)
-
-            t = threading.Thread(target=producer, daemon=True)
-            t.start()
-            try:
-                while True:
-                    item = q.get()
-                    if item is None:
-                        break
-                    if isinstance(item, BaseException):
-                        raise item
-                    yield item
-            finally:
-                stop.set()
-                # unblock a producer stuck in q.put so it can see stop
-                while True:
-                    try:
-                        q.get_nowait()
-                    except queue.Empty:
-                        break
+            yield from _prefetched(fetched(pool), self.prefetch)
 
     def __iter__(self):
         epoch = self.epoch
@@ -160,11 +172,45 @@ class ShardedLoader:
         self.epoch = epoch
 
 
+class IterableLoader:
+    """Batches of a streaming dataset, collated and prefetched on a thread.
+
+    ``drop_last`` drops a short last batch; ``infinite`` iterates the
+    dataset again after it ends. An error in the stream is raised to the
+    consumer at its place in the stream.
+    """
+
+    def __init__(self, dataset, batch_size: int, drop_last: bool = True, prefetch: int = 4,
+                 infinite: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.infinite = infinite
+
+    def _batches(self) -> Iterator:
+        while True:
+            buf = []
+            for sample in self.dataset:
+                buf.append(sample)
+                if len(buf) == self.batch_size:
+                    yield collate(buf)
+                    buf = []
+            if buf and not self.drop_last:
+                yield collate(buf)
+            if not self.infinite:
+                return
+
+    def __iter__(self):
+        return _prefetched(self._batches(), self.prefetch)
+
+
 def make_loader(dataset, batch_size: int, **kwargs):
-    """A :class:`ShardedLoader` for a map-style dataset. Streaming datasets
-    (the JAX ``IterableLoader``) are not ported: ROADMAP §A 3."""
-    if not (hasattr(dataset, "__len__") and hasattr(dataset, "__getitem__")):
-        raise NotImplementedError(
-            f"{type(dataset).__name__}: loading a streaming dataset (IterableLoader) is not "
-            "ported to deco_tpu_torch: ROADMAP §A 3")
-    return ShardedLoader(dataset, batch_size, **kwargs)
+    """A :class:`ShardedLoader` for a map-style dataset, an
+    :class:`IterableLoader` for a stream (which takes no shuffle, seed,
+    workers or process arguments: the stream shards and shuffles itself)."""
+    if hasattr(dataset, "__len__") and hasattr(dataset, "__getitem__"):
+        return ShardedLoader(dataset, batch_size, **kwargs)
+    for k in ("shuffle", "seed", "num_workers", "process_index", "process_count"):
+        kwargs.pop(k, None)
+    return IterableLoader(dataset, batch_size, **kwargs)

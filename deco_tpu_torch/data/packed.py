@@ -1,0 +1,231 @@
+"""Streaming packed t2i datasets: webdataset tars and parquet shards
+(``deco_tpu/data/packed.py``), the ``train_dataset`` of the
+``configs_t2i/pretraining_*.yaml`` configs.
+
+Both are endless iterables of ``(x, caption, {"raw_image", "prompt"})``
+with the JAX readers' draws in the JAX order: the shard's files are
+``files[shard_index::shard_count]`` and one ``random.Random(seed +
+shard_index)`` drives the file order, the shuffle buffer, the prefix
+templates and the random crop; ``PackedParquetDataset`` picks each
+sample's caption key from numpy's global generator, as the JAX reader does.
+
+Departures from the JAX package:
+
+- The shard index and count come from ``torch.distributed`` when it is
+  initialised, else (0, 1), in place of ``jax.process_index()``.
+- Images are decoded with :mod:`deco_tpu_torch.utils.png` and resized with
+  the PIL-exact resampler. The port has no full-size JPEG decoder, so a
+  JPEG sample raises ``NotImplementedError`` naming ROADMAP §A 2, as does
+  any other image format, and a PNG kind the codec does not take raises
+  :class:`~deco_tpu_torch.utils.png.UnsupportedPNG`. The JAX readers skip
+  every sample that fails; the port skips only what they would also
+  reject: images smaller than the resolution, corrupt PNG data, unreadable
+  tars. Copying the JAX rule would skip every JPEG sample of a BLIP3o tar
+  and spin forever.
+- ``WebDatasetPacked`` takes the reference ``WebDatasetPackedDataset``'s
+  ``sample_shuffle`` (the pretraining YAMLs set it; the JAX class has no
+  such argument, ROADMAP §C 8): False turns the shuffle buffer off.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import struct
+import tarfile
+import zlib
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+from deco_tpu_torch.data.imagenet import center_crop, resize_short_side
+from deco_tpu_torch.utils import png
+
+PREFIX_TEMPLATES = [
+    "A photo of ",
+    "A picture of ",
+    "A visual representation of ",
+    "A image of ",
+    "A scene of ",
+    "A view of ",
+    "A depiction of ",
+]
+
+
+def shard_of_process(shard_index: Optional[int], shard_count: Optional[int]):
+    """(index, count) of this process's shard: the arguments when given,
+    else ``torch.distributed``'s rank and world size when it is
+    initialised, else (0, 1)."""
+    if shard_index is not None:
+        return shard_index, max(shard_count, 1)
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def decode_image(data: bytes) -> Optional[np.ndarray]:
+    """Image bytes as (H, W, 3) uint8 RGB, or None for corrupt PNG data (the
+    sample the JAX reader skips). A JPEG, any other format and a PNG kind
+    the codec does not read raise."""
+    if data[:8] != png.SIGNATURE:
+        kind = "a JPEG" if data[:3] == b"\xff\xd8\xff" else "a non-PNG"
+        raise NotImplementedError(
+            f"packed dataset: {kind} sample; the port decodes PNG only (a full-size JPEG "
+            "decode is not ported to deco_tpu_torch): ROADMAP §A 2")
+    try:
+        return png.decode(data)
+    except png.UnsupportedPNG:
+        raise
+    except (ValueError, zlib.error, struct.error):
+        return None
+
+
+def _process_image(image: np.ndarray, resolution: int, random_crop: bool,
+                   rng: random.Random):
+    """(x in [-1, 1], raw in [0, 1]) of the resized and cropped image, or
+    None when its short side is under ``resolution``."""
+    if min(image.shape[:2]) < resolution:
+        return None
+    arr = resize_short_side(image, resolution)
+    if random_crop:
+        my, mx = arr.shape[0] - resolution, arr.shape[1] - resolution
+        y0 = rng.randint(0, my) if my > 0 else 0
+        x0 = rng.randint(0, mx) if mx > 0 else 0
+        arr = arr[y0:y0 + resolution, x0:x0 + resolution]
+    else:
+        arr = center_crop(arr, resolution)
+    raw = arr.astype(np.float32) / 255.0
+    return raw * 2.0 - 1.0, raw
+
+
+def _item(img_bytes: bytes, caption: str, resolution: int, random_crop: bool,
+          rng: random.Random):
+    image = decode_image(img_bytes)
+    out = None if image is None else _process_image(image, resolution, random_crop, rng)
+    if out is None:
+        return None
+    x, raw = out
+    return x, caption, {"raw_image": raw, "prompt": caption}
+
+
+class PackedParquetDataset:
+    """Endless iterable over parquet shards of (image bytes, captions):
+    ``data_sources`` maps a folder to how often its files repeat, and
+    ``caption_weight`` a caption column to its sampling weight."""
+
+    def __init__(self, data_sources: Dict[str, int], caption_weight: Dict[str, float],
+                 resolution: int = 256, random_crop: bool = False, seed: int = 0,
+                 shard_index: Optional[int] = None, shard_count: Optional[int] = None):
+        self.resolution = resolution
+        self.random_crop = random_crop
+        self.caption_weight = caption_weight
+        self.parquet_files = []
+        for root, repeat in data_sources.items():
+            files = sorted(os.path.join(root, f) for f in os.listdir(root)
+                           if f.endswith(".parquet"))
+            self.parquet_files.extend(files * int(repeat))
+        shard_index, shard_count = shard_of_process(shard_index, shard_count)
+        self._files = self.parquet_files[shard_index::shard_count]
+        self._rng = random.Random(seed + shard_index)
+
+    def __iter__(self) -> Iterator:
+        try:
+            import pyarrow.parquet as pq
+        except ImportError as err:
+            raise ImportError("PackedParquetDataset reads parquet with the 'pyarrow' package, "
+                              "which is not installed") from err
+        rng = self._rng
+        keys = list(self.caption_weight.keys())
+        probs = np.asarray(list(self.caption_weight.values()), np.float64)
+        probs = probs / probs.sum()
+        while True:
+            table = pq.read_table(rng.choice(self._files))
+            order = np.random.RandomState(rng.randint(0, 2**31)).permutation(table.num_rows)
+            for i in order.tolist():
+                record = {c: table[c][i].as_py() for c in table.column_names}
+                caption_key = np.random.choice(keys, p=probs)
+                if caption_key not in record:
+                    continue
+                caption = record[caption_key]
+                if rng.random() < 0.5 and "long" not in caption_key:
+                    caption = rng.choice(PREFIX_TEMPLATES) + caption
+                item = _item(record["image"], caption, self.resolution, self.random_crop, rng)
+                if item is not None:
+                    yield item
+
+
+class WebDatasetPacked:
+    """Local webdataset tar shards of (png + txt/json caption) members
+    grouped by stem, through a shuffle buffer of ``shuffle_buffer``
+    samples; ``repeat`` starts over after the last tar. ``urls`` are tar
+    files or folders of them."""
+
+    def __init__(self, urls, resolution: int = 512, random_crop: bool = False,
+                 shuffle_buffer: int = 1000, sample_shuffle: bool = True, repeat: bool = True,
+                 caption_key: str = "txt", seed: int = 0, shard_index: Optional[int] = None,
+                 shard_count: Optional[int] = None):
+        self.resolution = resolution
+        self.random_crop = random_crop
+        self.shuffle_buffer = shuffle_buffer if sample_shuffle else 1
+        self.repeat = repeat
+        self.caption_key = caption_key
+        tars = []
+        for url in (urls if isinstance(urls, (list, tuple)) else [urls]):
+            if os.path.isdir(url):
+                tars.extend(sorted(os.path.join(url, f) for f in os.listdir(url)
+                                   if f.endswith(".tar")))
+            else:
+                tars.append(url)
+        shard_index, shard_count = shard_of_process(shard_index, shard_count)
+        self._tars = tars[shard_index::shard_count]
+        self._rng = random.Random(seed + shard_index)
+
+    def _samples_from_tar(self, path: str) -> list:
+        """(image bytes, caption) of each stem with an image and a caption, in
+        tar order; a JPEG image raises (:func:`decode_image`)."""
+        groups: Dict[str, dict] = {}
+        with tarfile.open(path) as tf:
+            for member in tf.getmembers():
+                if not member.isfile():
+                    continue
+                stem, ext = os.path.splitext(member.name)
+                groups.setdefault(stem, {})[ext.lstrip(".").lower()] = \
+                    tf.extractfile(member).read()
+        samples = []
+        for stem, parts in groups.items():
+            img_bytes = parts.get("jpg") or parts.get("jpeg") or parts.get("png")
+            cap = parts.get(self.caption_key)
+            if img_bytes is None or cap is None:
+                continue
+            if img_bytes[:8] != png.SIGNATURE:
+                decode_image(img_bytes)  # raises: the port reads no JPEG
+            samples.append((img_bytes, cap.decode("utf-8").strip()))
+        return samples
+
+    def __iter__(self):
+        rng = self._rng
+        buffer = []
+        while True:
+            tars = list(self._tars)
+            rng.shuffle(tars)
+            for tar in tars:
+                try:
+                    samples = self._samples_from_tar(tar)
+                except (tarfile.TarError, OSError):
+                    continue  # an unreadable tar, skipped as the JAX reader does
+                for sample in samples:
+                    buffer.append(sample)
+                    if len(buffer) >= self.shuffle_buffer:
+                        i = rng.randrange(len(buffer))
+                        buffer[i], buffer[-1] = buffer[-1], buffer[i]
+                        out = _item(*buffer.pop(), self.resolution, self.random_crop, rng)
+                        if out is not None:
+                            yield out
+            while buffer:
+                out = _item(*buffer.pop(), self.resolution, self.random_crop, rng)
+                if out is not None:
+                    yield out
+            if not self.repeat:
+                break

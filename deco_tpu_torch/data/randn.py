@@ -47,8 +47,10 @@ class RandomNDataset:
     ``conditions`` is a count, a list, or a file with one condition a line.
     ``seeds`` fixes the seed list; otherwise item ``idx`` uses seed
     ``idx % num_seeds``. ``noise_file`` reads the noise from an
-    (N, H, W, C) ``.npy`` instead. ``deterministic_seeds=False`` (a fresh
-    unseeded seed per item, the reference's behaviour) is not ported.
+    (N, H, W, C) ``.npy`` instead. ``deterministic_seeds=False`` gives each
+    item read a fresh seed from numpy's global generator (the reference's
+    behaviour, which the JAX package keeps as an option): the noise of an
+    item then depends on the order of reads and on ``np.random.seed``.
     """
 
     def __init__(self, latent_shape=(4, 64, 64),
@@ -56,9 +58,6 @@ class RandomNDataset:
                  seeds: Optional[List[int]] = None, max_num_instances: int = 50000,
                  num_samples_per_instance: int = -1, noise_file: Optional[str] = None,
                  deterministic_seeds: bool = True):
-        if not deterministic_seeds:
-            raise NotImplementedError("RandomNDataset(deterministic_seeds=False): unseeded "
-                                      "per-item seeds are not ported, ROADMAP §A 2")
         if isinstance(conditions, int):
             conditions = list(range(conditions))
         elif isinstance(conditions, str):
@@ -78,12 +77,15 @@ class RandomNDataset:
             self.num_seeds = (max_num_instances + self.num_conditions - 1) // self.num_conditions
             self.max_num_instances = self.num_seeds * self.num_conditions
         self.latent_shape = tuple(latent_shape)
+        self.deterministic_seeds = deterministic_seeds
         self._noise = np.load(noise_file, mmap_mode="r") if noise_file else None
 
     def _seed_for(self, idx: int) -> int:
         if self.seeds is not None:
             return self.seeds[idx % self.num_seeds]
-        return idx % self.num_seeds
+        if self.deterministic_seeds:
+            return idx % self.num_seeds
+        return int(np.random.randint(0, 1 << 31))
 
     def __len__(self):
         return self.max_num_instances

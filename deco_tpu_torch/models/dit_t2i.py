@@ -16,6 +16,12 @@ blocks, 1.12B parameters):
 - decoder: the c2i ``NerfEmbedder`` and ``SimpleMLPAdaLN`` through
   :func:`~deco_tpu_torch.models.layers.run_pixel_decoder` (``decoder_chunks``).
 
+``grad_checkpoint`` recomputes each text and joint block in the backward
+(:func:`~deco_tpu_torch.models.layers.run_checkpointed`, policy "full"; the
+counterpart of ``nn.remat`` over ``_TextScanCell``/``_JointScanCell``), so
+every attention's forward with logsumexp runs twice, and each decoder res
+block (``SimpleMLPAdaLN.grad_checkpoint``) when the decoder is not chunked.
+
 The RoPE tables extrapolate (``precompute_rope_2d(extrapolate=True)``):
 ``patch_scaling_hw`` (or the forward's argument of that name, which the
 serving pipeline passes per request size) stretches them, and they are
@@ -24,8 +30,7 @@ cached on the device per (grid, scale). Module names follow the keys of
 output and reference-layout t2i checkpoints load with ``strict=True``.
 
 Not ported, and raising when asked for: ``trunk_parallel`` (ROADMAP §A 6),
-``quantize`` (§A 7), ``return_features``/``align_layer`` (§A 4) and
-``grad_checkpoint`` (t2i training, §A 3).
+``quantize`` (§A 7) and ``return_features``/``align_layer`` (§A 4).
 """
 
 from __future__ import annotations
@@ -46,7 +51,6 @@ _UNPORTED = {
     "trunk_parallel": ("none", 6),
     "quantize": (None, 7),
     "align_layer": (0, 4),
-    "grad_checkpoint": (False, 3),
 }
 
 
@@ -64,7 +68,7 @@ class DeCoT2I(nn.Module):
                  num_text_blocks: int = 4, txt_embed_dim: int = 2048, txt_max_length: int = 128,
                  max_freqs: int = 8, dtype=torch.bfloat16, param_dtype=None,
                  patch_scaling_hw: Tuple[float, float] = (1.0, 1.0), decoder_chunks: int = 0,
-                 device="cuda", **unported):
+                 grad_checkpoint: bool = False, device="cuda", **unported):
         super().__init__()
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -82,6 +86,7 @@ class DeCoT2I(nn.Module):
         self.dtype = dtype
         self.patch_scaling_hw = tuple(float(s) for s in patch_scaling_hw)
         self.decoder_chunks = decoder_chunks
+        self.grad_checkpoint = grad_checkpoint
         self._rope_cache: dict = {}
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         with dev:
@@ -102,7 +107,8 @@ class DeCoT2I(nn.Module):
             self.dec_net = layers.SimpleMLPAdaLN(
                 in_channels=decoder_hidden_size, model_channels=decoder_hidden_size,
                 out_channels=in_channels, z_channels=hidden_size,
-                num_res_blocks=num_decoder_blocks, patch_size=patch_size, **kw)
+                num_res_blocks=num_decoder_blocks, patch_size=patch_size,
+                grad_checkpoint=grad_checkpoint, **kw)
         self.to(dev)  # buffers made from numpy start on the CPU
 
     def _rope(self, grid_h: int, grid_w: int, scale: Tuple[float, float], device):
@@ -133,14 +139,16 @@ class DeCoT2I(nn.Module):
         condition = F.silu(t_emb)
         y_emb = self.y_embedder(y.to(self.dtype)) + self.y_pos_embedding.to(self.dtype)
         for block in self.text_refine_blocks:
-            y_emb = block(y_emb, condition)
+            y_emb = layers.run_checkpointed(block, y_emb, condition,
+                                            enabled=self.grad_checkpoint)
 
         # the reference s_embedder weight is channel-major (torch unfold)
         x_pix = x_patches.reshape(b, gh * gw, p * p, self.in_channels)
         s = self.s_embedder(x_pix.transpose(2, 3).reshape(b, gh * gw, -1))
         rope = self._rope(gh, gw, scale, x.device)
         for block in self.blocks:
-            s = block(s, y_emb, condition, rope)
+            s = layers.run_checkpointed(block, s, y_emb, condition, rope,
+                                        enabled=self.grad_checkpoint)
         s = F.silu(t_emb + s)
 
         out = layers.run_pixel_decoder(self.dec_net, self.x_embedder(x_pix), s,

@@ -4,10 +4,13 @@ fit / predict (``deco_tpu/train/loop.py`` ``Experiment``).
 - The workdir is ``<trainer.default_root_dir>/<tags.exp>``; a workdir that
   is not empty is refused unless the run resumes. Each run writes the
   config it ran as ``config.yaml``.
-- fit: the folder dataset through the loader, the train step (loss,
-  gradients, clip, AdamW, EMA) with a generator seeded from (seed, step),
-  ``metrics.jsonl``, step checkpoints, a resume that continues the data
-  order, a save on exception and at the end, and SIGTERM as a stop request.
+- fit: the train dataset through the loader (an image folder, the t2i
+  image-caption folder, or a stream), the conditioner on each batch's labels
+  or prompts, the train step (loss, gradients, clip, AdamW, EMA) with a
+  generator seeded from (seed, step), ``metrics.jsonl``, step checkpoints, a
+  resume that continues a folder's data order (a stream starts over, as in
+  the JAX loop), a save on exception and at the end, and SIGTERM as a stop
+  request.
 - predict: the seeded-noise dataset (class labels, or the GenEval/DPG
   prompts of the t2i configs, which the text conditioner encodes on the
   host and whose ``valid_length_y`` rides in the metadata), the config's
@@ -150,10 +153,10 @@ class Experiment:
             CheckpointManager(ckpt_path, 0).restore(state)
         elif ckpt.latest_step() is not None:
             ckpt.restore(state)
-        if state.step:
+        if state.step and hasattr(loader, "set_position"):
             # one loader batch per step, and the shuffle is a pure function of
             # (seed, epoch): the resumed run takes the batches the interrupted
-            # run would have taken
+            # run would have taken. A stream (IterableLoader) starts over.
             loader.set_position(state.step)
         step_fn = make_train_step(
             self.trainer, ema_decay=self.ema_cfg.decay, ema_every=self.ema_cfg.every_n_steps,

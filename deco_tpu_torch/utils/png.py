@@ -3,7 +3,9 @@
 The port writes its sample images and reads PNG image folders without PIL.
 :func:`encode` writes 8-bit RGB with no row filter. :func:`decode` reads
 8-bit gray, RGB and RGBA non-interlaced files with any of the five row
-filters and returns RGB; any other PNG raises ``ValueError``.
+filters and returns RGB; a well-formed PNG of any other kind raises
+:class:`UnsupportedPNG`, and bytes that are not a sound PNG ``ValueError``
+(``zlib.error`` for a broken data stream).
 :func:`encode_apng` writes frames as an animated PNG (APNG: ``acTL``,
 ``fcTL`` and ``fdAT`` chunks; the first frame is the ``IDAT`` image, which
 readers without APNG support show), and :func:`decode_apng` reads back the
@@ -21,6 +23,11 @@ import numpy as np
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels; 0 gray, 2 RGB, 6 RGBA
 _CHANNELS = {0: 1, 2: 3, 6: 4}
+
+
+class UnsupportedPNG(ValueError):
+    """A PNG that other readers (PIL) take and :func:`decode` does not:
+    palette, 16-bit or interlaced images."""
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -145,12 +152,12 @@ def decode(data: bytes) -> np.ndarray:
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"PLTE":
-            raise ValueError("png: palette images are not supported")
+            raise UnsupportedPNG("png: palette images are not supported")
     if header is None or not idat:
         raise ValueError("png: missing IHDR or IDAT")
     w, h, depth, color, compression, filtering, interlace = header
     if depth != 8 or color not in _CHANNELS or compression or filtering or interlace:
-        raise ValueError(f"png: unsupported format (bit depth {depth}, colour type {color}, "
+        raise UnsupportedPNG(f"png: unsupported format (bit depth {depth}, colour type {color}, "
                          f"interlace {interlace}); 8-bit gray/RGB/RGBA non-interlaced only")
     ch = _CHANNELS[color]
     pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch).reshape(h, w, ch)

@@ -310,13 +310,48 @@ def test_collate_matches_jax():
 
 
 def test_make_loader_rejects_streaming_datasets():
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 3"):
-        loader.make_loader(iter([]), 2)
+    # streams were refused until the port had IterableLoader; make_loader now
+    # hands them to it and drops the map-style arguments
+    stream = [(np.zeros(2, np.float32), "a", {})] * 3
+    made = loader.make_loader(iter(stream), 2, shuffle=True, seed=1, num_workers=4)
+    assert isinstance(made, loader.IterableLoader)
+    assert [len(b[1]) for b in made] == [2]
 
 
 def test_unseeded_noise_mode_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 2"):
-        randn.RandomNDataset(latent_shape=(3, 8, 8), conditions=2, deterministic_seeds=False)
+    # refused until the port took deterministic_seeds=False: now each read
+    # draws its seed from numpy's global generator, as the JAX dataset does
+    items = []
+    for make in (randn.RandomNDataset, jax_randn.RandomNDataset):
+        np.random.seed(5)
+        ds = make(latent_shape=(3, 8, 8), conditions=2, max_num_instances=4,
+                  deterministic_seeds=False)
+        items.append([ds[i] for i in (0, 3, 3, 1)])
+    for (x, c, md), (rx, rc, rmd) in zip(*items):
+        np.testing.assert_array_equal(x, rx)
+        assert c == rc and md["filename"] == rmd["filename"] and md["seed"] == rmd["seed"]
+    assert items[0][1][2]["seed"] != items[0][2][2]["seed"]  # a fresh seed at each read
+
+
+def test_local_cached_dataset_matches_jax(png_folder, tmp_path):
+    """Latents sampled from the ``.npz`` cache equal the JAX dataset's (the
+    same RandomState draws in the same order); the raw crop within 1 LSB
+    (the resampler against PIL); without a cache the item is the crop."""
+    rng = np.random.default_rng(9)
+    ours = imagenet.LocalCachedDataset(png_folder, 32, cache_root=str(tmp_path), seed=2)
+    for path, _ in ours.samples:
+        target = path.replace(png_folder, str(tmp_path)) + ".npz"
+        os.makedirs(os.path.dirname(target), exist_ok=True)
+        np.savez(target, mean=rng.standard_normal((4, 4, 4)),
+                 logvar=rng.uniform(-40, 25, (4, 4, 4)))
+    ref = jax_imagenet.LocalCachedDataset(png_folder, 32, cache_root=str(tmp_path), seed=2)
+    for i in range(len(ref)):
+        (x, y, md), (rx, ry, rmd) = ours[i], ref[i]
+        np.testing.assert_array_equal(x, rx)
+        assert y == ry and md.keys() == rmd.keys()
+        assert np.abs(md["raw_image"] - rmd["raw_image"]).max() <= 1.0 / 255 + 1e-6
+    plain = imagenet.LocalCachedDataset(png_folder, 32)[0]
+    np.testing.assert_array_equal(plain[0], plain[2]["raw_image"])
 
 
 # ---- animated PNG (serve's trajectories) ----

@@ -38,6 +38,7 @@ ATTN_SHAPES = [  # (B, Nq, Nkv, H, D), as chip_smoke.py: training, ragged, cross
     (32, 256, 256, 16, 72), (2, 200, 200, 16, 72), (2, 256, 333, 16, 72),
     (4, 256, 256, 16, 64), (2, 256, 256, 8, 128), (1, 4096, 4096, 16, 72),
 ]
+T2I_TRAIN_SHAPES = [(16, 1024, 1152, 24, 64), (16, 1020, 1148, 24, 64), (16, 128, 128, 24, 64)]
 
 
 @pytest.fixture
@@ -153,6 +154,9 @@ def _backward(q, k, v, o, lse, do, scale):
 @pytest.mark.parametrize("shape", ATTN_SHAPES + [
     (2, 130, 333, 2, 128),  # D = 128, ragged and Nq != Nkv: the largest shared-memory variant
     (16, 1024, 1024, 16, 72),  # DeCo-XL/16 512 px training, microbatch 16: B*H = 256
+    # DeCo-XXL/16 t2i training, microbatch 16 (D = 64): joint (1,024 queries
+    # over 1,024 image + 128 text keys), a 544x480 canvas, the text refinement
+    *T2I_TRAIN_SHAPES,
 ])
 def test_fwd_lse_and_backward_match_plain_on_card(cuda_device, shape):
     q, k, v, do = _qkv(cuda_device, *shape)
@@ -172,7 +176,8 @@ def test_fwd_lse_and_backward_match_plain_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [ATTN_SHAPES[0], ATTN_SHAPES[-1]])  # training, N = 4096
+@pytest.mark.parametrize("shape", [ATTN_SHAPES[0], ATTN_SHAPES[-1],  # training, N = 4096
+                                   T2I_TRAIN_SHAPES[0]])  # the t2i joint attention
 def test_backward_is_bit_identical_on_card(cuda_device, shape):
     q, k, v, do = _qkv(cuda_device, *shape)
     scale = shape[-1] ** -0.5
@@ -378,3 +383,42 @@ def test_inception_features_match_the_cpu_on_card(cuda_device):
     ref = inception.compute_fid_features(images, tower)
     got = inception.compute_fid_features(images, tower.to(cuda_device))
     assert np.abs(got - ref).max() < 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_t2i_train_step_launches_and_remat_gradients_on_card(cuda_device):
+    """A 2 joint + 1 text block DeCoT2I at full width, one sft_res512.yaml
+    loss and backward at batch 2 on a 544x480 canvas: 3 dQ and 3 dK/dV
+    launches, the forward with lse 3 times without grad_checkpoint and 6
+    times with it (each block recomputed), the same gradients both ways
+    (the same kernels on the same inputs: bit-equal), and non-zero
+    gradients on the text side, which only the text half of dK/dV reaches."""
+    from deco_tpu_torch.diffusion.scheduling import LinearScheduler
+    from deco_tpu_torch.diffusion.training import DeCoTrainer
+    from deco_tpu_torch.models.dit_c2i_deco import init_random_
+    from deco_tpu_torch.models.dit_t2i import DeCoT2I
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.rand(2, 544, 480, 3, generator=gen, device=cuda_device) * 2 - 1
+    cond = torch.randn(2, 128, 2048, generator=gen, device=cuda_device) * 0.02
+    draws = dict(drop_u=[0.9, 0.5], t_normal=[0.3, -0.7], t_uniform=[0.2, 0.6], mix_u=[0.5, 0.95],
+                 noise=torch.randn(2, 544, 480, 3, generator=gen, device=cuda_device))
+    trainer = DeCoTrainer(LinearScheduler(), lognorm_t=True, timeshift=4.0)
+    kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    grads, counts = [], []
+    for gc in (False, True):
+        model = init_random_(DeCoT2I(num_encoder_blocks=2, num_text_blocks=1,
+                                     param_dtype=torch.float32, grad_checkpoint=gc,
+                                     device=cuda_device), seed=0).train()
+        before = [f.launches for f in kernels]
+        trainer(model, x, cond, torch.zeros_like(cond), draws=draws)["loss"].backward()
+        torch.cuda.synchronize()
+        counts.append([f.launches - b for f, b in zip(kernels, before)])
+        grads.append(dict((n, p.grad) for n, p in model.named_parameters()))
+    assert counts == [[3, 3, 3], [6, 3, 3]]
+    for name, g in grads[0].items():
+        assert torch.equal(g, grads[1][name]), name
+    for name in ("blocks.0.attn.kv_y.weight", "blocks.1.attn.kv_y.weight",
+                 "text_refine_blocks.0.attn.qkv.weight", "y_embedder.proj.weight",
+                 "y_pos_embedding"):
+        assert bool(torch.isfinite(grads[0][name]).all()) and grads[0][name].abs().max() > 0, name

@@ -229,7 +229,7 @@ def test_init_follows_the_jax_initializers():
 
 
 @pytest.mark.parametrize("kwarg,item", [({"trunk_parallel": "sp"}, 6), ({"quantize": "int8"}, 7),
-                                        ({"align_layer": 2}, 4), ({"grad_checkpoint": True}, 3)])
+                                        ({"align_layer": 2}, 4)])
 def test_unported_options_raise_naming_their_roadmap_item(kwarg, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
         DeCoT2I(**TINY_T2I, device="cpu", **kwarg)
