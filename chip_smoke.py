@@ -7,8 +7,9 @@ sampling (``configs_c2i/DeCo_XL.yaml``) and training
 (``configs_c2i/DeCo_XL_freq.yaml``) at 256 px, and training, sampling and
 FID scoring at 512 px (``configs_c2i/DeCo_XL_512.yaml``), and text-to-image
 serving, prompt-set predict and training with DeCo-XXL/16
-(``configs_t2i/sft_res512.yaml``), and holds each hand-written kernel
-against its plain PyTorch version. Phases, in the order they run:
+(``configs_t2i/sft_res512.yaml``), and the other c2i families with the REPA
+objectives (Baseline-DiT-L/16, PixNerd-L/16, DeCo-L/16 with the DINOv2
+tower), and holds each hand-written kernel against its plain PyTorch version. Phases, in the order they run:
 
 1. build: compile every ``deco_tpu_torch/csrc/*.cu`` with nvcc (one process
    per source, started together); print the card's name and power limit.
@@ -51,15 +52,17 @@ against its plain PyTorch version. Phases, in the order they run:
    exact launches per step; s/step, images/s, MFU, peak memory and a
    device-time breakdown of one step.
 9. cli: the entry point users run, ``deco_tpu_torch.cli``, on
-   ``configs_c2i/DeCo_XL_freq.yaml`` at full width. A PNG folder (2 classes
-   x 32 images of 320x288 and 288x384 from ``--seed``) under
-   ``build/chip_smoke_cli/``; ``fit`` for 3 steps at batch 32 with full
-   remat: finite losses in ``metrics.jsonl``, phase 8's launches per step,
-   a final checkpoint with every key (its bytes and save time); ``predict``
-   from it, one batch of 20 with 100 Euler steps and CFG 3.2 on (0.1, 1]:
-   a non-constant uint8 (20, 256, 256, 3) ``output.npz``, the FID
-   protocol's file names ``0_0`` ... ``0_9``, exactly 2,800 forward
-   launches, and the EMA weights loaded equal to those saved. Step times,
+   ``configs_c2i/DeCo_XL_freq.yaml`` at full width, its trunk cut to 14 of
+   28 blocks (``CLI_DEPTH``: the script keeps its disk writes under 45 GiB,
+   which the full-depth checkpoints of phases 9, 10, 12 and 13 would pass). A
+   PNG folder (2 classes x 32 images of 320x288 and 288x384 from
+   ``--seed``) under ``build/chip_smoke_cli/``; ``fit`` for 3 steps at
+   batch 32 with full remat: finite losses in ``metrics.jsonl``, 28 / 14 /
+   14 / 1 launches a step, a final checkpoint with every key (its bytes and
+   save time); ``predict`` from it, one batch of 20 with 100 Euler steps
+   and CFG 3.2 on (0.1, 1]: a non-constant uint8 (20, 256, 256, 3)
+   ``output.npz``, the FID protocol's file names ``0_0`` ... ``0_9``,
+   exactly 1,400 forward launches, and the EMA weights loaded equal to those saved. Step times,
    s/step, the device's idle share and images/s; the folder is deleted.
 10. cli_512: DeCo-XL/16 at 512 px end to end through the CLI and the
    eval entry points. ``fit`` on ``configs_c2i/DeCo_XL_512.yaml``
@@ -111,16 +114,39 @@ against its plain PyTorch version. Phases, in the order they run:
    memory and time the remat trades; then ``cli predict`` from the
    checkpoint, one DPG batch of 8 with 500 forward launches. The files go
    under ``build/chip_smoke_t2i_fit/``, which is deleted.
-13. kernels: one JSON line listing every kernel with its launches on its
+13. c2i_families: the other c2i families and the REPA objectives at full
+   width. ``fp32_attention``: the fp32 forward (the DINOv2 tower's
+   attention, D = 64) against its plain version at B*H 384 and 1,536 with
+   N = 257, at N = 1,025 and a ragged 17, bit-identical over two runs,
+   timed beside its bound at the fp32 rate, the plain version and fp32 SDPA;
+   the fp32 forward with lse and backward refused. ``c2i_families_slice_vs_
+   plain``: one REPA step (Baseline_DiT.yaml's trainer, a 1-layer DINOv2 at
+   full width) of a 2-block BaselineDiT and a 2 + 1 block PixNerdC2I at
+   hidden 1,024, card against CPU: loss, cos_loss, all gradients, those of
+   the projection and of the tapped block, and the tower's fp32 features.
+   ``baseline_fit``: ``cli fit -c configs_c2i/Baseline_DiT.yaml`` as shipped
+   (batch 32 x diffusion_batch_mul 4, no remat, the random tower) for 3
+   steps: cos_loss above 1e-4, exactly 24 / 24 / 24 forward-with-lse / dQ /
+   dK-dV and 12 fp32 launches a step, s/step, idle share, peak memory, MFU,
+   the checkpoint with the projection; then ``cli predict`` of 32 images,
+   50 steps, 1,200 forward launches. ``families_fit``: one step each of
+   Baseline_DiT_JiT.yaml, Baseline_PixNerd.yaml, DeCo_large.yaml and
+   configs_t2i/pretraining_res256.yaml (from a tar shard of PNGs), with
+   their launches. The files go under ``build/chip_smoke_c2i_families/``,
+   which is deleted.
+14. kernels: one JSON line listing every kernel with its launches on its
    path (sampling for the forward, training for the others) and on the CLI
    paths, error, times, bound, library time and the library call's
    backend, for the attention kernels the same at N = 1024, for the
    forward its t2i serving launches and its times at the D = 64 t2i
-   shapes, and for the training kernels their t2i fit launches and times.
+   shapes, for the training kernels their t2i and Baseline-DiT fit
+   launches and times, and the fp32 forward with its launches in the
+   Baseline-DiT fit and its times at the tower's shapes.
 
 ``python3 chip_smoke.py --calibrate-train-slice`` (and ``--calibrate-t2i-slice``,
-``--calibrate-t2i-train-slice``) prints, on the CPU, the two readings between
-which the train-slice (t2i slice, t2i train slice) gates sit, and no result.
+``--calibrate-t2i-train-slice``, ``--calibrate-c2i-families-slice``) prints, on
+the CPU, the readings between which the train-slice (t2i slice, t2i train
+slice, c2i families slice) gates sit, and no result.
 
 Every phase prints JSON lines; a failed phase raises and the script exits
 non-zero without the last line. The last line is
@@ -307,7 +333,7 @@ def sdpa_forward_yardsticks(q, k, v, scale: float, with_lse: bool, flush, iters:
 
 # Kernels the resource lines report, as their names appear in ptxas's log.
 _KERNEL_NAME = re.compile(
-    r"(?<=\d)(flash_fwd_kernel|flash_bwd_d(?:q|kv)_kernel|freq_mse(?:_[a-z]+)?_kernel)"
+    r"(?<=\d)(flash_fwd(?:_f32)?_kernel|flash_bwd_d(?:q|kv)_kernel|freq_mse(?:_[a-z]+)?_kernel)"
     r"(?:ILi(\d+)E(?:Lb(\d)E)?)?")
 
 
@@ -414,7 +440,7 @@ def kernel_resource_lines(card: str) -> None:
 
     for key, source, runtime, count in (
             ("forward_resources", "flash_attention_fwd", fa.forward_kernel_info,
-             2 * len(fa.SUPPORTED_HEAD_DIMS)),
+             2 * len(fa.SUPPORTED_HEAD_DIMS) + len(fa.F32_HEAD_DIMS)),
             ("backward_resources", "flash_attention_bwd", fa.backward_kernel_info,
              2 * len(fa.SUPPORTED_HEAD_DIMS)),
             ("freq_mse_resources", "freq_mse", block_dct.kernel_info, 1)):
@@ -784,6 +810,8 @@ def phase_train(card: str):
 
 
 def _kernel_kind(name: str) -> str:
+    if "flash_fwd_f32_kernel" in name:
+        return "attention_fwd_f32"
     if "flash_fwd_kernel" in name:
         return "attention_fwd"
     if any(k in name for k in ATTN_BWD_KINDS):
@@ -886,6 +914,9 @@ def phase_sample(model, card: str):
 
 CLI_DIR = "build/chip_smoke_cli"  # git-ignored; deleted at the end of the phase
 CLI_CONFIG = "configs_c2i/DeCo_XL_freq.yaml"
+# phase 9's trunk depth (of 28): half, so its checkpoint writes 6 GB, not 11
+CLI_DEPTH = ["--model.denoiser.init_args.num_cond_blocks=14",
+             "--model.denoiser.init_args.num_blocks=17"]
 
 
 def write_image_folder(root: str, seed: int, per_class: int = 32,
@@ -913,14 +944,16 @@ def write_image_folder(root: str, seed: int, per_class: int = 32,
 
 class Spy:
     """Wraps ``owner.name`` for the phase: records each call's arguments,
-    result and seconds, and puts the original back on exit."""
+    result and seconds, and puts the original back on exit. With
+    ``replace`` the calls go to it in place of the original."""
 
-    def __init__(self, owner, name: str):
+    def __init__(self, owner, name: str, replace=None):
         self.owner, self.name, self.calls = owner, name, []
         self.original = getattr(owner, name)
+        self.replace = replace
 
     def __enter__(self):
-        original, calls = self.original, self.calls
+        original, calls = self.replace or self.original, self.calls
 
         def wrapped(*args, **kwargs):
             t0 = time.perf_counter()
@@ -986,7 +1019,7 @@ def phase_cli(card: str, seed: int) -> dict:
         t0 = time.perf_counter()
         with Spy(checkpoint.CheckpointManager, "maybe_save") as saves, \
                 profile(activities=[ProfilerActivity.CUDA]) as prof:
-            state = cli.main(["fit", "-c", CLI_CONFIG,
+            state = cli.main(["fit", "-c", CLI_CONFIG, *CLI_DEPTH,
                               f"--data.train_dataset.init_args.root={CLI_DIR}/images",
                               f"--trainer.default_root_dir={workroot}", "--max_steps", str(steps),
                               "--trainer.log_every_n_steps=1"])
@@ -1001,7 +1034,7 @@ def phase_cli(card: str, seed: int) -> dict:
         ckpt_path = f"{workdir}/checkpoints/{steps}.pt"
         written = [c for c in saves.calls if c["out"]]
         names = [n for n, _ in state.model.named_parameters()]
-        xl = len(state.model.blocks) == 28 and state.model.trunk_checkpoint
+        xl = len(state.model.blocks) == 14 and state.model.trunk_checkpoint
         obj = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)
         keys_ok = (set(obj["state_dict"]) == {f"{p}{n}" for p in ("denoiser.", "ema_denoiser.")
                                               for n in names}
@@ -1020,9 +1053,9 @@ def phase_cli(card: str, seed: int) -> dict:
                "checkpoint_keys_ok": keys_ok, "params": len(names), "card": card,
                "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl"}
         emit(fit)
-        check(xl, "the cli fit did not build DeCo-XL with full remat")
+        check(xl, "the cli fit did not build DeCo-XL (14 trunk blocks) with full remat")
         check(len(records) == steps and all(np.isfinite(fit["losses"])), f"cli fit losses {records}")
-        expected = {"fwd_lse": 56 * steps, "bwd_dq": 28 * steps, "bwd_dkv": 28 * steps,
+        expected = {"fwd_lse": 28 * steps, "bwd_dq": 14 * steps, "bwd_dkv": 14 * steps,
                     "freq_mse": steps, "fwd": 0}
         check(fit_launches == expected, f"cli fit launches {fit_launches}, expected {expected}")
         check(keys_ok, "the cli checkpoint lacks keys")
@@ -1036,7 +1069,8 @@ def phase_cli(card: str, seed: int) -> dict:
             f.launches = 0
         t0 = time.perf_counter()
         with Spy(checkpoint.CheckpointManager, "restore_params") as restores:
-            out = cli.main(["predict", "-c", CLI_CONFIG, f"--trainer.default_root_dir={workroot}",
+            out = cli.main(["predict", "-c", CLI_CONFIG, *CLI_DEPTH,
+                            f"--trainer.default_root_dir={workroot}",
                             f"--ckpt_path={workdir}/checkpoints", "--max_batches", "1"])
         predict_s = time.perf_counter() - t0
         sampling_s = time.perf_counter() - restores.calls[0]["end"]  # after the weights load
@@ -1057,8 +1091,8 @@ def phase_cli(card: str, seed: int) -> dict:
         check(arr.shape == (20, 256, 256, 3) and arr.dtype == np.uint8, f"npz {arr.shape}")
         check(arr.std() > 0, "constant output.npz")
         check(pngs == want_pngs, f"sample files {pngs}")
-        check(pred_launches["fwd"] == 2800 and sum(pred_launches.values()) == 2800,
-              f"cli predict launches {pred_launches}, expected 2800 forward")
+        check(pred_launches["fwd"] == 1400 and sum(pred_launches.values()) == 1400,
+              f"cli predict launches {pred_launches}, expected 1400 forward")
         check(ema_equal, "the predict's weights differ from the saved EMA")
         print(card, flush=True)
         return {"fit": fit_launches, "predict": pred_launches}
@@ -2008,6 +2042,488 @@ def t2i_remat_steps(state, config: dict, card: str) -> dict:
     return rows
 
 
+# ---- phase 13: the other c2i families and the REPA objectives ----
+
+FAMILIES_DIR = "build/chip_smoke_c2i_families"  # git-ignored; deleted at the end of the phase
+BASELINE_CONFIG = "configs_c2i/Baseline_DiT.yaml"
+WEIGHTLESS = "--model.diffusion_trainer.init_args.encoder.init_args.weight_path=null"
+# fp32 operands (the DINOv2 tower): (B, N, H, D); B*H 384 is one microbatch
+# of 32 images at 256 px, 1,536 the same repeated by diffusion_batch_mul 4,
+# N = 1,025 the tower at 512 px (microbatch 16)
+F32_SHAPES = {"dinov2_256": (32, 257, 12, 64), "dinov2_256_x4": (128, 257, 12, 64),
+              "dinov2_512": (16, 1025, 12, 64), "ragged_17": (2, 17, 3, 64)}
+# fp32 kernel vs plain version: both keep P in fp32 and sum N exact products
+# per row in another order; the plain one's products go through cuBLAS
+# without TF32. The error is a few ulps of the output, so 1e-5 x max|v|.
+F32_REL = 1e-5
+# per step of Baseline_DiT.yaml (batch 32 x diffusion_batch_mul 4, 24 blocks,
+# no remat): one forward with lse, dQ and dK/dV per block, and the DINOv2
+# tower's 12 layers once per microbatch of 32 images (its features repeated)
+BASELINE_FIT_STEPS = 3
+BASELINE_LAUNCHES = {"fwd_lse": 24, "bwd_dq": 24, "bwd_dkv": 24, "fwd_f32": 12, "fwd": 0,
+                     "freq_mse": 0}
+PRETRAINING_CONFIG = "configs_t2i/pretraining_res256.yaml"
+# config: (trunk attention blocks run a step, DINOv2 layers run a step,
+# grad_checkpoint). As shipped, PixNerd-L, DeCo-L and the t2i pretraining
+# step do not fit in the card's 80 GB without remat (--probe-families-memory
+# shows both peaks), so they run with the model's grad_checkpoint, which
+# recomputes each trunk block: 2 forward-with-lse launches a block.
+FAMILIES = {
+    "configs_c2i/Baseline_DiT_JiT.yaml": (24, 12, False),
+    "configs_c2i/Baseline_PixNerd.yaml": (22, 12, True),
+    "configs_c2i/DeCo_large.yaml": (22, 0, True),  # DeCoTrainer keeps the tower, never calls it
+    PRETRAINING_CONFIG: (60, 0, True),  # 3 microbatches x (16 joint + 4 text blocks)
+}
+REMAT = "--model.denoiser.init_args.grad_checkpoint=true"
+# The one-step REPA slice, card vs CPU, both bf16 compute with fp32
+# parameters; the tower runs fp32 on both. Gates between the CPU readings of
+# --calibrate-c2i-families-slice (bf16 vs fp32; attention backward zeroed),
+# set before the first chip run.
+FAMILIES_SLICE = {"baseline": dict(num_blocks=2), "pixnerd": dict(num_blocks=3, num_cond_blocks=2,
+                                                                  hidden_size_x=64,
+                                                                  nerf_mlpratio=2)}
+# Readings (CPU): bf16 vs fp32 gives grad rel L2 0.0068 / 0.0072 (baseline /
+# pixnerd), the tapped block's 0.0107 / 0.0111, the projection's 0.0027,
+# loss 8.9e-5 / 3.4e-5 and cos_loss 1.0e-5 relative; zeroing the attention
+# backward moves the gradients by 0.235 / 0.194 and the tapped block's by
+# 0.585 / 0.636, and cannot move the loss or the projection's gradient
+# (a forward quantity), which are held to ~10x their bf16-vs-fp32 readings.
+FAMILIES_SLICE_GATES = {"grad_rel_l2": 0.03, "tapped_rel_l2": 0.05, "proj_rel_l2": 0.02,
+                        "loss_rel": 1e-3, "cos_rel": 1e-4}
+FAMILIES_SLICE_READINGS = {
+    "baseline": {"bf16_vs_fp32": {"grad_rel_l2": 0.00682, "tapped_rel_l2": 0.01074,
+                                  "proj_rel_l2": 0.00272, "loss_rel": 8.9e-5, "cos_rel": 1.03e-5},
+                 "zero_attention_backward": {"grad_rel_l2": 0.2349, "tapped_rel_l2": 0.5853}},
+    "pixnerd": {"bf16_vs_fp32": {"grad_rel_l2": 0.00720, "tapped_rel_l2": 0.01111,
+                                 "proj_rel_l2": 0.00272, "loss_rel": 3.4e-5, "cos_rel": 1.03e-5},
+                "zero_attention_backward": {"grad_rel_l2": 0.1940, "tapped_rel_l2": 0.6361}}}
+# the tower's features, card vs CPU, both fp32 (TF32 off): one layer of fp32
+# products in another order
+FEATURE_F32_REL = 1e-4
+
+
+def _f32_operands(gen, b, n, h, d):
+    import torch
+
+    return [torch.randn((b, n, h, d), generator=gen, device="cuda") for _ in range(3)]
+
+
+def phase_fp32_attention(card: str) -> dict:
+    """The fp32 forward (DINOv2's attention) against its plain version at
+    the tower's shapes, bit-identical over two runs; timed at B*H 384 and
+    1,536 (N 257) and at N 1,025 beside its bound at the fp32 rate, the
+    plain version and fp32 SDPA (a yardstick)."""
+    import torch
+
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    errs, timings = {}, {}
+    for name, (b, n, h, d) in F32_SHAPES.items():
+        q, k, v = _f32_operands(gen, b, n, h, d)
+        out, again = fa.flash_attention(q, k, v), fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v)
+        err, vmax = (out - ref).abs().max().item(), v.abs().max().item()
+        errs[name] = err
+        emit({"phase": "fp32_attention", "shape": name, "b_n_h_d": [b, n, h, d],
+              "max_abs_err": err, "max_abs_v": vmax, "limit": F32_REL * vmax,
+              "bit_identical": torch.equal(out, again), "dtype": str(out.dtype)})
+        check(out.dtype == torch.float32 and bool(torch.isfinite(out).all()), f"{name}: output")
+        check(err <= F32_REL * vmax, f"fp32 attention {name} error {err} > {F32_REL} x {vmax}")
+        check(torch.equal(out, again), f"fp32 attention {name} differs between two runs")
+        if name.startswith("ragged"):
+            continue
+        iters = 20 if n > 512 else 30
+        timings[name] = {
+            "ms": cuda_ms(lambda: fa.flash_attention_fwd_f32(q, k, v, d ** -0.5), iters, flush),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v), max(iters // 5, 3),
+                                flush),
+            **sdpa_forward_yardsticks(q, k, v, d ** -0.5, False, flush, iters),
+            **_bound(card, 4 * 4 * q.numel(), 4 * b * h * n * n * d, fp32=True),
+            "b_n_h_d": [b, n, h, d], "max_abs_err": err, "l2": "flushed before each call",
+            "card": card}
+        emit({"phase": "fp32_attention", "timing": name, **timings[name]})
+    for lse in (True, False):
+        q, k, v = _f32_operands(gen, 1, 17, 1, 64)
+        try:
+            if lse:
+                fa.flash_attention_fwd_lse(q, k, v, 0.125)
+            else:
+                fa.flash_attention_bwd(q, k, v, q, torch.zeros(1, 1, 17, device="cuda"), q, 0.125)
+            refused = None
+        except (TypeError, ValueError) as err:
+            refused = str(err)
+        emit({"phase": "fp32_attention", "refused": "fwd_lse" if lse else "backward",
+              "message": refused})
+        check(refused is not None, "an fp32 forward with lse or backward was not refused")
+    return {"max_abs_err": max(errs.values()), **timings["dinov2_256"],
+            "timings": timings}
+
+
+def families_slice_step(family: str, device: str, dtype=None,
+                        zero_attention_backward: bool = False):
+    """One Baseline_DiT.yaml REPA step (its REPATrainer, AdamW and the
+    random DINOv2 cut to 1 layer at full width) of a cut-depth model at full
+    width (hidden 1,024, 16 heads of 64), BaselineDiT or PixNerdC2I, at batch
+    2 on 256 px, tapped at block 1: (loss, cos_loss, {"all", "proj",
+    "tapped": flat gradients of the projection and of block 0}, the tower's
+    features), as fp32 tensors on the CPU. Weights, batch and draws come from
+    fixed seeds; ``zero_attention_backward`` makes the attention backward
+    return zeros (the reading that sets the gates)."""
+    import torch
+
+    from deco_tpu_torch.config import registry
+    from deco_tpu_torch.models.dit_c2i_baseline import BaselineDiT
+    from deco_tpu_torch.models.dit_c2i_deco import init_random_
+    from deco_tpu_torch.models.dit_c2i_pixnerd import PixNerdC2I
+    from deco_tpu_torch.ops import flash_attention as fa
+    from deco_tpu_torch.train.train_step import make_train_step
+
+    config = registry.load_yaml(BASELINE_CONFIG)
+    tnode = config["model"]["diffusion_trainer"]
+    tnode["init_args"]["encoder"]["init_args"].update(weight_path=None, num_layers=1,
+                                                      device=device)
+    trainer = registry.instantiate(tnode)
+    trainer.align_layer = 1
+    trainer.proj_module.to(device).reset_parameters(4)
+    cls = BaselineDiT if family == "baseline" else PixNerdC2I
+    args = dict(config["model"]["denoiser"]["init_args"], **FAMILIES_SLICE[family])
+    model = init_random_(cls(**args, dtype=dtype or torch.bfloat16, param_dtype=torch.float32,
+                             align_layer=1, device=device), seed=1)
+    state = registry.instantiate(config["model"]["optimizer"]).create_state(
+        model.train(), trainer_module=trainer.proj_module)
+    step = make_train_step(trainer, grad_clip=None)
+    rng = np.random.default_rng(2)
+    x = rng.uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32)
+    batch = {"x": torch.from_numpy(x).to(device), "condition": torch.tensor([3, 7], device=device),
+             "uncondition": torch.tensor([1000, 1000], device=device),
+             "metadata": {"raw_image": torch.from_numpy((x + 1) / 2).to(device)}}
+    draws = dict(drop_u=np.array([0.9, 0.05], np.float32),  # p = 0.1: the second row dropped
+                 t_normal=rng.standard_normal(2).astype(np.float32),
+                 noise=rng.standard_normal((2, 256, 256, 3)).astype(np.float32))
+    with torch.no_grad():
+        features = trainer.encoder(batch["metadata"]["raw_image"]).float().cpu()
+    saved = fa.flash_attention_bwd
+    if zero_attention_backward:
+        fa.flash_attention_bwd = lambda q, k, v, *_: tuple(map(torch.zeros_like, (q, k, v)))
+    try:
+        metrics = step(state, batch, draws=[draws])
+    finally:
+        fa.flash_attention_bwd = saved
+    named = [(n, p.grad.reshape(-1).float().cpu()) for n, p in state.named_parameters()]
+    groups = {"all": torch.cat([g for _, g in named]),
+              "proj": torch.cat([g for n, g in named if n.startswith("diffusion_trainer.")]),
+              "tapped": torch.cat([g for n, g in named if n.startswith("blocks.0.")])}
+    return float(metrics["loss"]), float(metrics["cos_loss"]), groups, features
+
+
+def _families_rows(a, b) -> dict:
+    (loss, cos, grads, _), (loss_ref, cos_ref, grads_ref, _) = a, b
+    return {"loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+            "cos_rel": abs(cos - cos_ref) / abs(cos_ref),
+            "grad_rel_l2": _rel_l2(grads["all"], grads_ref["all"]),
+            "proj_rel_l2": _rel_l2(grads["proj"], grads_ref["proj"]),
+            "tapped_rel_l2": _rel_l2(grads["tapped"], grads_ref["tapped"])}
+
+
+def calibrate_families_slice() -> None:
+    """The CPU readings between which FAMILIES_SLICE_GATES sit."""
+    import torch
+
+    for family in FAMILIES_SLICE:
+        fp32 = families_slice_step(family, "cpu", torch.float32)
+        bf16 = families_slice_step(family, "cpu")
+        zero = families_slice_step(family, "cpu", zero_attention_backward=True)
+        emit({"phase": "calibrate_c2i_families_slice", "family": family,
+              "bf16_vs_fp32": _families_rows(bf16, fp32),
+              "zero_attention_backward_vs_bf16": _families_rows(zero, bf16)})
+
+
+def phase_families_slice():
+    """The REPA step of each family, card against CPU."""
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_fwd_f32)
+    for family in FAMILIES_SLICE:
+        results = {}
+        for device in ("cuda", "cpu"):
+            before = [f.launches for f in kernels]
+            t0 = time.perf_counter()
+            results[device] = families_slice_step(family, device)
+            results[device + "_s"] = time.perf_counter() - t0
+            results[device + "_launches"] = [f.launches - n for f, n in zip(kernels, before)]
+        row = _families_rows(results["cuda"], results["cpu"])
+        features, features_ref = results["cuda"][3], results["cpu"][3]
+        row["feature_rel_l2"] = _rel_l2(features, features_ref)
+        trunk = FAMILIES_SLICE[family].get("num_cond_blocks", FAMILIES_SLICE[family]["num_blocks"])
+        emit({"phase": "c2i_families_slice_vs_plain", "family": family, **FAMILIES_SLICE[family],
+              "batch": 2, "size": 256, "tower_layers": 1, "loss": results["cuda"][0],
+              "loss_cpu": results["cpu"][0], "cos_loss": results["cuda"][1],
+              "cos_loss_cpu": results["cpu"][1], **row, "limits": FAMILIES_SLICE_GATES,
+              "feature_limit": FEATURE_F32_REL, "calibration": FAMILIES_SLICE_READINGS.get(family),
+              "cuda_launches_fwd_lse_dq_dkv_f32": results["cuda_launches"],
+              "cpu_launches": results["cpu_launches"], "cuda_s": results["cuda_s"],
+              "cpu_s": results["cpu_s"]})
+        check(all(np.isfinite([results["cuda"][0], results["cuda"][1]])), f"{family} slice loss")
+        # the encode in the slice itself and the one inside the step: 2 tower calls
+        check(results["cuda_launches"] == [trunk, trunk, trunk, 2],
+              f"{family} slice launches {results['cuda_launches']}")
+        check(results["cpu_launches"] == [0, 0, 0, 0], f"the CPU {family} slice launched a kernel")
+        check(row["feature_rel_l2"] < FEATURE_F32_REL, f"{family} tower features {row}")
+        for key, limit in FAMILIES_SLICE_GATES.items():
+            check(row[key] < limit, f"{family} slice {key} {row[key]} >= {limit}")
+
+
+def _fit_kernels():
+    from deco_tpu_torch.ops import block_dct
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    return {"fwd_lse": fa.flash_attention_fwd_lse, "bwd_dq": fa.flash_attention_bwd_dq,
+            "bwd_dkv": fa.flash_attention_bwd_dkv, "fwd_f32": fa.flash_attention_fwd_f32,
+            "fwd": fa.flash_attention, "freq_mse": block_dct.freq_mse}
+
+
+def _fit_records(workdir: str) -> tuple:
+    import json
+
+    records = [json.loads(line) for line in open(f"{workdir}/metrics.jsonl")]
+    ends = [r["time"] for r in records]  # each log reads the loss: the end of step k
+    return records, ends, [ends[0]] + [b - a for a, b in zip(ends, ends[1:])]
+
+
+def phase_baseline_fit(card: str, seed: int) -> dict:
+    """``cli fit -c configs_c2i/Baseline_DiT.yaml`` as shipped (Baseline-
+    DiT-L/16, REPA with the random DINOv2, batch 32 x diffusion_batch_mul 4,
+    no remat) but for the folder, the work directory, the steps and the
+    tower's weights, then ``cli predict`` of 32 images from its checkpoint."""
+    import os
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.config import registry
+    from deco_tpu_torch.train import checkpoint
+    from deco_tpu_torch.utils.flops import baseline_dit_flops, card_peaks, vit_flops
+
+    config = registry.load_yaml(BASELINE_CONFIG)
+    kernels = _fit_kernels()
+    steps = BASELINE_FIT_STEPS
+    try:
+        images = write_image_folder(f"{FAMILIES_DIR}/images", seed)
+        workroot = f"{FAMILIES_DIR}/work"
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "maybe_save") as saves, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state = cli.main(["fit", "-c", BASELINE_CONFIG, WEIGHTLESS,
+                              f"--data.train_dataset.init_args.root={FAMILIES_DIR}/images",
+                              f"--trainer.default_root_dir={workroot}", "--max_steps", str(steps),
+                              "--trainer.log_every_n_steps=1"])
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: f.launches for k, f in kernels.items()}
+        model = state.model
+        large = (len(model.blocks) == 24 and model.hidden_size == 1024 and model.num_groups == 16
+                 and not model.grad_checkpoint and model.align_layer == 8)
+        workdir = f"{workroot}/Baseline_repa_large"
+        records, ends, step_s = _fit_records(workdir)
+        s_per_step = float(np.median(step_s[1:]))
+        busy_ms = _kernel_busy_ms(prof)
+        rows = config["data"]["train_batch_size"] * 4  # diffusion_batch_mul 4 (the default)
+        flops = 3 * baseline_dit_flops() * rows + vit_flops() * config["data"]["train_batch_size"]
+        ckpt_path = f"{workdir}/checkpoints/{steps}.pt"
+        written = [c for c in saves.calls if c["out"]]
+        obj = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)
+        proj_keys = sorted(k for k in obj["state_dict"] if "diffusion_trainer." in k)
+        fit = {"phase": "baseline_fit", "config": BASELINE_CONFIG, "images": images,
+               "batch": config["data"]["train_batch_size"], "rows_per_step": rows,
+               "steps": steps, "losses": [r["loss"] for r in records],
+               "fm_losses": [r["fm_loss"] for r in records],
+               "cos_losses": [r["cos_loss"] for r in records], "step_s": step_s,
+               "s_per_step": s_per_step, "images_per_s": config["data"]["train_batch_size"]
+               / s_per_step, "mfu": flops / s_per_step / card_peaks(card)[0],
+               "flops_per_step": flops, "device_kernel_ms": busy_ms,
+               "kernel_ms_by_kind": _kernel_ms_by_kind(prof),
+               "idle_share": 1 - busy_ms / 1e3 / ends[-1], "peak_mem_bytes": peak,
+               "fit_call_s": fit_s, "launches": launches,
+               "launches_per_step": {k: v / steps for k, v in launches.items()},
+               "checkpoint_bytes": os.path.getsize(ckpt_path),
+               "checkpoint_save_s": [c["seconds"] for c in written], "proj_keys": proj_keys,
+               "params": sum(p.numel() for p in model.parameters()), "card": card,
+               "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl"}
+        emit(fit)
+        check(large, "the fit did not build Baseline-DiT-L/16 as shipped, tapped at block 8")
+        check(len(records) == steps and all(np.isfinite(fit["fm_losses"] + fit["cos_losses"])),
+              f"baseline fit losses {records}")
+        check(min(fit["cos_losses"]) > 1e-4, f"the REPA term is zero: {fit['cos_losses']}")
+        expected = {k: v * steps for k, v in BASELINE_LAUNCHES.items()}
+        check(launches == expected, f"baseline fit launches {launches}, expected {expected}")
+        check(len(proj_keys) == 12 and len(written) == 1, f"checkpoint {proj_keys} {written}")
+        ema_saved = {n[len("ema_denoiser."):]: t for n, t in obj["state_dict"].items()
+                     if n.startswith("ema_denoiser.")}
+        del obj, state, model
+        torch.cuda.empty_cache()
+
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "restore_params") as restores:
+            out = cli.main(["predict", "-c", BASELINE_CONFIG, WEIGHTLESS,
+                            f"--trainer.default_root_dir={workroot}",
+                            f"--ckpt_path={workdir}/checkpoints", "--max_batches", "1"])
+        predict_s = time.perf_counter() - t0
+        sampling_s = time.perf_counter() - restores.calls[0]["end"]
+        pred_launches = {k: f.launches for k, f in kernels.items()}
+        loaded = restores.calls[0]["args"][1]
+        ema_equal = all(torch.equal(p.detach().cpu(), ema_saved[n])
+                        for n, p in loaded.named_parameters())
+        arr = np.load(out)["arr_0"]
+        emit({"phase": "baseline_fit_predict", "batch": int(arr.shape[0]),
+              "steps": config["model"]["diffusion_sampler"]["init_args"]["num_steps"],
+              "predict_call_s": predict_s, "sampling_s": sampling_s,
+              "images_per_s": arr.shape[0] / sampling_s, "launches": pred_launches,
+              "npz_shape": list(arr.shape), "pixel_std": float(arr.std()),
+              "ema_loaded_equal": ema_equal, "card": card})
+        check(arr.shape == (32, 256, 256, 3) and arr.std() > 0, f"npz {arr.shape}")
+        check(pred_launches["fwd"] == 1200 and sum(pred_launches.values()) == 1200,
+              f"baseline predict launches {pred_launches}, expected 1200 forward")
+        check(ema_equal, "the predict's weights differ from the saved EMA")
+        return {"fit": launches, "predict": pred_launches}
+    finally:
+        shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
+
+
+def write_tar_shard(path: str, seed: int, count: int = 64) -> int:
+    """A webdataset tar of ``count`` seeded PNG + caption members, 256-320 px."""
+    import io
+    import os
+    import tarfile
+
+    from deco_tpu_torch.utils import png
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with tarfile.open(path, "w") as tf:
+        for i in range(count):
+            h, w = (256, 320) if i % 2 else (288, 256)
+            image = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+            for name, data in ((f"{i:05d}.png", png.encode(image)),
+                               (f"{i:05d}.txt", f"a photo of thing {i}".encode())):
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    return count
+
+
+def _families_runs() -> list:
+    """(config, its data override) of the one-step fits of phase 13."""
+    return [(path, f"--data.train_dataset.init_args.urls={FAMILIES_DIR}/shards"
+             if path == PRETRAINING_CONFIG else
+             f"--data.train_dataset.init_args.root={FAMILIES_DIR}/images") for path in FAMILIES]
+
+
+def _one_step_fit(path: str, data_arg: str, remat: bool):
+    """``cli fit`` of one step of ``path`` on the phase's data, without the
+    final checkpoint (the script's 45 GiB disk-write budget: it is not what these fits
+    check); returns (train state, the Experiment, seconds)."""
+    import torch
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.train import checkpoint, loop
+
+    name = path.rsplit("/", 1)[1][:-5] + ("_remat" if remat else "")
+    t0 = time.perf_counter()
+    with Spy(loop.Experiment, "fit") as fits, \
+            Spy(checkpoint.CheckpointManager, "save", replace=lambda self, obj, step: None):
+        state = cli.main(["fit", "-c", path, WEIGHTLESS, data_arg, *([REMAT] if remat else []),
+                          f"--trainer.default_root_dir={FAMILIES_DIR}/work", "--max_steps", "1",
+                          "--trainer.log_every_n_steps=1", f"--tags.exp={name}"])
+    torch.cuda.synchronize()
+    return state, fits.calls[0]["args"][0], time.perf_counter() - t0
+
+
+def phase_families_fit(card: str, seed: int) -> dict:
+    """One ``cli fit`` step each of Baseline_DiT_JiT.yaml, Baseline_PixNerd.yaml
+    and DeCo_large.yaml as shipped (but for the folder, the work directory,
+    the steps, the tower's weights and, where the step does not fit, the
+    model's grad_checkpoint), then of pretraining_res256.yaml from a tar
+    shard, whose DeCoTrainer builds and keeps its DINOv2 node."""
+    import shutil
+
+    import torch
+
+    kernels = _fit_kernels()
+    out = {}
+    try:
+        write_image_folder(f"{FAMILIES_DIR}/images", seed)
+        write_tar_shard(f"{FAMILIES_DIR}/shards/00000.tar", seed)
+        for path, data_arg in _families_runs():
+            blocks, tower, remat = FAMILIES[path]
+            for f in kernels.values():
+                f.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            state, exp, seconds = _one_step_fit(path, data_arg, remat)
+            launches = {k: f.launches for k, f in kernels.items()}
+            records, _, _ = _fit_records(exp.workdir)
+            emit({"phase": "families_fit", "config": path, "grad_checkpoint": remat,
+                  "records": records, "launches": launches, "fit_call_s": seconds,
+                  "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                  "model": type(state.model).__name__, "trainer": type(exp.trainer).__name__,
+                  "encoder": type(exp.trainer.encoder).__name__,
+                  "params": sum(p.numel() for p in state.model.parameters()),
+                  "trainer_params": 0 if state.trainer_module is None else sum(
+                      p.numel() for p in state.trainer_module.parameters()), "card": card})
+            check(len(records) == 1 and np.isfinite(records[0]["fm_loss"]), f"{path}: {records}")
+            check(type(exp.trainer.encoder).__name__ == "DINOv2", f"{path}: no DINOv2 node kept")
+            want = {"fwd_lse": blocks * (2 if remat else 1), "bwd_dq": blocks, "bwd_dkv": blocks,
+                    "fwd_f32": tower, "fwd": 0, "freq_mse": 0}
+            check(launches == want, f"{path} launches {launches}, expected {want}")
+            if tower:
+                check(records[0]["cos_loss"] > 1e-4, f"{path}: the REPA term is zero")
+            out[path] = launches
+            del state, exp
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
+
+
+def probe_families_memory(seed: int) -> None:
+    """On the card, not a phase: the peak memory of one step of each
+    family config without and with grad_checkpoint, an out-of-memory
+    error reported as such (what FAMILIES's remat choices rest on)."""
+    import gc
+    import shutil
+
+    import torch
+
+    card = phase_build()
+    try:
+        write_image_folder(f"{FAMILIES_DIR}/images", seed)
+        write_tar_shard(f"{FAMILIES_DIR}/shards/00000.tar", seed)
+        for path, data_arg in _families_runs():
+            for remat in (False, True):
+                torch.cuda.reset_peak_memory_stats()
+                try:
+                    _one_step_fit(path, data_arg, remat)
+                    result = "fits"
+                except torch.cuda.OutOfMemoryError:
+                    result = "out of memory"
+                emit({"probe": "families_memory", "config": path, "grad_checkpoint": remat,
+                      "result": result, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "card": card})
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
+
 def main() -> int:
     import torch
 
@@ -2020,11 +2536,17 @@ def main() -> int:
     if sys.argv[1:] == ["--calibrate-t2i-train-slice"]:
         calibrate_t2i_train_slice()  # on the CPU; sets no result
         return 2
+    if sys.argv[1:] == ["--calibrate-c2i-families-slice"]:
+        calibrate_families_slice()  # on the CPU; sets no result
+        return 2
     seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card",
               file=sys.stderr)
         return 1
+    if "--probe-families-memory" in sys.argv:
+        probe_families_memory(seed)  # on the card; sets no result
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2050,6 +2572,12 @@ def main() -> int:
     t2i_train = phase_t2i_train_kernels(card)
     phase_t2i_train_slice()
     t2i_fit_launches = phase_t2i_fit(card, seed)
+    torch.cuda.empty_cache()
+    fp32 = phase_fp32_attention(card)
+    phase_families_slice()
+    families = phase_baseline_fit(card, seed)
+    torch.cuda.empty_cache()
+    families["others"] = phase_families_fit(card, seed)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     n1024 = {"fwd": kernel["n1024"], "fwd_lse": train_times.get("fwd_lse_512"),
              "bwd_dq": train_times.get("bwd_dq_512"), "bwd_dkv": train_times.get("bwd_dkv_512")}
@@ -2089,12 +2617,25 @@ def main() -> int:
         # DeCo-XXL/16 t2i training (D = 64): launches in the 3-step CLI fit, and
         # the times at its joint, ragged and text shapes
         r.update(t2i_fit_launches=t2i_fit_launches["fit"][key],
+                 baseline_fit_launches=families["fit"][key],
                  t2i={name: {k: v for k, v in t.items() if k in keys + (
                      "library_backend", "whole_backward_ms", "sdpa_backward_ms")}
                      for name, t in t2i_train["timings"][key].items()})
         training.append(r)
+    fwd.update(baseline_predict_launches=families["predict"]["fwd"])
+    # the fp32 instantiation (the DINOv2 tower): launches in the Baseline-DiT
+    # fit, times at B*H 384 (one microbatch), the other shapes beside it
+    f32 = {"name": "flash_attention_fwd_f32", "route": "cuda",
+           "source": "deco_tpu_torch/csrc/flash_attention_fwd.cu",
+           "replaces": "deco_tpu/ops/flash_attention.py:63",
+           "launches": families["fit"]["fwd_f32"], "max_abs_err": fp32["max_abs_err"],
+           **{k: fp32[k] for k in keys}, "library_backend": fp32.get("library_backend"),
+           "library_note": "fp32 SDPA, a yardstick", "b_n_h_d": fp32["b_n_h_d"],
+           "other_shapes": {name: {k: t[k] for k in keys + ("b_n_h_d", "library_backend")}
+                            for name, t in fp32["timings"].items()},
+           "families_fit_launches": {p: r["fwd_f32"] for p, r in families["others"].items()}}
     emit({"kernels": [
-        fwd, *training,
+        fwd, *training, f32,
         row("freq_mse", "freq_mse.cu", "deco_tpu/ops/block_dct.py:175",
             train_launches["freq_mse"], train_errs["freq_mse"], train_times["freq_mse"]),
     ]})

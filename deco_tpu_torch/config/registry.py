@@ -27,6 +27,12 @@ from deco_tpu_torch.config import _yaml
 
 _PORTED: Dict[str, str] = {
     "src.models.autoencoder.pixel.PixelAE": "deco_tpu_torch.models.autoencoders.PixelAE",
+    "src.models.autoencoder.latent.LatentAE": "deco_tpu_torch.models.autoencoders.LatentAE",
+    "src.models.autoencoder.dc_latent.DCLatentAE": "deco_tpu_torch.models.autoencoders.DCLatentAE",
+    "src.models.transformer.dit_c2i_baseline.FlattenDiT":
+        "deco_tpu_torch.config.registry._baseline_dit",
+    "src.models.transformer.dit_c2i_pixnerd.PixNerDiT": "deco_tpu_torch.config.registry._pixnerd_c2i",
+    "src.models.transformer.dit_t2i_pixnerd.PixNerDiT": "deco_tpu_torch.config.registry._pixnerd_t2i",
     "src.models.transformer.dit_c2i_DeCo.PixNerDiT": "deco_tpu_torch.config.registry._deco_c2i",
     "src.models.transformer.dit_t2i_DeCo.PixNerDiT":
         "deco_tpu_torch.config.registry._dit_t2i_deco_dispatch",
@@ -44,6 +50,19 @@ _PORTED: Dict[str, str] = {
         "deco_tpu_torch.diffusion.training.FlowMatchingTrainer",
     "src.diffusion.flow_matching.training_repa_DeCo.REPATrainer":
         "deco_tpu_torch.diffusion.training.DeCoTrainer",
+    # training_repa's alignment branch is live upstream (unlike the DeCo
+    # trainer's), so it maps to the trainer that computes it, as in JAX
+    "src.diffusion.flow_matching.training_repa.REPATrainer":
+        "deco_tpu_torch.diffusion.training.REPATrainer",
+    "src.diffusion.flow_matching.training_repa_JiT.REPATrainer":
+        "deco_tpu_torch.diffusion.training.JiTTrainer",
+    "src.diffusion.ddpm.training.VPTrainer": "deco_tpu_torch.diffusion.training.VPTrainer",
+    "src.diffusion.ddpm.training.DDPMTrainer": "deco_tpu_torch.diffusion.training.DDPMTrainer",
+    "src.models.encoder.DINOv2": "deco_tpu_torch.models.encoders.DINOv2",
+    "src.models.encoder.CLIP": "deco_tpu_torch.models.encoders.CLIP",
+    "src.models.encoder.SigLIP": "deco_tpu_torch.models.encoders.SigLIP",
+    "src.models.encoder.SigLIPVision": "deco_tpu_torch.models.encoders.SigLIPVision",
+    "src.models.encoder_custom.DINOv2": "deco_tpu_torch.models.encoders.DINOv2",
     "src.diffusion.flow_matching.scheduling.GVPScheduler":
         "deco_tpu_torch.diffusion.scheduling.GVPScheduler",
     "src.diffusion.flow_matching.scheduling.ConstScheduler":
@@ -87,20 +106,6 @@ _PORTED: Dict[str, str] = {
 
 # class path -> the ROADMAP section A item that ports it
 UNPORTED: Dict[str, int] = {
-    "src.models.autoencoder.latent.LatentAE": 4,
-    "src.models.autoencoder.dc_latent.DCLatentAE": 4,
-    "src.models.transformer.dit_c2i_baseline.FlattenDiT": 4,
-    "src.models.transformer.dit_c2i_pixnerd.PixNerDiT": 4,
-    "src.models.transformer.dit_t2i_pixnerd.PixNerDiT": 4,
-    "src.diffusion.flow_matching.training_repa.REPATrainer": 4,
-    "src.diffusion.flow_matching.training_repa_JiT.REPATrainer": 4,
-    "src.diffusion.ddpm.training.VPTrainer": 4,
-    "src.diffusion.ddpm.training.DDPMTrainer": 4,
-    "src.models.encoder.DINOv2": 4,
-    "src.models.encoder.CLIP": 4,
-    "src.models.encoder.SigLIP": 4,
-    "src.models.encoder.SigLIPVision": 4,
-    "src.models.encoder_custom.DINOv2": 4,
     "src.models.transformer.encoder_ae_sim.VAEModel": 5,
     "src.models.transformer.encoder_ae.VAEModel": 5,
     "src.models.modules.vae_loss.VAEReconstructionLoss": 5,
@@ -158,12 +163,37 @@ def torch_dtype(value):
     return _DTYPES[name]
 
 
+def _dtypes(dtype, param_dtype) -> dict:
+    return dict(dtype=torch_dtype(dtype),
+                param_dtype=None if param_dtype is None else torch_dtype(param_dtype))
+
+
 def _deco_c2i(dtype="bfloat16", param_dtype=None, **kw):
     """``DeCoC2I`` with the dtypes of a config (strings) as torch dtypes."""
     from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I
 
-    return DeCoC2I(dtype=torch_dtype(dtype),
-                   param_dtype=None if param_dtype is None else torch_dtype(param_dtype), **kw)
+    return DeCoC2I(**_dtypes(dtype, param_dtype), **kw)
+
+
+def _baseline_dit(dtype="bfloat16", param_dtype=None, **kw):
+    """``BaselineDiT`` with the dtypes of a config as torch dtypes."""
+    from deco_tpu_torch.models.dit_c2i_baseline import BaselineDiT
+
+    return BaselineDiT(**_dtypes(dtype, param_dtype), **kw)
+
+
+def _pixnerd_c2i(dtype="bfloat16", param_dtype=None, **kw):
+    """``PixNerdC2I`` with the dtypes of a config as torch dtypes."""
+    from deco_tpu_torch.models.dit_c2i_pixnerd import PixNerdC2I
+
+    return PixNerdC2I(**_dtypes(dtype, param_dtype), **kw)
+
+
+def _pixnerd_t2i(dtype="bfloat16", param_dtype=None, **kw):
+    """``PixNerdT2I`` with the dtypes of a config as torch dtypes."""
+    from deco_tpu_torch.models.dit_t2i import PixNerdT2I
+
+    return PixNerdT2I(**_dtypes(dtype, param_dtype), **kw)
 
 
 def _dit_t2i_deco_dispatch(dtype="bfloat16", param_dtype=None, **kw):
@@ -176,8 +206,7 @@ def _dit_t2i_deco_dispatch(dtype="bfloat16", param_dtype=None, **kw):
                          "config_path/select_layer)", 5)
     from deco_tpu_torch.models.dit_t2i import DeCoT2I
 
-    return DeCoT2I(dtype=torch_dtype(dtype),
-                   param_dtype=None if param_dtype is None else torch_dtype(param_dtype), **kw)
+    return DeCoT2I(**_dtypes(dtype, param_dtype), **kw)
 
 
 # the settings nodes below take float() of numbers given as strings: YAML 1.1
@@ -204,12 +233,13 @@ class _AdamWConfig:
         self.betas = tuple(float(b) for b in betas)
         self.eps = float(eps)
 
-    def create_state(self, model):
-        """A :class:`~deco_tpu_torch.train.state.TrainState` (with EMA) over ``model``."""
+    def create_state(self, model, trainer_module=None):
+        """A :class:`~deco_tpu_torch.train.state.TrainState` (with EMA) over
+        ``model`` and the trainer's own parameters (``trainer_module``)."""
         from deco_tpu_torch.train.state import TrainState
 
         return TrainState.create(model, lr=self.lr, weight_decay=self.weight_decay,
-                                 betas=self.betas, eps=self.eps)
+                                 betas=self.betas, eps=self.eps, trainer_module=trainer_module)
 
 
 def resolve(class_path: str):
@@ -229,6 +259,11 @@ def resolve(class_path: str):
 # with no counterpart in these models
 DROPPED_ARGS = {"weight_path", "load_ema", "learn_sigma", "deep_supervision", "attn_drop",
                 "proj_drop", "qkv_bias"}
+# ... except where the weights are the node's own: the frozen REPA encoders
+# read their published weights from weight_path (null draws a random DINOv2)
+KEPT_ARGS = {cp: {"weight_path"} for cp in (
+    "src.models.encoder.DINOv2", "src.models.encoder_custom.DINOv2", "src.models.encoder.CLIP",
+    "src.models.encoder.SigLIP", "src.models.encoder.SigLIPVision")}
 RENAMED_ARGS = {"grad_checkpointing": "grad_checkpoint"}
 
 
@@ -252,7 +287,8 @@ def instantiate(node: Any, drop_unknown: bool = True):
         cls = resolve(node["class_path"])
         kwargs = {}
         for k, v in (node.get("init_args") or {}).items():
-            if drop_unknown and k in DROPPED_ARGS:
+            if drop_unknown and k in DROPPED_ARGS and k not in KEPT_ARGS.get(
+                    node["class_path"], ()):
                 continue
             kwargs[RENAMED_ARGS.get(k, k)] = instantiate(v, drop_unknown)
         return cls(**kwargs)

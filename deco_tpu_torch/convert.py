@@ -1,4 +1,4 @@
-"""Weight bridge from the JAX ``DeCoC2I`` and ``DeCoT2I`` parameter trees to the port.
+"""Weight bridge from the JAX model parameter trees to the port.
 
 :func:`state_dict_from_jax` writes the keys and layouts of the reference
 torch model (those of ``deco_tpu/convert/flax_to_torch.py``
@@ -10,6 +10,15 @@ channel-major, the order of torch ``unfold`` patches.
 ``export_deco_t2i(prefix="")``: the same transforms, the fused SwiGLU layout
 (``w12 = [w1; gate]``, ``w3`` = the JAX ``w2``), and the text-refine
 blocks' flat ``attn_*`` parameters under ``attn.``.
+:func:`state_dict_from_jax_baseline`, :func:`state_dict_from_jax_pixnerd`
+and :func:`state_dict_from_jax_pixnerd_t2i` write the reference
+``FlattenDiT`` and ``PixNerDiT`` layouts that ``convert_baseline_dit``,
+``convert_pixnerd_c2i`` and ``convert_deco_t2i(pixnerd=True)`` read (the
+NerfBlocks follow the trunk blocks in ``blocks``; the baseline's patch
+pixels in and out are channel-major). :func:`vit_state_dict_from_jax` and :func:`dinov2_state_dict_from_jax`
+write the port's ``VisionModel`` and ``DINOv2`` (the InternViT key names), and
+:func:`repa_proj_state_dict_from_jax` the REPA projection (``fc0-2`` to
+``proj.0.{0,2,4}``).
 
 :func:`train_checkpoint_from_jax` turns a JAX c2i or t2i training state (params, EMA,
 optax AdamW moments and count) into the port's step checkpoint
@@ -76,24 +85,84 @@ def _pixel_decoder(dec: dict, out: dict, prefix: str):
         i += 1
 
 
+def _tensors(out: dict) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def _c2i_trunk(p: dict, out: dict, embedder: str, in_channels: int, patch_size: int) -> int:
+    """The c2i embedders and trunk blocks; returns the number of blocks."""
+    out[f"{embedder}.proj.weight"] = _unfold_perm_inv(
+        p[embedder]["proj"]["kernel"], in_channels, patch_size)
+    out[f"{embedder}.proj.bias"] = np.asarray(p[embedder]["proj"]["bias"])
+    _dense(p["t_embedder"]["mlp_0"], out, "t_embedder.mlp.0")
+    _dense(p["t_embedder"]["mlp_2"], out, "t_embedder.mlp.2")
+    out["y_embedder.embedding_table.weight"] = np.asarray(p["y_embedder"]["embedding"])
+    blocks = p["blocks"]["block"]
+    n = np.asarray(blocks["norm1"]["weight"]).shape[0]
+    for i in range(n):
+        _dit_block(blocks, out, f"blocks.{i}.", i)
+    return n
+
+
+def _nerf_blocks(p: dict, out: dict, first: int) -> None:
+    i = 0
+    while f"nerf_blocks_{i}" in p:
+        nb = p[f"nerf_blocks_{i}"]
+        _dense(nb["param_generator1"], out, f"blocks.{first + i}.param_generator1.0")
+        out[f"blocks.{first + i}.norm.weight"] = np.asarray(nb["norm"]["weight"])
+        i += 1
+
+
 def state_dict_from_jax(params: dict, in_channels: int = 3,
                         patch_size: int = 16) -> dict[str, torch.Tensor]:
     """JAX ``DeCoC2I`` params (nested dicts of arrays, optionally under a
     ``"params"`` key) -> the port's ``DeCoC2I`` state dict (fp32 tensors)."""
     p = params.get("params", params)
     out: dict = {}
-    out["s_embedder.proj.weight"] = _unfold_perm_inv(
-        p["s_embedder"]["proj"]["kernel"], in_channels, patch_size)
-    out["s_embedder.proj.bias"] = np.asarray(p["s_embedder"]["proj"]["bias"])
-    _dense(p["t_embedder"]["mlp_0"], out, "t_embedder.mlp.0")
-    _dense(p["t_embedder"]["mlp_2"], out, "t_embedder.mlp.2")
-    out["y_embedder.embedding_table.weight"] = np.asarray(p["y_embedder"]["embedding"])
+    _c2i_trunk(p, out, "s_embedder", in_channels, patch_size)
     _dense(p["x_embedder"]["embedder"], out, "x_embedder.embedder.0")
-    blocks = p["blocks"]["block"]
-    for i in range(np.asarray(blocks["norm1"]["weight"]).shape[0]):
-        _dit_block(blocks, out, f"blocks.{i}.", i)
     _pixel_decoder(p["dec_net"], out, "dec_net.")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+    return _tensors(out)
+
+
+def _pixel_major_perm(in_channels: int, patch_size: int) -> np.ndarray:
+    """Index map: pixel-major position (u*C + c) -> unfold position (c*p2 + u)."""
+    p2 = patch_size * patch_size
+    return np.asarray([c * p2 + u for u in range(p2) for c in range(in_channels)])
+
+
+def state_dict_from_jax_baseline(params: dict, in_channels: int = 3,
+                                 patch_size: int = 16) -> dict[str, torch.Tensor]:
+    """JAX ``BaselineDiT`` params -> the port's ``BaselineDiT`` state dict,
+    the reference ``FlattenDiT`` layout (the inverse of ``convert_baseline_dit``):
+    ``final_layer.linear`` writes the patch pixels channel-major."""
+    p = params.get("params", params)
+    out: dict = {}
+    _c2i_trunk(p, out, "x_embedder", in_channels, patch_size)
+    final = p["final_layer"]
+    _dense(final["adaLN_modulation"], out, "final_layer.adaLN_modulation.0")
+    perm = _pixel_major_perm(in_channels, patch_size)
+    kernel = np.asarray(final["linear"]["kernel"])
+    weight_t, bias = np.empty_like(kernel), np.empty(kernel.shape[1], np.float32)
+    weight_t[:, perm] = kernel
+    bias[perm] = np.asarray(final["linear"]["bias"])
+    out["final_layer.linear.weight"] = _t(weight_t)
+    out["final_layer.linear.bias"] = bias
+    return _tensors(out)
+
+
+def state_dict_from_jax_pixnerd(params: dict, in_channels: int = 3,
+                                patch_size: int = 16) -> dict[str, torch.Tensor]:
+    """JAX ``PixNerdC2I`` params -> the port's ``PixNerdC2I`` state dict,
+    the reference ``PixNerDiT`` layout (the inverse of ``convert_pixnerd_c2i``)."""
+    p = params.get("params", params)
+    out: dict = {}
+    n = _c2i_trunk(p, out, "s_embedder", in_channels, patch_size)
+    _nerf_blocks(p, out, n)
+    _dense(p["x_embedder"]["embedder"], out, "x_embedder.embedder.0")
+    out["final_layer.norm.weight"] = np.asarray(p["final_norm"]["weight"])
+    _dense(p["final_linear"], out, "final_layer.linear")
+    return _tensors(out)
 
 
 def _t2i_block(blocks: dict, out: dict, prefix: str, i: int, joint: bool):
@@ -125,14 +194,8 @@ def _t2i_block(blocks: dict, out: dict, prefix: str, i: int, joint: bool):
     out[f"{prefix}attn.proj.bias"] = g(*path("proj"), "bias")
 
 
-def state_dict_from_jax_t2i(params: dict, in_channels: int = 3,
-                            patch_size: int = 16) -> dict[str, torch.Tensor]:
-    """JAX ``DeCoT2I`` params (optionally under ``"params"``) -> the port's
-    ``DeCoT2I`` state dict (fp32 tensors), the keys and arrays of
-    ``export_deco_t2i(prefix="")``."""
-    p = params.get("params", params)
-    trunk = p["trunk"]
-    out: dict = {}
+def _t2i_trunk(trunk: dict, out: dict, in_channels: int, patch_size: int) -> int:
+    """The t2i trunk's keys; returns the number of joint blocks."""
     out["s_embedder.proj.weight"] = _unfold_perm_inv(
         trunk["s_embedder"]["proj"]["kernel"], in_channels, patch_size)
     out["s_embedder.proj.bias"] = np.asarray(trunk["s_embedder"]["proj"]["bias"])
@@ -145,11 +208,98 @@ def state_dict_from_jax_t2i(params: dict, in_channels: int = 3,
     for i in range(np.asarray(text["norm1"]["weight"]).shape[0]):
         _t2i_block(text, out, f"text_refine_blocks.{i}.", i, joint=False)
     blocks = trunk["blocks"]["block"]
-    for i in range(np.asarray(blocks["norm1"]["weight"]).shape[0]):
+    n = np.asarray(blocks["norm1"]["weight"]).shape[0]
+    for i in range(n):
         _t2i_block(blocks, out, f"blocks.{i}.", i, joint=True)
+    return n
+
+
+def state_dict_from_jax_t2i(params: dict, in_channels: int = 3,
+                            patch_size: int = 16) -> dict[str, torch.Tensor]:
+    """JAX ``DeCoT2I`` params (optionally under ``"params"``) -> the port's
+    ``DeCoT2I`` state dict (fp32 tensors), the keys and arrays of
+    ``export_deco_t2i(prefix="")``."""
+    p = params.get("params", params)
+    out: dict = {}
+    _t2i_trunk(p["trunk"], out, in_channels, patch_size)
     _dense(p["x_embedder"]["embedder"], out, "x_embedder.embedder.0")
     _pixel_decoder(p["dec_net"], out, "dec_net.")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+    return _tensors(out)
+
+
+def state_dict_from_jax_pixnerd_t2i(params: dict, in_channels: int = 3,
+                                    patch_size: int = 16) -> dict[str, torch.Tensor]:
+    """JAX ``PixNerdT2I`` params -> the port's ``PixNerdT2I`` state dict, the
+    layout ``convert_deco_t2i(pixnerd=True)`` reads."""
+    p = params.get("params", params)
+    out: dict = {}
+    n = _t2i_trunk(p["trunk"], out, in_channels, patch_size)
+    _nerf_blocks(p, out, n)
+    _dense(p["x_embedder"]["embedder"], out, "x_embedder.embedder.0")
+    _dense(p["final_linear"], out, "final_layer.linear")
+    return _tensors(out)
+
+
+def vit_state_dict_from_jax(params: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A JAX ``VisionModel`` tree (optionally under ``"params"``) -> the
+    port's ``VisionModel`` state dict (the InternViT torch names), keys
+    under ``prefix``: the HWIO patch kernel becomes the (C, 3, p, p) conv
+    weight, the scanned layers unstack, LayerNorm ``scale`` becomes
+    ``weight``."""
+    vit = params.get("params", params)
+    emb = vit["embeddings"]
+    out = {"embeddings.class_embedding": emb["class_embedding"],
+           "embeddings.position_embedding": emb["position_embedding"],
+           "embeddings.patch_embedding.weight": np.transpose(
+               np.asarray(emb["patch_embedding"]["kernel"]), (3, 2, 0, 1)),
+           "embeddings.patch_embedding.bias": emb["patch_embedding"]["bias"]}
+    layer = vit["encoder"]["layers"]["layer"]
+    for i in range(np.asarray(layer["ls1"]).shape[0]):
+        pre = f"encoder.layers.{i}."
+        for name, key in (("norm1", "norm1"), ("norm2", "norm2"), ("q_norm", "attn.q_norm"),
+                          ("k_norm", "attn.k_norm")):
+            for leaf, value in layer.get(name, {}).items():
+                out[f"{pre}{key}.{'weight' if leaf == 'scale' else leaf}"] = np.asarray(value)[i]
+        for name, key in (("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                          ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            out[pre + key + ".weight"] = _t(np.asarray(layer[name]["kernel"])[i])
+            if "bias" in layer[name]:
+                out[pre + key + ".bias"] = np.asarray(layer[name]["bias"])[i]
+        out[pre + "ls1"] = np.asarray(layer["ls1"])[i]
+        out[pre + "ls2"] = np.asarray(layer["ls2"])[i]
+    return _tensors({prefix + k: v for k, v in out.items()})
+
+
+def dinov2_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """A JAX ``DINOv2`` tower's ``.params`` (the ``VisionModel`` tree under
+    ``"params"``, and ``final_norm`` {scale, bias} when the weights carry it)
+    -> the port's ``DINOv2`` state dict."""
+    out = vit_state_dict_from_jax(params["params"], prefix="model.")
+    if params.get("final_norm") is not None:
+        out.update(_tensors({"final_norm.weight": params["final_norm"]["scale"],
+                             "final_norm.bias": params["final_norm"]["bias"]}))
+    return out
+
+
+def repa_proj_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX REPA projection (``fc0``, ``fc1``, ``fc2``) -> the port's
+    ``REPAProjection`` state dict (``proj.0.0``, ``proj.0.2``, ``proj.0.4``)."""
+    out: dict = {}
+    for i in range(3):
+        _dense(params[f"fc{i}"], out, f"proj.0.{2 * i}")
+    return _tensors(out)
+
+
+def _model_bridge(params: dict):
+    """The converter of a JAX model tree, told apart by its top-level keys."""
+    p = params.get("params", params)
+    if "trunk" in p:
+        return state_dict_from_jax_pixnerd_t2i if "final_linear" in p else state_dict_from_jax_t2i
+    if "final_layer" in p:
+        return state_dict_from_jax_baseline
+    if "final_norm" in p:
+        return state_dict_from_jax_pixnerd
+    return state_dict_from_jax
 
 
 def train_checkpoint_from_jax(params: dict, ema_params, mu: dict, nu: dict, count, step: int,
@@ -159,17 +309,23 @@ def train_checkpoint_from_jax(params: dict, ema_params, mu: dict, nu: dict, coun
     AdamW first and second moments ``mu``/``nu`` of optax's
     ``ScaleByAdamState`` and its ``count``, and the train step. The moments
     have the parameters' layout and go through the same transforms; optax's
-    ``count`` (updates taken) is torch AdamW's ``step``. A ``DeCoT2I`` tree
-    (its parameters under ``trunk``) goes through
-    :func:`state_dict_from_jax_t2i`, a ``DeCoC2I`` tree through
-    :func:`state_dict_from_jax`."""
+    ``count`` (updates taken) is torch AdamW's ``step``. The model tree goes
+    through the converter of its kind (``DeCoC2I``, ``DeCoT2I``,
+    ``BaselineDiT``, ``PixNerdC2I``, ``PixNerdT2I``); a combined tree
+    ``{"model", "trainer"}`` (a REPA run) also carries the projection, whose
+    parameters, moments and EMA go under ``diffusion_trainer.``."""
     from deco_tpu_torch.train.checkpoint import payload
+    from deco_tpu_torch.train.state import TRAINER_PREFIX
 
-    t2i = "trunk" in params.get("params", params)
-    bridge = state_dict_from_jax_t2i if t2i else state_dict_from_jax
+    combined = "model" in params and "trainer" in params
+    bridge = _model_bridge(params["model"] if combined else params)
 
     def convert(tree):
-        return bridge(tree, in_channels=in_channels, patch_size=patch_size)
+        if not combined:
+            return bridge(tree, in_channels=in_channels, patch_size=patch_size)
+        out = bridge(tree["model"], in_channels=in_channels, patch_size=patch_size)
+        trainer = repa_proj_state_dict_from_jax(tree["trainer"])
+        return {**out, **{TRAINER_PREFIX + k: v for k, v in trainer.items()}}
 
     exp_avg, exp_avg_sq = convert(mu), convert(nu)
     adam_step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)

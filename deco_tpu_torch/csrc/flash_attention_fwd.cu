@@ -66,6 +66,25 @@
 //   D = 64:  242 registers, 72 KB of shared memory (2 Q tiles + 6 K/V);
 //   D = 72:  244 registers (252 with lse), 72 KB;
 //   D = 128: 224 registers, 85 KB (1 Q tile + 4 K/V).
+//
+// fp32 operands (`flash_fwd_f32_kernel`, `deco_flash_attention_fwd_f32`):
+// the same function of fp32 q, k and v into fp32 o, forward only, D = 64.
+// It replaces `_fwd_kernel` where it runs with fp32 operands (its
+// `p.astype(v.dtype)` at :97 keeps P in fp32 then): the frozen DINOv2 tower
+// of the REPA objectives (257 tokens at 256 px, 1,025 at 512 px; the JAX
+// wrapper sends N % 8 != 0 to XLA, the port keeps its own kernel). Both
+// products run on the fp32 SIMT units (67 TFLOP/s on an H100 SXM: no tensor
+// core takes fp32 at full precision), so the bound is the operations:
+// 4 * BH * Nq * Nkv * D FLOP, 6.5 GFLOP and 0.097 ms at B*H 384, N 257.
+// Design: a CTA of 128 threads per (batch*head, 64 query rows); Q, the K
+// and V tiles of 64 keys and P sit in shared memory (rows of 68 floats:
+// 16-byte aligned, and the float4 reads of 8 rows 4 banks apart cover all
+// 32 banks); thread (ty, tx) owns rows ty + 16i (i < 4), the keys tx + 8j
+// (j < 8) of S and the output columns 4tx..4tx+3 and 32+4tx..32+4tx+3, so
+// each shared-memory float4 feeds 8-16 FMAs. The online softmax is exact
+// fp32 (exp2f, no flush), each row reduced over its 8 lanes by shuffles;
+// keys past Nkv are zero-filled and masked to P = 0, rows past Nq are
+// computed from zeros and not stored.
 
 #include <math.h>
 
@@ -368,6 +387,173 @@ cudaError_t info(bool with_lse, int* out) {
                   : kernel_info(flash_fwd_kernel<D, false>, kThreads, fwd_smem_bytes<D>(), out);
 }
 
+// ---- fp32 operands ------------------------------------------------------
+
+constexpr int kF32Rows = 64;  // query rows of a CTA, and keys of a tile
+constexpr int kF32LD = 68;    // shared row stride in floats
+constexpr int kF32Smem = 4 * kF32Rows * kF32LD * 4;  // Q, K, V and P: 69,632 bytes
+
+// Rows [r0, r0 + 64) of one (tokens, D) fp32 operand into shared memory,
+// rows at or past `n` as zeros; every thread of the CTA takes part.
+template <int D>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long stride,
+                                              int r0, int n) {
+  constexpr int C4 = D / 4;
+  for (int c = threadIdx.x; c < kF32Rows * C4; c += kThreads) {
+    const int r = c / C4, ch = c % C4, row = r0 + r;
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row < n) val = *reinterpret_cast<const float4*>(src + row * stride + ch * 4);
+    *reinterpret_cast<float4*>(dst + r * kF32LD + ch * 4) = val;
+  }
+}
+
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, int heads, int nq,
+                         int nkv, Strides sq, Strides sk, Strides sv, Strides so, float scale) {
+  static_assert(D == 64, "the fp32 forward maps 8 lanes x 8 columns onto D = 64");
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;
+  float* ks = qs + kF32Rows * kF32LD;
+  float* vs = ks + kF32Rows * kF32LD;
+  float* ps = vs + kF32Rows * kF32LD;
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int q0 = blockIdx.x * kF32Rows;
+  const float* kp = k + b * sk.b + h * sk.h;
+  const float* vp = v + b * sv.b + h * sv.h;
+  load_rows_f32<D>(qs, q + b * sq.b + h * sq.h, sq.n, q0, nq);
+
+  const float sl2 = scale * kLog2e;
+  float m2[4], l[4], acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m2[i] = -INFINITY;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
+  }
+
+  for (int j0 = 0; j0 < nkv; j0 += kF32Rows) {
+    __syncthreads();  // every warp is done with the previous tile's K, V (and Q is stored)
+    load_rows_f32<D>(ks, kp, sk.n, j0, nkv);
+    load_rows_f32<D>(vs, vp, sv.n, j0, nkv);
+    __syncthreads();
+
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kF32LD + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(ks + (tx + 8 * j) * kF32LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+        }
+      }
+    }
+
+    const int valid = nkv - j0;  // only the last tile holds keys past the end
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (tx + 8 * j >= valid) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m2[i], mx * sl2);
+      const float corr = exp2f(m2[i] - m_new);  // 0 on the first tile
+      m2[i] = m_new;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = exp2f(fmaf(s[i][j], sl2, -m_new));
+        sum += p;
+        ps[(ty + 16 * i) * kF32LD + tx + 8 * j] = p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] *= corr;
+    }
+    __syncwarp();  // a row of P is written and read by the 8 lanes of one warp
+
+#pragma unroll 2
+    for (int kk = 0; kk < kF32Rows; kk += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * kF32LD + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 v0 = *reinterpret_cast<const float4*>(vs + (kk + u) * kF32LD + 4 * tx);
+        const float4 v1 = *reinterpret_cast<const float4*>(vs + (kk + u) * kF32LD + 32 + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = f4(pv[i], u);
+          acc[i][0] = fmaf(p, v0.x, acc[i][0]);
+          acc[i][1] = fmaf(p, v0.y, acc[i][1]);
+          acc[i][2] = fmaf(p, v0.z, acc[i][2]);
+          acc[i][3] = fmaf(p, v0.w, acc[i][3]);
+          acc[i][4] = fmaf(p, v1.x, acc[i][4]);
+          acc[i][5] = fmaf(p, v1.y, acc[i][5]);
+          acc[i][6] = fmaf(p, v1.z, acc[i][6]);
+          acc[i][7] = fmaf(p, v1.w, acc[i][7]);
+        }
+      }
+    }
+    __syncwarp();  // P is read before the next tile overwrites it
+  }
+
+  float* op = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row < nq) {
+      const float inv = 1.0f / l[i];
+      *reinterpret_cast<float4*>(op + row * so.n + 4 * tx) =
+          make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
+      *reinterpret_cast<float4*>(op + row * so.n + 32 + 4 * tx) =
+          make_float4(acc[i][4] * inv, acc[i][5] * inv, acc[i][6] * inv, acc[i][7] * inv);
+    }
+  }
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int batch,
+                       int heads, int nq, int nkv, Strides sq, Strides sk, Strides sv,
+                       Strides so, float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<64>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nq + kF32Rows - 1) / kF32Rows, batch * heads);
+  flash_fwd_f32_kernel<64><<<grid, kThreads, kF32Smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), heads, nq, nkv, sq, sk, sv, so, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -403,10 +589,28 @@ int deco_flash_attention_fwd_lse(const void* q, const void* k, const void* v,
                         static_cast<cudaStream_t>(stream));
 }
 
-// What the current device makes of one instantiation (lse = 0: sampling,
-// 1: with lse): registers, local bytes, static and dynamic shared memory,
-// resident CTAs per SM, threads, into out[0..5].
+// As deco_flash_attention_fwd, for fp32 q, k, v and o; head_dim must be 64.
+int deco_flash_attention_fwd_f32(const void* q, const void* k, const void* v,
+                                 void* o, int batch, int heads, int nq, int nkv,
+                                 int head_dim, long long q_sb, long long q_sn,
+                                 long long q_sh, long long k_sb, long long k_sn,
+                                 long long k_sh, long long v_sb, long long v_sn,
+                                 long long v_sh, long long o_sb, long long o_sn,
+                                 long long o_sh, float scale, void* stream) {
+  if (head_dim != 64 || !(scale > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides sq{q_sb, q_sn, q_sh}, sk{k_sb, k_sn, k_sh};
+  const Strides sv{v_sb, v_sn, v_sh}, so{o_sb, o_sn, o_sh};
+  return launch_f32(q, k, v, o, batch, heads, nq, nkv, sq, sk, sv, so, scale,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// What the current device makes of one kernel (kind 0: sampling, 1: with
+// lse, 2: fp32 operands, D = 64 only): registers, local bytes, static and
+// dynamic shared memory, resident CTAs per SM, threads, into out[0..5].
 int deco_flash_attention_fwd_info(int lse, int head_dim, int* out) {
+  if (lse == 2)
+    return head_dim == 64 ? kernel_info(flash_fwd_f32_kernel<64>, kThreads, kF32Smem, out)
+                          : static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 64:
       return info<64>(lse != 0, out);

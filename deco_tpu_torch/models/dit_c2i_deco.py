@@ -17,8 +17,14 @@ the pixel decoder over that many patch chunks, each recomputed whole
 storage type of the parameters: fp32 for training, the compute dtype for
 sampling.
 
-Not ported, and rejected when asked for: ``quantize``, ``trunk_parallel``,
-and the REPA outputs ``return_s``/``return_features`` (``align_layer``).
+The REPA outputs: ``return_features`` also returns the trunk's tokens after
+block ``align_layer`` (1-based; zeros when it is 0 or past the trunk), the
+tap of ``run_dit_blocks``, which works under every remat policy since a
+block's output is kept as the next block's input; ``return_s`` also returns
+the decoder's condition s, (B, H/p, W/p, hidden). With both, the order is
+(image, s, features), as in the JAX model.
+
+Not ported, and rejected when asked for: ``quantize`` and ``trunk_parallel``.
 """
 
 from __future__ import annotations
@@ -34,10 +40,47 @@ from deco_tpu_torch.models.patching import patchify, unpatchify
 # constructor fields of the JAX model that the port does not implement,
 # with the value that means "off"
 _UNPORTED = {
-    "align_layer": 0,
     "trunk_parallel": "none",
     "quantize": None,
 }
+
+
+def channel_major(x_patches, patch_size: int, in_channels: int):
+    """Pixel-major patches (B, L, P*P*C) in the channel-major order of torch
+    ``unfold``, (B, L, C*P*P): the input order of the reference embedders'
+    weights."""
+    b, n, _ = x_patches.shape
+    return x_patches.reshape(b, n, patch_size * patch_size, in_channels).transpose(2, 3) \
+        .reshape(b, n, -1)
+
+
+def _rope_tables(self, grid_h: int, grid_w: int, device):
+    """The trunk's RoPE (cos, sin) for a grid, cached on ``device``; a method
+    of the c2i models, whose ``hidden_size``, ``num_groups`` and
+    ``rope_scale`` it reads."""
+    key = (grid_h, grid_w, device)
+    if key not in self._rope_cache:
+        cos, sin = layers.precompute_rope_2d(
+            self.hidden_size // self.num_groups, grid_h, grid_w, scale=self.rope_scale)
+        self._rope_cache[key] = (torch.from_numpy(cos).to(device),
+                                 torch.from_numpy(sin).to(device))
+    return self._rope_cache[key]
+
+
+def run_dit_blocks(blocks, x, c, rope, mask=None, *, align_layer=None,
+                   enabled: bool = False, policy: str = "full"):
+    """The trunk (``run_dit_blocks``): each block under
+    :func:`layers.run_checkpointed` (``enabled``, ``policy``); returns
+    (x, feat), feat the output of block ``align_layer`` (1-based), zeros when
+    ``align_layer`` is 0 or past the trunk, and None when it is None (no tap)."""
+    feat = None
+    for i, block in enumerate(blocks):
+        x = layers.run_checkpointed(block, x, c, rope, mask, enabled=enabled, policy=policy)
+        if align_layer is not None and i == align_layer - 1:
+            feat = x
+    if align_layer is not None and feat is None:
+        feat = torch.zeros_like(x)
+    return x, feat
 
 
 class DeCoC2I(nn.Module):
@@ -56,8 +99,8 @@ class DeCoC2I(nn.Module):
                  num_classes: int = 1000, max_freqs: int = 8,
                  dtype=torch.bfloat16, rope_scale: float = 16.0,
                  param_dtype=None, grad_checkpoint: bool = False,
-                 trunk_remat_policy: str = "full", decoder_chunks: int = 0, device="cuda",
-                 **unported):
+                 trunk_remat_policy: str = "full", decoder_chunks: int = 0,
+                 align_layer: int = 0, device="cuda", **unported):
         super().__init__()
         if trunk_remat_policy not in (*layers.REMAT_POLICIES, "none"):
             raise ValueError(
@@ -80,6 +123,7 @@ class DeCoC2I(nn.Module):
         self.trunk_checkpoint = grad_checkpoint and trunk_remat_policy != "none"
         self.trunk_remat_policy = trunk_remat_policy
         self.decoder_chunks = decoder_chunks
+        self.align_layer = align_layer
         self._rope_cache: dict = {}
         p2c = patch_size * patch_size * in_channels
         kw = dict(dtype=dtype, param_dtype=param_dtype)
@@ -99,24 +143,16 @@ class DeCoC2I(nn.Module):
                 grad_checkpoint=grad_checkpoint, **kw)
         self.to(dev)  # buffers made from numpy start on the CPU
 
-    def _rope(self, grid_h: int, grid_w: int, device):
-        key = (grid_h, grid_w, device)
-        if key not in self._rope_cache:
-            cos, sin = layers.precompute_rope_2d(
-                self.hidden_size // self.num_groups, grid_h, grid_w, scale=self.rope_scale)
-            self._rope_cache[key] = (torch.from_numpy(cos).to(device),
-                                     torch.from_numpy(sin).to(device))
-        return self._rope_cache[key]
+    _rope = _rope_tables
 
     def forward(self, x, t, y, s=None, mask=None, return_s: bool = False,
                 return_features: bool = False):
         """x: (B, H, W, C) NHWC; t: (B,) in [0, 1]; y: (B,) int class labels.
 
-        Returns the (B, H, W, C) float32 network output.
+        Returns the (B, H, W, C) float32 network output, followed by s and
+        the tapped features when asked for (see the module docstring; the
+        features are None when ``s`` is given).
         """
-        if return_s or return_features:
-            raise NotImplementedError(
-                "DeCoC2I: return_s/return_features (REPA) are not ported")
         b, h, w, _ = x.shape
         p = self.patch_size
         gh, gw = h // p, w // p
@@ -126,22 +162,23 @@ class DeCoC2I(nn.Module):
         y_emb = self.y_embedder(y).reshape(b, 1, self.hidden_size)
         c = F.silu(t_emb + y_emb)
 
+        feat = None
         if s is None:
-            # the reference s_embedder weight is channel-major (torch unfold)
-            x_cm = x_patches.reshape(b, gh * gw, p * p, self.in_channels)
-            s = self.s_embedder(x_cm.transpose(2, 3).reshape(b, gh * gw, -1))
-            rope = self._rope(gh, gw, x.device)
-            for block in self.blocks:
-                s = layers.run_checkpointed(block, s, c, rope, mask,
-                                            enabled=self.trunk_checkpoint,
-                                            policy=self.trunk_remat_policy)
+            s = self.s_embedder(channel_major(x_patches, p, self.in_channels))
+            s, feat = run_dit_blocks(self.blocks, s, c, self._rope(gh, gw, x.device), mask,
+                                     align_layer=self.align_layer if return_features else None,
+                                     enabled=self.trunk_checkpoint,
+                                     policy=self.trunk_remat_policy)
             s = F.silu(t_emb + s)
 
         x_pix = x_patches.reshape(b, gh * gw, p * p, self.in_channels)
         out = layers.run_pixel_decoder(self.dec_net, self.x_embedder(x_pix), s,
                                        self.decoder_chunks)
         out = out.reshape(b, gh * gw, p * p * self.in_channels)
-        return unpatchify(out.float(), gh, gw, p)
+        img = unpatchify(out.float(), gh, gw, p)
+        extra = ((s.reshape(b, gh, gw, self.hidden_size),) if return_s else ()) + (
+            (feat,) if return_features else ())
+        return (img, *extra) if extra else img
 
 
 def init_random_(model: nn.Module, seed: int, scale: float = 1.0) -> nn.Module:
@@ -168,25 +205,29 @@ def init_random_(model: nn.Module, seed: int, scale: float = 1.0) -> nn.Module:
 
 
 # parameters whose JAX initializer is xavier_uniform / normal(0.02) /
-# normal(1.0) / zeros, in DeCoC2I and DeCoT2I; every other weight is a
+# normal(1.0) / zeros, in DeCoC2I, DeCoT2I, BaselineDiT and PixNerdC2I;
+# every other weight is a
 # default nn.Dense kernel (lecun_normal), every bias is zero and every norm
 # scale one
 _XAVIER = ("s_embedder.proj.weight", "y_embedder.proj.weight", "x_embedder.embedder.0.weight",
+           "x_embedder.proj.weight",
            "dec_net.input_proj.weight", "dec_net.cond_embed.weight", ".mlp.0.weight",
            ".mlp.2.weight")
 _NORMAL_002 = ("y_embedder.embedding_table.weight", "t_embedder.mlp.0.weight",
                "t_embedder.mlp.2.weight")
 _NORMAL_1 = ("y_pos_embedding",)
-_ZEROS = (".adaLN_modulation.1.weight", "dec_net.final_layer.linear.weight")
+_ZEROS = (".adaLN_modulation.1.weight", "final_layer.linear.weight",
+          "final_layer.adaLN_modulation.0.weight")
 
 
 def init_like_jax_(model: nn.Module, seed: int) -> nn.Module:
-    """Draw every parameter of a ``DeCoC2I`` or ``DeCoT2I`` from the
-    distribution the JAX model's initializers use for it (the reference
-    model's): lecun-normal (truncated) trunk kernels, xavier-uniform
-    embedders and decoder MLPs, normal(0.02) label table and timestep MLP,
-    normal(1.0) text position table, zero biases, zero decoder modulations
-    and final linear, unit norm scales. The values come from a CPU generator
+    """Draw every parameter of a ``DeCoC2I``, ``DeCoT2I``, ``BaselineDiT``
+    or ``PixNerdC2I`` from the distribution the JAX model's initializers use
+    for it (the reference model's): lecun-normal (truncated) trunk kernels
+    and NerfBlock weight generators, xavier-uniform embedders and decoder
+    MLPs, normal(0.02) label table and timestep MLP, normal(1.0) text
+    position table, zero biases, zero decoder modulations, zero final
+    linears and final adaLN modulation, unit norm scales. The values come from a CPU generator
     seeded with ``seed``, so they do not depend on the device; they are not
     the JAX package's values (another generator)."""
     gen = torch.Generator().manual_seed(seed)

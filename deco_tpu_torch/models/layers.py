@@ -475,18 +475,30 @@ class AdaLNResBlock(nn.Module):
 
 
 class FinalLayer(nn.Module):
-    """The decoder's parameter-free LayerNorm and zero-initialised linear."""
+    """A parameter-free LayerNorm and a zero-initialised linear: the pixel
+    decoder's final layer, and with ``modulated`` the DiT's adaLN one
+    (``layers.FinalLayer``), whose zero-initialised ``adaLN_modulation``
+    maps the condition ``c`` to a shift and a scale of the normed tokens."""
 
     def __init__(self, channels: int, out_channels: int, dtype=torch.float32,
-                 param_dtype=None):
+                 param_dtype=None, modulated: bool = False):
         super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        self.adaLN_modulation = None
+        if modulated:
+            self.adaLN_modulation = nn.Sequential(Linear(channels, 2 * channels, **kw))
+            nn.init.zeros_(self.adaLN_modulation[0].weight)
         self.norm_final = LayerNorm(channels, eps=1e-6, affine=False, dtype=dtype)
-        self.linear = Linear(channels, out_channels, dtype=dtype, param_dtype=param_dtype)
+        self.linear = Linear(channels, out_channels, **kw)
         nn.init.zeros_(self.linear.weight)
         nn.init.zeros_(self.linear.bias)
 
-    def forward(self, x):
-        return self.linear(self.norm_final(x))
+    def forward(self, x, c=None):
+        x = self.norm_final(x)
+        if self.adaLN_modulation is not None:
+            shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
+            x = modulate(x, shift, scale)
+        return self.linear(x)
 
 
 class SimpleMLPAdaLN(nn.Module):
@@ -548,3 +560,41 @@ def run_pixel_decoder(dec: SimpleMLPAdaLN, x_pix, s, decoder_chunks: int = 0):
     outs = [run_checkpointed(dec, x_pix[:, i:i + size], s[:, i:i + size], False, enabled=True)
             for i in range(0, n, size)]
     return torch.cat(outs, dim=1)
+
+
+class NerfBlock(nn.Module):
+    """PixNerd's hyper-network pixel-decoder block (``layers.NerfBlock``).
+
+    ``param_generator1`` turns each patch token ``s`` (B, L, cond) into that
+    patch's MLP weights, fc1 (hidden_x, hidden_x * mlp_ratio) and fc2
+    (hidden_x * mlp_ratio, hidden_x); the columns of fc1, and of fc2 with
+    ``normalize_fc2`` (the c2i variant), are L2-normalised in fp32 with a
+    1e-12 floor. The pixels x (B, L, P^2, hidden_x) then pass RMSNorm, fc1,
+    SiLU and fc2, plus the residual: two batched products per patch.
+    """
+
+    def __init__(self, hidden_x: int, cond_dim: int, mlp_ratio: int = 4,
+                 normalize_fc2: bool = False, dtype=torch.float32, param_dtype=None):
+        super().__init__()
+        self.hidden_x = hidden_x
+        self.mlp_ratio = mlp_ratio
+        self.normalize_fc2 = normalize_fc2
+        self.param_generator1 = nn.Sequential(
+            Linear(cond_dim, 2 * hidden_x * hidden_x * mlp_ratio, dtype=dtype,
+                   param_dtype=param_dtype))
+        self.norm = RMSNorm(hidden_x)
+
+    @staticmethod
+    def _unit_columns(w):
+        norm = torch.linalg.vector_norm(w.float(), dim=-2, keepdim=True)
+        return w / torch.clamp(norm, min=1e-12).to(w.dtype)
+
+    def forward(self, x, s):
+        hx, wide = self.hidden_x, self.hidden_x * self.mlp_ratio
+        fc1, fc2 = self.param_generator1(s).chunk(2, dim=-1)
+        fc1 = self._unit_columns(fc1.reshape(fc1.shape[:-1] + (hx, wide)))
+        fc2 = fc2.reshape(fc2.shape[:-1] + (wide, hx))
+        if self.normalize_fc2:
+            fc2 = self._unit_columns(fc2)
+        h = torch.matmul(F.silu(torch.matmul(self.norm(x), fc1)), fc2)
+        return h + x

@@ -13,7 +13,10 @@ Counterpart of ``deco_tpu/ops/flash_attention.py`` (``flash_attention``
   (XLA in the JAX package), then the dK/dV kernel
   (``csrc/flash_attention_bwd.cu``);
 - otherwise, as in sampling, it launches the plain forward kernel, with no
-  logsumexp work.
+  logsumexp work: for bf16 operands the tensor-core kernel, for fp32
+  operands (the frozen DINOv2 tower of the REPA objectives, D = 64) the
+  fp32 kernel (:func:`flash_attention_fwd_f32`), forward only: fp32 under
+  autograd raises.
 
 The autograd Function reaches the forward with logsumexp through the custom
 op :data:`flash_attention_fwd_lse_op` (``deco_tpu_torch::flash_attention_fwd_lse``),
@@ -38,6 +41,7 @@ import torch
 from deco_tpu_torch.ops import _build
 
 SUPPORTED_HEAD_DIMS = (64, 72, 128)
+F32_HEAD_DIMS = (64,)  # the fp32 forward
 _MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, which spans B*H
 
 
@@ -112,9 +116,10 @@ def _readable_in_place(x) -> bool:
     return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3]) and not x.data_ptr() % 16
 
 
-def _check_operand(name, x) -> None:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention kernel: {name} is {x.dtype}, needs bfloat16")
+def _check_operand(name, x, dtype=torch.bfloat16) -> None:
+    if x.dtype != dtype:
+        need = str(dtype).removeprefix("torch.")
+        raise TypeError(f"flash_attention kernel: {name} is {x.dtype}, needs {need}")
     if x.dim() != 4:
         raise ValueError(f"flash_attention: {name} must be (B, N, H, D), got {tuple(x.shape)}")
     if not _readable_in_place(x):
@@ -125,11 +130,11 @@ def _check_operand(name, x) -> None:
         )
 
 
-def _check_kernel_args(q, k, v, do=None) -> None:
+def _check_kernel_args(q, k, v, do=None, dtype=torch.bfloat16) -> None:
     """Raise for operands the CUDA kernels do not take."""
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
         if x is not None:
-            _check_operand(name, x)
+            _check_operand(name, x, dtype)
     b, _, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]:
         raise ValueError(
@@ -138,8 +143,9 @@ def _check_kernel_args(q, k, v, do=None) -> None:
         )
     if do is not None and do.shape != q.shape:
         raise ValueError(f"flash_attention: do {tuple(do.shape)} is not q's shape")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    dims = F32_HEAD_DIMS if dtype == torch.float32 else SUPPORTED_HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"flash_attention kernel: head dim {d} not in {dims} for {dtype}")
     if k.shape[1] == 0:
         raise ValueError("flash_attention: no keys")
     if b * h > _MAX_GRID_Y:
@@ -176,14 +182,17 @@ def _strides(*xs):
 
 
 def _run_fwd(q, k, v, scale, with_lse: bool):
-    """(o, lse or None) from the forward kernel; q/k/v already checked."""
+    """(o, lse or None) from the forward kernel (the fp32 one for fp32
+    operands); q/k/v already checked."""
     if not scale > 0:
         raise ValueError(f"flash_attention kernel: scale must be positive, got {scale}")
     b, n_q, h, d = q.shape
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()]
     lse = None
-    if with_lse:
+    if q.dtype == torch.float32:
+        lib, fn = _fn("flash_attention_fwd", "deco_flash_attention_fwd_f32", _FWD_ARGS)
+    elif with_lse:
         lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
         lib, fn = _fn("flash_attention_fwd", "deco_flash_attention_fwd_lse", [_P] + _FWD_ARGS)
         ptrs.append(lse.data_ptr())
@@ -204,6 +213,9 @@ def flash_attention_fwd_lse(q, k, v, scale: float):
     """
     if not q.is_cuda:
         return flash_attention_fwd_lse_plain(q, k, v, scale)
+    if q.dtype == torch.float32:
+        raise TypeError("flash_attention: fp32 operands have a forward kernel only (the frozen "
+                        "encoder's); no forward with lse and no backward")
     _check_kernel_args(q, k, v)
     o, lse = _run_fwd(q, k, v, scale, with_lse=True)
     flash_attention_fwd_lse.launches += 1
@@ -274,10 +286,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
 
 def forward_kernel_info(head_dim: int) -> dict:
     """What the current card makes of the forward kernel's two
-    instantiations at ``head_dim`` (:func:`_build.kernel_info`)."""
+    instantiations at ``head_dim``, and at D = 64 of the fp32 kernel
+    (:func:`_build.kernel_info`)."""
+    names = ("flash_fwd_kernel", "flash_fwd_kernel_lse", "flash_fwd_f32_kernel")
     return {name: _build.kernel_info("flash_attention_fwd", "deco_flash_attention_fwd_info",
-                                     lse, head_dim)
-            for lse, name in enumerate(("flash_fwd_kernel", "flash_fwd_kernel_lse"))}
+                                     kind, head_dim)
+            for kind, name in enumerate(names[:3 if head_dim in F32_HEAD_DIMS else 2])}
 
 
 def backward_kernel_info(head_dim: int) -> dict:
@@ -324,13 +338,28 @@ class FlashAttention(torch.autograd.Function):
         return (*flash_attention_bwd(q, k, v, o, lse, do, ctx.scale), None)
 
 
+def flash_attention_fwd_f32(q, k, v, scale: float):
+    """The forward of fp32 operands, (B, Nq, H, 64) fp32. CPU tensors take
+    :func:`flash_attention_plain`; CUDA tensors launch the fp32 kernel or
+    raise."""
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, scale)
+    _check_kernel_args(q, k, v, dtype=torch.float32)
+    if q.shape[1] == 0:
+        return torch.empty_like(q, memory_format=torch.contiguous_format)
+    o, _ = _run_fwd(q, k, v, scale, with_lse=False)
+    flash_attention_fwd_f32.launches += 1
+    return o
+
+
 def flash_attention(q, k, v, scale: float | None = None):
     """Non-causal attention. q: (B, Nq, H, D); k, v: (B, Nkv, H, D).
 
     Returns (B, Nq, H, D) in q's dtype. Under autograd this is
-    :class:`FlashAttention`; otherwise CPU tensors take
+    :class:`FlashAttention` (bf16 on the card); otherwise CPU tensors take
     :func:`flash_attention_plain` and CUDA tensors launch the forward kernel
-    (bf16 only, D in ``SUPPORTED_HEAD_DIMS``) or raise.
+    (bf16 with D in ``SUPPORTED_HEAD_DIMS``, or fp32 with D = 64 through
+    :func:`flash_attention_fwd_f32`) or raise.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -338,6 +367,8 @@ def flash_attention(q, k, v, scale: float | None = None):
         return FlashAttention.apply(q, k, v, scale)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
+    if q.dtype == torch.float32:
+        return flash_attention_fwd_f32(q, k, v, scale)
     _check_kernel_args(q, k, v)
     if q.shape[1] == 0:
         return torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -348,6 +379,7 @@ def flash_attention(q, k, v, scale: float | None = None):
 
 # kernel launches since the last reset, one count per kernel
 flash_attention.launches = 0
+flash_attention_fwd_f32.launches = 0
 flash_attention_fwd_lse.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0

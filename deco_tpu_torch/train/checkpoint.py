@@ -6,8 +6,12 @@ Orbax without JAX, so it writes one torch file per step,
 
 - ``state_dict``: ``denoiser.<name>`` (the parameters) and
   ``ema_denoiser.<name>`` (their EMA), the layout of the JAX package's
-  ``export_checkpoint``, which ``convert.load_checkpoint`` reads;
-- ``optimizer``: the AdamW moments keyed by parameter name,
+  ``export_checkpoint``, which ``convert.load_checkpoint`` reads; a
+  trainer's own parameters (the REPA projection) as
+  ``diffusion_trainer.<name>``, the reference trainer's keys, and their EMA
+  as ``ema_diffusion_trainer.<name>``;
+- ``optimizer``: the AdamW moments keyed by parameter name (a trainer's
+  under ``diffusion_trainer.``),
   ``{name: {"exp_avg", "exp_avg_sq", "step"}}``, so a restore does not
   depend on the order of ``model.parameters()``;
 - ``step``: the number of train steps taken.
@@ -27,7 +31,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from deco_tpu_torch.train.state import TrainState
+from deco_tpu_torch.train.state import TRAINER_PREFIX, TrainState
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 MOMENTS = ("exp_avg", "exp_avg_sq", "step")
@@ -37,15 +41,22 @@ def payload(params: Dict[str, torch.Tensor], ema: Optional[Dict[str, torch.Tenso
             moments: Dict[str, dict], step: int) -> dict:
     """The checkpoint dict from named parameters, their EMA (or None), the
     AdamW state by parameter name, and the step; tensors on the CPU."""
-    state_dict = {f"denoiser.{k}": v.detach().cpu() for k, v in params.items()}
+    state_dict = {_key(k): v.detach().cpu() for k, v in params.items()}
     if ema is not None:
-        state_dict.update({f"ema_denoiser.{k}": v.detach().cpu() for k, v in ema.items()})
+        state_dict.update({_key(k, ema=True): v.detach().cpu() for k, v in ema.items()})
     optimizer = {name: {k: m[k].detach().cpu() for k in MOMENTS} for name, m in moments.items()}
     return {"state_dict": state_dict, "optimizer": optimizer, "step": int(step)}
 
 
+def _key(name: str, ema: bool = False) -> str:
+    """The state-dict key of a parameter of :meth:`TrainState.named_parameters`."""
+    if name.startswith(TRAINER_PREFIX):
+        return "ema_" + name if ema else name
+    return ("ema_denoiser." if ema else "denoiser.") + name
+
+
 def state_payload(state: TrainState) -> dict:
-    named = list(state.model.named_parameters())
+    named = state.named_parameters()
     ema = (None if state.ema_params is None
            else {n: e for (n, _), e in zip(named, state.ema_params)})
     moments = {n: state.optimizer.state[p] for n, p in named if p in state.optimizer.state}
@@ -99,16 +110,16 @@ class CheckpointManager:
     def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
         """Full resume, in place: parameters, EMA, AdamW moments and step."""
         obj = self.load(step)
-        sd, named = obj["state_dict"], list(state.model.named_parameters())
-        _check_keys(sd, {f"denoiser.{n}" for n, _ in named}
-                    | ({f"ema_denoiser.{n}" for n, _ in named} if state.ema_params is not None
+        sd, named = obj["state_dict"], state.named_parameters()
+        _check_keys(sd, {_key(n) for n, _ in named}
+                    | ({_key(n, ema=True) for n, _ in named} if state.ema_params is not None
                        else set()), "state_dict")
         with torch.no_grad():
             for n, p in named:
-                p.copy_(sd[f"denoiser.{n}"])
+                p.copy_(sd[_key(n)])
             if state.ema_params is not None:
                 for (n, _), e in zip(named, state.ema_params):
-                    e.copy_(sd[f"ema_denoiser.{n}"])
+                    e.copy_(sd[_key(n, ema=True)])
         index = {n: i for i, (n, _) in enumerate(named)}
         unknown = set(obj["optimizer"]) - set(index)
         if unknown:

@@ -6,7 +6,8 @@ fit / predict (``deco_tpu/train/loop.py`` ``Experiment``).
   config it ran as ``config.yaml``.
 - fit: the train dataset through the loader (an image folder, the t2i
   image-caption folder, or a stream), the conditioner on each batch's labels
-  or prompts, the train step (loss, gradients, clip, AdamW, EMA) with a
+  or prompts, the metadata the trainer names (``metadata_keys``: REPA's
+  ``raw_image``), the train step (loss, gradients, clip, AdamW, EMA) with a
   generator seeded from (seed, step), ``metrics.jsonl``, step checkpoints, a
   resume that continues a folder's data order (a stream starts over, as in
   the JAX loop), a save on exception and at the end, and SIGTERM as a stop
@@ -22,6 +23,10 @@ fit / predict (``deco_tpu/train/loop.py`` ``Experiment``).
   with a ``ComputeMetricsHook`` callback, batches whose metadata carry
   ``raw_image`` are scored against it (PSNR, SSIM, FID) into
   ``predict_metrics.json``.
+
+A REPA or JiT trainer sets the model's ``align_layer`` (its feature tap), and
+its projection (``proj_module``, drawn from ``seed``) trains beside the
+model; its ``encoder`` (the DINOv2 node) is built on ``device``.
 
 The model keeps fp32 parameters and computes in the config's ``dtype``
 (bf16 unless overridden) on ``device``; a run that does not restore draws
@@ -45,6 +50,7 @@ import torch
 from deco_tpu_torch._device import resolve_device
 from deco_tpu_torch.config import _yaml, registry
 from deco_tpu_torch.data.loader import make_loader
+from deco_tpu_torch.diffusion.training import JiTTrainer, REPATrainer
 from deco_tpu_torch.models.autoencoders import fp_to_uint8
 from deco_tpu_torch.models.dit_c2i_deco import init_like_jax_
 from deco_tpu_torch.train.checkpoint import CheckpointManager
@@ -79,7 +85,12 @@ class Experiment:
         self.vae = registry.instantiate(model_cfg["vae"])
         self.model = self._build_model(model_cfg["denoiser"])
         self.conditioner = registry.instantiate(model_cfg["conditioner"])
-        self.trainer = registry.instantiate(model_cfg["diffusion_trainer"])
+        self.trainer = registry.instantiate(self._on_device(model_cfg["diffusion_trainer"]))
+        if isinstance(self.trainer, (REPATrainer, JiTTrainer)):
+            # the REPA tap: the trainer's align layer is the model's
+            self.model.align_layer = self.trainer.align_layer
+        if self.trainer.proj_module is not None:
+            self.trainer.proj_module.to(self.device)
         self.sampler = registry.instantiate(model_cfg["diffusion_sampler"])
         self.ema_cfg = registry.instantiate(
             model_cfg.get("ema_tracker", {"class_path": "src.callbacks.simple_ema.SimpleEMA"}))
@@ -121,6 +132,17 @@ class Experiment:
         with open(os.path.join(self.workdir, "config.yaml"), "w") as f:
             f.write(_yaml.dump(self.config))
 
+    def _on_device(self, trainer_node: dict) -> dict:
+        """The trainer node with its ``encoder`` node (REPA's frozen tower)
+        built on this experiment's device."""
+        args = trainer_node.get("init_args") or {}
+        encoder = args.get("encoder")
+        if not (isinstance(encoder, dict) and "class_path" in encoder):
+            return trainer_node
+        encoder = {**encoder, "init_args": {**(encoder.get("init_args") or {}),
+                                            "device": str(self.device)}}
+        return {**trainer_node, "init_args": {**args, "encoder": encoder}}
+
     def _build_model(self, node: dict):
         """The denoiser with fp32 parameters on this experiment's device."""
         args = dict(node.get("init_args") or {}, device=str(self.device), param_dtype="float32")
@@ -146,7 +168,10 @@ class Experiment:
         loader = make_loader(dataset, batch_size,
                              num_workers=data_cfg.get("train_num_workers", 4), infinite=True)
         init_like_jax_(self.model, self.seed)  # before the EMA copies the parameters
-        state = self.opt_cfg.create_state(self.model.train())
+        proj = self.trainer.proj_module
+        if proj is not None:
+            proj.reset_parameters(self.seed)
+        state = self.opt_cfg.create_state(self.model.train(), trainer_module=proj)
         ckpt = CheckpointManager(os.path.join(self.workdir, "checkpoints"),
                                  every_n_steps=self.ckpt_every)
         if ckpt_path:
@@ -172,6 +197,10 @@ class Experiment:
                         break
                     cond, uncond = self._condition(by, bmeta)
                     batch = dict(x=self._to_device(bx), condition=cond, uncondition=uncond)
+                    meta = {k: self._to_device(np.asarray(bmeta[k], np.float32))
+                            for k in self.trainer.metadata_keys if k in bmeta}
+                    if meta:
+                        batch["metadata"] = meta
                     gen = torch.Generator(device=self.device).manual_seed(
                         step_seed(self.seed, state.step))
                     step = state.step
@@ -210,7 +239,7 @@ class Experiment:
                 # sample with the EMA in the model's parameters; the trained
                 # parameters come back at the end
                 kept = [p.clone() for p in self.model.parameters()]
-                torch._foreach_copy_(list(self.model.parameters()), state.ema_params)
+                torch._foreach_copy_(list(self.model.parameters()), state.model_ema())
         elif ckpt_path:
             step = CheckpointManager(ckpt_path, 0).restore_params(self.model, use_ema=use_ema)
         else:

@@ -2,8 +2,11 @@
 (``deco_tpu/train/state.py``).
 
 The JAX package keeps params, EMA params and the optax state as one pytree
-and updates them inside the jitted step; here the model's parameters are the
-params, ``ema_params`` a list of tensors in ``model.parameters()`` order, and
+and updates them inside the jitted step; here the params are the model's
+parameters and then those of the trainer's ``proj_module`` when it has one
+(the REPA projection: the JAX combined ``{"model", "trainer"}`` layout),
+:meth:`TrainState.named_parameters` names them (the trainer's under
+``diffusion_trainer.``), ``ema_params`` is a list of tensors in that order, and
 the optimizer ``torch.optim.AdamW`` with optax.adamw's defaults (betas
 (0.9, 0.999), eps 1e-8, decoupled weight decay), which computes the same
 update. The EMA and optimizer update tensors in place.
@@ -18,26 +21,49 @@ import torch
 from torch import nn
 
 
+TRAINER_PREFIX = "diffusion_trainer."
+
+
 @dataclasses.dataclass
 class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     ema_params: Optional[list]
     step: int = 0
+    trainer_module: Optional[nn.Module] = None
+
+    def named_parameters(self) -> list:
+        """[(name, parameter)]: the model's, then the trainer module's under
+        ``diffusion_trainer.``, the order of ``ema_params``."""
+        named = list(self.model.named_parameters())
+        if self.trainer_module is not None:
+            named += [(TRAINER_PREFIX + n, p) for n, p in self.trainer_module.named_parameters()]
+        return named
+
+    def parameters(self) -> list:
+        return [p for _, p in self.named_parameters()]
+
+    def model_ema(self) -> list:
+        """The EMA of the model's parameters alone, in ``model.parameters()`` order."""
+        return self.ema_params[:len(list(self.model.parameters()))]
 
     @classmethod
     def create(cls, model: nn.Module, lr: float = 1e-4, weight_decay: float = 0.0,
-               betas=(0.9, 0.999), eps: float = 1e-8, ema: bool = True) -> "TrainState":
-        """State over ``model``'s parameters, which must be fp32 (the master
+               betas=(0.9, 0.999), eps: float = 1e-8, ema: bool = True,
+               trainer_module: Optional[nn.Module] = None) -> "TrainState":
+        """State over ``model``'s parameters and those of ``trainer_module``
+        (a trainer's ``proj_module``), which must be fp32 (the master
         weights; the model computes in its own ``dtype``)."""
-        params = list(model.parameters())
+        state = cls(model=model, optimizer=None, ema_params=None, trainer_module=trainer_module)
+        params = state.parameters()
         wrong = {p.dtype for p in params} - {torch.float32}
         if wrong:
             raise TypeError(f"TrainState: parameters must be float32 (param_dtype), got {wrong}")
         optimizer = torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
                                       weight_decay=weight_decay)
-        ema_params = [p.detach().clone() for p in params] if ema else None
-        return cls(model=model, optimizer=optimizer, ema_params=ema_params)
+        state.optimizer = optimizer
+        state.ema_params = [p.detach().clone() for p in params] if ema else None
+        return state
 
 
 @torch.no_grad()

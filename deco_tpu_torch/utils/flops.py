@@ -1,4 +1,5 @@
-"""Analytic matmul FLOPs of the DeCo c2i workload, and H100 peak rates.
+"""Analytic matmul FLOPs of the c2i models (DeCo, the baseline DiT, PixNerd)
+and of the DINOv2 tower, and H100 peak rates.
 
 A copy of ``deco_tpu/utils/flops.py``'s counting (2*M*N*K per GEMM; norms,
 softmax and elementwise work are left out, as is conventional for MFU),
@@ -94,3 +95,49 @@ def train_flops_per_image(net_flops: float) -> float:
 
 def mfu(images_per_sec: float, flops_per_image: float, peak_flops: float) -> float:
     return images_per_sec * flops_per_image / peak_flops
+
+
+def baseline_dit_flops(image_size: int = 256, patch: int = 16, hidden: int = 1024,
+                       num_blocks: int = 24, in_channels: int = 3) -> float:
+    """Forward matmul FLOPs for one ``BaselineDiT`` image: the patch embed,
+    the trunk and the final layer back to patch pixels."""
+    tokens = (image_size // patch) ** 2
+    p2c = patch * patch * in_channels
+    trunk = num_blocks * dit_block_flops(tokens, hidden, int(2 / 3 * 4 * hidden))
+    final = 2 * hidden * 2 * hidden + 2 * tokens * hidden * p2c
+    return trunk + 2 * tokens * p2c * hidden + final
+
+
+def nerf_decoder_flops(num_patches: int, patch: int, hidden_x: int, hidden: int,
+                       num_blocks: int, mlp_ratio: int, out_channels: int = 3,
+                       in_channels: int = 3, basis: int = 64) -> float:
+    """PixNerd's hyper-network decoder, per batch element: the NerfEmbedder,
+    each NerfBlock's weight generator (from the patch token) and its two
+    per-patch products, and the final linear."""
+    px = patch * patch
+    wide = hidden_x * mlp_ratio
+    embed = 2 * px * (in_channels + basis) * hidden_x
+    block = 2 * hidden * 2 * hidden_x * wide + 2 * 2 * px * hidden_x * wide
+    return float(num_patches * (embed + num_blocks * block + 2 * px * hidden_x * out_channels))
+
+
+def pixnerd_c2i_flops(image_size: int = 256, patch: int = 16, hidden: int = 1024,
+                      num_cond_blocks: int = 22, num_blocks: int = 24, hidden_x: int = 64,
+                      mlp_ratio: int = 2) -> float:
+    """Forward matmul FLOPs for one ``PixNerdC2I`` image."""
+    tokens = (image_size // patch) ** 2
+    trunk = num_cond_blocks * dit_block_flops(tokens, hidden, int(2 / 3 * 4 * hidden))
+    dec = nerf_decoder_flops(tokens, patch, hidden_x, hidden, num_blocks - num_cond_blocks,
+                             mlp_ratio)
+    return trunk + dec + 2 * tokens * (patch * patch * 3) * hidden
+
+
+def vit_flops(image_size: int = 224, patch: int = 14, hidden: int = 768,
+              num_layers: int = 12, mlp_ratio: int = 4) -> float:
+    """Forward matmul FLOPs for one image through a ViT (DINOv2 ViT-B/14 at
+    224 px by default: 257 tokens): patch embed, qkv, attention, proj and
+    the MLP of each layer."""
+    tokens = (image_size // patch) ** 2 + 1
+    per_layer = (2 * tokens * hidden * 3 * hidden + 2 * 2 * tokens * tokens * hidden
+                 + 2 * tokens * hidden * hidden + 2 * 2 * tokens * hidden * mlp_ratio * hidden)
+    return float(num_layers * per_layer + 2 * (tokens - 1) * 3 * patch * patch * hidden)

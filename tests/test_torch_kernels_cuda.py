@@ -19,7 +19,9 @@ Tolerances:
   products of bf16 values, in another order); the backward is bit-identical
   from run to run (no atomics);
 - the frequency MSE, rtol 1e-4 (fp32 sums of ~6M terms in another order),
-  and bit-identical from run to run.
+  and bit-identical from run to run;
+- the fp32 forward (the DINOv2 tower's), atol 1e-5 x max|v|: both keep P
+  in fp32 and sum exact fp32 products per row in another order (TF32 off).
 """
 
 import pytest
@@ -422,3 +424,66 @@ def test_t2i_train_step_launches_and_remat_gradients_on_card(cuda_device):
                  "text_refine_blocks.0.attn.qkv.weight", "y_embedder.proj.weight",
                  "y_pos_embedding"):
         assert bool(torch.isfinite(grads[0][name]).all()) and grads[0][name].abs().max() > 0, name
+
+
+F32_SHAPES = [(2, 17, 3, 64), (32, 257, 12, 64), (4, 1025, 12, 64)]  # (B, N, H, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,h,d", F32_SHAPES)
+def test_fp32_forward_matches_plain_and_repeats_on_card(cuda_device, b, n, h, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    q, k, v = (torch.randn(b, n, h, d, generator=gen, device=cuda_device) for _ in range(3))
+    before = fa.flash_attention_fwd_f32.launches
+    out, again = fa.flash_attention(q, k, v), fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd_f32.launches == before + 2
+    assert out.dtype == torch.float32 and torch.equal(out, again)
+    err = (out - fa.flash_attention_plain(q, k, v)).abs().max().item()
+    assert err <= 1e-5 * v.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_fp32_lse_and_backward_raise_on_card(cuda_device):
+    q = torch.randn(1, 17, 1, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(TypeError, match="forward kernel only"):
+        fa.flash_attention_fwd_lse(q.detach(), q.detach(), q.detach(), 0.125)
+    with pytest.raises(TypeError, match="forward kernel only"):
+        fa.flash_attention(q, q, q)  # under autograd: the training path
+    lse = torch.zeros(1, 1, 17, device=cuda_device)
+    with pytest.raises(TypeError, match="needs bfloat16"):
+        fa.flash_attention_bwd(*(q.detach(),) * 4, lse, q.detach(), 0.125)
+
+
+@pytest.mark.cuda
+def test_bf16_forward_unchanged_beside_fp32_on_card(cuda_device):
+    """bf16 operands still take the tensor-core kernel (its own count)."""
+    q, k, v, _ = _qkv(cuda_device, 2, 257, 257, 12, 64)
+    counts = (fa.flash_attention.launches, fa.flash_attention_fwd_f32.launches)
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_fwd_f32.launches) == (
+        counts[0] + 1, counts[1])
+    assert out.dtype == torch.bfloat16
+    assert (out.float() - fa.flash_attention_plain(q, k, v).float()).abs().max() < ATOL
+
+
+@pytest.mark.cuda
+def test_dinov2_tower_runs_the_fp32_kernel_on_card(cuda_device):
+    """A 2-layer random DINOv2 at full width: 2 fp32 launches, features
+    within 1e-4 (relative L2) of the CPU's."""
+    import warnings
+
+    from deco_tpu_torch.models.encoders import DINOv2
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        towers = [DINOv2(num_layers=2, device=dev) for dev in ("cpu", cuda_device)]
+    raw = torch.rand(4, 256, 256, 3, generator=torch.Generator().manual_seed(0))
+    before = fa.flash_attention_fwd_f32.launches
+    with torch.no_grad():
+        card = towers[1](raw.to(cuda_device)).cpu()
+        cpu = towers[0](raw)
+    assert fa.flash_attention_fwd_f32.launches == before + 2
+    assert card.shape == (4, 256, 768)
+    assert ((card - cpu).norm() / cpu.norm()).item() < 1e-4

@@ -71,9 +71,9 @@ def test_trunk_output_reaches_the_image():
     assert np.abs(_port(model, x, t, y) - full).max() > 1e-2 * np.abs(full).max()
 
 
-@pytest.mark.parametrize("kwarg", [  # decoder_chunks and the remat policies are ported now
+@pytest.mark.parametrize("kwarg", [  # decoder_chunks, the remat policies and align_layer are ported
     dict(trunk_parallel="tp"), dict(quantize=True), dict(quantize="int8"),
-    dict(trunk_parallel="sp"), dict(align_layer=4),
+    dict(trunk_parallel="sp"),
 ])
 def test_unported_options_raise(kwarg):
     with pytest.raises(NotImplementedError, match=next(iter(kwarg))):
@@ -81,7 +81,15 @@ def test_unported_options_raise(kwarg):
 
 
 def test_repa_outputs_raise():
+    """The REPA outputs are ported: no longer raising, they come in the JAX
+    order (image, s, features), with the features after block align_layer
+    and zeros when it is 0 (tests/test_torch_c2i_families.py holds them
+    against JAX)."""
     model = DeCoC2I(**TINY_C2I, dtype=torch.float32, device="cpu")
     x, t, y = (torch.from_numpy(a) for a in _inputs())
-    with pytest.raises(NotImplementedError, match="return_s"):
-        model(x, t, y.long(), return_s=True)
+    with torch.no_grad():
+        img, s, feat = model(x, t, y.long(), return_s=True, return_features=True)
+        model.align_layer = 1
+        tapped = model(x, t, y.long(), return_features=True)[1]
+    assert s.shape == (2, 4, 4, TINY_C2I["hidden_size"]) and not feat.any()
+    assert tapped.shape == (2, 16, TINY_C2I["hidden_size"]) and tapped.abs().max() > 0

@@ -311,6 +311,14 @@ def test_registry_builds_the_three_t2i_data_nodes(caption_folder, tar_folder, tm
 
 @pytest.mark.parametrize("name", ["pretraining_res256", "pretraining_res512"])
 def test_pretraining_configs_still_raise_at_the_dinov2_encoder(name):
+    """DINOv2 is ported: the trainer node now raises only because the
+    shipped weight file is absent, and builds with weight_path null."""
     config = _yaml.load(os.path.join(REPO, "configs_t2i", f"{name}.yaml"))
-    with pytest.raises(NotImplementedError, match="src.models.encoder.DINOv2.*ROADMAP §A 4"):
-        registry.instantiate(config["model"]["diffusion_trainer"])
+    node = config["model"]["diffusion_trainer"]
+    node["init_args"]["encoder"]["init_args"]["device"] = "cpu"
+    with pytest.raises(FileNotFoundError, match="dinov2_vitb14_pretrain.pth"):
+        registry.instantiate(node)
+    node["init_args"]["encoder"]["init_args"].update(weight_path=None, num_layers=1)
+    with pytest.warns(UserWarning, match="random weights"):
+        trainer = registry.instantiate(node)
+    assert type(trainer.encoder).__name__ == "DINOv2" and trainer.align_layer == 6

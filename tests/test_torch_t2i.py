@@ -228,18 +228,24 @@ def test_init_follows_the_jax_initializers():
     assert ours["y_pos_embedding"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("kwarg,item", [({"trunk_parallel": "sp"}, 6), ({"quantize": "int8"}, 7),
-                                        ({"align_layer": 2}, 4)])
+@pytest.mark.parametrize("kwarg,item", [({"trunk_parallel": "sp"}, 6), ({"quantize": "int8"}, 7)])
 def test_unported_options_raise_naming_their_roadmap_item(kwarg, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
         DeCoT2I(**TINY_T2I, device="cpu", **kwarg)
 
 
 def test_return_features_raises():
+    """return_features is ported (the REPA tap): no longer raising, it gives
+    the image and the joint trunk's tokens after block align_layer, zeros
+    when that is 0 (tests/test_torch_c2i_families.py holds them against JAX)."""
     _, model = _tiny()
     x, t, y = (_t(a) for a in _inputs(16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 4"):
-        model(x, t, y, return_features=True)
+    with torch.no_grad():
+        img, feat = model(x, t, y, return_features=True)
+        model.align_layer = 2
+        tapped = model(x, t, y, return_features=True)[1]
+    assert img.shape == (2, 16, 16, 3) and not feat.any()
+    assert tapped.shape == (2, 16, TINY_T2I["hidden_size"]) and tapped.abs().max() > 0
 
 
 # ---- conditioners ----
