@@ -2047,14 +2047,20 @@ def t2i_remat_steps(state, config: dict, card: str) -> dict:
 FAMILIES_DIR = "build/chip_smoke_c2i_families"  # git-ignored; deleted at the end of the phase
 BASELINE_CONFIG = "configs_c2i/Baseline_DiT.yaml"
 WEIGHTLESS = "--model.diffusion_trainer.init_args.encoder.init_args.weight_path=null"
-# fp32 operands (the DINOv2 tower): (B, N, H, D); B*H 384 is one microbatch
-# of 32 images at 256 px, 1,536 the same repeated by diffusion_batch_mul 4,
-# N = 1,025 the tower at 512 px (microbatch 16)
+# fp32 operands: (B, N, H, D). The DINOv2 tower (D 64): B*H 384 is one
+# microbatch of 32 images at 256 px, 1,536 the same repeated by
+# diffusion_batch_mul 4, N = 1,025 the tower at 512 px (microbatch 16). The
+# DC-AE's DCAttentionBlock (D 32, fp32 by default): 16 and 32 heads over
+# 1,024, 256 and 64 tokens at 256 px, 4,096 at 512 px.
 F32_SHAPES = {"dinov2_256": (32, 257, 12, 64), "dinov2_256_x4": (128, 257, 12, 64),
-              "dinov2_512": (16, 1025, 12, 64), "ragged_17": (2, 17, 3, 64)}
-# fp32 kernel vs plain version: both keep P in fp32 and sum N exact products
-# per row in another order; the plain one's products go through cuBLAS
-# without TF32. The error is a few ulps of the output, so 1e-5 x max|v|.
+              "dinov2_512": (16, 1025, 12, 64), "ragged_17": (2, 17, 3, 64),
+              "dcae_1024": (8, 1024, 16, 32), "dcae_256": (8, 256, 32, 32),
+              "dcae_64": (8, 64, 32, 32), "dcae_4096": (2, 4096, 16, 32),
+              "ragged_17_d32": (2, 17, 3, 32)}
+# fp32 kernel vs plain version: both keep P in fp32; the kernel's 3xTF32
+# products carry about 2^-22 of relative error each (tests/
+# test_torch_fp32_split.py), the plain version's cuBLAS fp32 products
+# (TF32 off) less. The error is a few ulps of the output, so 1e-5 x max|v|.
 F32_REL = 1e-5
 # per step of Baseline_DiT.yaml (batch 32 x diffusion_batch_mul 4, 24 blocks,
 # no remat): one forward with lse, dQ and dK/dV per block, and the DINOv2
@@ -2068,10 +2074,13 @@ PRETRAINING_CONFIG = "configs_t2i/pretraining_res256.yaml"
 # step do not fit in the card's 80 GB without remat (--probe-families-memory
 # shows both peaks), so they run with the model's grad_checkpoint, which
 # recomputes each trunk block: 2 forward-with-lse launches a block.
+# DeCo_large.yaml and the pretraining config name DeCoTrainer, which never
+# runs its tower: they run with the shipped weight_path (a file the
+# repository lacks), their encoder node unbuilt.
 FAMILIES = {
     "configs_c2i/Baseline_DiT_JiT.yaml": (24, 12, False),
     "configs_c2i/Baseline_PixNerd.yaml": (22, 12, True),
-    "configs_c2i/DeCo_large.yaml": (22, 0, True),  # DeCoTrainer keeps the tower, never calls it
+    "configs_c2i/DeCo_large.yaml": (22, 0, True),
     PRETRAINING_CONFIG: (60, 0, True),  # 3 microbatches x (16 joint + 4 text blocks)
 }
 REMAT = "--model.denoiser.init_args.grad_checkpoint=true"
@@ -2108,13 +2117,27 @@ def _f32_operands(gen, b, n, h, d):
     return [torch.randn((b, n, h, d), generator=gen, device="cuda") for _ in range(3)]
 
 
+def _bound_3xtf32(card: str, nbytes: float, flops: float) -> dict:
+    """The bound of the fp32 work on the tensor cores as 3xTF32: the larger
+    of 3 x ``flops`` at the card's TF32 rate and ``nbytes`` at its memory rate."""
+    from deco_tpu_torch.utils.flops import card_peaks, card_tf32_peak
+
+    bound = {"bytes": nbytes / card_peaks(card)[1] * 1e3,
+             "operations": 3 * flops / card_tf32_peak(card) * 1e3}
+    bound_by = max(bound, key=bound.get)
+    return {"bound_3xtf32_ms": bound[bound_by], "bound_3xtf32_by": bound_by}
+
+
 def phase_fp32_attention(card: str) -> dict:
-    """The fp32 forward (DINOv2's attention) against its plain version at
-    the tower's shapes, bit-identical over two runs; timed at B*H 384 and
-    1,536 (N 257) and at N 1,025 beside its bound at the fp32 rate, the
-    plain version and fp32 SDPA (a yardstick)."""
+    """The fp32 forward (DINOv2's attention at D = 64, the DC-AE's at D = 32)
+    against its plain version at each shape of F32_SHAPES, bit-identical
+    over two runs; timed at every shape but the ragged ones beside both
+    bounds (the fp32 SIMT rate; 3xTF32 on the tensor cores), the plain
+    version and fp32 SDPA (a yardstick); each instantiation's registers,
+    spills and resident CTAs."""
     import torch
 
+    from deco_tpu_torch.ops import _build
     from deco_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -2136,15 +2159,25 @@ def phase_fp32_attention(card: str) -> dict:
         if name.startswith("ragged"):
             continue
         iters = 20 if n > 512 else 30
+        nbytes, flops = 4 * 4 * q.numel(), 4 * b * h * n * n * d
         timings[name] = {
             "ms": cuda_ms(lambda: fa.flash_attention_fwd_f32(q, k, v, d ** -0.5), iters, flush),
             "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v), max(iters // 5, 3),
                                 flush),
             **sdpa_forward_yardsticks(q, k, v, d ** -0.5, False, flush, iters),
-            **_bound(card, 4 * 4 * q.numel(), 4 * b * h * n * n * d, fp32=True),
+            **_bound(card, nbytes, flops, fp32=True), **_bound_3xtf32(card, nbytes, flops),
             "b_n_h_d": [b, n, h, d], "max_abs_err": err, "l2": "flushed before each call",
             "card": card}
         emit({"phase": "fp32_attention", "timing": name, **timings[name]})
+        del q, k, v, out, again, ref
+    report = _build.ptxas_report((_build.BUILD_DIR / "flash_attention_fwd.log").read_text())
+    resources = {}
+    for d in fa.F32_HEAD_DIMS:
+        ptxas = [r for m, r in report.items() if f"flash_fwd_f32_kernelILi{d}E" in m]
+        resources[d] = {"ptxas": ptxas, "runtime": fa.forward_kernel_info(d)["flash_fwd_f32_kernel"]}
+        emit({"phase": "fp32_attention", "head_dim": d, "resources": resources[d], "card": card})
+        check(len(ptxas) == 1 and ptxas[0]["spill_store_bytes"] == 0
+              and resources[d]["runtime"]["local_bytes"] == 0, f"fp32 kernel D = {d} spills")
     for lse in (True, False):
         q, k, v = _f32_operands(gen, 1, 17, 1, 64)
         try:
@@ -2159,7 +2192,7 @@ def phase_fp32_attention(card: str) -> dict:
               "message": refused})
         check(refused is not None, "an fp32 forward with lse or backward was not refused")
     return {"max_abs_err": max(errs.values()), **timings["dinov2_256"],
-            "timings": timings}
+            "timings": timings, "resources": resources}
 
 
 def families_slice_step(family: str, device: str, dtype=None,
@@ -2432,7 +2465,8 @@ def _families_runs() -> list:
 def _one_step_fit(path: str, data_arg: str, remat: bool):
     """``cli fit`` of one step of ``path`` on the phase's data, without the
     final checkpoint (the script's 45 GiB disk-write budget: it is not what these fits
-    check); returns (train state, the Experiment, seconds)."""
+    check), with a random tower where the trainer runs one and the shipped
+    weight_path where it does not; returns (train state, the Experiment, seconds)."""
     import torch
 
     from deco_tpu_torch import cli
@@ -2442,7 +2476,8 @@ def _one_step_fit(path: str, data_arg: str, remat: bool):
     t0 = time.perf_counter()
     with Spy(loop.Experiment, "fit") as fits, \
             Spy(checkpoint.CheckpointManager, "save", replace=lambda self, obj, step: None):
-        state = cli.main(["fit", "-c", path, WEIGHTLESS, data_arg, *([REMAT] if remat else []),
+        state = cli.main(["fit", "-c", path, *([WEIGHTLESS] if FAMILIES[path][1] else []),
+                          data_arg, *([REMAT] if remat else []),
                           f"--trainer.default_root_dir={FAMILIES_DIR}/work", "--max_steps", "1",
                           "--trainer.log_every_n_steps=1", f"--tags.exp={name}"])
     torch.cuda.synchronize()
@@ -2452,12 +2487,16 @@ def _one_step_fit(path: str, data_arg: str, remat: bool):
 def phase_families_fit(card: str, seed: int) -> dict:
     """One ``cli fit`` step each of Baseline_DiT_JiT.yaml, Baseline_PixNerd.yaml
     and DeCo_large.yaml as shipped (but for the folder, the work directory,
-    the steps, the tower's weights and, where the step does not fit, the
-    model's grad_checkpoint), then of pretraining_res256.yaml from a tar
-    shard, whose DeCoTrainer builds and keeps its DINOv2 node."""
+    the steps, the tower's weights where the trainer runs it and, where the
+    step does not fit, the model's grad_checkpoint), then of
+    pretraining_res256.yaml from a tar shard. The DeCoTrainer configs keep
+    the shipped weight_path, which names a file the repository lacks: their
+    encoder node stays unbuilt, so no DINOv2 parameter reaches the card."""
     import shutil
 
     import torch
+
+    from deco_tpu_torch.config import registry
 
     kernels = _fit_kernels()
     out = {}
@@ -2477,11 +2516,19 @@ def phase_families_fit(card: str, seed: int) -> dict:
                   "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                   "model": type(state.model).__name__, "trainer": type(exp.trainer).__name__,
                   "encoder": type(exp.trainer.encoder).__name__,
+                  "encoder_built": getattr(exp.trainer.encoder, "built", True) is not None,
                   "params": sum(p.numel() for p in state.model.parameters()),
                   "trainer_params": 0 if state.trainer_module is None else sum(
                       p.numel() for p in state.trainer_module.parameters()), "card": card})
             check(len(records) == 1 and np.isfinite(records[0]["fm_loss"]), f"{path}: {records}")
-            check(type(exp.trainer.encoder).__name__ == "DINOv2", f"{path}: no DINOv2 node kept")
+            if tower:
+                check(type(exp.trainer.encoder).__name__ == "DINOv2", f"{path}: no DINOv2 tower")
+            else:
+                enc = exp.trainer.encoder
+                check(isinstance(enc, registry.Deferred) and enc.built is None
+                      and enc.node["init_args"]["weight_path"].endswith(
+                          "dinov2_vitb14_pretrain.pth"),
+                      f"{path}: the DINOv2 node was built or its weight_path overridden")
             want = {"fwd_lse": blocks * (2 if remat else 1), "bwd_dq": blocks, "bwd_dkv": blocks,
                     "fwd_f32": tower, "fwd": 0, "freq_mse": 0}
             check(launches == want, f"{path} launches {launches}, expected {want}")
@@ -2623,16 +2670,25 @@ def main() -> int:
                      for name, t in t2i_train["timings"][key].items()})
         training.append(r)
     fwd.update(baseline_predict_launches=families["predict"]["fwd"])
-    # the fp32 instantiation (the DINOv2 tower): launches in the Baseline-DiT
-    # fit, times at B*H 384 (one microbatch), the other shapes beside it
+    # the fp32 kernel (3xTF32; the DINOv2 tower at D = 64, the DC-AE at
+    # D = 32): launches in the Baseline-DiT fit, times at B*H 384 (one
+    # microbatch) against both bounds, every other shape beside it
+    f32_keys = keys + ("bound_3xtf32_ms", "bound_3xtf32_by")
     f32 = {"name": "flash_attention_fwd_f32", "route": "cuda",
            "source": "deco_tpu_torch/csrc/flash_attention_fwd.cu",
            "replaces": "deco_tpu/ops/flash_attention.py:63",
            "launches": families["fit"]["fwd_f32"], "max_abs_err": fp32["max_abs_err"],
-           **{k: fp32[k] for k in keys}, "library_backend": fp32.get("library_backend"),
-           "library_note": "fp32 SDPA, a yardstick", "b_n_h_d": fp32["b_n_h_d"],
-           "other_shapes": {name: {k: t[k] for k in keys + ("b_n_h_d", "library_backend")}
+           **{k: fp32[k] for k in f32_keys}, "library_backend": fp32.get("library_backend"),
+           "library_note": "fp32 SDPA, a yardstick",
+           "bound_note": "bound_ms at the fp32 SIMT rate; bound_3xtf32_ms: 3 x the "
+                         "operations at the TF32 tensor-core rate, or the bytes",
+           "b_n_h_d": fp32["b_n_h_d"], "head_dims": [32, 64],
+           "other_shapes": {name: {k: t[k] for k in f32_keys + ("b_n_h_d", "library_backend")}
                             for name, t in fp32["timings"].items()},
+           "resources": {d: {"registers": r["runtime"]["registers"],
+                             "spill_store_bytes": r["ptxas"][0]["spill_store_bytes"],
+                             "ctas_per_sm": r["runtime"]["ctas_per_sm"]}
+                         for d, r in fp32["resources"].items()},
            "families_fit_launches": {p: r["fwd_f32"] for p, r in families["others"].items()}}
     emit({"kernels": [
         fwd, *training, f32,

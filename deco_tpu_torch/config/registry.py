@@ -267,6 +267,27 @@ KEPT_ARGS = {cp: {"weight_path"} for cp in (
 RENAMED_ARGS = {"grad_checkpointing": "grad_checkpoint"}
 
 
+class Deferred:
+    """A ``class_path`` node built at its first call, for an init argument
+    that its object stores and may never call: the class names such
+    arguments in ``deferred_args`` (``DeCoTrainer``'s REPA ``encoder``, whose
+    DINOv2 tower the DeCo objective never runs). Until then nothing is
+    built, no weight file is read and nothing lands on a device."""
+
+    def __init__(self, node: dict, drop_unknown: bool = True):
+        self.node = node
+        self.drop_unknown = drop_unknown
+        self.built = None
+
+    def build(self):
+        if self.built is None:
+            self.built = instantiate(self.node, self.drop_unknown)
+        return self.built
+
+    def __call__(self, *args, **kwargs):
+        return self.build()(*args, **kwargs)
+
+
 def instantiate(node: Any, drop_unknown: bool = True):
     """Recursively instantiate a ``class_path``/``init_args`` config tree."""
     if isinstance(node, str):
@@ -285,12 +306,16 @@ def instantiate(node: Any, drop_unknown: bool = True):
         return node
     if "class_path" in node:
         cls = resolve(node["class_path"])
+        deferred = getattr(cls, "deferred_args", ())
         kwargs = {}
         for k, v in (node.get("init_args") or {}).items():
             if drop_unknown and k in DROPPED_ARGS and k not in KEPT_ARGS.get(
                     node["class_path"], ()):
                 continue
-            kwargs[RENAMED_ARGS.get(k, k)] = instantiate(v, drop_unknown)
+            if k in deferred and isinstance(v, dict) and "class_path" in v:
+                kwargs[k] = Deferred(v, drop_unknown)
+            else:
+                kwargs[RENAMED_ARGS.get(k, k)] = instantiate(v, drop_unknown)
         return cls(**kwargs)
     return {k: instantiate(v, drop_unknown) for k, v in node.items()}
 

@@ -67,26 +67,18 @@
 //   D = 72:  244 registers (252 with lse), 72 KB;
 //   D = 128: 224 registers, 85 KB (1 Q tile + 4 K/V).
 //
-// fp32 operands (`flash_fwd_f32_kernel`, `deco_flash_attention_fwd_f32`):
-// the same function of fp32 q, k and v into fp32 o, forward only, D = 64.
-// It replaces `_fwd_kernel` where it runs with fp32 operands (its
-// `p.astype(v.dtype)` at :97 keeps P in fp32 then): the frozen DINOv2 tower
-// of the REPA objectives (257 tokens at 256 px, 1,025 at 512 px; the JAX
-// wrapper sends N % 8 != 0 to XLA, the port keeps its own kernel). Both
-// products run on the fp32 SIMT units (67 TFLOP/s on an H100 SXM: no tensor
-// core takes fp32 at full precision), so the bound is the operations:
-// 4 * BH * Nq * Nkv * D FLOP, 6.5 GFLOP and 0.097 ms at B*H 384, N 257.
-// Design: a CTA of 128 threads per (batch*head, 64 query rows); Q, the K
-// and V tiles of 64 keys and P sit in shared memory (rows of 68 floats:
-// 16-byte aligned, and the float4 reads of 8 rows 4 banks apart cover all
-// 32 banks); thread (ty, tx) owns rows ty + 16i (i < 4), the keys tx + 8j
-// (j < 8) of S and the output columns 4tx..4tx+3 and 32+4tx..32+4tx+3, so
-// each shared-memory float4 feeds 8-16 FMAs. The online softmax is exact
-// fp32 (exp2f, no flush), each row reduced over its 8 lanes by shuffles;
-// keys past Nkv are zero-filled and masked to P = 0, rows past Nq are
-// computed from zeros and not stored.
-
+// fp32 operands (`flash_fwd_f32_kernel<D>`, `deco_flash_attention_fwd_f32`):
+// the same function of fp32 q, k and v into fp32 o, forward only, for
+// D = 32 and 64. It replaces `_fwd_kernel` where it runs with fp32 operands
+// (its `p.astype(v.dtype)` at :97 keeps P in fp32 then): the frozen DINOv2
+// tower of the REPA objectives (D = 64; 257 tokens at 256 px, 1,025 at 512
+// px; the JAX wrapper sends N % 8 != 0 to XLA, the port keeps its own
+// kernel) and the DC-AE's attention (D = 32, fp32 by default; 64 to 4,096
+// tokens). Its notes are at the fp32 section below.
+//
 #include <math.h>
+
+#include <atomic>
 
 #include "attention_sm90.cuh"
 #include "kernel_info.cuh"
@@ -388,170 +380,336 @@ cudaError_t info(bool with_lse, int* out) {
 }
 
 // ---- fp32 operands ------------------------------------------------------
+//
+// Bound. 4 * BH * Nq * Nkv * D operations on fp32 values: on the fp32 SIMT
+// units (67 TFLOP/s on an H100 SXM) 0.0969 ms at B*H 384, N 257, D 64.
+// This kernel runs them on the tensor cores instead, as 3xTF32: each
+// operand x is split into TF32 parts, big = rna(x) and small = rna(x - big),
+// so x = big + small to about 2^-22 |x|, and a b is taken as
+// small_a big_b + big_a small_b + big_a big_b (the small_a small_b term,
+// under 2^-22 |a b|, is dropped), accumulated in fp32. That is three TF32
+// products a product, so its bound is 3 x the operations at 495 TFLOP/s
+// TF32, 0.0394 ms at that shape, against the bytes of q, k, v and o at
+// 3.35 TB/s, 0.0302 ms. One TF32 pass would keep about 3 decimal digits:
+// the output would move past its 1e-5 x max|v| gate
+// (tests/test_torch_fp32_split.py emulates both in numpy).
+//
+// Design:
+// - a CTA of 4 warps per (batch*head, 64 query rows); each warp owns 16
+//   rows, keeps their Q fragments split into big and small in registers
+//   (read once from device memory), and skips its MMAs when its rows all
+//   lie past Nq;
+// - Q K^T and P V run as mma.sync m16n8k8 .tf32, three per product;
+// - K and V stream through shared memory in tiles of 32 keys. Each thread
+//   copies its share of tile j + 1 with zero-filling 16-byte cp.async.cg
+//   into a staging area that only it reads, while the CTA computes tile j
+//   (keys past Nkv arrive as zeros). At tile j each thread splits the
+//   chunks it copied into the big and small planes of K (key-major, rows of
+//   D + 4 floats) and of V^T (dim-major, rows of 36 floats), once for all
+//   four warps. Two barriers a tile: the planes are free, the planes are
+//   written;
+// - every B fragment comes from one ldmatrix.x4 (b16 matrices read as
+//   8 rows x 4 floats: lane 4g + t gets element t of row g), big and small
+//   of both registers at once. Row strides of 272 and 144 bytes (16 mod
+//   128) put the 8 rows of each matrix in distinct banks;
+// - P stays in registers: the accumulator holds keys 2t, 2t + 1 of rows
+//   g, g + 8, and the A fragment wants columns t, t + 4, so column t is
+//   taken to be key 2t and column t + 4 key 2t + 1 (a = c0, c2, c1, c3).
+//   V^T stores key 2e at position e and key 2e + 1 at 4 + e of each group
+//   of 8, so ldmatrix hands each lane V rows 2t and 2t + 1. The split
+//   writes V^T from 16 keys x 2 chunks a warp, into 32 distinct banks;
+// - the last key tile runs only the n8 blocks that hold a key and masks
+//   the rest of its last block; a warp's partial 16 rows are computed from
+//   zero rows and not stored. At N 257 that is 1.09x the useful work;
+// - the MMAs of one pass go over all n8 blocks before the next pass, so
+//   consecutive MMAs write different accumulators;
+// - the online softmax is the bf16 kernel's (exp2 units, fp32 statistics).
+//   That is a change from the SIMT kernel this one replaces, which took P
+//   from exact exp2f: P now comes from ex2.approx.ftz. Its relative error is
+//   on the order of 2^-22, the size of the 3xTF32 products' own, and the
+//   values it flushes to zero (below 2^-126) are negligible beside
+//   l >= 1, so the output stays within its 1e-5 x max|v| gate;
+//   O = acc / l goes out as float2 straight from the accumulators. No
+//   atomics, so the output is bit-identical run to run;
+// - the shared-memory opt-in is set once per device, not at every launch.
+// Shared memory: 52 KB at D = 64, 26 KB at D = 32; the registers (about
+// 240 and 160) allow 2 and 3 CTAs an SM.
+// Next step, not taken: wgmma at TF32, which reads B K-major from shared
+// memory, so P V needs V^T there as now, in wgmma's swizzled layout, with
+// 64-row warpgroup tiles of Q.
 
-constexpr int kF32Rows = 64;  // query rows of a CTA, and keys of a tile
-constexpr int kF32LD = 68;    // shared row stride in floats
-constexpr int kF32Smem = 4 * kF32Rows * kF32LD * 4;  // Q, K, V and P: 69,632 bytes
+// Keys of a K/V tile. With 64 the D = 64 instantiation needs more than 255
+// registers and spills, and on the card it ran slower than with 32; a
+// second set of planes (the split of tile j + 1 beside the MMAs of tile j,
+// one barrier a tile) ran no faster and was left out.
+constexpr int kF32Keys = 32;
 
-// Rows [r0, r0 + 64) of one (tokens, D) fp32 operand into shared memory,
-// rows at or past `n` as zeros; every thread of the CTA takes part.
 template <int D>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long stride,
-                                              int r0, int n) {
-  constexpr int C4 = D / 4;
-  for (int c = threadIdx.x; c < kF32Rows * C4; c += kThreads) {
-    const int r = c / C4, ch = c % C4, row = r0 + r;
-    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row < n) val = *reinterpret_cast<const float4*>(src + row * stride + ch * 4);
-    *reinterpret_cast<float4*>(dst + r * kF32LD + ch * 4) = val;
+struct F32Tile {
+  static_assert(D == 32 || D == 64, "the fp32 forward is built for D = 32 and 64");
+  static constexpr int KT = kF32Keys;
+  static constexpr int K8 = D / 8;                     // k8 steps of Q K^T; n8 blocks of P V
+  static constexpr int C4 = D / 4;                     // 16-byte chunks in a row
+  static constexpr int LDK = D + 4;                    // K planes: (key, dim)
+  static constexpr int LDV = KT + 4;                   // V^T planes: (dim, key position)
+  static constexpr int kChunks = KT * C4 / kThreads;   // chunks a thread copies per operand
+  static constexpr int kRaw = KT * D;                  // floats of one operand's staging
+  static constexpr int kK = KT * LDK;                  // floats of one K plane
+  static constexpr int kV = D * LDV;                   // floats of one V^T plane
+  static constexpr int kSmemBytes = 4 * (2 * kRaw + 2 * kK + 2 * kV);
+  static constexpr int kGroups = KT / 16;              // 16-key groups of a V tile
+  static_assert(kChunks * kThreads == KT * C4 && kThreads / 32 % kGroups == 0, "copy map");
+};
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, each TF32, to about 2^-22 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void split4(const float4& x, uint4& big, uint4& small) {
+  split_tf32(x.x, big.x, small.x);
+  split_tf32(x.y, big.y, small.y);
+  split_tf32(x.z, big.z, small.z);
+  split_tf32(x.w, big.w, small.w);
+}
+
+// d += a * b for one 16x8x8 TF32 tile (A row-major 16x8, B column-major 8x8).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The three products of 3xTF32 over n8 blocks [0, nb) (all N unless
+// PARTIAL): acc[n] += A B_n with A = big + small (ab, as), B_n's big
+// fragment in b[n][0..1] and its small one in b[n][2..3]. Each pass runs
+// over every block before the next, so consecutive MMAs are independent.
+template <bool PARTIAL, int N>
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[N][4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], const uint32_t (&b)[N][4],
+                                           int nb) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    if (!PARTIAL || n < nb) mma_tf32(acc[n], as, b[n][0], b[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    if (!PARTIAL || n < nb) mma_tf32(acc[n], ab, b[n][2], b[n][3]);
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    if (!PARTIAL || n < nb) mma_tf32(acc[n], ab, b[n][0], b[n][1]);
+}
+
+// One key tile for one warp's 16 rows: S = Q K^T from the K planes at
+// `kaddr` (this lane's ldmatrix address), the online softmax, acc += P V
+// from the V^T planes at `vaddr`. PARTIAL: the last tile, `valid` < KT keys.
+template <int D, bool PARTIAL>
+__device__ __forceinline__ void f32_tile(float (&acc)[D / 8][4], float (&m2)[2], float (&l)[2],
+                                         const uint32_t (&qb)[D / 8][4],
+                                         const uint32_t (&qs)[D / 8][4], uint32_t kaddr,
+                                         uint32_t vaddr, float sl2, int t, int valid) {
+  using T = F32Tile<D>;
+  constexpr int NK = T::KT / 8;
+  const int nb = PARTIAL ? (valid + 7) / 8 : NK;  // n8 blocks that hold a key
+
+  float s[NK][4];
+#pragma unroll
+  for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < T::K8; ++kk) {
+    uint32_t b[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+      if (!PARTIAL || n < nb) ldsm(b[n], kaddr + 4 * (n * 8 * T::LDK + kk * 8));
+    mma_3xtf32<PARTIAL>(s, qb[kk], qs[kk], b, nb);
+  }
+
+  float corr[2];
+  softmax_tile<PARTIAL>(s, m2, l, corr, sl2, t, valid);
+#pragma unroll
+  for (int n = 0; n < T::K8; ++n) {
+    acc[n][0] *= corr[0];
+    acc[n][1] *= corr[0];
+    acc[n][2] *= corr[1];
+    acc[n][3] *= corr[1];
+  }
+
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    if (PARTIAL && kk >= nb) break;
+    uint32_t pb[4], ps[4];
+    split_tf32(s[kk][0], pb[0], ps[0]);  // column t: key 2t of row g ...
+    split_tf32(s[kk][2], pb[1], ps[1]);  // ... and of row g + 8
+    split_tf32(s[kk][1], pb[2], ps[2]);  // column t + 4: key 2t + 1
+    split_tf32(s[kk][3], pb[3], ps[3]);
+    uint32_t b[T::K8][4];
+#pragma unroll
+    for (int n = 0; n < T::K8; ++n) ldsm(b[n], vaddr + 4 * (n * 8 * T::LDV + kk * 8));
+    mma_3xtf32<false>(acc, pb, ps, b, T::K8);
   }
 }
 
-__device__ __forceinline__ float f4(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o, int heads, int nq,
                          int nkv, Strides sq, Strides sk, Strides sv, Strides so, float scale) {
-  static_assert(D == 64, "the fp32 forward maps 8 lanes x 8 columns onto D = 64");
+  using T = F32Tile<D>;
+  constexpr int K8 = T::K8, C4 = T::C4, KT = T::KT;
   extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;
-  float* ks = qs + kF32Rows * kF32LD;
-  float* vs = ks + kF32Rows * kF32LD;
-  float* ps = vs + kF32Rows * kF32LD;
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  float* raw_k = fsm;  // staging, in the order each thread copies
+  float* raw_v = raw_k + T::kRaw;
+  float* planes = raw_v + T::kRaw;  // K big, K small, V^T big, V^T small
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * kF32Rows;
+  const int r0 = blockIdx.x * kBlock + 16 * warp;  // this warp's first query row
+  const bool active = r0 < nq;
   const float* kp = k + b * sk.b + h * sk.h;
   const float* vp = v + b * sv.b + h * sv.h;
-  load_rows_f32<D>(qs, q + b * sq.b + h * sq.h, sq.n, q0, nq);
+  const int ntiles = (nkv + KT - 1) / KT;
+  // V chunks: a warp copies 16 keys x 2 adjacent chunks (32-byte sectors)
+  // at a time, so this thread's key is fixed and the V^T stores of one dim
+  // fall in 32 distinct banks across the warp.
+  const int vkey = 16 * (warp % T::kGroups) + lane / 2;
+  const int vpos = (vkey & ~7) | ((vkey & 7) >> 1) | ((vkey & 1) << 2);
+  auto vchunk = [&](int i) { return 2 * ((warp + kWarps * i) / T::kGroups) + (lane & 1); };
 
-  const float sl2 = scale * kLog2e;
-  float m2[4], l[4], acc[4][8];
+  auto copy_tile = [&](int j) {
+    const int key0 = j * KT;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m2[i] = -INFINITY;
-    l[i] = 0.0f;
+    for (int i = 0; i < T::kChunks; ++i) {
+      const int id = tid + kThreads * i, r = id / C4, c = id % C4;
+      const bool ok = key0 + r < nkv, okv = key0 + vkey < nkv;
+      cp_async16(smem_u32(raw_k + 4 * id), kp + (ok ? (key0 + r) * sk.n + 4 * c : 0), ok);
+      cp_async16(smem_u32(raw_v + 4 * id),
+                 vp + (okv ? (key0 + vkey) * sv.n + 4 * vchunk(i) : 0), okv);
+    }
+    cp_async_commit();
+  };
+  auto split_tile = [&]() {
+    float* kb = planes;
+    uint32_t* vt = reinterpret_cast<uint32_t*>(kb + 2 * T::kK) + vpos;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
-  }
-
-  for (int j0 = 0; j0 < nkv; j0 += kF32Rows) {
-    __syncthreads();  // every warp is done with the previous tile's K, V (and Q is stored)
-    load_rows_f32<D>(ks, kp, sk.n, j0, nkv);
-    load_rows_f32<D>(vs, vp, sv.n, j0, nkv);
-    __syncthreads();
-
-    float s[4][8];
+    for (int i = 0; i < T::kChunks; ++i) {
+      const int id = tid + kThreads * i, r = id / C4, c = id % C4;
+      uint4 big, small;
+      split4(*reinterpret_cast<const float4*>(raw_k + 4 * id), big, small);
+      *reinterpret_cast<uint4*>(kb + r * T::LDK + 4 * c) = big;
+      *reinterpret_cast<uint4*>(kb + T::kK + r * T::LDK + 4 * c) = small;
+      split4(*reinterpret_cast<const float4*>(raw_v + 4 * id), big, small);
+      const uint32_t bigs[4] = {big.x, big.y, big.z, big.w};
+      const uint32_t smalls[4] = {small.x, small.y, small.z, small.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kF32LD + d);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 kv = *reinterpret_cast<const float4*>(ks + (tx + 8 * j) * kF32LD + d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        vt[(4 * vchunk(i) + e) * T::LDV] = bigs[e];
+        vt[T::kV + (4 * vchunk(i) + e) * T::LDV] = smalls[e];
       }
     }
+  };
 
-    const int valid = nkv - j0;  // only the last tile holds keys past the end
+  copy_tile(0);
+
+  // Q's A fragments (rows g, g + 8; columns t, t + 4 of each k8 step), split
+  uint32_t qb[K8][4], qs[K8][4];
+  if (active) {
+    const float* qp = q + b * sq.b + h * sq.h;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
+      const int row = r0 + g + 8 * (i & 1);
+      const float* qr = qp + (row < nq ? row * sq.n : 0) + t + 4 * (i >> 1);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (tx + 8 * j >= valid) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m2[i], mx * sl2);
-      const float corr = exp2f(m2[i] - m_new);  // 0 on the first tile
-      m2[i] = m_new;
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = exp2f(fmaf(s[i][j], sl2, -m_new));
-        sum += p;
-        ps[(ty + 16 * i) * kF32LD + tx + 8 * j] = p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      l[i] = l[i] * corr + sum;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= corr;
+      for (int kk = 0; kk < K8; ++kk)
+        split_tf32(row < nq ? __ldg(qr + 8 * kk) : 0.0f, qb[kk][i], qs[kk][i]);
     }
-    __syncwarp();  // a row of P is written and read by the 8 lanes of one warp
-
-#pragma unroll 2
-    for (int kk = 0; kk < kF32Rows; kk += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * kF32LD + kk);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float4 v0 = *reinterpret_cast<const float4*>(vs + (kk + u) * kF32LD + 4 * tx);
-        const float4 v1 = *reinterpret_cast<const float4*>(vs + (kk + u) * kF32LD + 32 + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = f4(pv[i], u);
-          acc[i][0] = fmaf(p, v0.x, acc[i][0]);
-          acc[i][1] = fmaf(p, v0.y, acc[i][1]);
-          acc[i][2] = fmaf(p, v0.z, acc[i][2]);
-          acc[i][3] = fmaf(p, v0.w, acc[i][3]);
-          acc[i][4] = fmaf(p, v1.x, acc[i][4]);
-          acc[i][5] = fmaf(p, v1.y, acc[i][5]);
-          acc[i][6] = fmaf(p, v1.z, acc[i][6]);
-          acc[i][7] = fmaf(p, v1.w, acc[i][7]);
-        }
-      }
-    }
-    __syncwarp();  // P is read before the next tile overwrites it
   }
+
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float acc[K8][4];
+#pragma unroll
+  for (int n = 0; n < K8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  const float sl2 = scale * kLog2e;
+  // ldmatrix.x4 rows: lanes 8i..8i+7 address matrix i, in the big (i < 2)
+  // or the small plane, at column +0 (i even) or +4
+  const int mi = lane / 8;
+  const uint32_t kaddr =
+      smem_u32(planes) + 4 * ((mi >> 1) * T::kK + (lane % 8) * T::LDK + 4 * (mi & 1));
+  const uint32_t vaddr = smem_u32(planes) +
+                         4 * (2 * T::kK + (mi >> 1) * T::kV + (lane % 8) * T::LDV + 4 * (mi & 1));
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<0>();  // this thread's chunks of tile j have landed
+    __syncthreads();     // every warp is done with tile j - 1's planes
+    split_tile();
+    asm volatile("" ::: "memory");  // the staging is read before it is refilled
+    if (j + 1 < ntiles) copy_tile(j + 1);
+    __syncthreads();  // tile j's planes are whole
+    if (active) {
+      const int valid = nkv - j * KT;
+      if (valid >= KT)
+        f32_tile<D, false>(acc, m2, l, qb, qs, kaddr, vaddr, sl2, t, valid);
+      else
+        f32_tile<D, true>(acc, m2, l, qb, qs, kaddr, vaddr, sl2, t, valid);
+    }
+  }
+  if (!active) return;
 
   float* op = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row < nq) {
-      const float inv = 1.0f / l[i];
-      *reinterpret_cast<float4*>(op + row * so.n + 4 * tx) =
-          make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
-      *reinterpret_cast<float4*>(op + row * so.n + 32 + 4 * tx) =
-          make_float4(acc[i][4] * inv, acc[i][5] * inv, acc[i][6] * inv, acc[i][7] * inv);
-    }
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = 1.0f / l[r];
+    const int row = r0 + g + 8 * r;
+    if (row < nq)
+#pragma unroll
+      for (int n = 0; n < K8; ++n)
+        *reinterpret_cast<float2*>(op + row * so.n + 8 * n + 2 * t) =
+            make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
   }
 }
 
+// The dynamic shared memory opt-in, set once per device for each
+// instantiation rather than at every launch.
+template <int D>
+cudaError_t f32_smem_once() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev % 64);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, F32Tile<D>::kSmemBytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int batch,
                        int heads, int nq, int nkv, Strides sq, Strides sk, Strides sv,
                        Strides so, float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<64>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+  cudaError_t err = f32_smem_once<D>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((nq + kF32Rows - 1) / kF32Rows, batch * heads);
-  flash_fwd_f32_kernel<64><<<grid, kThreads, kF32Smem, stream>>>(
+  const dim3 grid((nq + kBlock - 1) / kBlock, batch * heads);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, F32Tile<D>::kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), heads, nq, nkv, sq, sk, sv, so, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t info_f32(int* out) {
+  return kernel_info(flash_fwd_f32_kernel<D>, kThreads, F32Tile<D>::kSmemBytes, out);
 }
 
 }  // namespace
@@ -589,7 +747,7 @@ int deco_flash_attention_fwd_lse(const void* q, const void* k, const void* v,
                         static_cast<cudaStream_t>(stream));
 }
 
-// As deco_flash_attention_fwd, for fp32 q, k, v and o; head_dim must be 64.
+// As deco_flash_attention_fwd, for fp32 q, k, v and o; head_dim 32 or 64.
 int deco_flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                  void* o, int batch, int heads, int nq, int nkv,
                                  int head_dim, long long q_sb, long long q_sn,
@@ -597,20 +755,35 @@ int deco_flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                  long long k_sh, long long v_sb, long long v_sn,
                                  long long v_sh, long long o_sb, long long o_sn,
                                  long long o_sh, float scale, void* stream) {
-  if (head_dim != 64 || !(scale > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!(scale > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{q_sb, q_sn, q_sh}, sk{k_sb, k_sn, k_sh};
   const Strides sv{v_sb, v_sn, v_sh}, so{o_sb, o_sn, o_sh};
-  return launch_f32(q, k, v, o, batch, heads, nq, nkv, sq, sk, sv, so, scale,
-                    static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32:
+      return launch_f32<32>(q, k, v, o, batch, heads, nq, nkv, sq, sk, sv, so, scale, st);
+    case 64:
+      return launch_f32<64>(q, k, v, o, batch, heads, nq, nkv, sq, sk, sv, so, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // What the current device makes of one kernel (kind 0: sampling, 1: with
-// lse, 2: fp32 operands, D = 64 only): registers, local bytes, static and
-// dynamic shared memory, resident CTAs per SM, threads, into out[0..5].
+// lse, both at D = 64, 72 or 128; 2: fp32 operands, D = 32 or 64):
+// registers, local bytes, static and dynamic shared memory, resident CTAs
+// per SM, threads, into out[0..5].
 int deco_flash_attention_fwd_info(int lse, int head_dim, int* out) {
-  if (lse == 2)
-    return head_dim == 64 ? kernel_info(flash_fwd_f32_kernel<64>, kThreads, kF32Smem, out)
-                          : static_cast<int>(cudaErrorInvalidValue);
+  if (lse == 2) {
+    switch (head_dim) {
+      case 32:
+        return info_f32<32>(out);
+      case 64:
+        return info_f32<64>(out);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (head_dim) {
     case 64:
       return info<64>(lse != 0, out);

@@ -161,7 +161,12 @@ class DeCoTrainer(BaseTrainer):
     The REPA arguments (``feat_loss_weight``, ``encoder``, ``align_layer``,
     ``proj_*_dim``) are taken and stored as the JAX constructor does, so the
     reference configs that pass them build this trainer; the DeCo loss does
-    not use them (its REPA branch is off upstream)."""
+    not use them (its REPA branch is off upstream). So a config's ``encoder``
+    node reaches it unbuilt (``deferred_args``, a
+    :class:`~deco_tpu_torch.config.registry.Deferred` handle): no tower, no
+    weight file read."""
+
+    deferred_args = ("encoder",)
 
     def __init__(self, scheduler: BaseScheduler, loss_weight_fn: Union[str, Callable] = "constant",
                  lognorm_t: bool = False, timeshift: float = 1.0, lognorm_mix_p: float = 0.9,
@@ -274,6 +279,7 @@ class REPATrainer(DeCoTrainer):
     against the encoder's features, loss = fm + feat_loss_weight * cos."""
 
     metadata_keys = ("repa_features", "raw_image")
+    deferred_args = ()  # the encoder runs every step: built with the trainer
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

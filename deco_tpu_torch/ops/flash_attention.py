@@ -14,9 +14,9 @@ Counterpart of ``deco_tpu/ops/flash_attention.py`` (``flash_attention``
   (``csrc/flash_attention_bwd.cu``);
 - otherwise, as in sampling, it launches the plain forward kernel, with no
   logsumexp work: for bf16 operands the tensor-core kernel, for fp32
-  operands (the frozen DINOv2 tower of the REPA objectives, D = 64) the
-  fp32 kernel (:func:`flash_attention_fwd_f32`), forward only: fp32 under
-  autograd raises.
+  operands (the frozen DINOv2 tower of the REPA objectives, D = 64; the
+  DC-AE's attention, D = 32) the fp32 kernel (:func:`flash_attention_fwd_f32`,
+  3xTF32 on the tensor cores), forward only: fp32 under autograd raises.
 
 The autograd Function reaches the forward with logsumexp through the custom
 op :data:`flash_attention_fwd_lse_op` (``deco_tpu_torch::flash_attention_fwd_lse``),
@@ -41,7 +41,7 @@ import torch
 from deco_tpu_torch.ops import _build
 
 SUPPORTED_HEAD_DIMS = (64, 72, 128)
-F32_HEAD_DIMS = (64,)  # the fp32 forward
+F32_HEAD_DIMS = (32, 64)  # the fp32 forward
 _MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, which spans B*H
 
 
@@ -285,13 +285,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
 
 
 def forward_kernel_info(head_dim: int) -> dict:
-    """What the current card makes of the forward kernel's two
-    instantiations at ``head_dim``, and at D = 64 of the fp32 kernel
-    (:func:`_build.kernel_info`)."""
-    names = ("flash_fwd_kernel", "flash_fwd_kernel_lse", "flash_fwd_f32_kernel")
+    """What the current card makes of the forward kernels built for
+    ``head_dim`` (:func:`_build.kernel_info`): the bf16 kernel's two
+    instantiations where D is in ``SUPPORTED_HEAD_DIMS``, the fp32 kernel
+    where it is in ``F32_HEAD_DIMS``."""
+    kinds = {0: "flash_fwd_kernel", 1: "flash_fwd_kernel_lse"} if (
+        head_dim in SUPPORTED_HEAD_DIMS) else {}
+    if head_dim in F32_HEAD_DIMS:
+        kinds[2] = "flash_fwd_f32_kernel"
     return {name: _build.kernel_info("flash_attention_fwd", "deco_flash_attention_fwd_info",
                                      kind, head_dim)
-            for kind, name in enumerate(names[:3 if head_dim in F32_HEAD_DIMS else 2])}
+            for kind, name in kinds.items()}
 
 
 def backward_kernel_info(head_dim: int) -> dict:
@@ -339,9 +343,9 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention_fwd_f32(q, k, v, scale: float):
-    """The forward of fp32 operands, (B, Nq, H, 64) fp32. CPU tensors take
-    :func:`flash_attention_plain`; CUDA tensors launch the fp32 kernel or
-    raise."""
+    """The forward of fp32 operands, (B, Nq, H, D) fp32 with D in
+    ``F32_HEAD_DIMS``. CPU tensors take :func:`flash_attention_plain`; CUDA
+    tensors launch the fp32 kernel or raise."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
     _check_kernel_args(q, k, v, dtype=torch.float32)
@@ -358,8 +362,8 @@ def flash_attention(q, k, v, scale: float | None = None):
     Returns (B, Nq, H, D) in q's dtype. Under autograd this is
     :class:`FlashAttention` (bf16 on the card); otherwise CPU tensors take
     :func:`flash_attention_plain` and CUDA tensors launch the forward kernel
-    (bf16 with D in ``SUPPORTED_HEAD_DIMS``, or fp32 with D = 64 through
-    :func:`flash_attention_fwd_f32`) or raise.
+    (bf16 with D in ``SUPPORTED_HEAD_DIMS``, or fp32 with D in
+    ``F32_HEAD_DIMS`` through :func:`flash_attention_fwd_f32`) or raise.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])

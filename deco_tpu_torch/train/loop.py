@@ -26,7 +26,8 @@ fit / predict (``deco_tpu/train/loop.py`` ``Experiment``).
 
 A REPA or JiT trainer sets the model's ``align_layer`` (its feature tap), and
 its projection (``proj_module``, drawn from ``seed``) trains beside the
-model; its ``encoder`` (the DINOv2 node) is built on ``device``.
+model; its ``encoder`` (the DINOv2 node) is built on ``device``. The DeCo
+trainer, which never runs its encoder, keeps the node unbuilt.
 
 The model keeps fp32 parameters and computes in the config's ``dtype``
 (bf16 unless overridden) on ``device``; a run that does not restore draws
@@ -134,7 +135,8 @@ class Experiment:
 
     def _on_device(self, trainer_node: dict) -> dict:
         """The trainer node with its ``encoder`` node (REPA's frozen tower)
-        built on this experiment's device."""
+        set to this experiment's device, where it is built (at once, or at
+        its first call for a trainer that defers it)."""
         args = trainer_node.get("init_args") or {}
         encoder = args.get("encoder")
         if not (isinstance(encoder, dict) and "class_path" in encoder):

@@ -18,8 +18,10 @@ CARD_PEAKS = {
 }
 
 
-# per card: dense fp32 FLOP/s outside the tensor cores (NVIDIA data sheets)
+# per card: dense fp32 FLOP/s outside the tensor cores, and dense TF32
+# FLOP/s on the tensor cores (NVIDIA data sheets)
 CARD_FP32_PEAKS = {"H100 SXM": 67e12, "H100 NVL": 60e12, "H100 PCIe": 51e12}
+CARD_TF32_PEAKS = {"H100 SXM": 495e12, "H100 NVL": 417.5e12, "H100 PCIe": 378e12}
 
 
 def _card_key(card_name: str) -> str:
@@ -36,6 +38,11 @@ def _card_key(card_name: str) -> str:
 def card_fp32_peak(card_name: str) -> float:
     """fp32 FLOP/s outside the tensor cores for a card name from ``nvidia-smi``."""
     return CARD_FP32_PEAKS[_card_key(card_name)]
+
+
+def card_tf32_peak(card_name: str) -> float:
+    """Dense TF32 tensor-core FLOP/s for a card name from ``nvidia-smi``."""
+    return CARD_TF32_PEAKS[_card_key(card_name)]
 
 
 def card_peaks(card_name: str) -> tuple[float, float]:

@@ -307,7 +307,8 @@ TINY_NODES = {
 def test_repa_configs_build_through_the_registry(path, trainer_cls, align):
     """Each config's denoiser (at a tiny width) and trainer nodes build; the
     trainer keeps its DINOv2 node (weight_path null: a random 1-layer tower
-    on the CPU), and the REPA trainers own a projection to 768."""
+    on the CPU), built with it for the REPA trainers, which own a projection
+    to 768, and at its first call for the DeCo trainer, which never runs it."""
     config = registry.load_yaml(os.path.join(REPO, path))
     node = config["model"]["denoiser"]
     kind = node["class_path"].split("transformer.")[1]
@@ -318,11 +319,18 @@ def test_repa_configs_build_through_the_registry(path, trainer_cls, align):
     enc = tnode["init_args"]["encoder"]
     assert enc["class_path"] == "src.models.encoder.DINOv2"
     enc["init_args"].update(weight_path=None, num_layers=1, device="cpu")
-    with pytest.warns(UserWarning, match="random weights"):
+    if trainer_cls == "DeCoTrainer":
         trainer = registry.instantiate(tnode)
+        assert isinstance(trainer.encoder, registry.Deferred) and trainer.encoder.built is None
+        with pytest.warns(UserWarning, match="random weights"):
+            encoder = trainer.encoder.build()
+    else:
+        with pytest.warns(UserWarning, match="random weights"):
+            trainer = registry.instantiate(tnode)
+        encoder = trainer.encoder
     assert type(trainer).__name__ == trainer_cls and trainer.align_layer == align
-    assert type(trainer.encoder).__name__ == "DINOv2"
-    assert not any(p.requires_grad for p in trainer.encoder.parameters())
+    assert type(encoder).__name__ == "DINOv2"
+    assert not any(p.requires_grad for p in encoder.parameters())
     if trainer_cls == "DeCoTrainer":
         assert trainer.proj_module is None and trainer.metadata_keys == ()
     else:

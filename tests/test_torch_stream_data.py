@@ -17,6 +17,7 @@ import tarfile
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from deco_tpu.config import registry as jax_registry
@@ -309,11 +310,30 @@ def test_registry_builds_the_three_t2i_data_nodes(caption_folder, tar_folder, tm
             jax_registry.instantiate(node)
 
 
-@pytest.mark.parametrize("name", ["pretraining_res256", "pretraining_res512"])
+@pytest.mark.parametrize("name", ["pretraining_res256", "pretraining_res512", "DeCo_large"])
 def test_pretraining_configs_still_raise_at_the_dinov2_encoder(name):
-    """DINOv2 is ported: the trainer node now raises only because the
-    shipped weight file is absent, and builds with weight_path null."""
-    config = _yaml.load(os.path.join(REPO, "configs_t2i", f"{name}.yaml"))
+    """The absent torch-hub weight file still raises, but only where the
+    encoder is called: the DeCo trainer never runs its REPA encoder, so its
+    node builds as shipped, the encoder an unbuilt node (no tower, no file
+    read)."""
+    folder = "configs_c2i" if name == "DeCo_large" else "configs_t2i"
+    config = _yaml.load(os.path.join(REPO, folder, f"{name}.yaml"))
+    node = config["model"]["diffusion_trainer"]
+    node["init_args"]["encoder"]["init_args"]["device"] = "cpu"
+    trainer = registry.instantiate(node)
+    assert type(trainer).__name__ == "DeCoTrainer"
+    assert trainer.align_layer == (8 if name == "DeCo_large" else 6)
+    assert isinstance(trainer.encoder, registry.Deferred) and trainer.encoder.built is None
+    assert trainer.metadata_keys == ()  # the loop hands it no raw_image to encode
+    with pytest.raises(FileNotFoundError, match="dinov2_vitb14_pretrain.pth"):
+        trainer.encoder(torch.zeros(1, 32, 32, 3))
+    assert trainer.encoder.built is None
+
+
+def test_repa_trainer_still_raises_without_the_dinov2_file():
+    """Baseline_DiT.yaml's REPATrainer runs its tower every step: its node
+    still builds the tower with the trainer, and the absent file raises."""
+    config = _yaml.load(os.path.join(REPO, "configs_c2i", "Baseline_DiT.yaml"))
     node = config["model"]["diffusion_trainer"]
     node["init_args"]["encoder"]["init_args"]["device"] = "cpu"
     with pytest.raises(FileNotFoundError, match="dinov2_vitb14_pretrain.pth"):
@@ -321,4 +341,4 @@ def test_pretraining_configs_still_raise_at_the_dinov2_encoder(name):
     node["init_args"]["encoder"]["init_args"].update(weight_path=None, num_layers=1)
     with pytest.warns(UserWarning, match="random weights"):
         trainer = registry.instantiate(node)
-    assert type(trainer.encoder).__name__ == "DINOv2" and trainer.align_layer == 6
+    assert type(trainer.encoder).__name__ == "DINOv2" and trainer.align_layer == 8

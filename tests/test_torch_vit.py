@@ -196,8 +196,20 @@ def test_fp32_attention_on_the_cpu_is_the_plain_version():
 @pytest.mark.parametrize("shape,dtypes,match", [
     ((2, 17, 2, 72), (torch.float32,) * 3, "head dim 72"),
     ((2, 17, 2, 64), (torch.float32, torch.float32, torch.bfloat16), "v is torch.bfloat16, needs float32"),
+    ((2, 17, 2, 32), (torch.bfloat16,) * 3, "head dim 32 not in .* for torch.bfloat16"),
+    ((2, 17, 2, 16), (torch.float32,) * 3, "head dim 16"),
 ])
 def test_fp32_kernel_refuses_what_it_does_not_take(shape, dtypes, match):
+    """The fp32 kernel takes D = 32 and 64 only; the bf16 kernels still
+    refuse D = 32 (their instantiations come with the DC-AE's training)."""
     q, k, v = (torch.zeros(shape, dtype=d) for d in dtypes)
     with pytest.raises((TypeError, ValueError), match=match):
-        fa._check_kernel_args(q, k, v, dtype=torch.float32)
+        fa._check_kernel_args(q, k, v, dtype=dtypes[0])
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_fp32_kernel_takes_head_dims_32_and_64(d):
+    """DINOv2's D = 64 and the DC-AE's D = 32 pass the fp32 kernel's checks."""
+    q, k, v = (torch.zeros((2, 17, 2, d)) for _ in range(3))
+    fa._check_kernel_args(q, k, v, dtype=torch.float32)
+    assert fa.F32_HEAD_DIMS == (32, 64)
