@@ -7,9 +7,11 @@ sampling (``configs_c2i/DeCo_XL.yaml``) and training
 (``configs_c2i/DeCo_XL_freq.yaml``) at 256 px, and training, sampling and
 FID scoring at 512 px (``configs_c2i/DeCo_XL_512.yaml``), and text-to-image
 serving, prompt-set predict and training with DeCo-XXL/16
-(``configs_t2i/sft_res512.yaml``), and the other c2i families with the REPA
+(``configs_t2i/sft_res512.yaml``), the other c2i families with the REPA
 objectives (Baseline-DiT-L/16, PixNerd-L/16, DeCo-L/16 with the DINOv2
-tower), and holds each hand-written kernel against its plain PyTorch version. Phases, in the order they run:
+tower), and ReCo image reconstruction (``configs_c2i/ReCo_large.yaml``, the
+InternViT tower), and holds each hand-written kernel against its plain
+PyTorch version. Phases, in the order they run:
 
 1. build: compile every ``deco_tpu_torch/csrc/*.cu`` with nvcc (one process
    per source, started together); print the card's name and power limit.
@@ -67,14 +69,15 @@ tower), and holds each hand-written kernel against its plain PyTorch version. Ph
 10. cli_512: DeCo-XL/16 at 512 px end to end through the CLI and the
    eval entry points. ``fit`` on ``configs_c2i/DeCo_XL_512.yaml``
    unmodified but for the image folder (2 x 48 PNGs of 576x544 and
-   544x640), the work directory and 3 steps: batch 16 x accumulation 2,
-   ``decoder_chunks`` 8, full remat, exactly 112 / 56 / 56 / 0 launches a
-   step; s/step, idle share, peak memory. One more step each under
-   ``trunk_remat_policy`` "attn" (56 forward-with-lse launches), "dots",
-   and with ``decoder_chunks`` 0 (the peak memory chunking saves).
-   ``predict`` from the fit's checkpoint: one batch of 6, 100 Euler steps,
-   CFG 5.0 on (0.1, 1], a (6, 512, 512, 3) uint8 npz, 2,800 forward
-   launches. Then ``eval_fid`` and ``ComputeMetricsHook`` on the card
+   544x640), the work directory, 3 steps and its trunk, cut to 14 of 28
+   blocks (``CLI_512_DEPTH``, for the disk-write budget, as phase 9's):
+   batch 16 x accumulation 2, ``decoder_chunks`` 8, full remat, exactly
+   56 / 28 / 28 / 0 launches a step; s/step, idle share, peak memory. One
+   more step each under ``trunk_remat_policy`` "attn" (28 forward-with-lse
+   launches), "dots", and with ``decoder_chunks`` 0 (the peak memory
+   chunking saves). ``predict`` from the fit's checkpoint: one batch of 6,
+   100 Euler steps, CFG 5.0 on (0.1, 1], a (6, 512, 512, 3) uint8 npz,
+   1,400 forward launches. Then ``eval_fid`` and ``ComputeMetricsHook`` on the card
    against a reference batch cropped from the folder, with the seed-0
    random tower, held against the same computations on the CPU; what TF32
    convolutions would change; the tower's images/s at batch 64.
@@ -134,19 +137,46 @@ tower), and holds each hand-written kernel against its plain PyTorch version. Ph
    configs_t2i/pretraining_res256.yaml (from a tar shard of PNGs), with
    their launches. The files go under ``build/chip_smoke_c2i_families/``,
    which is deleted.
-14. kernels: one JSON line listing every kernel with its launches on its
+14. reco: ReCo at full width. ``reco_kernels``: the forward, the forward
+   with lse, dQ and dK/dV at the ReCo shapes (D = 64: the InternViT tower's
+   257 tokens and the decoder blocks' 272 at the fit batch of 64 rows at
+   224 px; 1,025 and 1,040 at 16 rows at 448 px) against their plain
+   versions, bit-identical over two runs, timed beside bound, plain
+   versions and SDPA. ``reco_slice_vs_plain``: ReCo_large.yaml's model
+   (24-layer tower, 6 + 3 decoder blocks, bf16, seeded), one forward and
+   one DeCoTrainer loss gradient at batch 2 with the kernels against the
+   same with the plain attention on the card (gates from the CPU readings
+   of ``--calibrate-reco-slice``), 30 launches of each kernel. ``reco_fit``:
+   ``cli fit`` on ReCo_large.yaml as shipped (batch 16 x
+   diffusion_batch_mul 4, its WandbLogger node kept) but for the data nodes
+   (PixImageNet over 64 seeded PNGs: the card host has no ``datasets``),
+   the work directory and 3 steps: finite losses, exactly 30 / 30 / 30
+   forward-with-lse / dQ / dK-dV launches a step, s/step, idle share, peak
+   memory, MFU, the 6.8 GB checkpoint. ``reco_validate``: ``cli validate``
+   from it on 32 seeded PNGs, one batch of 32, 100 Euler steps: exactly
+   3,000 forward launches (the condition image goes through the tower at
+   every step, as in the JAX model), images/s, PSNR/SSIM/FID from
+   ``predict_metrics.json``, 16 original|reconstruction panels.
+   ``reco_448_step``: one step of ReCo_large_stage3.yaml at its shipped
+   batch at 448 px without a checkpoint: its peak memory, or "out of
+   memory" (the JAX model has no remat option). The files go under
+   ``build/chip_smoke_reco/``, which is deleted.
+15. kernels: one JSON line listing every kernel with its launches on its
    path (sampling for the forward, training for the others) and on the CLI
    paths, error, times, bound, library time and the library call's
    backend, for the attention kernels the same at N = 1024, for the
    forward its t2i serving launches and its times at the D = 64 t2i
    shapes, for the training kernels their t2i and Baseline-DiT fit
-   launches and times, and the fp32 forward with its launches in the
-   Baseline-DiT fit and its times at the tower's shapes.
+   launches and times, the fp32 forward with its launches in the
+   Baseline-DiT fit and its times at the tower's shapes, and for the bf16
+   attention kernels their ReCo fit, validate and 448 px launches and their
+   times at the ReCo shapes.
 
 ``python3 chip_smoke.py --calibrate-train-slice`` (and ``--calibrate-t2i-slice``,
-``--calibrate-t2i-train-slice``, ``--calibrate-c2i-families-slice``) prints, on
-the CPU, the readings between which the train-slice (t2i slice, t2i train
-slice, c2i families slice) gates sit, and no result.
+``--calibrate-t2i-train-slice``, ``--calibrate-c2i-families-slice``,
+``--calibrate-reco-slice``) prints, on the CPU, the readings between which
+the train-slice (t2i slice, t2i train slice, c2i families slice, ReCo
+slice) gates sit, and no result.
 
 Every phase prints JSON lines; a failed phase raises and the script exits
 non-zero without the last line. The last line is
@@ -1102,6 +1132,11 @@ def phase_cli(card: str, seed: int) -> dict:
 
 CLI_512_DIR = "build/chip_smoke_cli_512"  # git-ignored; deleted at the end of the phase
 CLI_512_CONFIG = "configs_c2i/DeCo_XL_512.yaml"
+# phase 10's trunk depth (of 28), cut as phase 9's since phase 14 (ReCo) writes
+# its own 6.8 GB checkpoint: 5.7 GB, not 10.9, keeps the call under 45 GiB
+CLI_512_TRUNK = 14
+CLI_512_DEPTH = [f"--model.denoiser.init_args.num_cond_blocks={CLI_512_TRUNK}",
+                 f"--model.denoiser.init_args.num_blocks={CLI_512_TRUNK + 3}"]
 # The FID tower on the card (fp32, TF32 off) against the same tower on the
 # CPU: fp32 convolutions summed in other orders (and by other algorithms)
 # agree to ~1e-6 of the largest feature; 1e-4 leaves room for cuDNN's
@@ -1206,7 +1241,7 @@ def phase_cli_512(card: str, seed: int) -> dict:
         t0 = time.perf_counter()
         with Spy(checkpoint.CheckpointManager, "maybe_save") as saves, \
                 profile(activities=[ProfilerActivity.CUDA]) as prof:
-            state = cli.main(["fit", "-c", CLI_512_CONFIG,
+            state = cli.main(["fit", "-c", CLI_512_CONFIG, *CLI_512_DEPTH,
                               f"--data.train_dataset.init_args.root={CLI_512_DIR}/images",
                               f"--trainer.default_root_dir={workroot}", "--max_steps", str(steps),
                               "--trainer.log_every_n_steps=1"])
@@ -1231,14 +1266,15 @@ def phase_cli_512(card: str, seed: int) -> dict:
                "checkpoint_save_s": [c["seconds"] for c in written], "card": card,
                "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl"}
         emit(fit)
-        check(len(model.blocks) == 28 and model.hidden_size == 1152 and model.num_groups == 16
-              and len(model.dec_net.res_blocks) == 3 and model.patch_size == 16,
-              "the cli fit did not build DeCo-XL/16")
+        check(len(model.blocks) == CLI_512_TRUNK and model.hidden_size == 1152
+              and model.num_groups == 16 and len(model.dec_net.res_blocks) == 3
+              and model.patch_size == 16, "the cli fit did not build DeCo-XL/16 (cut trunk)")
         check(model.trunk_checkpoint and model.trunk_remat_policy == "full"
               and model.decoder_chunks == 8, "the 512 config's remat and decoder_chunks")
         check(len(records) == steps and all(np.isfinite(fit["losses"])), f"cli 512 fit {records}")
-        expected = {"fwd_lse": 112 * steps, "bwd_dq": 56 * steps, "bwd_dkv": 56 * steps,
-                    "freq_mse": 0, "fwd": 0}
+        per_step = 2 * CLI_512_TRUNK  # 2 microbatches a step
+        expected = {"fwd_lse": 2 * per_step * steps, "bwd_dq": per_step * steps,
+                    "bwd_dkv": per_step * steps, "freq_mse": 0, "fwd": 0}
         check(fit_launches == expected, f"cli 512 fit launches {fit_launches}, expected {expected}")
         check(len(written) == 1, f"{len(written)} checkpoint saves, expected the final one")
 
@@ -1259,8 +1295,9 @@ def phase_cli_512(card: str, seed: int) -> dict:
                   "batch": step_batch, "microbatch": 16, **row, "card": card,
                   "note": "one step on a batch on the card, under torch.profiler"})
             check(np.isfinite(row["loss"]), f"{policy}/{chunks}: loss not finite")
-            lse = 56 if policy == "attn" else 112
-            want = {"fwd_lse": lse, "bwd_dq": 56, "bwd_dkv": 56, "freq_mse": 0, "fwd": 0}
+            lse = per_step if policy == "attn" else 2 * per_step
+            want = {"fwd_lse": lse, "bwd_dq": per_step, "bwd_dkv": per_step, "freq_mse": 0,
+                    "fwd": 0}
             check(row["launches"] == want, f"{policy}/{chunks} launches {row['launches']}, "
                                            f"expected {want}")
         model.trunk_remat_policy, model.decoder_chunks = "full", 8
@@ -1271,7 +1308,7 @@ def phase_cli_512(card: str, seed: int) -> dict:
             f.launches = 0
         t0 = time.perf_counter()
         with Spy(checkpoint.CheckpointManager, "restore_params") as restores:
-            out = cli.main(["predict", "-c", CLI_512_CONFIG,
+            out = cli.main(["predict", "-c", CLI_512_CONFIG, *CLI_512_DEPTH,
                             f"--trainer.default_root_dir={workroot}",
                             f"--ckpt_path={workdir}/checkpoints", "--max_batches", "1"])
         predict_s = time.perf_counter() - t0
@@ -1288,8 +1325,9 @@ def phase_cli_512(card: str, seed: int) -> dict:
         check(samples.shape == (6, 512, 512, 3) and samples.dtype == np.uint8,
               f"npz {samples.shape} {samples.dtype}")
         check(samples.std() > 0, "constant output.npz")
-        check(pred_launches["fwd"] == 2800 and sum(pred_launches.values()) == 2800,
-              f"cli 512 predict launches {pred_launches}, expected 2800 forward")
+        want = 100 * CLI_512_TRUNK  # 100 steps, CFG in one batched call a step
+        check(pred_launches["fwd"] == want and sum(pred_launches.values()) == want,
+              f"cli 512 predict launches {pred_launches}, expected {want} forward")
         torch.cuda.empty_cache()
 
         # score: eval_fid and ComputeMetricsHook on the card, each against the
@@ -2571,6 +2609,376 @@ def probe_families_memory(seed: int) -> None:
     finally:
         shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
 
+RECO_CONFIG = "configs_c2i/ReCo_large.yaml"
+RECO_448_CONFIG = "configs_c2i/ReCo_large_stage3.yaml"
+RECO_DIR = "build/chip_smoke_reco"  # git-ignored; deleted at the end of the phase
+# (B, Nq, Nkv, H, D): the InternViT tower (16^2 + 1 tokens) and the decoder
+# blocks (16 learnable + 256 latent tokens) at the shipped fit batch 16 x 4 at
+# 224 px, and at 448 px (32^2 + 1, 16 + 1,024) at 16 rows
+RECO_SHAPES = {"tower_224": (64, 257, 257, 16, 64), "decoder_224": (64, 272, 272, 16, 64),
+               "tower_448": (16, 1025, 1025, 16, 64), "decoder_448": (16, 1040, 1040, 16, 64)}
+RECO_FIT_STEPS = 3
+# per step at batch 16 x diffusion_batch_mul 4: 24 tower layers + 6 decoder blocks
+RECO_LAYERS = 30
+RECO_SAMPLER_STEPS = 100
+# The ReCo slice: full width and depth (ReCo_large.yaml), batch 2 at 224 px,
+# one forward and one DeCoTrainer loss gradient with fixed draws, the
+# attention kernels against the plain version on the card, both bf16 with
+# fp32 parameters. The gates sit between the CPU readings of
+# --calibrate-reco-slice (bf16 vs fp32 compute, and the attention zeroed vs
+# bf16; RECO_SLICE_READINGS), set before the first card run; kernel vs plain
+# changes only the attention's roundings (P to bf16 against the running
+# maximum), so it should read under bf16 vs fp32: each gate is 2x that
+# reading, and a zeroed attention reads 10-20x over it. The loss, which the
+# attention hardly moves at random weights (the zeroed reading is under the
+# bf16 one), is held to 10x its bf16-vs-fp32 reading. Parameters drawn by
+# init_random_ (no zero final layer, so every parameter gets a gradient).
+RECO_SLICE_GATES = {"out_rel_l2": 0.042, "loss_rel": 4e-3, "grad_rel_l2": 0.025,
+                    "tower_grad_rel_l2": 0.093}
+RECO_SLICE_READINGS = {
+    "bf16_vs_fp32": {"out_rel_l2": 0.0211, "loss_rel": 3.9e-4, "grad_rel_l2": 0.0123,
+                     "tower_grad_rel_l2": 0.0465},
+    "zero_attention_vs_bf16": {"out_rel_l2": 0.389, "loss_rel": 1.2e-4, "grad_rel_l2": 0.325,
+                               "tower_grad_rel_l2": 0.753}}
+
+
+def _reco_denoiser(device: str, dtype: str = "bfloat16"):
+    """ReCo_large.yaml's denoiser, fp32 parameters drawn from seed 0 with no
+    parameter zero (``init_random_``: the JAX initializers zero the final
+    linear, and nothing upstream of it would then get a gradient)."""
+    from deco_tpu_torch.config import registry
+    from deco_tpu_torch.models.dit_c2i_deco import init_random_
+
+    node = registry.load_yaml(RECO_CONFIG)["model"]["denoiser"]
+    model = registry.instantiate({**node, "init_args": {
+        **node["init_args"], "dtype": dtype, "param_dtype": "float32", "device": device}})
+    return init_random_(model, 0)
+
+
+def reco_slice_step(device: str, dtype: str = "bfloat16", attention: str = "kernel") -> dict:
+    """One forward and one loss gradient of the full-width ReCo at batch 2
+    (224 px) with fixed inputs and draws: the output, the loss, all
+    gradients and the tower's, on the CPU in fp32. ``attention`` "plain"
+    runs every attention through the plain version (autograd), "zero"
+    gives zeros (the calibration's yardstick)."""
+    import torch
+
+    from deco_tpu_torch.diffusion.scheduling import LinearScheduler
+    from deco_tpu_torch.diffusion.training import DeCoTrainer
+    from deco_tpu_torch.models import layers
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    model = _reco_denoiser(device, dtype)
+    rng = np.random.default_rng(5)
+    image, x_t, noise = (torch.from_numpy(a.astype(np.float32)).to(device) for a in (
+        rng.uniform(-1, 1, (2, 224, 224, 3)), rng.standard_normal((2, 224, 224, 3)),
+        rng.standard_normal((2, 224, 224, 3))))
+    draws = dict(t_normal=np.array([0.4, -1.1], np.float32),
+                 t_uniform=np.array([0.25, 0.8], np.float32),
+                 mix_u=np.array([0.2, 0.95], np.float32), noise=noise)
+    trainer = DeCoTrainer(LinearScheduler(), lognorm_t=True, null_condition_p=0.0)
+    cond = image.to(torch.bfloat16)
+    kernel = layers.flash_attention
+    if attention == "plain":
+        layers.flash_attention = lambda q, k, v, scale=None: fa.flash_attention_plain(q, k, v,
+                                                                                      scale)
+    elif attention == "zero":
+        layers.flash_attention = lambda q, k, v, scale=None: torch.zeros_like(q)
+    try:
+        with torch.no_grad():
+            out = model(x_t, torch.tensor([0.3, 0.7], device=device), cond)
+        loss = trainer(model, image, cond, torch.zeros_like(cond), draws=draws)["loss"]
+        loss.backward()
+    finally:
+        layers.flash_attention = kernel
+
+    def flat(params):  # a parameter the loss does not reach (mlp1) counts as zeros
+        return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float()
+                          .reshape(-1).cpu() for p in params])
+
+    return {"out": out.float().cpu(), "loss": float(loss.detach()),
+            "grads": flat(model.parameters()),
+            "tower_grads": flat(model.vision_model.parameters())}
+
+
+def _reco_slice_rows(a: dict, b: dict) -> dict:
+    """Each reading of ``a`` against ``b``: relative L2 of the output and the
+    gradients, relative difference of the loss."""
+    return {"out_rel_l2": _rel_l2(a["out"], b["out"]),
+            "loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "grad_rel_l2": _rel_l2(a["grads"], b["grads"]),
+            "tower_grad_rel_l2": _rel_l2(a["tower_grads"], b["tower_grads"])}
+
+
+def calibrate_reco_slice() -> None:
+    """On the CPU: the readings between which RECO_SLICE_GATES sit."""
+    bf16 = reco_slice_step("cpu")
+    print(json.dumps({"bf16_vs_fp32": _reco_slice_rows(bf16, reco_slice_step("cpu", "float32")),
+                      "zero_attention_vs_bf16": _reco_slice_rows(
+                          reco_slice_step("cpu", attention="zero"), bf16)}))
+
+
+def phase_reco_kernels(card: str) -> dict:
+    """Rows 1, 3, 5 and 6 at the ReCo shapes against their plain versions
+    (the forward and the forward with lse bit-identical over two runs, the
+    backward too), then timed beside the bound, the plain versions and the
+    SDPA yardsticks."""
+    import torch
+
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    errs = {"fwd": 0.0, "fwd_lse": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
+    timings: dict = {key: {} for key in errs}
+    for name, shape in RECO_SHAPES.items():
+        b, nq, nkv, h, d = shape
+        q, k, v, do = attention_operands(gen, *shape)
+        out, again = fa.flash_attention(q, k, v), fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = (out.float() - fa.flash_attention_plain(q, k, v).float()).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and err < ATTN_ATOL,
+              f"reco attention {name} error {err} >= {ATTN_ATOL}")
+        check(torch.equal(out, again), f"reco attention {name} differs between two runs")
+        errs["fwd"] = max(errs["fwd"], err)
+        timings["fwd"][name] = {
+            "b_nq_nkv_h_d": list(shape), "max_abs_err": err,
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 30, flush),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 5, flush),
+            **sdpa_forward_yardsticks(q, k, v, d ** -0.5, False, flush, 30),
+            **_bound(card, 2 * (2 * q.numel() + k.numel() + v.numel()),
+                     4 * b * h * nq * nkv * d)}
+        emit({"phase": "reco_kernels", "timing": f"fwd_{name}", **timings["fwd"][name],
+              "atol": ATTN_ATOL, "bit_identical": True, "l2": "flushed before each call",
+              "card": card})
+        row = hold_attention_training("reco_kernels", name, shape, (q, k, v, do))
+        for key, value in row["errs"].items():
+            errs[key] = max(errs[key], value)
+        for kernel, timing in _attention_timings(card, (q, k, v, do), flush, 20).items():
+            timings[kernel][name] = {"b_nq_nkv_h_d": list(shape), **timing}
+            emit({"phase": "reco_kernels", "timing": f"{kernel}_{name}", **timings[kernel][name],
+                  "l2": "flushed before each call", "card": card})
+        del q, k, v, do, out, again
+    return {"errs": errs, "timings": timings}
+
+
+def phase_reco_slice() -> dict:
+    """The full-width ReCo on the card, kernels against the plain attention."""
+    import torch
+
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_attention, fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    for f in kernels:
+        f.launches = 0
+    kernel = reco_slice_step("cuda")
+    launches = [f.launches for f in kernels]
+    torch.cuda.empty_cache()
+    plain = reco_slice_step("cuda", attention="plain")
+    plain_launches = [f.launches for f in kernels]
+    torch.cuda.empty_cache()
+    row = _reco_slice_rows(kernel, plain)
+    emit({"phase": "reco_slice_vs_plain", "config": RECO_CONFIG, "batch": 2, "image_size": 224,
+          **row, "gates": RECO_SLICE_GATES, "cpu_readings": RECO_SLICE_READINGS,
+          "loss": kernel["loss"], "plain_loss": plain["loss"], "launches": launches,
+          "params_with_grad": int(kernel["grads"].numel())})
+    check(np.isfinite(kernel["loss"]) and bool(torch.isfinite(kernel["out"]).all()),
+          "reco slice: not finite")
+    check(launches == [RECO_LAYERS] * 4, f"reco slice launches {launches}, expected "
+                                         f"{RECO_LAYERS} of each kernel")
+    check(plain_launches == launches, "the plain ReCo slice launched a kernel")
+    for key, limit in RECO_SLICE_GATES.items():
+        check(row[key] < limit, f"reco slice {key} {row[key]} >= {limit}")
+    return row
+
+
+def _write_reco_config(path: str, config_path: str, train_root: str, eval_root: str,
+                       workroot: str) -> dict:
+    """``config_path`` as shipped but for its data nodes, which read PNG
+    folders through PixImageNet at the config's resolution (the card host
+    has no ``datasets`` for PixHFDataset), its work directory and a log line
+    every step; written to ``path``."""
+    from deco_tpu_torch.config import _yaml, registry
+
+    config = registry.load_yaml(config_path)
+    for key, root in (("train_dataset", train_root), ("eval_dataset", eval_root)):
+        node = config["data"][key]
+        check(node["class_path"].endswith("PixHFDataset"), f"{config_path} {key} changed")
+        config["data"][key] = {"class_path": "src.data.dataset.imagenet.PixImageNet",
+                               "init_args": {"root": root,
+                                             "resolution": node["init_args"]["resolution"]}}
+    config["trainer"].update(default_root_dir=workroot, log_every_n_steps=1)
+    with open(path, "w") as f:
+        f.write(_yaml.dump(config))
+    return config
+
+
+def phase_reco(card: str, seed: int) -> dict:
+    """ReCo through the CLI as users run it: ``cli fit`` on ReCo_large.yaml
+    (3 steps, batch 16 x 4, its W&B node kept), ``cli validate`` from the
+    checkpoint (one batch of 32, 100 Euler steps), then one step of
+    ReCo_large_stage3.yaml at 448 px for its peak memory."""
+    import importlib.util
+    import json
+    import os
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.train import checkpoint
+    from deco_tpu_torch.utils.flops import card_peaks, reco_flops
+
+    kernels = _fit_kernels()
+    # the configs keep their WandbLogger node: without wandb the gate keeps
+    # the JSONL log; with it, no run may reach for the network
+    has_wandb = importlib.util.find_spec("wandb") is not None
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    has_datasets = importlib.util.find_spec("datasets") is not None
+    try:
+        images = write_image_folder(f"{RECO_DIR}/train", seed)
+        evals = write_image_folder(f"{RECO_DIR}/eval", seed + 1, per_class=16)
+        workroot = f"{RECO_DIR}/work"
+        path = f"{RECO_DIR}/ReCo_large.yaml"
+        config = _write_reco_config(path, RECO_CONFIG, f"{RECO_DIR}/train", f"{RECO_DIR}/eval",
+                                    workroot)
+        batch, mul = config["data"]["train_batch_size"], config["model"]["diffusion_batch_mul"]
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "maybe_save") as saves, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state = cli.main(["fit", "-c", path, "--max_steps", str(RECO_FIT_STEPS)])
+        fit_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        model = state.model
+        workdir = f"{workroot}/{config['tags']['exp']}"
+        records, ends, step_s = _fit_records(workdir)
+        s_per_step = float(np.median(step_s[1:]))
+        busy_ms = _kernel_busy_ms(prof)
+        flops = 3 * reco_flops() * batch * mul
+        written = [c for c in saves.calls if c["out"]]
+        ckpt_path = f"{workdir}/checkpoints/{RECO_FIT_STEPS}.pt"
+        fit = {"phase": "reco_fit", "config": RECO_CONFIG, "images": images,
+               "data": "PixImageNet over a seeded PNG folder (datasets is "
+                       + ("importable" if has_datasets else "absent") + " on this host)",
+               "wandb": "importable (WANDB_MODE=disabled)" if has_wandb else "absent: JSONL only",
+               "batch": batch, "diffusion_batch_mul": mul, "steps": RECO_FIT_STEPS,
+               "losses": [r["loss"] for r in records], "grad_norms": [r["grad_norm"]
+                                                                      for r in records],
+               "step_s": step_s, "s_per_step": s_per_step, "images_per_s": batch / s_per_step,
+               "mfu": flops / s_per_step / card_peaks(card)[0], "flops_per_step": flops,
+               "device_kernel_ms": busy_ms, "kernel_ms_by_kind": _kernel_ms_by_kind(prof),
+               "idle_share": 1 - busy_ms / 1e3 / ends[-1], "peak_mem_bytes": peak,
+               "fit_call_s": fit_s, "launches": launches,
+               "launches_per_step": {k: v / RECO_FIT_STEPS for k, v in launches.items()},
+               "checkpoint_bytes": os.path.getsize(ckpt_path),
+               "checkpoint_save_s": [c["seconds"] for c in written],
+               "params": sum(p.numel() for p in model.parameters()), "card": card,
+               "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl"}
+        emit(fit)
+        check(type(model).__name__ == "ReCoModel" and len(model.vision_model.encoder.layers) == 24
+              and len(model.pixel_decoder.blocks) == 6 and model.pixel_decoder.hidden_size == 1024
+              and model.dtype == torch.bfloat16, "the fit did not build ReCo_large.yaml's model")
+        check(len(records) == RECO_FIT_STEPS and all(np.isfinite(fit["losses"])),
+              f"reco fit losses {records}")
+        expected = {k: 0 for k in launches}
+        expected.update({k: RECO_LAYERS * RECO_FIT_STEPS for k in ("fwd_lse", "bwd_dq",
+                                                                   "bwd_dkv")})
+        check(launches == expected, f"reco fit launches {launches}, expected {expected}")
+        check(len(written) == 1, f"{len(written)} checkpoint saves, expected the final one")
+        del state, model
+        torch.cuda.empty_cache()
+
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "restore_params") as restores:
+            cli.main(["validate", "-c", path, f"--ckpt_path={workdir}/checkpoints",
+                      "--max_batches", "1"])
+        validate_s = time.perf_counter() - t0
+        sampling_s = time.perf_counter() - restores.calls[0]["end"]
+        val_launches = {k: f.launches for k, f in kernels.items()}
+        scores = json.load(open(f"{workdir}/predict_metrics.json"))
+        panels = sorted(os.listdir(f"{workdir}/images"))
+        pred_batch = config["data"]["pred_batch_size"]
+        want = RECO_LAYERS * RECO_SAMPLER_STEPS  # guidance 1.0: one conditional call a step
+        emit({"phase": "reco_validate", "config": RECO_CONFIG, "eval_images": evals,
+              "batch": pred_batch, "sampler_steps": RECO_SAMPLER_STEPS,
+              "validate_call_s": validate_s, "sampling_s": sampling_s,
+              "images_per_s": pred_batch / sampling_s, "launches": val_launches,
+              "scores": scores, "side_by_side_panels": len(panels),
+              "panel_names": panels[:2], "card": card,
+              "note": "sampling_s from the checkpoint's restore to the end: sampling, decode, "
+                      "panels and PSNR/SSIM/FID with the seed-0 random Inception tower"})
+        check(val_launches == {**{k: 0 for k in val_launches}, "fwd": want},
+              f"reco validate launches {val_launches}, expected {want} forward")
+        check({"metrics/psnr", "metrics/ssim"} <= set(scores) and all(
+            np.isfinite(list(scores.values()))), f"predict_metrics.json {scores}")
+        check(len(panels) == 16 and all(p.startswith("reconstruction_") for p in panels),
+              f"side-by-side panels {panels}")
+        torch.cuda.empty_cache()
+        return {"fit": launches, "validate": val_launches, "stage3": phase_reco_448(card, seed)}
+    finally:
+        shutil.rmtree(RECO_DIR, ignore_errors=True)
+
+
+def phase_reco_448(card: str, seed: int) -> dict:
+    """One ``cli fit`` step of ReCo_large_stage3.yaml at its shipped batch
+    (16 x 4 at 448 px), without the final checkpoint: its peak memory. The
+    JAX ReCoModel has no remat option, so a step that does not fit in the
+    card's memory is reported as out of memory (the result this phase
+    measures), with the memory PyTorch held when it stopped."""
+    import torch
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.train import checkpoint
+
+    kernels = _fit_kernels()
+    write_image_folder(f"{RECO_DIR}/train_448", seed, per_class=8, sizes=((480, 512), (512, 480)))
+    path = f"{RECO_DIR}/ReCo_large_stage3.yaml"
+    config = _write_reco_config(path, RECO_448_CONFIG, f"{RECO_DIR}/train_448",
+                                f"{RECO_DIR}/train_448", f"{RECO_DIR}/work_448")
+    for f in kernels.values():
+        f.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with Spy(checkpoint.CheckpointManager, "save", replace=lambda self, obj, step: None):
+            state = cli.main(["fit", "-c", path, "--max_steps", "1"])
+        torch.cuda.synchronize()
+        result, error = "fits", None
+        del state
+    except torch.cuda.OutOfMemoryError as err:
+        result, error = "out of memory", " ".join(str(err).split())[:300]
+    row = {"phase": "reco_448_step", "config": RECO_448_CONFIG, "image_size": 448,
+           "batch": config["data"]["train_batch_size"],
+           "diffusion_batch_mul": config["model"]["diffusion_batch_mul"], "result": result,
+           "error": error, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "card_mem_bytes": torch.cuda.get_device_properties(0).total_memory,
+           "seconds": time.perf_counter() - t0,
+           "launches": {k: f.launches for k, f in kernels.items()}, "card": card}
+    emit(row)
+    torch.cuda.empty_cache()
+    if result == "fits":
+        per = {"fwd_lse": RECO_LAYERS, "bwd_dq": RECO_LAYERS, "bwd_dkv": RECO_LAYERS}
+        check(row["launches"] == {**{k: 0 for k in row["launches"]}, **per},
+              f"reco 448 launches {row['launches']}")
+    return row
+
+
+def _reco_timing_rows(timings: dict, keys: tuple) -> dict:
+    """The kernels line's entries of one kernel at the ReCo shapes."""
+    return {name: {k: v for k, v in t.items() if k in keys + (
+        "library_backend", "whole_backward_ms", "sdpa_backward_ms", "b_nq_nkv_h_d")}
+        for name, t in timings.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2585,6 +2993,9 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--calibrate-c2i-families-slice"]:
         calibrate_families_slice()  # on the CPU; sets no result
+        return 2
+    if sys.argv[1:] == ["--calibrate-reco-slice"]:
+        calibrate_reco_slice()  # on the CPU; sets no result
         return 2
     seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
     if not torch.cuda.is_available():
@@ -2625,6 +3036,11 @@ def main() -> int:
     families = phase_baseline_fit(card, seed)
     torch.cuda.empty_cache()
     families["others"] = phase_families_fit(card, seed)
+    torch.cuda.empty_cache()
+    reco_kernels = phase_reco_kernels(card)
+    phase_reco_slice()
+    torch.cuda.empty_cache()
+    reco = phase_reco(card, seed)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     n1024 = {"fwd": kernel["n1024"], "fwd_lse": train_times.get("fwd_lse_512"),
              "bwd_dq": train_times.get("bwd_dq_512"), "bwd_dkv": train_times.get("bwd_dkv_512")}
@@ -2646,7 +3062,8 @@ def main() -> int:
 
     fwd = row("flash_attention_fwd", "flash_attention_fwd.cu",
               "deco_tpu/ops/flash_attention.py:63", launches,
-              max(kernel["max_abs_err"], t2i_kernel["max_abs_err"]), kernel)
+              max(kernel["max_abs_err"], t2i_kernel["max_abs_err"], reco_kernels["errs"]["fwd"]),
+              kernel)
     # DeCo-XXL/16 t2i (D = 64): launches per serve and per CLI predict call
     # (the Pipeline of 2 prompts, one batch of 8), and the times at its shapes
     fwd.update(t2i_serve_launches=t2i_serve_launches,
@@ -2659,8 +3076,8 @@ def main() -> int:
                               ("bwd_dq", "flash_attention_bwd.cu", 344),
                               ("bwd_dkv", "flash_attention_bwd.cu", 379)):
         r = row(f"flash_attention_{key}", source, f"deco_tpu/ops/flash_attention.py:{line}",
-                train_launches[key], max(train_errs[key], t2i_train["errs"][key]),
-                train_times[key])
+                train_launches[key], max(train_errs[key], t2i_train["errs"][key],
+                                         reco_kernels["errs"][key]), train_times[key])
         # DeCo-XXL/16 t2i training (D = 64): launches in the 3-step CLI fit, and
         # the times at its joint, ragged and text shapes
         r.update(t2i_fit_launches=t2i_fit_launches["fit"][key],
@@ -2668,8 +3085,15 @@ def main() -> int:
                  t2i={name: {k: v for k, v in t.items() if k in keys + (
                      "library_backend", "whole_backward_ms", "sdpa_backward_ms")}
                      for name, t in t2i_train["timings"][key].items()})
+        # ReCo (ReCo_large.yaml): launches in the 3-step CLI fit and the
+        # 448 px step, and the times at the tower's and the decoder's shapes
+        r.update(reco_fit_launches=reco["fit"][key],
+                 reco_448_step_launches=reco["stage3"]["launches"][key],
+                 reco=_reco_timing_rows(reco_kernels["timings"][key], keys))
         training.append(r)
-    fwd.update(baseline_predict_launches=families["predict"]["fwd"])
+    fwd.update(baseline_predict_launches=families["predict"]["fwd"],
+               reco_validate_launches=reco["validate"]["fwd"],
+               reco=_reco_timing_rows(reco_kernels["timings"]["fwd"], keys))
     # the fp32 kernel (3xTF32; the DINOv2 tower at D = 64, the DC-AE at
     # D = 32): launches in the Baseline-DiT fit, times at B*H 384 (one
     # microbatch) against both bounds, every other shape beside it

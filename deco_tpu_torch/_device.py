@@ -2,7 +2,8 @@
 
 Entry points default to ``"cuda"``. Asking for CUDA where there is none
 raises instead of quietly running on the CPU: a CPU run must be asked for
-(``device="cpu"``), as the tests do.
+(``device="cpu"``), as the tests do. ``"meta"`` builds a model's shapes
+without its data (the tests count full-width parameters that way).
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA is not available in this process; pass device='cpu' to run "
             "the plain PyTorch versions on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device {device!r}: expected 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"device {device!r}: expected 'cuda', 'cpu' or 'meta'")
     return dev
 
 

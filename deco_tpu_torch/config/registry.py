@@ -90,6 +90,7 @@ _PORTED: Dict[str, str] = {
         "deco_tpu_torch.diffusion.guidance.guidance_fn_with_rescale",
     "src.diffusion.base.guidance.c3_guidance_fn": "deco_tpu_torch.diffusion.guidance.c3_guidance_fn",
     "src.data.dataset.imagenet.PixImageNet": "deco_tpu_torch.data.imagenet.PixImageNet",
+    "src.data.dataset.imagenet.PixHFDataset": "deco_tpu_torch.data.imagenet.PixHFDataset",
     "src.data.dataset.randn.RandomNDataset": "deco_tpu_torch.data.randn.RandomNDataset",
     "src.data.dataset.randn.ClassLabelRandomNDataset":
         "deco_tpu_torch.data.randn.ClassLabelRandomNDataset",
@@ -110,7 +111,6 @@ UNPORTED: Dict[str, int] = {
     "src.models.transformer.encoder_ae.VAEModel": 5,
     "src.models.modules.vae_loss.VAEReconstructionLoss": 5,
     "src.models.modules.discriminator.NLayerDiscriminator": 5,
-    "src.data.dataset.imagenet.PixHFDataset": 2,
     "src.data.dataset.imagenet.PixWebDataset": 2,
     "src.data.dataset.imagenet.PixJSONLDataset": 2,
     "src.data.dataset.imagenet.PixMultiJSONLDataset": 2,
@@ -200,13 +200,49 @@ def _dit_t2i_deco_dispatch(dtype="bfloat16", param_dtype=None, **kw):
     """The reference's ``dit_t2i_DeCo.PixNerDiT`` names two models: the
     config-implied t2i DeCo (``txt_*`` arguments), which is ``DeCoT2I``
     with the config's dtypes as torch dtypes, and the ReCo reconstruction
-    model (``config_path``/``select_layer`` arguments), which is not ported."""
+    model (``config_path``/``select_layer`` arguments): :func:`_reco`."""
     if "config_path" in kw or "select_layer" in kw:
-        raise not_ported("src.models.transformer.dit_t2i_DeCo.PixNerDiT (the ReCo model: "
-                         "config_path/select_layer)", 5)
+        return _reco(dtype=dtype, param_dtype=param_dtype, **kw)
     from deco_tpu_torch.models.dit_t2i import DeCoT2I
 
     return DeCoT2I(**_dtypes(dtype, param_dtype), **kw)
+
+
+# InternVL ``vision_config`` keys -> ``ViTConfig`` fields
+_VISION_CONFIG_KEYS = (("hidden_size", "hidden_size"), ("num_hidden_layers", "num_layers"),
+                       ("num_attention_heads", "num_heads"),
+                       ("intermediate_size", "intermediate_size"), ("patch_size", "patch_size"),
+                       ("image_size", "image_size"), ("qkv_bias", "qkv_bias"),
+                       ("qk_normalization", "qk_normalization"), ("norm_type", "norm_type"))
+
+
+def _reco(config_path=None, dtype="bfloat16", param_dtype=None, **kw):
+    """``ReCoModel`` as the JAX dispatch builds it
+    (``deco_tpu/config/registry.py`` ``_dit_t2i_deco_dispatch``): the
+    tower's widths from ``<config_path>/config.json``'s ``vision_config``
+    where that directory exists (an unreadable file keeps the defaults), else
+    the InternViT defaults (qk normalisation, RMSNorm, initializer_factor
+    0.1, ``ViTConfig``'s other fields); ``patch_size`` is dropped (the
+    reference overwrites it with the tower's), and so is every argument
+    ``ReCoModel`` does not take."""
+    import dataclasses
+    import inspect
+    import json
+    import os
+
+    from deco_tpu_torch.models.reco import DEFAULT_VIT, ReCoModel
+
+    vit_kw = {}
+    if config_path and os.path.isdir(str(config_path)):
+        try:
+            with open(os.path.join(config_path, "config.json")) as f:
+                vc = json.load(f).get("vision_config", {})
+            vit_kw = {dst: vc[src] for src, dst in _VISION_CONFIG_KEYS if src in vc}
+        except (OSError, ValueError):
+            pass
+    known = set(inspect.signature(ReCoModel).parameters) - {"vit", "dtype", "param_dtype"}
+    return ReCoModel(vit=dataclasses.replace(DEFAULT_VIT, **vit_kw), **_dtypes(dtype, param_dtype),
+                     **{k: v for k, v in kw.items() if k in known})
 
 
 # the settings nodes below take float() of numbers given as strings: YAML 1.1

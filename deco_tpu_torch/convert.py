@@ -15,15 +15,17 @@ and :func:`state_dict_from_jax_pixnerd_t2i` write the reference
 ``FlattenDiT`` and ``PixNerDiT`` layouts that ``convert_baseline_dit``,
 ``convert_pixnerd_c2i`` and ``convert_deco_t2i(pixnerd=True)`` read (the
 NerfBlocks follow the trunk blocks in ``blocks``; the baseline's patch
-pixels in and out are channel-major). :func:`vit_state_dict_from_jax` and :func:`dinov2_state_dict_from_jax`
-write the port's ``VisionModel`` and ``DINOv2`` (the InternViT key names), and
-:func:`repa_proj_state_dict_from_jax` the REPA projection (``fc0-2`` to
-``proj.0.{0,2,4}``).
+pixels in and out are channel-major). :func:`state_dict_from_jax_reco`
+writes the reference ReCo layout that ``convert_reco`` reads.
+:func:`vit_state_dict_from_jax` and :func:`dinov2_state_dict_from_jax`
+write the port's ``VisionModel`` and ``DINOv2`` (the InternViT key names),
+and :func:`repa_proj_state_dict_from_jax` the REPA projection (``fc0-2``
+to ``proj.0.{0,2,4}``).
 
-:func:`train_checkpoint_from_jax` turns a JAX c2i or t2i training state (params, EMA,
-optax AdamW moments and count) into the port's step checkpoint
-(``train/checkpoint.py``), so a run started in the JAX package resumes in
-the port.
+:func:`train_checkpoint_from_jax` turns a JAX c2i, t2i or ReCo training
+state (params, EMA, optax AdamW moments and count) into the port's step
+checkpoint (``train/checkpoint.py``), so a run started in the JAX package
+resumes in the port.
 """
 
 from __future__ import annotations
@@ -290,9 +292,58 @@ def repa_proj_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return _tensors(out)
 
 
+def _plain_dit_block(block: dict, out: dict, prefix: str):
+    """A JAX ``PlainDiTBlock`` (its own subtree, not scanned) in the
+    reference ``FlattenDiTBlock`` layout: the fused SwiGLU (``w12 = [w1; w3]``,
+    ``w3`` = the JAX ``w2``), the attention without a qkv bias."""
+    out[f"{prefix}norm1.weight"] = np.asarray(block["norm1"]["weight"])
+    out[f"{prefix}norm2.weight"] = np.asarray(block["norm2"]["weight"])
+    attn = block["attn"]
+    out[f"{prefix}attn.qkv.weight"] = _t(attn["qkv"]["kernel"])
+    out[f"{prefix}attn.q_norm.weight"] = np.asarray(attn["q_norm"]["weight"])
+    out[f"{prefix}attn.k_norm.weight"] = np.asarray(attn["k_norm"]["weight"])
+    _dense(attn["proj"], out, f"{prefix}attn.proj")
+    mlp = block["mlp"]
+    out[f"{prefix}mlp.w12.weight"] = np.concatenate(
+        [_t(mlp["w1"]["kernel"]), _t(mlp["w3"]["kernel"])], axis=0)
+    out[f"{prefix}mlp.w3.weight"] = _t(mlp["w2"]["kernel"])
+
+
+def state_dict_from_jax_reco(params: dict, **layout) -> dict[str, torch.Tensor]:
+    """JAX ``ReCoModel`` params (optionally under ``"params"``) -> the port's
+    ``ReCoModel`` state dict, the reference ``dit_t2i_DeCo.PixNerDiT`` layout
+    that ``convert_reco`` reads: ``vision_model.*`` (the InternViT names),
+    ``mlp1.{0,1,3}``, ``latent_projector.{0,2}`` and ``pixel_decoder.*``
+    (learnable tokens, embedders, plain DiT blocks, ``dec_net``). ``layout``
+    (the c2i ``in_channels``/``patch_size``) is taken for a uniform bridge
+    call and not needed: no ReCo weight reads patches channel-major."""
+    del layout
+    p = params.get("params", params)
+    out: dict = {"mlp1.0.weight": np.asarray(p["mlp1_norm"]["scale"]),
+                 "mlp1.0.bias": np.asarray(p["mlp1_norm"]["bias"])}
+    _dense(p["mlp1_fc1"], out, "mlp1.1")
+    _dense(p["mlp1_fc2"], out, "mlp1.3")
+    _dense(p["latent_fc1"], out, "latent_projector.0")
+    _dense(p["latent_fc2"], out, "latent_projector.2")
+    dec, pd = p["pixel_decoder"], "pixel_decoder."
+    out[pd + "learnable_tokens"] = np.asarray(dec["learnable_tokens"])
+    _dense(dec["s_embedder"]["proj"], out, pd + "s_embedder.proj")
+    _dense(dec["x_embedder"]["embedder"], out, pd + "x_embedder.embedder.0")
+    _dense(dec["t_embedder"]["mlp_0"], out, pd + "t_embedder.mlp.0")
+    _dense(dec["t_embedder"]["mlp_2"], out, pd + "t_embedder.mlp.2")
+    i = 0
+    while f"blocks_{i}" in dec:
+        _plain_dit_block(dec[f"blocks_{i}"], out, f"{pd}blocks.{i}.")
+        i += 1
+    _pixel_decoder(dec["dec_net"], out, pd + "dec_net.")
+    return {**vit_state_dict_from_jax(p["vision_model"], prefix="vision_model."), **_tensors(out)}
+
+
 def _model_bridge(params: dict):
     """The converter of a JAX model tree, told apart by its top-level keys."""
     p = params.get("params", params)
+    if "pixel_decoder" in p:
+        return state_dict_from_jax_reco
     if "trunk" in p:
         return state_dict_from_jax_pixnerd_t2i if "final_linear" in p else state_dict_from_jax_t2i
     if "final_layer" in p:
@@ -311,7 +362,7 @@ def train_checkpoint_from_jax(params: dict, ema_params, mu: dict, nu: dict, coun
     have the parameters' layout and go through the same transforms; optax's
     ``count`` (updates taken) is torch AdamW's ``step``. The model tree goes
     through the converter of its kind (``DeCoC2I``, ``DeCoT2I``,
-    ``BaselineDiT``, ``PixNerdC2I``, ``PixNerdT2I``); a combined tree
+    ``BaselineDiT``, ``PixNerdC2I``, ``PixNerdT2I``, ``ReCoModel``); a combined tree
     ``{"model", "trainer"}`` (a REPA run) also carries the projection, whose
     parameters, moments and EMA go under ``diffusion_trainer.``."""
     from deco_tpu_torch.train.checkpoint import payload

@@ -17,6 +17,7 @@ native library (``.jpg``/``.jpeg``, decode and crop in one call); other
 formats raise. Items are NHWC float32 in [-1, 1] with
 ``metadata['raw_image']`` the [0, 1] image; :class:`LocalCachedDataset`
 gives VAE latents sampled from a cache of ``.npz`` posteriors instead.
+:class:`PixHFDataset` reads a Hugging Face ``datasets`` split the same way.
 """
 
 from __future__ import annotations
@@ -146,6 +147,28 @@ def _scan_image_folder(root: str):
     return samples, classes
 
 
+def _crop_and_flip(ds, read_full, read_center_cropped):
+    """The [0, 1] HWC crop of one image as :class:`PixImageNet` takes it:
+    with ``random_crop`` the short side resized to the resolution and a
+    random square of it, flipped at random; otherwise the ADM center crop,
+    flipped at random under ``random_flip``. The draws come from ``ds._rng``
+    in the JAX order (y0, x0, flip)."""
+    res = ds.resolution
+    if ds.random_crop:
+        arr = resize_short_side(read_full(), res)
+        max_y, max_x = arr.shape[0] - res, arr.shape[1] - res
+        y0 = ds._rng.randint(0, max_y + 1) if max_y > 0 else 0
+        x0 = ds._rng.randint(0, max_x + 1) if max_x > 0 else 0
+        arr = arr[y0:y0 + res, x0:x0 + res]
+        if ds._rng.rand() < 0.5:
+            arr = arr[:, ::-1]
+    else:
+        arr = read_center_cropped()
+        if ds.random_flip and ds._rng.rand() < 0.5:
+            arr = arr[:, ::-1]
+    return arr.astype(np.float32) / 255.0
+
+
 class PixImageNet:
     """Pixel-space ImageNet folder: ADM crop -> [-1, 1] NHWC.
 
@@ -174,22 +197,9 @@ class PixImageNet:
 
     def __getitem__(self, idx: int):
         path, target = self.samples[idx]
-        if self.random_crop:
-            arr = resize_short_side(read_png(path), self.resolution)
-            max_y = arr.shape[0] - self.resolution
-            max_x = arr.shape[1] - self.resolution
-            y0 = self._rng.randint(0, max_y + 1) if max_y > 0 else 0
-            x0 = self._rng.randint(0, max_x + 1) if max_x > 0 else 0
-            arr = arr[y0:y0 + self.resolution, x0:x0 + self.resolution]
-            if self._rng.rand() < 0.5:
-                arr = arr[:, ::-1]
-        else:
-            arr = self._load_center_cropped(path)
-            if self.random_flip and self._rng.rand() < 0.5:
-                arr = arr[:, ::-1]
-        raw = arr.astype(np.float32) / 255.0  # [0, 1] HWC
-        x = raw * 2.0 - 1.0
-        return x, target, {"raw_image": raw, "class": target}
+        raw = _crop_and_flip(self, lambda: read_png(path),
+                             lambda: self._load_center_cropped(path))
+        return raw * 2.0 - 1.0, target, {"raw_image": raw, "class": target}
 
 
 class LocalCachedDataset(PixImageNet):
@@ -218,3 +228,78 @@ class LocalCachedDataset(PixImageNet):
             noise = self._rng.randn(*mean.shape).astype(np.float32)
             latent = mean + noise * np.exp(0.5 * logvar)
         return latent, target, {"raw_image": raw, "class": target}
+
+
+_PNG, _JPEG = b"\x89PNG", b"\xff\xd8"
+
+
+class PixHFDataset:
+    """A Hugging Face ``datasets`` split of images (and ``label``), through
+    the ADM crop -> [-1, 1] NHWC (``deco_tpu/data/imagenet.py`` ``PixHFDataset``).
+
+    Takes the arguments the ReCo configs pass, where the JAX class takes
+    ``dataset_name``/``num_samples`` and raises on them (ROADMAP §C 10):
+    ``root`` goes to ``datasets.load_dataset(root, split=split)`` as the JAX
+    class's ``dataset_name`` does (a local dataset directory, an image folder
+    with class subdirectories, or a hub name in the local cache);
+    ``max_num_samples`` keeps the first n of ``RandomState(seed).permutation``,
+    the JAX ``num_samples`` indices; ``random_crop``/``random_flip`` are
+    :class:`PixImageNet`'s. ``datasets`` is imported here; without it the
+    constructor raises ``ImportError``.
+
+    The ``image`` column is read undecoded (the port has no PIL): PNG bytes
+    through the port's PNG codec and the numpy ADM crop, JPEG bytes through
+    the native library's decode-and-crop (``native.decode_jpeg_adm``), which
+    equals PIL's to 1 LSB; a JPEG under ``random_crop`` needs the full-size
+    decode, which raises naming ROADMAP §A 2, as does any other format.
+    ``label`` (0 where absent) is the item's class.
+    """
+
+    def __init__(self, root: str, split: str = "train", resolution: int = 256,
+                 max_num_samples: int | None = None, random_crop: bool = False,
+                 random_flip: bool = False, seed: int = 0):
+        try:
+            import datasets
+        except ImportError as err:
+            raise ImportError(f"PixHFDataset({root!r}) needs the 'datasets' package, which is "
+                              "not installed") from err
+        ds = datasets.load_dataset(root, split=split)
+        if max_num_samples is not None:
+            ds = ds.select(np.random.RandomState(seed).permutation(len(ds))[:max_num_samples])
+        self.ds = ds.cast_column("image", datasets.Image(decode=False))
+        self.resolution = resolution
+        self.random_crop = random_crop
+        self.random_flip = random_flip
+        self._rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return len(self.ds)
+
+    @staticmethod
+    def _bytes(image: dict) -> bytes:
+        if image.get("bytes"):
+            return image["bytes"]
+        with open(image["path"], "rb") as f:  # an image folder keeps only the path
+            return f.read()
+
+    def _full(self, data: bytes) -> np.ndarray:
+        if data.startswith(_PNG):
+            return png.decode(data)
+        if data.startswith(_JPEG):
+            raise NotImplementedError(
+                "PixHFDataset(random_crop=True): a full-size JPEG decode is not ported to "
+                "deco_tpu_torch (the native library decodes JPEG only behind the ADM crop): "
+                "ROADMAP §A 2")
+        raise ValueError("PixHFDataset: the port reads PNG and JPEG images only")
+
+    def _center_cropped(self, data: bytes) -> np.ndarray:
+        if data.startswith(_JPEG):
+            return native.decode_jpeg_adm(data, self.resolution)
+        return adm_center_crop(self._full(data), self.resolution)
+
+    def __getitem__(self, idx: int):
+        rec = self.ds[int(idx)]
+        data = self._bytes(rec["image"])
+        raw = _crop_and_flip(self, lambda: self._full(data), lambda: self._center_cropped(data))
+        target = rec.get("label", 0)
+        return raw * 2.0 - 1.0, target, {"raw_image": raw, "class": target}

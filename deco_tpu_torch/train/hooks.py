@@ -5,14 +5,15 @@
   to ``max_save_images``), and with ``save_compressed`` every image into
   ``output.npz`` under key ``arr_0``, the file the ADM FID suite reads.
 - :class:`ScalarLogger`: step scalars to ``metrics.jsonl``, one JSON object
-  a line with ``step``, ``time`` and each metric, and to TensorBoard when
-  ``torch.utils.tensorboard`` imports.
-- :class:`ImageLogger`: sample panels as PNG under ``images/``.
+  a line with ``step``, ``time`` and each metric, to TensorBoard when
+  ``torch.utils.tensorboard`` imports, and to W&B when a project is named
+  and ``wandb`` imports (:func:`_maybe_wandb`).
+- :class:`ImageLogger`: sample panels, and original|reconstruction pairs
+  side by side, as PNG under ``images/``.
 - :class:`ComputeMetricsHook`: PSNR, SSIM and FID of predicted against
   original images, accumulated over a predict run.
 
-One process writes everything. W&B logging is not ported; the loop rejects
-configs that ask for it.
+One process writes everything.
 """
 
 from __future__ import annotations
@@ -206,6 +207,14 @@ class ImageLogger:
         if self._tb is not None:
             self._tb.add_image(f"images/{name}", panel_uint8, step, dataformats="HWC")
 
+    def log_side_by_side(self, step: int, originals_uint8: np.ndarray,
+                         recons_uint8: np.ndarray, name: str = "reconstruction"):
+        """(B, H, W, 3) uint8 pairs, one original|reconstruction panel each."""
+        n = min(len(originals_uint8), self.max_images - self._count)
+        for i in range(max(n, 0)):
+            self._write(np.concatenate([originals_uint8[i], recons_uint8[i]], axis=1), name, step)
+            self._count += 1
+
     def log_images(self, step: int, images_uint8: np.ndarray, name: str = "samples"):
         """(B, H, W, 3) uint8 generated samples, one panel each."""
         n = min(len(images_uint8), self.max_images - self._count)
@@ -214,20 +223,40 @@ class ImageLogger:
             self._count += 1
 
 
+def _maybe_wandb(workdir: str, project: Optional[str], config: Optional[dict]):
+    """A W&B run for ``project`` (or the ``WANDB_PROJECT`` variable), or None
+    where neither names one or ``wandb`` does not import or start: the
+    config's ``WandbLogger`` node is read and never refused, and the JSONL
+    and TensorBoard logs stay in every case."""
+    project = project or os.environ.get("WANDB_PROJECT")
+    if not project:
+        return None
+    try:
+        import wandb
+
+        return wandb.init(project=project, dir=workdir,
+                          name=os.path.basename(os.path.abspath(workdir)), config=config,
+                          resume="allow")
+    except Exception:  # no wandb, or a run that cannot start (no login, no network)
+        return None
+
+
 class ScalarLogger:
-    """``metrics.jsonl`` + optional TensorBoard step-scalar logger.
+    """``metrics.jsonl`` + optional TensorBoard and W&B step-scalar logger.
 
     :meth:`log` converts the metrics (0-d tensors on the card) to floats only
     on log steps, so other steps read nothing back from the device.
     """
 
     def __init__(self, workdir: str, use_tensorboard: bool = True,
-                 log_every_n_steps: int = 50):
+                 log_every_n_steps: int = 50, wandb_project: Optional[str] = None,
+                 run_config: Optional[dict] = None):
         os.makedirs(workdir, exist_ok=True)
         self.path = os.path.join(workdir, "metrics.jsonl")
         self._fh = open(self.path, "a")
         self.log_every_n_steps = log_every_n_steps
         self._tb = _tensorboard(os.path.join(workdir, "tb")) if use_tensorboard else None
+        self._wandb = _maybe_wandb(workdir, wandb_project, run_config)
         self._t0 = time.time()
 
     def log(self, step: int, metrics: dict, force: bool = False):
@@ -245,8 +274,12 @@ class ScalarLogger:
             for k, v in record.items():
                 if k not in ("step", "time"):
                     self._tb.add_scalar(k, v, step)
+        if self._wandb is not None:
+            self._wandb.log({k: v for k, v in record.items() if k != "step"}, step=step)
 
     def close(self):
         self._fh.close()
         if self._tb is not None:
             self._tb.close()
+        if self._wandb is not None:
+            self._wandb.finish()

@@ -23,6 +23,14 @@ fit / predict (``deco_tpu/train/loop.py`` ``Experiment``).
   with a ``ComputeMetricsHook`` callback, batches whose metadata carry
   ``raw_image`` are scored against it (PSNR, SSIM, FID) into
   ``predict_metrics.json``.
+- reconstruction (the ReCo configs, which have no ``conditioner`` node:
+  :class:`~deco_tpu_torch.models.conditioners.ImageConditioner`): fit
+  conditions on the batch's images, repeated with the batch by
+  ``diffusion_batch_mul``; validate and predict take the loader's images as
+  the condition, start the sampler from fresh noise drawn from a generator
+  seeded by (seed, batch), write each original beside its reconstruction
+  (``ImageLogger.log_side_by_side``) and score the reconstructions against
+  the originals.
 
 A REPA or JiT trainer sets the model's ``align_layer`` (its feature tap), and
 its projection (``proj_module``, drawn from ``seed``) trains beside the
@@ -31,8 +39,14 @@ trainer, which never runs its encoder, keeps the node unbuilt.
 
 The model keeps fp32 parameters and computes in the config's ``dtype``
 (bf16 unless overridden) on ``device``; a run that does not restore draws
-them from the JAX initializers' distributions (``init_like_jax_``, for
-``DeCoC2I`` and ``DeCoT2I`` alike), seeded by ``seed``. Neither loop reads a tensor back
+them from the JAX initializers' distributions (``init_like_jax_``, or the
+model's own method of that name, ``ReCoModel``'s), seeded by ``seed``.
+A ``WandbLogger`` node names the W&B project (its ``project``, else its
+``name``), which logs only where ``wandb`` imports
+(``hooks._maybe_wandb``). The keys the JAX loop does not read are not read
+here either: ``model.distill``, ``model.pretrain_model_path``,
+``model.eval_original_model``, ``data.train_prefetch_factor`` and
+``trainer.plugins``. Neither loop reads a tensor back
 from the card on every step: fit reads the metrics on log steps only, and
 waits on a CUDA event ``_TRAIN_RUNAHEAD`` steps back so the host runs ahead
 of the card by a bounded number of steps.
@@ -53,6 +67,7 @@ from deco_tpu_torch.config import _yaml, registry
 from deco_tpu_torch.data.loader import make_loader
 from deco_tpu_torch.diffusion.training import JiTTrainer, REPATrainer
 from deco_tpu_torch.models.autoencoders import fp_to_uint8
+from deco_tpu_torch.models.conditioners import ImageConditioner
 from deco_tpu_torch.models.dit_c2i_deco import init_like_jax_
 from deco_tpu_torch.train.checkpoint import CheckpointManager
 from deco_tpu_torch.train.hooks import (
@@ -81,11 +96,12 @@ class Experiment:
         self.config = config
         self.device = resolve_device(device)
         model_cfg = config["model"]
-        if "conditioner" not in model_cfg:
-            raise registry.not_ported("ImageConditioner (configs without a conditioner)", 5)
         self.vae = registry.instantiate(model_cfg["vae"])
         self.model = self._build_model(model_cfg["denoiser"])
-        self.conditioner = registry.instantiate(model_cfg["conditioner"])
+        # the reconstruction configs have no conditioner: the condition is the image
+        self.conditioner = (registry.instantiate(model_cfg["conditioner"])
+                            if "conditioner" in model_cfg else ImageConditioner())
+        self._cond_on_images = getattr(self.conditioner, "wants_images", False)
         self.trainer = registry.instantiate(self._on_device(model_cfg["diffusion_trainer"]))
         if isinstance(self.trainer, (REPATrainer, JiTTrainer)):
             # the REPA tap: the trainer's align layer is the model's
@@ -118,8 +134,10 @@ class Experiment:
                 raise ValueError(f"callback {cp!r}: the port knows CheckpointHook, "
                                  "SaveImagesHook and ComputeMetricsHook")
         logger = trainer_cfg.get("logger") or {}
+        self.wandb_project = None
         if "WandbLogger" in str(logger.get("class_path", "")):
-            raise registry.not_ported(logger["class_path"], 7)
+            args = logger.get("init_args") or {}
+            self.wandb_project = args.get("project", args.get("name", "deco"))
         # the reference LightningModel's default; the shipped configs set 1 or 4
         self.diffusion_batch_mul = model_cfg.get("diffusion_batch_mul", 4)
 
@@ -157,9 +175,16 @@ class Experiment:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _condition(self, by, bmeta):
-        cond, uncond = self.conditioner(by, bmeta)
+    def _condition(self, bx, by, bmeta):
+        cond, uncond = self.conditioner(bx if self._cond_on_images else by, bmeta)
         return self._to_device(cond), self._to_device(uncond)
+
+    def _init_like_jax(self):
+        init = getattr(self.model, "init_like_jax_", None)
+        if init is not None:
+            init(self.seed)
+        else:
+            init_like_jax_(self.model, self.seed)
 
     # ---- fit ----
 
@@ -169,7 +194,7 @@ class Experiment:
         batch_size = data_cfg.get("train_batch_size", 32) * self.accumulate_grad_batches
         loader = make_loader(dataset, batch_size,
                              num_workers=data_cfg.get("train_num_workers", 4), infinite=True)
-        init_like_jax_(self.model, self.seed)  # before the EMA copies the parameters
+        self._init_like_jax()  # before the EMA copies the parameters
         proj = self.trainer.proj_module
         if proj is not None:
             proj.reset_parameters(self.seed)
@@ -189,7 +214,8 @@ class Experiment:
             self.trainer, ema_decay=self.ema_cfg.decay, ema_every=self.ema_cfg.every_n_steps,
             diffusion_batch_mul=self.diffusion_batch_mul, grad_clip=self.grad_clip,
             accumulate_grad_batches=self.accumulate_grad_batches)
-        logger = ScalarLogger(self.workdir, log_every_n_steps=self.log_every)
+        logger = ScalarLogger(self.workdir, log_every_n_steps=self.log_every,
+                              wandb_project=self.wandb_project, run_config=self.config)
         limit = max_steps if max_steps is not None else self.max_steps
         inflight: deque = deque()
         try:
@@ -197,7 +223,7 @@ class Experiment:
                 for bx, by, bmeta in loader:
                     if state.step >= limit or preempt.requested:
                         break
-                    cond, uncond = self._condition(by, bmeta)
+                    cond, uncond = self._condition(bx, by, bmeta)
                     batch = dict(x=self._to_device(bx), condition=cond, uncondition=uncond)
                     meta = {k: self._to_device(np.asarray(bmeta[k], np.float32))
                             for k in self.trainer.metadata_keys if k in bmeta}
@@ -245,7 +271,7 @@ class Experiment:
         elif ckpt_path:
             step = CheckpointManager(ckpt_path, 0).restore_params(self.model, use_ema=use_ema)
         else:
-            init_like_jax_(self.model, self.seed)
+            self._init_like_jax()
         model = self.model.eval()
         hook = SaveImagesHook(**self.save_images_cfg)
         hook.on_predict_start(self.workdir, step)
@@ -258,25 +284,38 @@ class Experiment:
             for bi, (bx, by, bmeta) in enumerate(loader):
                 if max_batches is not None and bi >= max_batches:
                     return
-                cond, uncond = self._condition(by, bmeta)
-                yield bi, bmeta, self._to_device(bx), cond, uncond
+                cond, uncond = self._condition(bx, by, bmeta)
+                x = self._to_device(bx)
+                if self._cond_on_images:
+                    # reconstruction: the loader's images are the condition,
+                    # the sampler starts from fresh noise
+                    gen = torch.Generator(device=self.device).manual_seed(
+                        step_seed(self.seed, 1000 + bi))
+                    noise = torch.randn(x.shape, generator=gen, device=self.device)
+                    yield bi, bmeta, noise, cond, uncond, x
+                else:
+                    yield bi, bmeta, x, cond, uncond, None
 
         def dispatch(b):
-            _, _, noise, cond, uncond = b
+            _, _, noise, cond, uncond, x = b
             images = self.vae.decode(self.sampler(model, noise, cond, uncond))
-            return fp_to_uint8(images)
+            return fp_to_uint8(images), None if x is None else fp_to_uint8(x)
 
-        def consume(u8, b):
+        def consume(out, b):
             bi, bmeta = b[0], b[1]
-            u8 = u8.cpu().numpy()  # waits for this batch only
+            u8, orig = (None if t is None else t.cpu().numpy() for t in out)  # this batch only
             hook.on_predict_batch_end(u8, bmeta)
-            if bi == 0:
+            if orig is not None:
+                imlog.log_side_by_side(step, orig, u8)
+            elif bi == 0:
                 imlog.log_images(step, u8)
             if metrics_hook is not None and "raw_image" in bmeta:
                 raw = np.asarray(bmeta["raw_image"], np.float32)
                 if raw.ndim == 4 and raw.shape[1] in (1, 3):
                     raw = raw.transpose(0, 2, 3, 1)  # torch-layout datasets
                 metrics_hook.on_batch_end(u8, np.clip(raw * 255.0, 0, 255).astype(np.uint8))
+            elif metrics_hook is not None and orig is not None:
+                metrics_hook.on_batch_end(u8, orig)  # the original is the loader's image
 
         try:
             pipelined_map(batches(), dispatch, consume,

@@ -1,5 +1,5 @@
-"""Analytic matmul FLOPs of the c2i models (DeCo, the baseline DiT, PixNerd)
-and of the DINOv2 tower, and H100 peak rates.
+"""Analytic matmul FLOPs of the c2i models (DeCo, the baseline DiT, PixNerd),
+of the DINOv2 tower and of ReCo, and H100 peak rates.
 
 A copy of ``deco_tpu/utils/flops.py``'s counting (2*M*N*K per GEMM; norms,
 softmax and elementwise work are left out, as is conventional for MFU),
@@ -148,3 +148,24 @@ def vit_flops(image_size: int = 224, patch: int = 14, hidden: int = 768,
     per_layer = (2 * tokens * hidden * 3 * hidden + 2 * 2 * tokens * tokens * hidden
                  + 2 * tokens * hidden * hidden + 2 * 2 * tokens * hidden * mlp_ratio * hidden)
     return float(num_layers * per_layer + 2 * (tokens - 1) * 3 * patch * patch * hidden)
+
+
+def reco_flops(image_size: int = 224, patch: int = 14, vit_hidden: int = 1024,
+               vit_layers: int = 24, hidden: int = 1024, num_blocks: int = 6,
+               hidden_x: int = 32, num_res_blocks: int = 3, latent_channel: int = 32,
+               num_learnable_tokens: int = 16) -> float:
+    """Forward matmul FLOPs for one ``ReCoModel`` row (a network call on one
+    image with its condition image): the InternViT tower at its
+    ``select_layer`` depth, the latent projector, the ``s_embedder``, the
+    plain DiT blocks over the learnable and latent tokens (fused SwiGLU of
+    exact width 4 x hidden, no adaLN) and the per-patch pixel decoder
+    (``ReCo_large.yaml`` at 224 px by default: ~0.224 TFLOP)."""
+    patches = (image_size // patch) ** 2
+    tokens = patches + num_learnable_tokens
+    block = (2 * tokens * hidden * 3 * hidden + 2 * 2 * tokens * tokens * hidden
+             + 2 * tokens * hidden * hidden + 3 * 2 * tokens * hidden * 4 * hidden)
+    projector = 2 * patches * vit_hidden * (vit_hidden + latent_channel)
+    embed = 2 * patches * latent_channel * hidden
+    return (vit_flops(image_size, patch, vit_hidden, vit_layers) + projector + embed
+            + num_blocks * block
+            + deco_pixel_decoder_flops(patches, patch, hidden_x, hidden, num_res_blocks))

@@ -35,7 +35,7 @@ from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I, init_like_jax_
 from deco_tpu_torch.models.dit_c2i_pixnerd import PixNerdC2I
 from deco_tpu_torch.models.dit_t2i import DeCoT2I, PixNerdT2I
 from deco_tpu_torch.utils import flops
-from torch_port_util import redraw
+from torch_port_util import redrawn_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 32
@@ -82,7 +82,7 @@ def _jax(model, inputs, seed=0, **kw):
     key = (repr(model), tuple(a.tobytes() for a in inputs), seed, tuple(sorted(kw.items())))
     if key not in _JAX_RUNS:
         args = [jnp.asarray(a) for a in inputs]
-        params = redraw(jax.jit(model.init)(jax.random.PRNGKey(0), *args), seed)
+        params = redrawn_init(model, *args, seed=seed)
         out = jax.jit(functools.partial(model.apply, **kw))(params, *args)
         _JAX_RUNS[key] = (jax.tree_util.tree_map(np.asarray, params),
                           jax.tree_util.tree_map(np.asarray, out))
@@ -110,7 +110,7 @@ def test_nerf_block_matches_jax(normalize_fc2):
     x = rng.standard_normal((2, 5, 16, 16)).astype(np.float32)
     s = rng.standard_normal((2, 5, 128)).astype(np.float32)
     jblock = jl.NerfBlock(mlp_ratio=2, normalize_fc2=normalize_fc2, dtype=jnp.float32)
-    params = redraw(jblock.init(jax.random.PRNGKey(0), x, s), 1)
+    params = redrawn_init(jblock, x, s, seed=1)
     ref = jblock.apply(params, x, s)
     p = jax.tree_util.tree_map(np.asarray, params)["params"]
     block = layers.NerfBlock(16, 128, 2, normalize_fc2=normalize_fc2)

@@ -337,19 +337,23 @@ def test_t2i_full_width_node_is_deco_xxl():
     (built on the meta device, no memory)."""
     node = registry.load_yaml(os.path.join(REPO, "configs_t2i/sft_res512.yaml"))["model"][
         "denoiser"]
-    with torch.device("meta"):
-        model = registry._dit_t2i_deco_dispatch(**node["init_args"], device="cpu")
+    model = registry._dit_t2i_deco_dispatch(**node["init_args"], device="meta")
     params = sum(p.numel() for p in model.parameters())
     assert 1.10e9 < params < 1.14e9, params
     assert model.hidden_size // model.num_groups == 64
 
 
 def test_the_reco_branch_of_dit_t2i_deco_raises_its_roadmap_item():
-    for args in ({"config_path": "./InternVL3-2B", "select_layer": -1}, {"select_layer": 18}):
-        with pytest.raises(NotImplementedError, match="ROADMAP §A 5") as err:
-            registry.instantiate({"class_path": "src.models.transformer.dit_t2i_DeCo.PixNerDiT",
-                                  "init_args": args})
-        assert "ReCo" in str(err.value)
+    """The ReCo branch (``config_path``/``select_layer``) was ROADMAP §A 5a:
+    it now builds ``ReCoModel`` (on the meta device here) with the default
+    InternViT where the config directory is absent, cut to ``select_layer``."""
+    from deco_tpu_torch.models.reco import ReCoModel
+
+    for args, depth in (({"config_path": "./InternVL3-2B", "select_layer": -1}, 24),
+                        ({"select_layer": 18}, 18)):
+        model = registry.instantiate({"class_path": "src.models.transformer.dit_t2i_DeCo.PixNerDiT",
+                                      "init_args": {**args, "device": "meta"}})
+        assert type(model) is ReCoModel and len(model.vision_model.encoder.layers) == depth
 
 
 def test_t2i_prompt_dataset_nodes_instantiate_like_jax():

@@ -506,3 +506,67 @@ def test_dinov2_tower_runs_the_fp32_kernel_on_card(cuda_device):
     assert fa.flash_attention_fwd_f32.launches == before + 2
     assert card.shape == (4, 256, 768)
     assert ((card - cpu).norm() / cpu.norm()).item() < 1e-4
+
+
+# ReCo (ReCo_large.yaml): the InternViT tower (N = 16^2 + 1 = 257) and the
+# pixel decoder's blocks (16 learnable + 256 latent tokens = 272) at the
+# shipped fit batch 16 x diffusion_batch_mul 4, 16 heads of 64; both lengths
+# ragged (257 leaves one row in the last 64-row tile)
+RECO_SHAPES = [(64, 257, 257, 16, 64), (64, 272, 272, 16, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RECO_SHAPES, ids=["tower_257", "decoder_272"])
+def test_reco_shapes_forward_and_backward_match_plain_on_card(cuda_device, shape):
+    """Rows 1, 3, 5 and 6 at the ReCo shapes: the forward, the forward with
+    lse, dQ (with delta) and dK/dV against their plain versions, and the
+    backward bit-identical over two runs."""
+    q, k, v, do = _qkv(cuda_device, *shape)
+    scale = shape[-1] ** -0.5
+    out = fa.flash_attention(q, k, v, scale)
+    assert (out.float() - fa.flash_attention_plain(q, k, v, scale).float()).abs().max() < ATOL
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
+    assert torch.equal(o, out) and (o.float() - o_ref.float()).abs().max().item() < ATOL
+    assert (lse - lse_ref).abs().max().item() < LSE_ATOL
+    dq, delta, dk, dv = _backward(q, k, v, o, lse, do, scale)
+    again = _backward(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    dq_ref, delta_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    assert _rel(delta, delta_ref) < DELTA_REL
+    for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+        assert _rel(got, ref) < BWD_REL
+    assert all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), again))
+
+
+@pytest.mark.cuda
+def test_reco_model_runs_the_kernels_on_card(cuda_device):
+    """A full-width ReCo cut to a 2-layer tower and 1 decoder block, bf16:
+    a sampling call takes 3 forward launches and a training step 3 of each
+    training kernel, with every parameter of the tower given a gradient."""
+    from deco_tpu_torch.diffusion.scheduling import LinearScheduler
+    from deco_tpu_torch.diffusion.training import DeCoTrainer
+    from deco_tpu_torch.models.reco import ReCoModel
+
+    model = ReCoModel(hidden_size=1024, num_groups=16, hidden_size_x=32, num_encoder_blocks=1,
+                      num_decoder_blocks=3, select_layer=2, param_dtype=torch.float32,
+                      device=cuda_device)
+    model.init_like_jax_(0)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    image = torch.rand(4, 224, 224, 3, generator=gen, device=cuda_device) * 2 - 1
+    kernels = (fa.flash_attention, fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    before = [f.launches for f in kernels]
+    with torch.no_grad():
+        out = model(torch.randn(image.shape, generator=gen, device=cuda_device),
+                    torch.full((4,), 0.5, device=cuda_device), image.bfloat16())
+    assert out.shape == image.shape and bool(torch.isfinite(out).all())
+    trainer = DeCoTrainer(LinearScheduler(), lognorm_t=True, null_condition_p=0.0)
+    cond = image.bfloat16()
+    trainer(model, image, cond, torch.zeros_like(cond), generator=gen)["loss"].backward()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [3, 3, 3, 3]
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in model.vision_model.parameters())

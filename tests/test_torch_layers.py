@@ -17,12 +17,11 @@ from deco_tpu.models import layers as jl
 from deco_tpu.models import patching as jp
 from deco_tpu_torch.models import layers as tl
 from deco_tpu_torch.models import patching as tp
-from torch_port_util import redraw
+from torch_port_util import redrawn_init
 
 
 def _init(module, *args, seed=0):
-    params = module.init(jax.random.PRNGKey(0), *args)
-    return redraw(params, seed)["params"]
+    return redrawn_init(module, *args, seed=seed)["params"]
 
 
 def _t(x):

@@ -27,7 +27,7 @@ from deco_tpu.models.dit_c2i_deco import DeCoC2I as JaxDeCoC2I
 from deco_tpu_torch.convert import state_dict_from_jax
 from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I
 from deco_tpu_torch.ops import flash_attention as fa
-from torch_port_util import redraw
+from torch_port_util import redrawn_init
 
 CFG = dict(in_channels=3, patch_size=8, num_groups=2, hidden_size=144, hidden_size_x=16,
            num_blocks=4, num_cond_blocks=2, num_classes=10)
@@ -51,9 +51,8 @@ def _jax_params():
     if not _PARAMS:
         model = JaxDeCoC2I(**CFG, dtype=jnp.float32)
         x = jnp.zeros((1, IMAGE, IMAGE, 3), jnp.float32)
-        params = jax.jit(model.init)(jax.random.PRNGKey(0), x, jnp.zeros((1,)),
-                                     jnp.zeros((1,), jnp.int32))
-        _PARAMS["params"] = redraw(params, seed=11)
+        _PARAMS["params"] = redrawn_init(model, x, jnp.zeros((1,)), jnp.zeros((1,), jnp.int32),
+                                         seed=11)
     return _PARAMS["params"]
 
 

@@ -28,7 +28,7 @@ from deco_tpu_torch.models import conditioners as tc
 from deco_tpu_torch.models import layers as tl
 from deco_tpu_torch.models.dit_c2i_deco import init_like_jax_
 from deco_tpu_torch.models.dit_t2i import DeCoT2I
-from torch_port_util import TINY_T2I, redraw, tiny_jax_t2i
+from torch_port_util import TINY_T2I, redrawn_init, tiny_jax_t2i
 
 LAYER_ATOL = 1e-6
 MODEL_ATOL = 1e-5
@@ -50,7 +50,7 @@ def _close(out, ref, atol):
 
 
 def _init(module, *args, seed=0):
-    return redraw(module.init(jax.random.PRNGKey(0), *args), seed)["params"]
+    return redrawn_init(module, *args, seed=seed)["params"]
 
 
 def _stacked(params):

@@ -25,7 +25,7 @@ from deco_tpu_torch import convert
 from deco_tpu_torch.models import encoders
 from deco_tpu_torch.models.uniflow import vit
 from deco_tpu_torch.ops import flash_attention as fa
-from torch_port_util import redraw
+from torch_port_util import redraw, redrawn_init
 
 HID, HEADS, LAYERS, IMAGE_SIZE = 128, 2, 2, 70
 ATOL = 1e-4
@@ -69,7 +69,7 @@ def test_vision_model_matches_jax(kw, select_layer):
     x = _images()
     jmodel = jvit.VisionModel(jvit.ViTConfig(**_cfg(**kw)), dtype=jnp.float32,
                               select_layer=select_layer)
-    params = redraw(jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(x)), 3)
+    params = redrawn_init(jmodel, jnp.asarray(x), seed=3)
     ref, ref_tap = jax.jit(jmodel.apply)(params, jnp.asarray(x))
     model = vit.VisionModel(vit.ViTConfig(**_cfg(**kw)), select_layer=select_layer)
     model.load_state_dict(convert.vit_state_dict_from_jax(
