@@ -9,8 +9,9 @@ FID scoring at 512 px (``configs_c2i/DeCo_XL_512.yaml``), and text-to-image
 serving, prompt-set predict and training with DeCo-XXL/16
 (``configs_t2i/sft_res512.yaml``), the other c2i families with the REPA
 objectives (Baseline-DiT-L/16, PixNerd-L/16, DeCo-L/16 with the DINOv2
-tower), and ReCo image reconstruction (``configs_c2i/ReCo_large.yaml``, the
-InternViT tower), and holds each hand-written kernel against its plain
+tower), ReCo image reconstruction (``configs_c2i/ReCo_large.yaml``, the
+InternViT tower), and the VAE-GAN and DC-AE eval (``configs/vae_*.yaml``,
+the DC-AE decoder), and holds each hand-written kernel against its plain
 PyTorch version. Phases, in the order they run:
 
 1. build: compile every ``deco_tpu_torch/csrc/*.cu`` with nvcc (one process
@@ -54,30 +55,30 @@ PyTorch version. Phases, in the order they run:
    exact launches per step; s/step, images/s, MFU, peak memory and a
    device-time breakdown of one step.
 9. cli: the entry point users run, ``deco_tpu_torch.cli``, on
-   ``configs_c2i/DeCo_XL_freq.yaml`` at full width, its trunk cut to 14 of
+   ``configs_c2i/DeCo_XL_freq.yaml`` at full width, its trunk cut to 4 of
    28 blocks (``CLI_DEPTH``: the script keeps its disk writes under 45 GiB,
-   which the full-depth checkpoints of phases 9, 10, 12 and 13 would pass). A
+   which the full-depth checkpoints of phases 9, 10 and 12-15 would pass). A
    PNG folder (2 classes x 32 images of 320x288 and 288x384 from
    ``--seed``) under ``build/chip_smoke_cli/``; ``fit`` for 3 steps at
-   batch 32 with full remat: finite losses in ``metrics.jsonl``, 28 / 14 /
-   14 / 1 launches a step, a final checkpoint with every key (its bytes and
+   batch 32 with full remat: finite losses in ``metrics.jsonl``, 8 / 4 /
+   4 / 1 launches a step, a final checkpoint with every key (its bytes and
    save time); ``predict`` from it, one batch of 20 with 100 Euler steps
    and CFG 3.2 on (0.1, 1]: a non-constant uint8 (20, 256, 256, 3)
    ``output.npz``, the FID protocol's file names ``0_0`` ... ``0_9``,
-   exactly 1,400 forward launches, and the EMA weights loaded equal to those saved. Step times,
+   exactly 400 forward launches, and the EMA weights loaded equal to those saved. Step times,
    s/step, the device's idle share and images/s; the folder is deleted.
 10. cli_512: DeCo-XL/16 at 512 px end to end through the CLI and the
    eval entry points. ``fit`` on ``configs_c2i/DeCo_XL_512.yaml``
    unmodified but for the image folder (2 x 48 PNGs of 576x544 and
-   544x640), the work directory, 3 steps and its trunk, cut to 14 of 28
+   544x640), the work directory, 3 steps and its trunk, cut to 4 of 28
    blocks (``CLI_512_DEPTH``, for the disk-write budget, as phase 9's):
    batch 16 x accumulation 2, ``decoder_chunks`` 8, full remat, exactly
-   56 / 28 / 28 / 0 launches a step; s/step, idle share, peak memory. One
-   more step each under ``trunk_remat_policy`` "attn" (28 forward-with-lse
+   16 / 8 / 8 / 0 launches a step; s/step, idle share, peak memory. One
+   more step each under ``trunk_remat_policy`` "attn" (8 forward-with-lse
    launches), "dots", and with ``decoder_chunks`` 0 (the peak memory
    chunking saves). ``predict`` from the fit's checkpoint: one batch of 6,
    100 Euler steps, CFG 5.0 on (0.1, 1], a (6, 512, 512, 3) uint8 npz,
-   1,400 forward launches. Then ``eval_fid`` and ``ComputeMetricsHook`` on the card
+   400 forward launches. Then ``eval_fid`` and ``ComputeMetricsHook`` on the card
    against a reference batch cropped from the folder, with the seed-0
    random tower, held against the same computations on the CPU; what TF32
    convolutions would change; the tower's images/s at batch 64.
@@ -161,7 +162,36 @@ PyTorch version. Phases, in the order they run:
    batch at 448 px without a checkpoint: its peak memory, or "out of
    memory" (the JAX model has no remat option). The files go under
    ``build/chip_smoke_reco/``, which is deleted.
-15. kernels: one JSON line listing every kernel with its launches on its
+15. vae: the VAE-GAN and the DC-AE eval (``configs/vae_*.yaml``,
+   ``configs_flow/dcae_decoder_eval.yaml``): InternViT-300M -> the DC-AE
+   f32c32 decoder, whose attention runs the bf16 kernels at D = 32.
+   ``vae_kernels``: the forward, the forward with lse, dQ and dK/dV at D =
+   32 at the 224 px fit shapes (batch 8: 64, 256 and 1,024 tokens), the
+   ragged 256 px validate shapes (batch 32 padded to 280 px: 100, 400 and
+   1,600) and the 448 px fit shapes (batch 16: 256, 1,024, 4,096), against
+   their plain versions (on the first rows of a batch whose fp32 logits
+   pass 4 GB), bit-identical over two runs, timed beside bound, plain
+   versions and SDPA, with each instantiation's resources.
+   ``vae_slice_vs_plain``: vae_training_stage2_224.yaml's model at full
+   width (the tower cut to 4 layers, the whole decoder), batch 2, the
+   forward and the gradients with the kernels against the plain attention
+   on the card (gates from ``--calibrate-vae-slice``). ``vae_fit``: ``cli
+   fit`` on that config as shipped but for the data nodes (PixImageNet over
+   seeded PNGs) and the work directory, 3 steps: finite metrics, exactly 33
+   / 27 / 27 forward-with-lse / dQ / dK-dV launches a step, s/step, idle
+   share, peak memory, the 9.0 GB checkpoint's bytes and save time;
+   ``vae_step_breakdown``: the fit's step function on its state, steady
+   wall time and one step's device time by kind of kernel;
+   ``vae_validate_224`` and ``_256``: ``cli validate`` of vae_val_224px.yaml
+   and vae_val_256px.yaml from it, one batch of 32 each, 33 forward
+   launches, finite PSNR/SSIM/FID; ``vae_disc_start_step``: one more step
+   with ``discriminator_start=0`` (the GAN term and the adaptive weight
+   live), no checkpoint; ``vae_448_step``: one step of
+   vae_training_stage2.yaml at batch 16 and 448 px, no checkpoint, its peak
+   memory or "out of memory"; ``dcae_eval``: ``cli validate`` of the DC-AE
+   decoder eval on a PNG folder, one batch of 32, 33 forward launches. The
+   files go under ``build/chip_smoke_vae/``, which is deleted.
+16. kernels: one JSON line listing every kernel with its launches on its
    path (sampling for the forward, training for the others) and on the CLI
    paths, error, times, bound, library time and the library call's
    backend, for the attention kernels the same at N = 1024, for the
@@ -170,13 +200,14 @@ PyTorch version. Phases, in the order they run:
    launches and times, the fp32 forward with its launches in the
    Baseline-DiT fit and its times at the tower's shapes, and for the bf16
    attention kernels their ReCo fit, validate and 448 px launches and their
-   times at the ReCo shapes.
+   times at the ReCo shapes, and their VAE-GAN launches (fit, validate,
+   DC-AE eval), times at the D = 32 shapes and D = 32 resources.
 
 ``python3 chip_smoke.py --calibrate-train-slice`` (and ``--calibrate-t2i-slice``,
 ``--calibrate-t2i-train-slice``, ``--calibrate-c2i-families-slice``,
-``--calibrate-reco-slice``) prints, on the CPU, the readings between which
-the train-slice (t2i slice, t2i train slice, c2i families slice, ReCo
-slice) gates sit, and no result.
+``--calibrate-reco-slice``, ``--calibrate-vae-slice``) prints, on the CPU,
+the readings between which the train-slice (t2i slice, t2i train slice,
+c2i families slice, ReCo slice, VAE slice) gates sit, and no result.
 
 Every phase prints JSON lines; a failed phase raises and the script exits
 non-zero without the last line. The last line is
@@ -412,12 +443,14 @@ def _backward(q, k, v, o, lse, do, scale):
     return (dq, delta, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
 
 
-def _attention_timings(card: str, operands, flush, iters: int) -> dict:
+def _attention_timings(card: str, operands, flush, iters: int, plain_b=None) -> dict:
     """Times of the forward with lse, dQ (with delta) and dK/dV at one
     shape, beside their plain versions, bounds and library yardsticks: the
     fastest SDPA backend's forward with logsumexp, and SDPA's autograd
     backward (dQ, dK and dV together, default backend) against the whole
-    backward (dQ, then dK/dV)."""
+    backward (dQ, then dK/dV). ``plain_b`` times the plain versions on the
+    first ``plain_b`` rows of the batch (their fp32 logits of a whole large
+    batch do not fit in the card's memory) and says so in each row."""
     import torch
     import torch.nn.functional as F
 
@@ -433,21 +466,24 @@ def _attention_timings(card: str, operands, flush, iters: int) -> dict:
     work = b * h * nq * nkv * d
     plain_iters = max(iters // 5, 3)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))  # SDPA's (B, H, N, D) views
+    pq, pk, pv, pdo, po, plse, pdelta = (x[:plain_b] for x in (q, k, v, do, o, lse, delta))
     out = {"fwd_lse": {
         "ms": cuda_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, scale), iters, flush),
-        "plain_ms": cuda_ms(lambda: fa.flash_attention_fwd_lse_plain(q, k, v, scale),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_fwd_lse_plain(pq, pk, pv, scale),
                             plain_iters, flush),
         **sdpa_forward_yardsticks(q, k, v, scale, True, flush, iters),
         **_bound(card, 4 * op + 4 * rows, 4 * work)}}
     # dQ reads q, k, v, o, do and lse and writes dq and delta; dK/dV reads
     # q, k, v, do, lse and delta and writes dk and dv
-    for name, kernel, plain, args, nbytes, flops in (
+    for name, kernel, plain, args, plain_args, nbytes, flops in (
             ("bwd_dq", fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain,
-             (q, k, v, o, lse, do, scale), 6 * op + 8 * rows, 6 * work),
+             (q, k, v, o, lse, do, scale), (pq, pk, pv, po, plse, pdo, scale),
+             6 * op + 8 * rows, 6 * work),
             ("bwd_dkv", fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_plain,
-             (q, k, v, do, lse, delta, scale), 6 * op + 8 * rows, 8 * work)):
+             (q, k, v, do, lse, delta, scale), (pq, pk, pv, pdo, plse, pdelta, scale),
+             6 * op + 8 * rows, 8 * work)):
         out[name] = {"ms": cuda_ms(lambda: kernel(*args), iters, flush),
-                     "plain_ms": cuda_ms(lambda: plain(*args), plain_iters, flush),
+                     "plain_ms": cuda_ms(lambda: plain(*plain_args), plain_iters, flush),
                      "library_ms": None,  # no one PyTorch call computes dQ (or dK, dV) alone
                      **_bound(card, nbytes, flops)}
     whole_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, scale), iters, flush)
@@ -457,6 +493,9 @@ def _attention_timings(card: str, operands, flush, iters: int) -> dict:
                       iters, flush)
     for name in ("bwd_dq", "bwd_dkv"):
         out[name].update(whole_backward_ms=whole_ms, sdpa_backward_ms=sdpa_ms)
+    if plain_b is not None:
+        for row in out.values():
+            row["plain_b"] = plain_b
     return out
 
 
@@ -944,9 +983,12 @@ def phase_sample(model, card: str):
 
 CLI_DIR = "build/chip_smoke_cli"  # git-ignored; deleted at the end of the phase
 CLI_CONFIG = "configs_c2i/DeCo_XL_freq.yaml"
-# phase 9's trunk depth (of 28): half, so its checkpoint writes 6 GB, not 11
-CLI_DEPTH = ["--model.denoiser.init_args.num_cond_blocks=14",
-             "--model.denoiser.init_args.num_blocks=17"]
+# phase 9's trunk depth (of 28), cut for the disk-write budget of one call
+# (45 GiB): its checkpoint writes 2.0 GB, not 10.9 (14 blocks: 5.7), which
+# leaves room for phase 15's 9.0 GB VAE-GAN checkpoint
+CLI_TRUNK = 4
+CLI_DEPTH = [f"--model.denoiser.init_args.num_cond_blocks={CLI_TRUNK}",
+             f"--model.denoiser.init_args.num_blocks={CLI_TRUNK + 3}"]
 
 
 def write_image_folder(root: str, seed: int, per_class: int = 32,
@@ -1064,7 +1106,7 @@ def phase_cli(card: str, seed: int) -> dict:
         ckpt_path = f"{workdir}/checkpoints/{steps}.pt"
         written = [c for c in saves.calls if c["out"]]
         names = [n for n, _ in state.model.named_parameters()]
-        xl = len(state.model.blocks) == 14 and state.model.trunk_checkpoint
+        xl = len(state.model.blocks) == CLI_TRUNK and state.model.trunk_checkpoint
         obj = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)
         keys_ok = (set(obj["state_dict"]) == {f"{p}{n}" for p in ("denoiser.", "ema_denoiser.")
                                               for n in names}
@@ -1083,9 +1125,11 @@ def phase_cli(card: str, seed: int) -> dict:
                "checkpoint_keys_ok": keys_ok, "params": len(names), "card": card,
                "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl"}
         emit(fit)
-        check(xl, "the cli fit did not build DeCo-XL (14 trunk blocks) with full remat")
+        check(xl, f"the cli fit did not build DeCo-XL ({CLI_TRUNK} trunk blocks) with full remat")
         check(len(records) == steps and all(np.isfinite(fit["losses"])), f"cli fit losses {records}")
-        expected = {"fwd_lse": 28 * steps, "bwd_dq": 14 * steps, "bwd_dkv": 14 * steps,
+        # full remat: each trunk block's forward with lse runs twice a step
+        expected = {"fwd_lse": 2 * CLI_TRUNK * steps, "bwd_dq": CLI_TRUNK * steps,
+                    "bwd_dkv": CLI_TRUNK * steps,
                     "freq_mse": steps, "fwd": 0}
         check(fit_launches == expected, f"cli fit launches {fit_launches}, expected {expected}")
         check(keys_ok, "the cli checkpoint lacks keys")
@@ -1121,8 +1165,9 @@ def phase_cli(card: str, seed: int) -> dict:
         check(arr.shape == (20, 256, 256, 3) and arr.dtype == np.uint8, f"npz {arr.shape}")
         check(arr.std() > 0, "constant output.npz")
         check(pngs == want_pngs, f"sample files {pngs}")
-        check(pred_launches["fwd"] == 1400 and sum(pred_launches.values()) == 1400,
-              f"cli predict launches {pred_launches}, expected 1400 forward")
+        want = 100 * CLI_TRUNK  # 100 steps, CFG in one batched call a step
+        check(pred_launches["fwd"] == want and sum(pred_launches.values()) == want,
+              f"cli predict launches {pred_launches}, expected {want} forward")
         check(ema_equal, "the predict's weights differ from the saved EMA")
         print(card, flush=True)
         return {"fit": fit_launches, "predict": pred_launches}
@@ -1132,9 +1177,10 @@ def phase_cli(card: str, seed: int) -> dict:
 
 CLI_512_DIR = "build/chip_smoke_cli_512"  # git-ignored; deleted at the end of the phase
 CLI_512_CONFIG = "configs_c2i/DeCo_XL_512.yaml"
-# phase 10's trunk depth (of 28), cut as phase 9's since phase 14 (ReCo) writes
-# its own 6.8 GB checkpoint: 5.7 GB, not 10.9, keeps the call under 45 GiB
-CLI_512_TRUNK = 14
+# phase 10's trunk depth (of 28), cut as phase 9's: phases 14 (ReCo, 6.8 GB)
+# and 15 (the VAE-GAN, 9.0 GB) write checkpoints too; 2.0 GB, not 10.9,
+# keeps the call under 45 GiB
+CLI_512_TRUNK = 4
 CLI_512_DEPTH = [f"--model.denoiser.init_args.num_cond_blocks={CLI_512_TRUNK}",
                  f"--model.denoiser.init_args.num_blocks={CLI_512_TRUNK + 3}"]
 # The FID tower on the card (fp32, TF32 off) against the same tower on the
@@ -2973,10 +3019,493 @@ def phase_reco_448(card: str, seed: int) -> dict:
 
 
 def _reco_timing_rows(timings: dict, keys: tuple) -> dict:
-    """The kernels line's entries of one kernel at the ReCo shapes."""
+    """The kernels line's entries of one kernel at one family's shapes (the
+    ReCo shapes, the VAE's at D = 32)."""
     return {name: {k: v for k, v in t.items() if k in keys + (
         "library_backend", "whole_backward_ms", "sdpa_backward_ms", "b_nq_nkv_h_d")}
         for name, t in timings.items()}
+
+
+VAE_CONFIG = "configs/vae_training_stage2_224.yaml"
+VAE_448_CONFIG = "configs/vae_training_stage2.yaml"
+VAE_VAL_CONFIGS = {"224": "configs/vae_val_224px.yaml", "256": "configs/vae_val_256px.yaml"}
+DCAE_EVAL_CONFIG = "configs_flow/dcae_decoder_eval.yaml"
+VAE_DIR = "build/chip_smoke_vae"  # git-ignored; deleted at the end of the phase
+# (B, Nq, Nkv, H, D): the DC-AE decoder's three attention stages (8^2,
+# 16^2, 32^2 tokens at 224 px; 32, 32 and 16 heads of 32) at the fit batch
+# 8; a 256 px validate batch of 32, padded to 280 px (10^2, 20^2, 40^2
+# tokens: ragged); 448 px at its fit batch 16 (16^2, 32^2, 64^2)
+VAE_SHAPES = {"fit224_64": (8, 64, 64, 32, 32), "fit224_256": (8, 256, 256, 32, 32),
+              "fit224_1024": (8, 1024, 1024, 16, 32), "val256_100": (32, 100, 100, 32, 32),
+              "val256_400": (32, 400, 400, 32, 32), "val256_1600": (32, 1600, 1600, 16, 32),
+              "fit448_256": (16, 256, 256, 32, 32), "fit448_1024": (16, 1024, 1024, 32, 32),
+              "fit448_4096": (16, 4096, 4096, 16, 32)}
+# the plain versions' fp32 logits (and, in the backward, P, dP and dS) of a
+# shape are held and timed on at most this many bytes of logits: the first
+# rows of the batch (every (batch, head) is its own problem to the kernels)
+VAE_PLAIN_LOGIT_BYTES = 4e9
+VAE_FIT_STEPS = 3
+# launches a fit step: the tower's 24 layers run forward with lse (the last
+# six feed only the distillation's student features, which no loss reads
+# while the run has no teacher, so they take no backward), the 18 up to the
+# generation tap and the decoder's 9 attention blocks (3 stages x 3) run
+# both backward kernels once: one backward a step (train/vae_gan_step.py)
+VAE_TOWER_LAYERS, VAE_TAP, VAE_DECODER_ATTN = 24, 18, 9
+# The VAE slice: VAEModel at full width with the tower cut to 4 layers (tap
+# at 2) and the whole decoder (its 9 attention blocks at D = 32), batch 2 at
+# 224 px, bf16 compute with fp32 parameters: the forward and the gradients
+# of a reconstruction + student-feature loss, with the attention kernels
+# against the plain attention on the card. The gates are 2x the CPU reading
+# of bf16 against fp32 compute (--calibrate-vae-slice, VAE_SLICE_READINGS),
+# set before the first card run: kernel vs plain changes only the
+# attention's roundings, so it should read under bf16 vs fp32, and a zeroed
+# attention reads 30-90x over each gate. The loss, which the attention
+# hardly moves at random weights (the zeroed reading is the bf16 one), is
+# held to 10x its bf16-vs-fp32 reading.
+VAE_SLICE = dict(vit_num_layers=4, gen_select_layer=2)
+VAE_SLICE_GATES = {"out_rel_l2": 0.031, "loss_rel": 1.1e-3, "grad_rel_l2": 0.016,
+                   "attn_grad_rel_l2": 0.022, "tower_grad_rel_l2": 0.022}
+VAE_SLICE_READINGS = {
+    "bf16_vs_fp32": {"out_rel_l2": 0.0153, "loss_rel": 1.13e-4, "grad_rel_l2": 0.0080,
+                     "attn_grad_rel_l2": 0.0109, "tower_grad_rel_l2": 0.0109},
+    "zero_attention_vs_bf16": {"out_rel_l2": 0.978, "loss_rel": 1.26e-4, "grad_rel_l2": 0.723,
+                               "attn_grad_rel_l2": 1.000, "tower_grad_rel_l2": 0.810}}
+
+
+def _vae_slice_model(device: str, dtype: str = "bfloat16"):
+    """VAE_CONFIG's model node cut to VAE_SLICE, every parameter drawn on the
+    CPU from seed 0 with none zero: weights normal x 0.5 / sqrt(fan in),
+    norm weights 1 + 0.1 normal (the decoder's attention outputs pass
+    through such a norm), other vectors 0.1 normal."""
+    import torch
+
+    from deco_tpu_torch.config import registry
+
+    node = registry.load_yaml(VAE_CONFIG)["model"]["vae_model"]
+    model = registry.instantiate({**node, "init_args": {
+        **node["init_args"], **VAE_SLICE, "dtype": dtype, "device": device,
+        "load_pretrained_encoder": False}})
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            r = torch.randn(p.shape, generator=gen)
+            if p.dim() >= 2:
+                r = r * 0.5 / p[0].numel() ** 0.5
+            elif name.endswith("weight") and "norm" in name:
+                r = 1.0 + 0.1 * r
+            else:
+                r = 0.1 * r
+            p.copy_(r)
+    return model
+
+
+def vae_slice_step(device: str, dtype: str = "bfloat16", attention: str = "kernel") -> dict:
+    """The VAE slice's forward and gradients with fixed inputs and posterior
+    noise: the reconstruction, the loss, all gradients and those of the
+    decoder's attention blocks and of the tower, on the CPU in fp32.
+    ``attention`` "plain" runs every attention through the plain version
+    (autograd), "zero" gives zeros (the calibration's yardstick)."""
+    import torch
+
+    from deco_tpu_torch.models import layers
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    model = _vae_slice_model(device, dtype)
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 224, 224, 3)).astype(np.float32)).to(device)
+    noise = torch.from_numpy(rng.standard_normal((2, 64, 32)).astype(np.float32)).to(device)
+    kernel = layers.flash_attention
+    if attention == "plain":
+        layers.flash_attention = lambda q, k, v, scale=None: fa.flash_attention_plain(q, k, v,
+                                                                                      scale)
+    elif attention == "zero":
+        layers.flash_attention = lambda q, k, v, scale=None: torch.zeros_like(q)
+    try:
+        recon, extra = model(x, noise=noise)
+        loss = (((recon.float() - x) * 0.5) ** 2).mean() + 1e-3 * (
+            extra["student_features"].float() ** 2).mean() + 1e-4 * extra["kl"]
+        loss.backward()
+    finally:
+        layers.flash_attention = kernel
+
+    def flat(named):
+        return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float()
+                          .reshape(-1).cpu() for _, p in named])
+
+    named = list(model.named_parameters())
+    return {"out": recon.detach().float().cpu(), "loss": float(loss.detach()),
+            "grads": flat(named),
+            "attn_grads": flat([(n, p) for n, p in named if ".attn." in n and "decoder" in n]),
+            "tower_grads": flat([(n, p) for n, p in named if n.startswith("vision_model.")])}
+
+
+def _vae_slice_rows(a: dict, b: dict) -> dict:
+    return {"out_rel_l2": _rel_l2(a["out"], b["out"]),
+            "loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "grad_rel_l2": _rel_l2(a["grads"], b["grads"]),
+            "attn_grad_rel_l2": _rel_l2(a["attn_grads"], b["attn_grads"]),
+            "tower_grad_rel_l2": _rel_l2(a["tower_grads"], b["tower_grads"])}
+
+
+def calibrate_vae_slice() -> None:
+    """On the CPU: the readings behind VAE_SLICE_GATES."""
+    bf16 = vae_slice_step("cpu")
+    print(json.dumps({"bf16_vs_fp32": _vae_slice_rows(bf16, vae_slice_step("cpu", "float32")),
+                      "zero_attention_vs_bf16": _vae_slice_rows(
+                          vae_slice_step("cpu", attention="zero"), bf16)}))
+
+
+def phase_vae_kernels(card: str) -> dict:
+    """The bf16 kernels at D = 32 (rows 1, 3, 5 and 6) at VAE_SHAPES against
+    their plain versions (the forward bit-identical over two runs, the
+    training kernels through ``hold_attention_training``), then timed beside
+    the bound, the plain versions and the SDPA yardsticks; and each D = 32
+    instantiation's registers, spills and resident CTAs."""
+    import torch
+
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    errs = {"fwd": 0.0, "fwd_lse": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
+    timings: dict = {key: {} for key in errs}
+    for name, shape in VAE_SHAPES.items():
+        b, nq, nkv, h, d = shape
+        hb = max(1, min(b, int(VAE_PLAIN_LOGIT_BYTES // (4 * h * nq * nkv))))
+        q, k, v, do = attention_operands(gen, *shape)
+        out, again = fa.flash_attention(q, k, v), fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = (out[:hb].float() - fa.flash_attention_plain(q[:hb], k[:hb], v[:hb]).float()
+               ).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and err < ATTN_ATOL,
+              f"vae attention {name} error {err} >= {ATTN_ATOL}")
+        check(torch.equal(out, again), f"vae attention {name} differs between two runs")
+        errs["fwd"] = max(errs["fwd"], err)
+        timings["fwd"][name] = {
+            "b_nq_nkv_h_d": list(shape), "max_abs_err": err, "held_b": hb,
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 30, flush),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q[:hb], k[:hb], v[:hb]), 5,
+                                flush), "plain_b": hb,
+            **sdpa_forward_yardsticks(q, k, v, d ** -0.5, False, flush, 30),
+            **_bound(card, 2 * (2 * q.numel() + k.numel() + v.numel()),
+                     4 * b * h * nq * nkv * d)}
+        emit({"phase": "vae_kernels", "timing": f"fwd_{name}", **timings["fwd"][name],
+              "atol": ATTN_ATOL, "bit_identical": True, "l2": "flushed before each call",
+              "card": card})
+        row = hold_attention_training("vae_kernels", name, (hb, nq, nkv, h, d),
+                                      [x[:hb] for x in (q, k, v, do)])
+        for key, value in row["errs"].items():
+            errs[key] = max(errs[key], value)
+        for kernel, timing in _attention_timings(card, (q, k, v, do), flush, 20,
+                                                 plain_b=hb).items():
+            timings[kernel][name] = {"b_nq_nkv_h_d": list(shape), **timing}
+            emit({"phase": "vae_kernels", "timing": f"{kernel}_{name}", **timings[kernel][name],
+                  "l2": "flushed before each call", "card": card})
+        del q, k, v, do, out, again
+        torch.cuda.empty_cache()
+    resources = {**fa.forward_kernel_info(32), **fa.backward_kernel_info(32)}
+    emit({"phase": "vae_kernels", "d32_resources": resources, "card": card})
+    for kind, info in resources.items():
+        if kind != "flash_fwd_f32_kernel":
+            check(info["local_bytes"] == 0, f"{kind}<32> uses local memory: {info}")
+    return {"errs": errs, "timings": timings, "resources": resources}
+
+
+def phase_vae_slice() -> dict:
+    """The VAE slice on the card, kernels against the plain attention."""
+    import torch
+
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_attention, fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    for f in kernels:
+        f.launches = 0
+    kernel = vae_slice_step("cuda")
+    launches = [f.launches for f in kernels]
+    torch.cuda.empty_cache()
+    plain = vae_slice_step("cuda", attention="plain")
+    plain_launches = [f.launches for f in kernels]
+    torch.cuda.empty_cache()
+    row = _vae_slice_rows(kernel, plain)
+    # the slice's loss reads the student features: all 4 tower layers take a backward
+    layers = backward = VAE_SLICE["vit_num_layers"] + VAE_DECODER_ATTN
+    emit({"phase": "vae_slice_vs_plain", "config": VAE_CONFIG, "cut": VAE_SLICE, "batch": 2,
+          "image_size": 224, **row, "gates": VAE_SLICE_GATES, "cpu_readings": VAE_SLICE_READINGS,
+          "loss": kernel["loss"], "plain_loss": plain["loss"], "launches": launches,
+          "params_with_grad": int(kernel["grads"].numel())})
+    check(np.isfinite(kernel["loss"]) and bool(torch.isfinite(kernel["out"]).all()),
+          "vae slice: not finite")
+    check(launches == [0, layers, backward, backward],
+          f"vae slice launches {launches}, expected [0, {layers}, {backward}, {backward}]")
+    check(plain_launches == launches, "the plain VAE slice launched a kernel")
+    for key, limit in VAE_SLICE_GATES.items():
+        check(row[key] < limit, f"vae slice {key} {row[key]} >= {limit}")
+    return row
+
+
+def _write_vae_config(path: str, config_path: str, roots: dict, workroot: str,
+                      **changes) -> dict:
+    """``config_path`` as shipped but for its data nodes (``roots``: dataset
+    key -> PNG folder, read by PixImageNet at the node's resolution: the
+    card host's ``datasets`` would look for the hub dataset), its work
+    directory and a log line every step; written to ``path``."""
+    from deco_tpu_torch.config import _yaml, registry
+
+    config = registry.load_yaml(config_path)
+    for key, root in roots.items():
+        node = config["data"][key]
+        check(node["class_path"].endswith("PixHFDataset"), f"{config_path} {key} changed")
+        config["data"][key] = {"class_path": "src.data.dataset.imagenet.PixImageNet",
+                               "init_args": {"root": root,
+                                             "resolution": node["init_args"]["resolution"]}}
+    config["trainer"].update(default_root_dir=workroot, log_every_n_steps=1)
+    for key, value in changes.items():
+        registry.apply_overrides(config, {key: value})
+    with open(path, "w") as f:
+        f.write(_yaml.dump(config))
+    return config
+
+
+def phase_vae(card: str, seed: int) -> dict:
+    """The VAE-GAN and the DC-AE eval through the CLI as users run them:
+    ``cli fit`` on vae_training_stage2_224.yaml (3 steps, batch 8, one
+    checkpoint), ``cli validate`` of vae_val_224px.yaml and vae_val_256px.yaml
+    from it (one batch of 32 each), one more step with the discriminator
+    started, one step of vae_training_stage2.yaml at 448 px (both without a
+    checkpoint), and the DC-AE decoder eval (one batch of 32)."""
+    import json
+    import os
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.train import checkpoint, vae_gan_step
+
+    kernels = _fit_kernels()
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    per_step = {"fwd_lse": VAE_TOWER_LAYERS + VAE_DECODER_ATTN,
+                "bwd_dq": VAE_TAP + VAE_DECODER_ATTN, "bwd_dkv": VAE_TAP + VAE_DECODER_ATTN}
+
+    def no_save(self, obj, step):  # in place of CheckpointManager.save
+        return None
+
+    try:
+        images = write_image_folder(f"{VAE_DIR}/train", seed, per_class=16)
+        evals = write_image_folder(f"{VAE_DIR}/eval", seed + 1, per_class=16)
+        workroot = f"{VAE_DIR}/work"
+        path = f"{VAE_DIR}/vae_training_stage2_224.yaml"
+        config = _write_vae_config(path, VAE_CONFIG, {"train_dataset": f"{VAE_DIR}/train",
+                                                      "eval_dataset": f"{VAE_DIR}/eval"},
+                                   workroot)
+        batch = config["data"]["train_batch_size"]
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "save") as saves, \
+                Spy(vae_gan_step, "make_vae_gan_step") as makes, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state = cli.main(["fit", "-c", path, "--max_steps", str(VAE_FIT_STEPS)])
+        fit_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        workdir = f"{workroot}/{config['tags']['exp']}"
+        records, ends, step_s = _fit_records(workdir)
+        busy_ms = _kernel_busy_ms(prof)
+        ckpt_path = f"{workdir}/checkpoints/{VAE_FIT_STEPS}.pt"
+        vae = state.vae
+        fit = {"phase": "vae_fit", "config": VAE_CONFIG, "images": images, "batch": batch,
+               "steps": VAE_FIT_STEPS, "metrics": records, "step_s": step_s,
+               "s_per_step": float(np.median(step_s[1:])), "images_per_s":
+                   batch / float(np.median(step_s[1:])),
+               "device_kernel_ms": busy_ms, "kernel_ms_by_kind": _kernel_ms_by_kind(prof),
+               "idle_share": 1 - busy_ms / 1e3 / ends[-1], "peak_mem_bytes": peak,
+               "fit_call_s": fit_s, "launches": launches,
+               "launches_per_step": {k: v / VAE_FIT_STEPS for k, v in launches.items()},
+               "checkpoint_bytes": os.path.getsize(ckpt_path),
+               "checkpoint_save_s": [c["seconds"] for c in saves.calls],
+               "params": sum(p.numel() for p in vae.parameters()),
+               "disc_params": sum(p.numel() for p in state.disc.parameters()), "card": card,
+               "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl"}
+        emit(fit)
+        check(type(vae).__name__ == "VAEModel" and vae.stochastic
+              and len(vae.vision_model.encoder.layers) == VAE_TOWER_LAYERS
+              and vae.dtype == torch.bfloat16, "the fit did not build the shipped VAEModel")
+        check(len(records) == VAE_FIT_STEPS and all(
+            np.isfinite(r[k]) for r in records for k in ("total_loss", "gen_grad_norm",
+                                                          "discriminator_loss")),
+              f"vae fit metrics {records}")
+        expected = {k: 0 for k in launches}
+        expected.update({k: n * VAE_FIT_STEPS for k, n in per_step.items()})
+        check(launches == expected, f"vae fit launches {launches}, expected {expected}")
+        check(len(saves.calls) == 1, f"{len(saves.calls)} checkpoint saves, expected the final one")
+        emit({"phase": "vae_step_breakdown", **_vae_step_breakdown(makes.calls[0]["out"], state,
+                                                                     batch), "card": card})
+        del state, vae
+        torch.cuda.empty_cache()
+
+        validate = {}
+        for res, val_config in VAE_VAL_CONFIGS.items():
+            vpath = f"{VAE_DIR}/{os.path.basename(val_config)}"
+            vconfig = _write_vae_config(vpath, val_config, {"eval_dataset": f"{VAE_DIR}/eval"},
+                                        workroot)
+            for f in kernels.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            scores = cli.main(["validate", "-c", vpath, f"--ckpt_path={workdir}/checkpoints",
+                               "--max_batches", "1"])
+            torch.cuda.synchronize()
+            vdir = f"{workroot}/{vconfig['tags']['exp']}"
+            val_launches = {k: f.launches for k, f in kernels.items()}
+            panels = sorted(os.listdir(f"{vdir}/images"))
+            validate[res] = {"launches": val_launches, "scores": scores}
+            emit({"phase": f"vae_validate_{res}", "config": val_config,
+                  "batch": vconfig["data"]["pred_batch_size"], "eval_images": evals,
+                  "seconds": time.perf_counter() - t0, "launches": val_launches,
+                  "scores": scores, "panels": len(panels), "card": card,
+                  "note": "one batch; FID with the seed-0 random Inception tower"})
+            check({"metrics/psnr", "metrics/ssim", "metrics/fid"} <= set(scores) and all(
+                np.isfinite(list(scores.values()))), f"validate {res} scores {scores}")
+            want = {**{k: 0 for k in val_launches}, "fwd": VAE_TOWER_LAYERS + VAE_DECODER_ATTN}
+            check(val_launches == want, f"validate {res} launches {val_launches}, want {want}")
+            check(json.load(open(f"{vdir}/validate_metrics.json")) == scores,
+                  "validate_metrics.json")
+            torch.cuda.empty_cache()
+        shutil.rmtree(f"{workdir}/checkpoints")  # the phase keeps one checkpoint at a time
+
+        # one more step with the discriminator started (its GAN term and the
+        # adaptive weight carry gradient), without a checkpoint
+        spath = f"{VAE_DIR}/vae_disc_start.yaml"
+        sconfig = _write_vae_config(
+            spath, VAE_CONFIG, {"train_dataset": f"{VAE_DIR}/train"}, f"{VAE_DIR}/work_disc",
+            **{"model.loss_module.init_args.discriminator_start": 0})
+        for f in kernels.values():
+            f.launches = 0
+        with Spy(checkpoint.CheckpointManager, "save", replace=no_save):
+            state = cli.main(["fit", "-c", spath, "--max_steps", "1"])
+        torch.cuda.synchronize()
+        (rec,), _, (disc_step_s,) = _fit_records(f"{VAE_DIR}/work_disc/{sconfig['tags']['exp']}")
+        disc_launches = {k: f.launches for k, f in kernels.items()}
+        emit({"phase": "vae_disc_start_step", "config": VAE_CONFIG,
+              "override": "model.loss_module.init_args.discriminator_start=0", "metrics": rec,
+              "step_s": disc_step_s, "launches": disc_launches, "card": card})
+        check(rec["d_weight"] > 0 and np.isfinite(rec["gan_loss"]) and
+              np.isfinite(rec["total_loss"]) and rec["discriminator_loss"] > 0,
+              f"the started discriminator's step {rec}")
+        check(disc_launches == {**{k: 0 for k in disc_launches}, **per_step},
+              f"disc-start step launches {disc_launches}")
+        del state
+        torch.cuda.empty_cache()
+        stage2 = phase_vae_448(card, seed, per_step, no_save)
+        dcae = phase_dcae_eval(card)
+        return {"fit": launches, "validate": {r: v["launches"] for r, v in validate.items()},
+                "disc_start": disc_launches, "448": stage2, "dcae_eval": dcae,
+                "per_step": per_step}
+    finally:
+        shutil.rmtree(VAE_DIR, ignore_errors=True)
+
+
+def _vae_step_breakdown(step_fn, state, batch: int) -> dict:
+    """The fit's own step function on the fit's state, steady: the wall
+    time of a step ended by a synchronize (median of 3 after one more
+    warm-up), then one more step's device time by kind of kernel
+    (:func:`profile_breakdown`); synthetic images of the fit's shape."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand(batch, 224, 224, 3, generator=gen, device="cuda") * 2 - 1
+
+    def one():
+        step_fn(state, x, generator=gen)
+        torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        one()
+        walls.append(time.perf_counter() - t0)
+    return {"step_wall_s": walls, **profile_breakdown(one, float(np.median(walls[1:])) * 1e3)}
+
+
+def phase_vae_448(card: str, seed: int, per_step: dict, no_save) -> dict:
+    """One ``cli fit`` step of vae_training_stage2.yaml at its shipped batch
+    (16 at 448 px) without a checkpoint: its peak memory, or "out of memory"
+    with what PyTorch held when it stopped (no remat option in the JAX model)."""
+    import torch
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.train import checkpoint
+
+    kernels = _fit_kernels()
+    write_image_folder(f"{VAE_DIR}/train_448", seed, per_class=8, sizes=((480, 512), (512, 480)))
+    path = f"{VAE_DIR}/vae_training_stage2.yaml"
+    config = _write_vae_config(path, VAE_448_CONFIG, {"train_dataset": f"{VAE_DIR}/train_448"},
+                               f"{VAE_DIR}/work_448")
+    for f in kernels.values():
+        f.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with Spy(checkpoint.CheckpointManager, "save", replace=no_save):
+            state = cli.main(["fit", "-c", path, "--max_steps", "1"])
+        torch.cuda.synchronize()
+        result, error = "fits", None
+        del state
+    except torch.cuda.OutOfMemoryError as err:
+        result, error = "out of memory", " ".join(str(err).split())[:300]
+    row = {"phase": "vae_448_step", "config": VAE_448_CONFIG, "image_size": 448,
+           "batch": config["data"]["train_batch_size"], "result": result, "error": error,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "card_mem_bytes": torch.cuda.get_device_properties(0).total_memory,
+           "seconds": time.perf_counter() - t0,
+           "launches": {k: f.launches for k, f in kernels.items()}, "card": card}
+    emit(row)
+    torch.cuda.empty_cache()
+    if result == "fits":
+        check(row["launches"] == {**{k: 0 for k in row["launches"]}, **per_step},
+              f"vae 448 launches {row['launches']}")
+    return row
+
+
+def phase_dcae_eval(card: str) -> dict:
+    """``cli validate -c configs_flow/dcae_decoder_eval.yaml`` for one batch of
+    32 from a PNG folder (the config's root is the hub dataset's path): the
+    random InternViT-300M encoder and DC-AE eval decoder, finite PSNR and
+    SSIM, 24 + 9 forward launches."""
+    import os
+
+    import torch
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.config import _yaml, registry
+
+    kernels = _fit_kernels()
+    write_image_folder(f"{VAE_DIR}/dcae_eval", 3, per_class=16)
+    path = f"{VAE_DIR}/dcae_decoder_eval.yaml"
+    config = registry.load_yaml(DCAE_EVAL_CONFIG)
+    config["data"]["eval_dataset"]["init_args"]["root"] = os.path.abspath(f"{VAE_DIR}/dcae_eval")
+    with open(path, "w") as f:
+        f.write(_yaml.dump(config))
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    result = cli.main(["validate", "-c", path, "--max_batches", "1"])
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in kernels.items()}
+    emit({"phase": "dcae_eval", "config": DCAE_EVAL_CONFIG, "result": result,
+          "batch": config["data"]["pred_batch_size"], "seconds": time.perf_counter() - t0,
+          "launches": launches, "card": card})
+    check(result["num_batches"] == 1 and np.isfinite(result["psnr"])
+          and np.isfinite(result["ssim"]), f"dcae eval {result}")
+    want = {**{k: 0 for k in launches}, "fwd": VAE_TOWER_LAYERS + VAE_DECODER_ATTN}
+    check(launches == want, f"dcae eval launches {launches}, want {want}")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -2996,6 +3525,9 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--calibrate-reco-slice"]:
         calibrate_reco_slice()  # on the CPU; sets no result
+        return 2
+    if sys.argv[1:] == ["--calibrate-vae-slice"]:
+        calibrate_vae_slice()  # on the CPU; sets no result
         return 2
     seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
     if not torch.cuda.is_available():
@@ -3041,6 +3573,11 @@ def main() -> int:
     phase_reco_slice()
     torch.cuda.empty_cache()
     reco = phase_reco(card, seed)
+    torch.cuda.empty_cache()
+    vae_kernels = phase_vae_kernels(card)
+    phase_vae_slice()
+    torch.cuda.empty_cache()
+    vae = phase_vae(card, seed)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     n1024 = {"fwd": kernel["n1024"], "fwd_lse": train_times.get("fwd_lse_512"),
              "bwd_dq": train_times.get("bwd_dq_512"), "bwd_dkv": train_times.get("bwd_dkv_512")}
@@ -3062,8 +3599,8 @@ def main() -> int:
 
     fwd = row("flash_attention_fwd", "flash_attention_fwd.cu",
               "deco_tpu/ops/flash_attention.py:63", launches,
-              max(kernel["max_abs_err"], t2i_kernel["max_abs_err"], reco_kernels["errs"]["fwd"]),
-              kernel)
+              max(kernel["max_abs_err"], t2i_kernel["max_abs_err"], reco_kernels["errs"]["fwd"],
+                  vae_kernels["errs"]["fwd"]), kernel)
     # DeCo-XXL/16 t2i (D = 64): launches per serve and per CLI predict call
     # (the Pipeline of 2 prompts, one batch of 8), and the times at its shapes
     fwd.update(t2i_serve_launches=t2i_serve_launches,
@@ -3077,7 +3614,8 @@ def main() -> int:
                               ("bwd_dkv", "flash_attention_bwd.cu", 379)):
         r = row(f"flash_attention_{key}", source, f"deco_tpu/ops/flash_attention.py:{line}",
                 train_launches[key], max(train_errs[key], t2i_train["errs"][key],
-                                         reco_kernels["errs"][key]), train_times[key])
+                                         reco_kernels["errs"][key], vae_kernels["errs"][key]),
+                train_times[key])
         # DeCo-XXL/16 t2i training (D = 64): launches in the 3-step CLI fit, and
         # the times at its joint, ragged and text shapes
         r.update(t2i_fit_launches=t2i_fit_launches["fit"][key],
@@ -3090,10 +3628,31 @@ def main() -> int:
         r.update(reco_fit_launches=reco["fit"][key],
                  reco_448_step_launches=reco["stage3"]["launches"][key],
                  reco=_reco_timing_rows(reco_kernels["timings"][key], keys))
+        # the VAE-GAN (vae_training_stage2_224.yaml, D = 32 in the decoder):
+        # launches in the 3-step CLI fit, the step with the discriminator
+        # started and the 448 px step, and the times at the D = 32 shapes
+        r.update(vae_fit_launches=vae["fit"][key],
+                 vae_fit_launches_per_step=vae["per_step"][key],
+                 vae_disc_start_step_launches=vae["disc_start"][key],
+                 vae_448_step_launches=vae["448"]["launches"][key],
+                 d32=_reco_timing_rows(vae_kernels["timings"][key], keys + ("plain_b",)))
         training.append(r)
     fwd.update(baseline_predict_launches=families["predict"]["fwd"],
                reco_validate_launches=reco["validate"]["fwd"],
-               reco=_reco_timing_rows(reco_kernels["timings"]["fwd"], keys))
+               reco=_reco_timing_rows(reco_kernels["timings"]["fwd"], keys),
+               vae_validate_launches={r: v["fwd"] for r, v in vae["validate"].items()},
+               dcae_eval_launches=vae["dcae_eval"]["fwd"],
+               d32=_reco_timing_rows(vae_kernels["timings"]["fwd"], keys + ("plain_b",)))
+    d32_resources = {name: {k: info[k] for k in ("registers", "local_bytes", "dynamic_smem",
+                                                 "ctas_per_sm")}
+                     for name, info in vae_kernels["resources"].items()
+                     if name != "flash_fwd_f32_kernel"}
+    for r in (fwd, *training):
+        kind = {"flash_attention_fwd": "flash_fwd_kernel",
+                "flash_attention_fwd_lse": "flash_fwd_kernel_lse",
+                "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
+                "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel"}[r["name"]]
+        r["d32_resources"] = d32_resources[kind]
     # the fp32 kernel (3xTF32; the DINOv2 tower at D = 64, the DC-AE at
     # D = 32): launches in the Baseline-DiT fit, times at B*H 384 (one
     # microbatch) against both bounds, every other shape beside it

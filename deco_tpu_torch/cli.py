@@ -13,8 +13,10 @@ images, ``validate`` the GenEval ones); their
 class paths resolve through ``config.registry``. ``--key=value`` overrides a
 config entry by its dotted path. ``--device`` defaults to ``cuda`` and
 raises where there is no card; ``--device cpu`` runs the plain PyTorch
-versions of the kernels. Only the diffusion workload is ported: UniFlow,
-VAE-GAN and DCAE-eval configs raise.
+versions of the kernels. The VAE-GAN configs (``configs/vae_*.yaml``) and
+the DC-AE decoder eval (``configs_flow/dcae_decoder_eval.yaml``) route to
+``train/workloads.py``: ``fit`` trains, ``validate`` and ``predict``
+score reconstructions. UniFlow configs raise.
 """
 
 from __future__ import annotations
@@ -81,8 +83,18 @@ def main(argv: Optional[list] = None):
     config = registry.load_yaml(known.config)
     registry.apply_overrides(config, parse_overrides(unknown))
     kind = detect_workload(config)
-    if kind != "diffusion":
+    if kind == "uniflow":
         raise registry.not_ported(f"the {kind} workload ({known.config})", 5)
+    if kind in ("vae_gan", "dcae_eval"):
+        from deco_tpu_torch.train import workloads
+
+        if kind == "dcae_eval":
+            return workloads.run_dcae_eval(config, max_batches=known.max_batches,
+                                           device=known.device)
+        return workloads.run_vae_gan(
+            config, max_steps=known.max_steps, workdir=known.workdir,
+            ckpt_path=known.ckpt_path, max_batches=known.max_batches, device=known.device,
+            subcommand="fit" if known.subcommand == "fit" else "validate")
 
     from deco_tpu_torch.train.loop import Experiment
 

@@ -101,16 +101,19 @@ _PORTED: Dict[str, str] = {
         "deco_tpu_torch.data.packed.PackedParquetDataset",
     "src.data.dataset.blip3o_dataset.WebDatasetPackedDataset":
         "deco_tpu_torch.data.packed.WebDatasetPacked",
+    "src.models.transformer.encoder_ae_sim.VAEModel": "deco_tpu_torch.config.registry._vae_model_sim",
+    "src.models.transformer.encoder_ae.VAEModel":
+        "deco_tpu_torch.config.registry._vae_model_stochastic",
+    "src.models.modules.vae_loss.VAEReconstructionLoss":
+        "deco_tpu_torch.config.registry._VAELossConfig",
+    "src.models.modules.discriminator.NLayerDiscriminator":
+        "deco_tpu_torch.models.gan.discriminator.NLayerDiscriminator",
     "src.callbacks.simple_ema.SimpleEMA": "deco_tpu_torch.config.registry._SimpleEMAConfig",
     "torch.optim.AdamW": "deco_tpu_torch.config.registry._AdamWConfig",
 }
 
 # class path -> the ROADMAP section A item that ports it
 UNPORTED: Dict[str, int] = {
-    "src.models.transformer.encoder_ae_sim.VAEModel": 5,
-    "src.models.transformer.encoder_ae.VAEModel": 5,
-    "src.models.modules.vae_loss.VAEReconstructionLoss": 5,
-    "src.models.modules.discriminator.NLayerDiscriminator": 5,
     "src.data.dataset.imagenet.PixWebDataset": 2,
     "src.data.dataset.imagenet.PixJSONLDataset": 2,
     "src.data.dataset.imagenet.PixMultiJSONLDataset": 2,
@@ -243,6 +246,91 @@ def _reco(config_path=None, dtype="bfloat16", param_dtype=None, **kw):
     known = set(inspect.signature(ReCoModel).parameters) - {"vit", "dtype", "param_dtype"}
     return ReCoModel(vit=dataclasses.replace(DEFAULT_VIT, **vit_kw), **_dtypes(dtype, param_dtype),
                      **{k: v for k, v in kw.items() if k in known})
+
+
+def _int_tuple(value, stages: int = 6) -> tuple:
+    """A list, a comma-separated string ("8,16,32") or one int for every stage."""
+    if isinstance(value, str):
+        return tuple(int(v) for v in value.split(","))
+    if isinstance(value, int):
+        return (value,) * stages
+    return tuple(int(v) for v in value)
+
+
+# VAE node keys the port also reads (the JAX node drops them), so that a
+# config or a command-line override can cut the widths: ViTConfig fields
+# with a ``vit_`` prefix, and the VAEModel arguments below
+_VAE_WIDTHS = ("gen_select_layer", "llm_hidden_size")
+
+
+def _make_vae_model(stochastic: bool, encoder_config_path=None, decoder_weight_path=None,
+                    decoder_subfolder=None, select_layer=-1, latent_channel=32,
+                    load_pretrained_encoder=False, stage=None, dtype="bfloat16", device="cuda",
+                    decoder_channels=None, decoder_layers=None, **kw):
+    """The reference ``encoder_ae[_sim].VAEModel`` node -> ``VAEModel``
+    (``deco_tpu/config/registry.py`` ``_make_vae_model``). The pretrained
+    towers' paths are not read (no InternVL or DC-AE weights are in the
+    repository: the run draws the parameters from its seed), with a warning
+    where the node asks for them; ``select_layer`` and ``stage`` are read for
+    the configs' sake (the generation tap is layer 18). ``vit_*`` keys,
+    ``gen_select_layer``, ``llm_hidden_size``, ``decoder_channels`` and
+    ``decoder_layers`` (a list, "a,b,c" or one int) set the widths."""
+    import dataclasses
+    import warnings
+
+    from deco_tpu_torch.models.internvl import INTERNVIT
+    from deco_tpu_torch.models.vae_models import VAEModel
+
+    if load_pretrained_encoder and (encoder_config_path or decoder_weight_path):
+        warnings.warn("pretrained encoder/decoder towers are not in the repository: the run "
+                      "draws them from its seed (convert the weights and pass --ckpt_path)")
+    vit = dataclasses.replace(INTERNVIT, **{k[4:]: v for k, v in kw.items()
+                                            if k.startswith("vit_")})
+    extra = {k: kw[k] for k in _VAE_WIDTHS if k in kw}
+    if decoder_channels is not None:
+        extra["decoder_channels"] = _int_tuple(decoder_channels)
+    if decoder_layers is not None:
+        extra["decoder_layers"] = _int_tuple(decoder_layers)
+    return VAEModel(vit=vit, latent_channel=latent_channel, stochastic=stochastic,
+                    dtype=torch_dtype(dtype), device=device, **extra)
+
+
+def _vae_model_stochastic(**kw):
+    return _make_vae_model(True, **kw)
+
+
+def _vae_model_sim(**kw):
+    return _make_vae_model(False, **kw)
+
+
+class _VAELossConfig:
+    """The reference ``VAEReconstructionLoss`` node -> ``VAEGANLoss`` settings
+    (``loss_cfg``), the perceptual model's name (``perceptual_spec``), and
+    the distillation teacher's path, which the run does not read (JAX's
+    ``VAEGANRun`` has no teacher either, so the distillation term is 0)."""
+
+    def __init__(self, discriminator_start: int = 0, discriminator_factor: float = 1.0,
+                 discriminator_weight: float = 0.1, lecam_regularization_weight: float = 0.0,
+                 perceptual_loss: str = None, perceptual_weight: float = 1.1,
+                 reconstruction_loss: str = "l2", reconstruction_weight: float = 1.0,
+                 kl_weight: float = 0.0, logvar_init: float = 0.0,
+                 distillation_weight: float = 0.0, distillation_loss_type: str = "mse",
+                 teacher_model_path: str = None, select_layer: int = -1,
+                 downsample_ratio: float = 0.5, use_rotation_aug: bool = False, **kw):
+        from deco_tpu_torch.models.gan.vae_loss import VAEGANLoss
+
+        self.loss_cfg = VAEGANLoss(
+            reconstruction_loss=reconstruction_loss, reconstruction_weight=reconstruction_weight,
+            perceptual_weight=perceptual_weight, discriminator_weight=discriminator_weight,
+            discriminator_factor=discriminator_factor,
+            discriminator_iter_start=discriminator_start,
+            lecam_regularization_weight=lecam_regularization_weight,
+            distillation_weight=distillation_weight,
+            distillation_loss_type=distillation_loss_type, kl_weight=kl_weight,
+            logvar_init=logvar_init)
+        self.perceptual_spec = perceptual_loss
+        self.teacher_model_path = teacher_model_path
+        self.use_rotation_aug = use_rotation_aug
 
 
 # the settings nodes below take float() of numbers given as strings: YAML 1.1

@@ -22,6 +22,12 @@ write the port's ``VisionModel`` and ``DINOv2`` (the InternViT key names),
 and :func:`repa_proj_state_dict_from_jax` the REPA projection (``fc0-2``
 to ``proj.0.{0,2,4}``).
 
+:func:`dcae_from_torch_state` builds the port's ``AutoencoderDC`` from a
+diffusers (or the reference's vendored) DC-AE state dict, the stage
+geometry inferred from the weights as ``deco_tpu/convert/dcae_bridge.py``
+does; the port's modules carry the diffusers names, so the dict loads
+as it is.
+
 :func:`train_checkpoint_from_jax` turns a JAX c2i, t2i or ReCo training
 state (params, EMA, optax AdamW moments and count) into the port's step
 checkpoint (``train/checkpoint.py``), so a run started in the JAX package
@@ -401,3 +407,61 @@ def load_checkpoint(path: str, ema: bool = True) -> dict[str, torch.Tensor]:
         if picked:
             return picked
     return dict(sd)
+
+
+def _seq_indices(sd: dict, prefix: str) -> list:
+    """The sorted integer children of ``prefix`` in the state dict's keys."""
+    idx = {int(head) for k in sd if k.startswith(prefix + ".")
+           for head in [k[len(prefix) + 1:].split(".", 1)[0]] if head.isdigit()}
+    return sorted(idx)
+
+
+def infer_dcae_stage_config(sd: dict, blocks_key: str) -> tuple:
+    """(block_out_channels, layers_per_block, attention_stages) of a bare
+    DC-AE ``Encoder`` (``blocks_key`` "down_blocks") or ``Decoder``
+    ("up_blocks") state dict, from the conv shapes: a stage holds blocks and
+    at most one up/down block, whose only child is a bare ``conv``."""
+    stages = _seq_indices(sd, blocks_key)
+    channels, layers, attn = [], [], []
+    for i in range(max(stages) + 1 if stages else 0):
+        pre = f"{blocks_key}.{i}"
+        blocks = [j for j in _seq_indices(sd, pre)
+                  if f"{pre}.{j}.conv1.weight" in sd or f"{pre}.{j}.attn.qkv.weight" in sd]
+        layers.append(len(blocks))
+        if not blocks:
+            channels.append(0)
+            attn.append(False)
+        elif f"{pre}.{blocks[0]}.conv1.weight" in sd:
+            channels.append(int(sd[f"{pre}.{blocks[0]}.conv1.weight"].shape[0]))
+            attn.append(False)
+        else:
+            channels.append(int(sd[f"{pre}.{blocks[0]}.attn.qkv.weight"].shape[1]))
+            attn.append(True)
+    return tuple(channels), tuple(layers), tuple(attn)
+
+
+def dcae_from_torch_state(sd: dict, dtype=torch.float32, attention_head_dim: int = 32,
+                          device="cuda"):
+    """A diffusers ``AutoencoderDC`` state dict (``encoder.*`` and
+    ``decoder.*``; the decoder's ``norm_out``/``conv_out`` head where the
+    keys have it) -> the port's :class:`~deco_tpu_torch.models.dcae.AutoencoderDC`
+    with those weights, loaded strictly. ``attention_head_dim`` is the one
+    choice the weights cannot show (the qkv weight is square)."""
+    from deco_tpu_torch.models.dcae import AutoencoderDC
+
+    sd = {k: torch.as_tensor(np.asarray(v)) for k, v in sd.items()}
+    enc = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+    dec = {k[len("decoder."):]: v for k, v in sd.items() if k.startswith("decoder.")}
+    if not enc or not dec:
+        raise ValueError("expected encoder.* and decoder.* keys")
+    e_ch, e_layers, e_attn = infer_dcae_stage_config(enc, "down_blocks")
+    d_ch, d_layers, d_attn = infer_dcae_stage_config(dec, "up_blocks")
+    model = AutoencoderDC(
+        latent_channels=int(enc["conv_out.weight"].shape[0]), dtype=dtype,
+        encoder_block_out_channels=e_ch, encoder_layers_per_block=e_layers,
+        encoder_attention_stages=e_attn, decoder_block_out_channels=d_ch,
+        decoder_layers_per_block=d_layers, decoder_attention_stages=d_attn,
+        attention_head_dim=attention_head_dim, decoder_head="norm_out.weight" in dec,
+        device=device)
+    model.load_state_dict(sd, strict=True)
+    return model

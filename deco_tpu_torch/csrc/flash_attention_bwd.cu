@@ -21,7 +21,7 @@
 // Layout and conventions are the forward's: q, o, do, dq are (B, Nq, H, D),
 // k, v, dk, dv are (B, Nkv, H, D), each read or written in place through its
 // (batch, token, head) strides with the head dim contiguous; lse and delta
-// are fp32 (B, H, Nq) contiguous; D is one of {64, 72, 128}; ragged Nq, Nkv
+// are fp32 (B, H, Nq) contiguous; D is one of {32, 64, 72, 128}; ragged Nq, Nkv
 // and Nq != Nkv are masked in the kernel (P = 0 for keys >= Nkv and for
 // queries >= Nq).
 //
@@ -59,6 +59,10 @@
 //   (two fp32 accumulators of 16 x D) within 168 a thread, so three CTAs (12
 //   warps) fit on an SM at D <= 72, with a three-slot ring (72-73.5 KB of
 //   shared memory a CTA).
+// - D = 32 (the DC-AE decoder's attention in the bf16 VAE-GAN) is the same
+//   code at two k16 steps and four n8 tiles over D: 5 KB tiles, so both
+//   kernels keep the D <= 72 sizing (three slots, three CTAs an SM) with
+//   less than half its shared memory.
 // The tile layout, copies, fragment loads and MMA tiles it shares with the
 // forward are in attention_sm90.cuh.
 
@@ -490,6 +494,8 @@ int deco_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   const Strides sdo{s[9], s[10], s[11]}, so{s[12], s[13], s[14]}, sdq{s[15], s[16], s[17]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 32:
+      return launch_dq<32>(q, k, v, dout, o, lse, delta, dq, batch, heads, nq, nkv, sq, sk, sv, sdo, so, sdq, scale, st);
     case 64:
       return launch_dq<64>(q, k, v, dout, o, lse, delta, dq, batch, heads, nq, nkv, sq, sk, sv, sdo, so, sdq, scale, st);
     case 72:
@@ -511,6 +517,8 @@ int deco_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
   const Strides sdo{s[9], s[10], s[11]}, sdk{s[12], s[13], s[14]}, sdv{s[15], s[16], s[17]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 32:
+      return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nkv, sq, sk, sv, sdo, sdk, sdv, scale, st);
     case 64:
       return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nkv, sq, sk, sv, sdo, sdk, sdv, scale, st);
     case 72:
@@ -527,6 +535,10 @@ int deco_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
 // shared memory, resident CTAs per SM, threads, into out[0..5].
 int deco_flash_attention_bwd_info(int dkv, int head_dim, int* out) {
   switch (head_dim * 2 + (dkv != 0)) {
+    case 64:
+      return kernel_info(flash_bwd_dq_kernel<32>, kThreads, dq_smem_bytes<32>(), out);
+    case 65:
+      return kernel_info(flash_bwd_dkv_kernel<32>, kThreads, dkv_smem_bytes<32>(), out);
     case 128:
       return kernel_info(flash_bwd_dq_kernel<64>, kThreads, dq_smem_bytes<64>(), out);
     case 129:

@@ -17,7 +17,7 @@
 // The kernel reads each operand in place through its (batch, token, head)
 // strides, with the head dim contiguous, so no fold/unfold transposes run
 // around it. Nq and Nkv are arbitrary: keys >= Nkv get P = 0 and rows >= Nq
-// are never stored. D is one of {64, 72, 128}; scale must be positive.
+// are never stored. D is one of {32, 64, 72, 128}; scale must be positive.
 //
 // Numerics follow the TPU kernel: QK^T and PV accumulate in fp32 on the
 // tensor cores; the running max, running sum and the accumulator are fp32;
@@ -61,6 +61,11 @@
 // - the epilogue writes each warp's O rows over its own Q rows in shared
 //   memory and stores them as 16-byte chunks, whole rows per warp, and lse
 //   as one 4-byte store per row.
+// - D = 32 (the DC-AE decoder's attention in the bf16 VAE-GAN, 64 to 4,096
+//   tokens) is the same code at two k16 steps and four n8 tiles: a 64-row
+//   tile is 5 KB (rows of 40 bf16, five 16-byte chunks, so ldmatrix rows
+//   still fall in distinct banks), the Q/K/V ring 40 KB. The row tiles,
+//   stages and 2-CTA register cap were sized for D >= 64 and are kept.
 // Resources (ptxas and the CUDA runtime's `forward_kernel_info`, on an H100
 // SXM), each instantiation without spills, 2 CTAs (8 warps) per SM:
 //   D = 64:  242 registers, 72 KB of shared memory (2 Q tiles + 6 K/V);
@@ -362,6 +367,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
              Strides so, float scale, cudaStream_t st) {
   if (!(scale > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
+    case 32:
+      return launch<32, LSE>(q, k, v, o, lse, batch, heads, nq, nkv, sq, sk, sv, so, scale, st);
     case 64:
       return launch<64, LSE>(q, k, v, o, lse, batch, heads, nq, nkv, sq, sk, sv, so, scale, st);
     case 72:
@@ -770,7 +777,7 @@ int deco_flash_attention_fwd_f32(const void* q, const void* k, const void* v,
 }
 
 // What the current device makes of one kernel (kind 0: sampling, 1: with
-// lse, both at D = 64, 72 or 128; 2: fp32 operands, D = 32 or 64):
+// lse, both at D = 32, 64, 72 or 128; 2: fp32 operands, D = 32 or 64):
 // registers, local bytes, static and dynamic shared memory, resident CTAs
 // per SM, threads, into out[0..5].
 int deco_flash_attention_fwd_info(int lse, int head_dim, int* out) {
@@ -785,6 +792,8 @@ int deco_flash_attention_fwd_info(int lse, int head_dim, int* out) {
     }
   }
   switch (head_dim) {
+    case 32:
+      return info<32>(lse != 0, out);
     case 64:
       return info<64>(lse != 0, out);
     case 72:

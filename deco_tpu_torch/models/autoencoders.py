@@ -2,7 +2,8 @@
 that DeCo diffuses in, ``fp_to_uint8``, and the latent wrappers
 :class:`LatentAE` (SD-VAE) and :class:`DCLatentAE` (DC-AE), thin classes
 around injected encode and decode functions: no SD-VAE or DC-AE weights are
-in the repository, and the DC-AE network is ROADMAP §A 5."""
+in the repository; :meth:`DCLatentAE.from_torch_state` builds the DC-AE
+(``models/dcae.py``) from a diffusers state dict."""
 
 from __future__ import annotations
 
@@ -66,7 +67,13 @@ class DCLatentAE(LatentAE):
 
     @classmethod
     def from_torch_state(cls, sd, scale=0.41407, shift=0.0, dtype=None,
-                         attention_head_dim: int = 32):
-        raise NotImplementedError(
-            "DCLatentAE.from_torch_state: the DC-AE network is not ported to deco_tpu_torch "
-            "yet, ROADMAP §A 5 (DC-AE)")
+                         attention_head_dim: int = 32, device="cuda"):
+        """A working codec from a diffusers (or vendored) ``AutoencoderDC``
+        state dict, the stage geometry inferred from the weights
+        (``convert.dcae_from_torch_state``); NHWC in and out."""
+        from deco_tpu_torch.convert import dcae_from_torch_state
+
+        model = dcae_from_torch_state(sd, dtype=dtype or torch.float32,
+                                      attention_head_dim=attention_head_dim, device=device)
+        model.eval()
+        return cls(encode_fn=model.encode, decode_fn=model.decode, scale=scale, shift=shift)

@@ -40,7 +40,7 @@ import torch
 
 from deco_tpu_torch.ops import _build
 
-SUPPORTED_HEAD_DIMS = (64, 72, 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 72, 128)
 F32_HEAD_DIMS = (32, 64)  # the fp32 forward
 _MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, which spans B*H
 

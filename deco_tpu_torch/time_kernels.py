@@ -1,6 +1,6 @@
 """Time one checkout's kernels on the card, to compare two.
 
-    python deco_tpu_torch/time_kernels.py [--tree DIR] [--yardsticks] [--f32]
+    python deco_tpu_torch/time_kernels.py [--tree DIR] [--yardsticks] [--f32 | --d32]
 
 Imports ``deco_tpu_torch`` from the checkout at ``DIR`` (default: the one
 holding this file), builds its kernels there and prints one JSON line:
@@ -27,6 +27,11 @@ holding this file), builds its kernels there and prints one JSON line:
   1,536 at N 257, B*H 192 at N 1,025, D 64) and, where the checkout takes
   D = 32, at the DC-AE's (N 64, 256, 1,024 and 4,096), each with its max
   error against the plain version over max|v| (20-30 calls a shape);
+- with ``--d32``, in place of the rows above, the bf16 kernels at D = 32,
+  the DC-AE decoder's attention in the VAE-GAN (:data:`D32`: the 224 px fit
+  shapes at batch 8, the ragged 256 px validate shapes, N = 4,096): the
+  forward, the forward with lse and the whole backward, where the checkout
+  takes D = 32 (20-30 calls a shape);
 - each kernel of the two attention sources and of ``freq_mse.cu``: its
   registers, spills and static shared memory from that checkout's build log,
   and its dynamic shared memory and resident CTAs per SM from the CUDA
@@ -55,6 +60,11 @@ F32 = {  # B, N, H, D: the DINOv2 tower at 256 px (x1, x4) and 512 px; the DC-AE
     "dinov2_512": (16, 1025, 12, 64), "dcae_64": (8, 64, 32, 32),
     "dcae_256": (8, 256, 32, 32), "dcae_1024": (8, 1024, 16, 32),
     "dcae_4096": (2, 4096, 16, 32)}
+D32 = {  # B, Nq, Nkv, H, D: the DC-AE decoder's three attention stages in the VAE-GAN
+    "dcae_64": (8, 64, 64, 32, 32), "dcae_256": (8, 256, 256, 32, 32),
+    "dcae_1024": (8, 1024, 1024, 16, 32), "dcae_100": (4, 100, 100, 32, 32),
+    "dcae_400": (4, 400, 400, 32, 32), "dcae_1600": (4, 1600, 1600, 16, 32),
+    "dcae_4096": (2, 4096, 4096, 16, 32)}
 FREQ = (32, 256, 256, 3)
 
 
@@ -96,6 +106,31 @@ def time_f32(result: dict, fa, cuda_ms, gen, flush) -> None:
                        "ms": cuda_ms(lambda: fa.flash_attention_fwd_f32(q, k, v, scale),
                                      20 if n > 512 else 30, flush)}
         del q, k, v
+
+
+def time_d32(result: dict, fa, cuda_ms, gen, flush) -> None:
+    """The bf16 kernels' median ms at each shape of :data:`D32`, where the
+    checkout takes D = 32."""
+    import torch
+
+    if 32 not in fa.SUPPORTED_HEAD_DIMS:
+        return
+    for row, (b, nq, nkv, h, d) in D32.items():
+        q, do = (torch.randn((b, nq, h, d), generator=gen, device="cuda").bfloat16()
+                 for _ in range(2))
+        k, v = (torch.randn((b, nkv, h, d), generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        scale = d ** -0.5
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
+        iters = 20 if nq > 512 else 30
+        result[row] = {
+            "b_nq_nkv_h_d": [b, nq, nkv, h, d],
+            "fwd_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, scale), iters, flush),
+            "fwd_lse_ms": cuda_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, scale), iters,
+                                  flush),
+            "whole_backward_ms": cuda_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, scale), iters, flush)}
+        del q, k, v, do, o, lse
 
 
 def time_bf16(result: dict, fa, block_dct, smoke, gen, flush, args) -> None:
@@ -153,6 +188,8 @@ def main() -> int:
                         help="also time each SDPA backend at the forward rows")
     parser.add_argument("--f32", action="store_true",
                         help="time the fp32 forward instead of the bf16 kernels")
+    parser.add_argument("--d32", action="store_true",
+                        help="time the bf16 kernels at D = 32 instead of the rows above")
     parser.add_argument("--l2-states", action="store_true",
                         help="also time freq_mse and diff.sum() after a dirty and a clean flush")
     args = parser.parse_args()
@@ -178,6 +215,8 @@ def main() -> int:
     if args.f32:
         torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
         time_f32(result, fa, cuda_ms, gen, flush)
+    elif args.d32:
+        time_d32(result, fa, cuda_ms, gen, flush)
     else:
         time_bf16(result, fa, block_dct, smoke, gen, flush, args)
 

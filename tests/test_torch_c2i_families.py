@@ -359,8 +359,10 @@ def test_latent_codecs_wrap_injected_functions():
     assert torch.equal(ae.decode(x), (x - 0.25) / 0.5 * 2)
     pre = autoencoders.DCLatentAE(precompute=True)
     assert pre.scale == 0.41407 and torch.allclose(pre.encode(x), x * 0.41407)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 5"):
-        autoencoders.DCLatentAE.from_torch_state({})
+    # the DC-AE network is ported (tests/test_torch_dcae.py): an empty state
+    # dict now raises naming the keys it lacks
+    with pytest.raises(ValueError, match="encoder"):
+        autoencoders.DCLatentAE.from_torch_state({}, device="cpu")
 
 
 def test_flops_of_the_new_families():

@@ -122,11 +122,22 @@ def test_entry_point_without_cuda_raises():
     ("stream", "bfloat16"),
 ])
 def test_fwd_lse_and_backward_match_jax_pallas(monkeypatch, variant, dtype):
+    _fwd_lse_and_backward_vs_pallas(monkeypatch, variant, dtype, 72)
+
+
+@pytest.mark.parametrize("variant", ["resident", "stream"])
+def test_d32_bf16_fwd_lse_and_backward_match_jax_pallas(monkeypatch, variant):
+    """The VAE-GAN's DC-AE attention (bf16, D = 32), which the JAX package
+    sends to its Pallas kernels."""
+    _fwd_lse_and_backward_vs_pallas(monkeypatch, variant, "bfloat16", 32)
+
+
+def _fwd_lse_and_backward_vs_pallas(monkeypatch, variant, dtype, d):
     import jax
 
     from deco_tpu.ops import flash_attention as jfa
 
-    b, n, h, d = 1, 64, 2, 72
+    b, n, h = 1, 64, 2
     q, k, v = _qkv(b, n, n, h, d, seed=11)
     g = np.random.default_rng(12).standard_normal((b, n, h, d)).astype(np.float32)
     tdt = getattr(torch, dtype)

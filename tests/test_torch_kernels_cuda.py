@@ -570,3 +570,72 @@ def test_reco_model_runs_the_kernels_on_card(cuda_device):
     assert [f.launches - b for f, b in zip(kernels, before)] == [3, 3, 3, 3]
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                for p in model.vision_model.parameters())
+
+
+# The DC-AE decoder's attention in the bf16 VAE-GAN (D = 32): at 224 px the
+# three attention stages attend over 8^2, 16^2 and 32^2 tokens (32, 32 and
+# 16 heads), at the fit batch 8; a 256 px validate pads to 280 px, so 10^2,
+# 20^2 and 40^2 tokens (ragged); 448 px reaches 64^2
+D32_SHAPES = [(8, 64, 64, 32, 32), (8, 256, 256, 32, 32), (8, 1024, 1024, 16, 32),
+              (4, 100, 100, 32, 32), (4, 400, 400, 32, 32), (4, 1600, 1600, 16, 32),
+              (2, 4096, 4096, 16, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", D32_SHAPES, ids=lambda s: f"d32_n{s[1]}")
+def test_d32_bf16_forward_and_backward_match_plain_on_card(cuda_device, shape):
+    """The bf16 kernels at D = 32: the forward, the forward with lse, dQ
+    (with delta) and dK/dV against their plain versions, the forward and
+    the backward bit-identical over two runs."""
+    q, k, v, do = _qkv(cuda_device, *shape)
+    scale = shape[-1] ** -0.5
+    before = fa.flash_attention.launches
+    out, again = fa.flash_attention(q, k, v, scale), fa.flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2 and torch.equal(out, again)
+    assert (out.float() - fa.flash_attention_plain(q, k, v, scale).float()).abs().max() < ATOL
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
+    assert torch.equal(o, out) and (o.float() - o_ref.float()).abs().max().item() < ATOL
+    assert (lse - lse_ref).abs().max().item() < LSE_ATOL
+    dq, delta, dk, dv = _backward(q, k, v, o, lse, do, scale)
+    repeat = _backward(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    dq_ref, delta_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    assert _rel(delta, delta_ref) < DELTA_REL
+    for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+        assert _rel(got, ref) < BWD_REL
+    assert all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), repeat))
+
+
+@pytest.mark.cuda
+def test_d32_kernel_info_reports_no_spills_on_card(cuda_device):
+    """The four bf16 instantiations at D = 32: no local memory, and the
+    resident CTAs the D <= 72 sizing is compiled for (2 forward, 3 backward)."""
+    infos = {**fa.forward_kernel_info(32), **fa.backward_kernel_info(32)}
+    assert set(infos) >= {"flash_fwd_kernel", "flash_fwd_kernel_lse", "flash_bwd_dq_kernel",
+                          "flash_bwd_dkv_kernel"}, infos
+    for name in ("flash_fwd_kernel", "flash_fwd_kernel_lse"):
+        assert infos[name]["local_bytes"] == 0 and infos[name]["ctas_per_sm"] >= 2, infos[name]
+    for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        assert infos[name]["local_bytes"] == 0 and infos[name]["ctas_per_sm"] >= 3, infos[name]
+
+
+@pytest.mark.cuda
+def test_d32_autograd_through_strided_qkv_on_card(cuda_device):
+    """A DC-AE attention block's call: q, k, v views into one (B, N, 3, H, 32)
+    projection under autograd take the forward with lse and both backward
+    kernels, gradients within the backward tolerance of the plain version's."""
+    qkv = torch.randn(2, 256, 3, 8, 32, device=cuda_device, dtype=torch.bfloat16,
+                      requires_grad=True)
+    kernels = (fa.flash_attention, fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    before = [f.launches for f in kernels]
+    fa.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [0, 1, 1, 1]
+    ref = qkv.detach().clone().requires_grad_(True)
+    fa.flash_attention_plain(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2]).float().square().sum().backward()
+    assert _rel(qkv.grad, ref.grad) < BWD_REL

@@ -112,3 +112,24 @@ def inception_state_dict():
         sd[f"AuxLogits.conv0.bn.{name}"] = torch.full((128,), fill)
     sd["fc.weight"], sd["fc.bias"] = torch.zeros(1008, 2048), torch.zeros(1008)
     return sd
+
+
+def randomize_(module, seed: int, scale: float = 1.0):
+    """Every parameter drawn from ``seed``: weights normal x scale /
+    sqrt(fan in), norm weights 1 + 0.1 normal, biases 0.1 normal."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            r = torch.randn(p.shape, generator=gen)
+            if p.dim() >= 2:
+                p.copy_(r * scale / p[0].numel() ** 0.5)
+            elif name.endswith("weight") and "norm" in name:
+                p.copy_(1.0 + 0.1 * r)
+            else:
+                p.copy_(0.1 * r)
+    return module
+
+
+def numpy_state(module) -> dict:
+    """A copy of the state dict as numpy arrays (not views of the parameters)."""
+    return {k: v.detach().numpy().copy() for k, v in module.state_dict().items()}
