@@ -10,8 +10,8 @@ serving, prompt-set predict and training with DeCo-XXL/16
 (``configs_t2i/sft_res512.yaml``), the other c2i families with the REPA
 objectives (Baseline-DiT-L/16, PixNerd-L/16, DeCo-L/16 with the DINOv2
 tower), ReCo image reconstruction (``configs_c2i/ReCo_large.yaml``, the
-InternViT tower), and the VAE-GAN and DC-AE eval (``configs/vae_*.yaml``,
-the DC-AE decoder), and holds each hand-written kernel against its plain
+InternViT tower), the VAE-GAN and DC-AE eval (``configs/vae_*.yaml``,
+the DC-AE decoder) and UniFlow (``configs_flow/uniflow_*.yaml``), and holds each hand-written kernel against its plain
 PyTorch version. Phases, in the order they run:
 
 1. build: compile every ``deco_tpu_torch/csrc/*.cu`` with nvcc (one process
@@ -191,7 +191,32 @@ PyTorch version. Phases, in the order they run:
    memory or "out of memory"; ``dcae_eval``: ``cli validate`` of the DC-AE
    decoder eval on a PNG folder, one batch of 32, 33 forward launches. The
    files go under ``build/chip_smoke_vae/``, which is deleted.
-16. kernels: one JSON line listing every kernel with its launches on its
+16. uniflow: UniFlow (``configs_flow/uniflow_*.yaml``, 1.09B parameters:
+   the InternViT tower and a 4-layer shallow ViT, the gated latent
+   projector, a pixel trunk of 6 blocks at width 1,024 and a causal
+   semantic trunk of 6 at width 2,048, two flow heads). ``uniflow_kernels``:
+   the causal instantiations of the forward, the forward with lse, dQ and
+   dK/dV at D = 64 at (16, 256), (16, 64), (2, 1,024) and a ragged (16, 100)
+   x 32 heads against their masked plain versions, bit-identical over two
+   runs, timed beside bound (half the operations, or the bytes), plain
+   versions and SDPA's ``is_causal``, with their resources.
+   ``uniflow_slice_vs_plain``: the full widths with the InternViT cut to 2
+   layers, the shallow ViT to 1 and each trunk to 1 block, one
+   ``forward_loss`` and its gradients at batch 2, the card's kernels against
+   the CPU's plain versions (gates from ``--calibrate-uniflow-slice``).
+   ``uniflow_fit``: ``cli fit`` on uniflow_internvit_2b_base.yaml as
+   shipped but for the data nodes (PixImageNet over seeded PNGs) and the
+   work directory, 3 steps at batch 16 and 224 px: finite loss terms,
+   exactly 34 + 6 causal launches of each training kernel a step, s/step,
+   idle share, MFU, peak memory, the checkpoint's bytes and save time (into
+   host memory, see ``phase_uniflow``); ``uniflow_validate``: ``cli
+   validate`` from it, one batch of 32 at 256 px: 34 forward launches,
+   finite PSNR/SSIM/FID; ``uniflow_semantic``: a semantic reconstruction
+   (the causal forward); ``uniflow_448`` and ``uniflow_sem``: one step each
+   of the 448 px stage-2 config (EMA, frozen encoder) and the semantic-AE
+   config from a PixWebDataset node over a PNG tar shard. The files go under
+   ``build/chip_smoke_uniflow/``, which is deleted.
+17. kernels: one JSON line listing every kernel with its launches on its
    path (sampling for the forward, training for the others) and on the CLI
    paths, error, times, bound, library time and the library call's
    backend, for the attention kernels the same at N = 1024, for the
@@ -201,13 +226,16 @@ PyTorch version. Phases, in the order they run:
    Baseline-DiT fit and its times at the tower's shapes, and for the bf16
    attention kernels their ReCo fit, validate and 448 px launches and their
    times at the ReCo shapes, and their VAE-GAN launches (fit, validate,
-   DC-AE eval), times at the D = 32 shapes and D = 32 resources.
+   DC-AE eval), times at the D = 32 shapes and D = 32 resources, and their
+   UniFlow launches; and the four causal instantiations with their UniFlow
+   launches, times at the causal shapes and resources.
 
 ``python3 chip_smoke.py --calibrate-train-slice`` (and ``--calibrate-t2i-slice``,
 ``--calibrate-t2i-train-slice``, ``--calibrate-c2i-families-slice``,
-``--calibrate-reco-slice``, ``--calibrate-vae-slice``) prints, on the CPU,
-the readings between which the train-slice (t2i slice, t2i train slice,
-c2i families slice, ReCo slice, VAE slice) gates sit, and no result.
+``--calibrate-reco-slice``, ``--calibrate-vae-slice``,
+``--calibrate-uniflow-slice``) prints, on the CPU, the readings between
+which the train-slice (t2i slice, t2i train slice, c2i families slice, ReCo
+slice, VAE slice, UniFlow slice) gates sit, and no result.
 
 Every phase prints JSON lines; a failed phase raises and the script exits
 non-zero without the last line. The last line is
@@ -228,6 +256,16 @@ import numpy as np
 # on values of order 1) and round P to bf16 against different maxima (running
 # vs final); 3e-2 is the JAX package's bf16 attention tolerance.
 ATTN_ATOL = 3e-2
+# The causal holds take it in units of max(1, |plain|): a causal row's first
+# queries average one to a few values, so outputs reach |o| ~ 4.5 (randn
+# values), where one bf16 step is 2^-5 = 0.031 and the two sides' output
+# roundings alone can differ by it (the first card run of phase 16 read
+# exactly 0.03125 at the ragged shape).
+def _attn_err(out, ref, causal: bool = False) -> float:
+    diff = (out.float() - ref.float()).abs()
+    return (diff / ref.float().abs().clamp(min=1.0) if causal else diff).max().item()
+
+
 # The 8-step slice, card vs CPU, both bf16: GEMMs and softmax round at other
 # points on each side. On the CPU this config's bf16 images differ from fp32
 # by rel L2 0.009, and zeroing the trunk's attention moves them by 0.103;
@@ -356,12 +394,14 @@ def phase_kernel(card: str):
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 
 
-def sdpa_forward_yardsticks(q, k, v, scale: float, with_lse: bool, flush, iters: int) -> dict:
+def sdpa_forward_yardsticks(q, k, v, scale: float, with_lse: bool, flush, iters: int,
+                            causal: bool = False) -> dict:
     """Each SDPA backend's forward on the (B, N, H, D) operands, pinned with
     ``sdpa_kernel``: ``F.scaled_dot_product_attention`` without lse, else
-    the backend's own aten entry with its logsumexp. Returns every backend's
-    ms or the reason it refused, and the fastest as ``library_ms`` with its
-    name in ``library_backend``. A yardstick only: the port never calls SDPA."""
+    the backend's own aten entry with its logsumexp, with ``is_causal`` when
+    ``causal``. Returns every backend's ms or the reason it refused, and the
+    fastest as ``library_ms`` with its name in ``library_backend``. A
+    yardstick only: the port never calls SDPA."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -370,16 +410,16 @@ def sdpa_forward_yardsticks(q, k, v, scale: float, with_lse: bool, flush, iters:
     aten = torch.ops.aten
     with_lse_calls = {
         "FLASH_ATTENTION": lambda: aten._scaled_dot_product_flash_attention(
-            qt, kt, vt, 0.0, False, False, scale=scale),
+            qt, kt, vt, 0.0, causal, False, scale=scale),
         "EFFICIENT_ATTENTION": lambda: aten._scaled_dot_product_efficient_attention(
-            qt, kt, vt, None, True, 0.0, False, scale=scale),
+            qt, kt, vt, None, True, 0.0, causal, scale=scale),
         "CUDNN_ATTENTION": lambda: aten._scaled_dot_product_cudnn_attention(
-            qt, kt, vt, None, True, 0.0, False, False, scale=scale),
+            qt, kt, vt, None, True, 0.0, causal, False, scale=scale),
     }
     per_backend = {}
     for name in SDPA_BACKENDS:
         fn = with_lse_calls[name] if with_lse else (
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale, is_causal=causal))
         try:
             with sdpa_kernel(getattr(SDPBackend, name)):
                 per_backend[name] = cuda_ms(fn, iters, flush)
@@ -392,10 +432,57 @@ def sdpa_forward_yardsticks(q, k, v, scale: float, with_lse: bool, flush, iters:
             "sdpa_entry": "aten backend entry with lse" if with_lse else "F.sdpa, no grad"}
 
 
+def sdpa_backward_yardsticks(q, k, v, do, scale: float, flush, iters: int,
+                             causal: bool = False) -> dict:
+    """Each SDPA backend's backward kernel on the (B, N, H, D) operands: its
+    aten backward entry (dQ, dK and dV together) on the outputs of its own
+    forward, run once beforehand, so that the time is the backend's kernels
+    and not autograd's. Returns every backend's ms or the reason it refused,
+    and the fastest as ``sdpa_backward_ms`` with its name in
+    ``sdpa_backward_backend``. A yardstick only: the port never calls SDPA."""
+    import torch
+
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))  # SDPA's (B, H, N, D) views
+    aten = torch.ops.aten
+
+    def flash():
+        out, lse, cq, ck, mq, mk, seed, offset, _ = aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, causal, False, scale=scale)
+        return lambda: aten._scaled_dot_product_flash_attention_backward(
+            dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, causal, seed, offset, scale=scale)
+
+    def efficient():
+        out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, None, True, 0.0, causal, scale=scale)
+        return lambda: aten._scaled_dot_product_efficient_attention_backward(
+            dot, qt, kt, vt, None, out, lse, seed, offset, 0.0, [True, True, True, False],
+            causal, scale=scale)
+
+    def cudnn():
+        out, lse, cq, ck, mq, mk, seed, offset, _ = aten._scaled_dot_product_cudnn_attention(
+            qt, kt, vt, None, True, 0.0, causal, False, scale=scale)
+        return lambda: aten._scaled_dot_product_cudnn_attention_backward(
+            dot, qt, kt, vt, out, lse, seed, offset, None, cq, ck, mq, mk, 0.0, causal,
+            scale=scale)
+
+    per_backend = {}
+    for name, backward in (("FLASH_ATTENTION", flash), ("EFFICIENT_ATTENTION", efficient),
+                           ("CUDNN_ATTENTION", cudnn)):
+        try:
+            per_backend[name] = cuda_ms(backward(), iters, flush)
+        except (RuntimeError, TypeError) as err:
+            per_backend[name] = "refused: " + " ".join(str(err).split())[:200]
+    timed = {n: ms for n, ms in per_backend.items() if isinstance(ms, float)}
+    best = min(timed, key=timed.get) if timed else None
+    return {"sdpa_backward_ms": timed.get(best), "sdpa_backward_backend": best,
+            "sdpa_backward_backends_ms": per_backend,
+            "sdpa_backward_entry": "aten backend backward entry"}
+
+
 # Kernels the resource lines report, as their names appear in ptxas's log.
 _KERNEL_NAME = re.compile(
     r"(?<=\d)(flash_fwd(?:_f32)?_kernel|flash_bwd_d(?:q|kv)_kernel|freq_mse(?:_[a-z]+)?_kernel)"
-    r"(?:ILi(\d+)E(?:Lb(\d)E)?)?")
+    r"(?:ILi(\d+)E((?:Lb\dE)*))?")
 
 
 def kernel_resources(build_dir, source: str, runtime=None) -> list:
@@ -411,8 +498,14 @@ def kernel_resources(build_dir, source: str, runtime=None) -> list:
         m = _KERNEL_NAME.search(mangled)
         if m is None:
             continue
-        name, d, lse = m.group(1), m.group(2), m.group(3) == "1"
-        key = name + ("_lse" if lse else "")
+        # the bool template flags: <D, LSE, CAUSAL> forward, <D, CAUSAL> backward
+        name, d, flags = m.group(1), m.group(2), re.findall(r"Lb(\d)E", m.group(3) or "")
+        # (an older checkout's forward has <D, LSE> and its backward <D>)
+        if name == "flash_fwd_kernel":
+            lse, causal = flags[0] == "1", flags[1:] == ["1"]
+        else:
+            lse, causal = False, flags[:1] == ["1"]
+        key = name + ("_lse" if lse else "") + ("_causal" if causal else "")
         info = None
         if runtime is not None:
             info = (runtime(int(d)) if d else runtime())[key]
@@ -435,64 +528,64 @@ def _max_rel(out, ref) -> float:
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
-def _backward(q, k, v, o, lse, do, scale):
+def _backward(q, k, v, o, lse, do, scale, causal: bool = False):
     """(dQ, delta, dK, dV) from the two backward kernels."""
     from deco_tpu_torch.ops import flash_attention as fa
 
-    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
-    return (dq, delta, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, causal)
+    return (dq, delta, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal))
 
 
-def _attention_timings(card: str, operands, flush, iters: int, plain_b=None) -> dict:
+def _attention_timings(card: str, operands, flush, iters: int, plain_b=None,
+                       causal: bool = False) -> dict:
     """Times of the forward with lse, dQ (with delta) and dK/dV at one
     shape, beside their plain versions, bounds and library yardsticks: the
-    fastest SDPA backend's forward with logsumexp, and SDPA's autograd
-    backward (dQ, dK and dV together, default backend) against the whole
-    backward (dQ, then dK/dV). ``plain_b`` times the plain versions on the
-    first ``plain_b`` rows of the batch (their fp32 logits of a whole large
-    batch do not fit in the card's memory) and says so in each row."""
-    import torch
-    import torch.nn.functional as F
-
+    fastest SDPA backend's forward with logsumexp, and the fastest SDPA
+    backend's backward kernels (dQ, dK and dV together, through its aten
+    backward entry) against the whole backward (dQ, then dK/dV). ``plain_b``
+    times the plain versions on the first ``plain_b`` rows of the batch
+    (their fp32 logits of a whole large batch do not fit in the card's
+    memory) and says so in each row. ``causal`` takes the causal
+    instantiations, their plain versions and SDPA's ``is_causal``, and
+    halves the operations of the bound (the kernels visit the tiles up to
+    the diagonal)."""
     from deco_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = operands
     b, nq, h, d = q.shape
     nkv = k.shape[1]
     scale = d ** -0.5
-    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
-    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale, causal)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, causal)
     rows, op = b * h * nq, 2 * q.numel()  # rows of lse/delta; bytes of one bf16 operand
-    work = b * h * nq * nkv * d
+    work = b * h * nq * nkv * d / (2 if causal else 1)
     plain_iters = max(iters // 5, 3)
-    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))  # SDPA's (B, H, N, D) views
     pq, pk, pv, pdo, po, plse, pdelta = (x[:plain_b] for x in (q, k, v, do, o, lse, delta))
     out = {"fwd_lse": {
-        "ms": cuda_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, scale), iters, flush),
-        "plain_ms": cuda_ms(lambda: fa.flash_attention_fwd_lse_plain(pq, pk, pv, scale),
+        "ms": cuda_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, scale, causal), iters, flush),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_fwd_lse_plain(pq, pk, pv, scale, causal),
                             plain_iters, flush),
-        **sdpa_forward_yardsticks(q, k, v, scale, True, flush, iters),
+        **sdpa_forward_yardsticks(q, k, v, scale, True, flush, iters, causal),
         **_bound(card, 4 * op + 4 * rows, 4 * work)}}
     # dQ reads q, k, v, o, do and lse and writes dq and delta; dK/dV reads
     # q, k, v, do, lse and delta and writes dk and dv
     for name, kernel, plain, args, plain_args, nbytes, flops in (
             ("bwd_dq", fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain,
-             (q, k, v, o, lse, do, scale), (pq, pk, pv, po, plse, pdo, scale),
+             (q, k, v, o, lse, do, scale, causal), (pq, pk, pv, po, plse, pdo, scale, causal),
              6 * op + 8 * rows, 6 * work),
             ("bwd_dkv", fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_plain,
-             (q, k, v, do, lse, delta, scale), (pq, pk, pv, pdo, plse, pdelta, scale),
+             (q, k, v, do, lse, delta, scale, causal), (pq, pk, pv, pdo, plse, pdelta, scale,
+                                                        causal),
              6 * op + 8 * rows, 8 * work)):
         out[name] = {"ms": cuda_ms(lambda: kernel(*args), iters, flush),
                      "plain_ms": cuda_ms(lambda: plain(*plain_args), plain_iters, flush),
                      "library_ms": None,  # no one PyTorch call computes dQ (or dK, dV) alone
                      **_bound(card, nbytes, flops)}
-    whole_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, scale), iters, flush)
-    leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
-    sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
-    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True),
-                      iters, flush)
+    whole_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, scale, causal), iters,
+                       flush)
+    sdpa = sdpa_backward_yardsticks(q, k, v, do, scale, flush, iters, causal)
     for name in ("bwd_dq", "bwd_dkv"):
-        out[name].update(whole_backward_ms=whole_ms, sdpa_backward_ms=sdpa_ms)
+        out[name].update(whole_backward_ms=whole_ms, **sdpa)
     if plain_b is not None:
         for row in out.values():
             row["plain_b"] = plain_b
@@ -509,9 +602,10 @@ def kernel_resource_lines(card: str) -> None:
 
     for key, source, runtime, count in (
             ("forward_resources", "flash_attention_fwd", fa.forward_kernel_info,
-             2 * len(fa.SUPPORTED_HEAD_DIMS) + len(fa.F32_HEAD_DIMS)),
+             2 * len(fa.SUPPORTED_HEAD_DIMS) + len(fa.F32_HEAD_DIMS)
+             + 2 * len(fa.CAUSAL_HEAD_DIMS)),
             ("backward_resources", "flash_attention_bwd", fa.backward_kernel_info,
-             2 * len(fa.SUPPORTED_HEAD_DIMS)),
+             2 * len(fa.SUPPORTED_HEAD_DIMS) + 2 * len(fa.CAUSAL_HEAD_DIMS)),
             ("freq_mse_resources", "freq_mse", block_dct.kernel_info, 1)):
         rows = kernel_resources(_build.BUILD_DIR, source, runtime)
         check(len(rows) == count, f"{source} build log lists {rows}")
@@ -526,39 +620,42 @@ def attention_operands(gen, b, nq, nkv, h, d) -> list:
     return [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes]
 
 
-def hold_attention_training(phase: str, name: str, shape, operands) -> dict:
+def hold_attention_training(phase: str, name: str, shape, operands,
+                            causal: bool = False) -> dict:
     """The forward with lse, dQ (with delta) and dK/dV at one shape against
-    their plain versions, each bit-identical over two runs; emits and checks
-    the row, and returns it with the worst error of each kernel."""
+    their plain versions (``causal``: the causal instantiations against the
+    masked plain versions), each bit-identical over two runs; emits and
+    checks the row, and returns it with the worst error of each kernel."""
     import torch
 
     from deco_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = operands
     scale = shape[-1] ** -0.5
-    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
-    o2, lse2 = fa.flash_attention_fwd_lse(q, k, v, scale)
-    dq, delta, dk, dv = _backward(q, k, v, o, lse, do, scale)
-    again = _backward(q, k, v, o, lse, do, scale)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale, causal)
+    o2, lse2 = fa.flash_attention_fwd_lse(q, k, v, scale, causal)
+    dq, delta, dk, dv = _backward(q, k, v, o, lse, do, scale, causal)
+    again = _backward(q, k, v, o, lse, do, scale, causal)
     torch.cuda.synchronize()
     fwd_bit_identical = torch.equal(o, o2) and torch.equal(lse, lse2)
     bit_identical = all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), again))
-    o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
-    dq_ref, delta_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
-    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale, causal)
+    dq_ref, delta_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale, causal)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal)
     for x in (o, lse, dq, delta, dk, dv):
         check(bool(torch.isfinite(x).all()), f"{name}: a training kernel output is not finite")
     row = {"o_max_abs_err": (o.float() - o_ref.float()).abs().max().item(),
+           "o_max_err": _attn_err(o, o_ref, causal),
            "lse_max_abs_err": (lse - lse_ref).abs().max().item(),
            "delta_max_rel_err": _max_rel(delta, delta_ref)}
     for key, out, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
         row[key + "_max_abs_err"] = (out.float() - ref.float()).abs().max().item()
         row[key + "_max_rel_err"] = _max_rel(out, ref)
-    emit({"phase": phase, "shape": name, "b_nq_nkv_h_d": shape, **row,
+    emit({"phase": phase, "shape": name, "b_nq_nkv_h_d": shape, **row, "causal": causal,
           "forward_bit_identical": fwd_bit_identical,
           "backward_bit_identical": bit_identical, "atol": ATTN_ATOL,
           "lse_atol": LSE_ATOL, "bwd_rel": BWD_REL, "delta_rel": DELTA_REL})
-    check(row["o_max_abs_err"] < ATTN_ATOL and row["lse_max_abs_err"] < LSE_ATOL,
+    check(row["o_max_err"] < ATTN_ATOL and row["lse_max_abs_err"] < LSE_ATOL,
           f"forward with lse {name}: {row}")
     check(row["delta_max_rel_err"] < DELTA_REL, f"delta {name}: {row}")
     check(max(row["dq_max_rel_err"], row["dk_max_rel_err"], row["dv_max_rel_err"]) < BWD_REL,
@@ -1551,7 +1648,7 @@ def t2i_slice_images(device: str, dtype=None, zero_attention: bool = False) -> l
     uncond = (torch.randn(1, 128, 2048, generator=gen) * 0.02).to(torch.bfloat16).to(device)
     saved = layers.sdpa
     if zero_attention:
-        layers.sdpa = lambda q, k, v, mask=None: torch.zeros_like(q)
+        layers.sdpa = lambda q, k, v, mask=None, causal=False: torch.zeros_like(q)
     try:
         images = []
         for h, w in T2I_CANVASES:
@@ -2726,10 +2823,10 @@ def reco_slice_step(device: str, dtype: str = "bfloat16", attention: str = "kern
     cond = image.to(torch.bfloat16)
     kernel = layers.flash_attention
     if attention == "plain":
-        layers.flash_attention = lambda q, k, v, scale=None: fa.flash_attention_plain(q, k, v,
-                                                                                      scale)
+        layers.flash_attention = lambda q, k, v, scale=None, causal=False: (
+            fa.flash_attention_plain(q, k, v, scale, causal=causal))
     elif attention == "zero":
-        layers.flash_attention = lambda q, k, v, scale=None: torch.zeros_like(q)
+        layers.flash_attention = lambda q, k, v, scale=None, causal=False: torch.zeros_like(q)
     try:
         with torch.no_grad():
             out = model(x_t, torch.tensor([0.3, 0.7], device=device), cond)
@@ -3022,7 +3119,8 @@ def _reco_timing_rows(timings: dict, keys: tuple) -> dict:
     """The kernels line's entries of one kernel at one family's shapes (the
     ReCo shapes, the VAE's at D = 32)."""
     return {name: {k: v for k, v in t.items() if k in keys + (
-        "library_backend", "whole_backward_ms", "sdpa_backward_ms", "b_nq_nkv_h_d")}
+        "library_backend", "whole_backward_ms", "sdpa_backward_ms", "sdpa_backward_backend",
+        "b_nq_nkv_h_d")}
         for name, t in timings.items()}
 
 
@@ -3116,10 +3214,10 @@ def vae_slice_step(device: str, dtype: str = "bfloat16", attention: str = "kerne
     noise = torch.from_numpy(rng.standard_normal((2, 64, 32)).astype(np.float32)).to(device)
     kernel = layers.flash_attention
     if attention == "plain":
-        layers.flash_attention = lambda q, k, v, scale=None: fa.flash_attention_plain(q, k, v,
-                                                                                      scale)
+        layers.flash_attention = lambda q, k, v, scale=None, causal=False: (
+            fa.flash_attention_plain(q, k, v, scale, causal=causal))
     elif attention == "zero":
-        layers.flash_attention = lambda q, k, v, scale=None: torch.zeros_like(q)
+        layers.flash_attention = lambda q, k, v, scale=None, causal=False: torch.zeros_like(q)
     try:
         recon, extra = model(x, noise=noise)
         loss = (((recon.float() - x) * 0.5) ** 2).mean() + 1e-3 * (
@@ -3508,6 +3606,541 @@ def phase_dcae_eval(card: str) -> dict:
     return launches
 
 
+UNIFLOW_CONFIG = "configs_flow/uniflow_internvit_2b_base.yaml"
+UNIFLOW_448_CONFIG = "configs_flow/uniflow_internvit_2b_blip3o_stage2.yaml"
+UNIFLOW_SEM_CONFIG = "configs_flow/uniflow_internvit_2b_blip3o_sem.yaml"
+UNIFLOW_DIR = "build/chip_smoke_uniflow"  # git-ignored; deleted at the end of the phase
+# (B, Nq, Nkv, H, D): the causal semantic trunk (32 heads of 64) at the fit
+# batch 16 at 448 px (16^2 latent tokens) and 224 px (8^2), 896 px at batch
+# 2 (32^2), and a ragged 10^2 (the 280 px canvas of a 256 px validate)
+UNIFLOW_CAUSAL_SHAPES = {"n256": (16, 256, 256, 32, 64), "n64": (16, 64, 64, 32, 64),
+                         "n1024": (2, 1024, 1024, 32, 64), "ragged100": (16, 100, 100, 32, 64)}
+UNIFLOW_FIT_STEPS = 3
+# launches a step: the InternViT's 24 layers, the shallow ViT's 4 and the
+# pixel trunk's 6 blocks non-causal, the semantic trunk's 6 causal; every
+# one takes both backward kernels (the frozen towers' gradients are taken
+# for the clip's norm, as in JAX)
+UNIFLOW_TOWER, UNIFLOW_SHALLOW, UNIFLOW_TRUNK = 24, 4, 6
+# The UniFlow slice: the full widths with the InternViT cut to 2 layers, the
+# shallow ViT to 1 and each trunk to 1 block, batch 2 at 224 px, bf16
+# compute with fp32 parameters, the same weights, images and draws on the
+# card (the kernels) and on the CPU (the plain versions). The gates are 2x
+# the CPU reading of bf16 against fp32 compute (--calibrate-uniflow-slice,
+# UNIFLOW_SLICE_READINGS), set before the first card run: card against CPU
+# changes only roundings, so it should read under bf16 vs fp32, while a
+# zeroed attention reads 4-100x over each gradient gate. The loss terms,
+# which the attention hardly moves at random weights (the zeroed reading is
+# under the bf16 one), are held to 10x their bf16-vs-fp32 readings.
+UNIFLOW_SLICE = dict(num_hidden_layers=2, global_blocks_depth=1)
+UNIFLOW_SLICE_SHALLOW = 1
+UNIFLOW_SLICE_GATES = {"distill_loss_rel": 5e-3, "sem_mse_loss_rel": 4e-4,
+                       "flow_loss_rel": 5e-4, "loss_rel": 4e-4, "grads_rel_l2": 0.0144,
+                       "causal_trunk_grads_rel_l2": 0.0195, "pixel_trunk_grads_rel_l2": 0.0168,
+                       "tower_grads_rel_l2": 0.0158, "shallow_grads_rel_l2": 0.0292}
+UNIFLOW_SLICE_READINGS = {
+    "bf16_vs_fp32": {"distill_loss_rel": 4.98e-4, "sem_mse_loss_rel": 3.85e-5,
+                     "flow_loss_rel": 5.02e-5, "loss_rel": 4.11e-5, "grads_rel_l2": 0.0072,
+                     "causal_trunk_grads_rel_l2": 0.0098, "pixel_trunk_grads_rel_l2": 0.0084,
+                     "tower_grads_rel_l2": 0.0079, "shallow_grads_rel_l2": 0.0146},
+    "zero_attention_vs_bf16": {"distill_loss_rel": 5.4e-6, "sem_mse_loss_rel": 1.37e-5,
+                               "flow_loss_rel": 7.0e-6, "loss_rel": 1.08e-5,
+                               "grads_rel_l2": 0.0569, "causal_trunk_grads_rel_l2": 0.988,
+                               "pixel_trunk_grads_rel_l2": 0.966, "tower_grads_rel_l2": 0.321,
+                               "shallow_grads_rel_l2": 0.787}}
+
+
+def _uniflow_slice_model(device: str, dtype: str = "bfloat16"):
+    """The slice's UniFlowVision, every parameter drawn from seed 0 (normal
+    x 0.5 / sqrt(fan in), norm scales 1 + 0.1 normal; no parameter zero, so
+    the zero-initialised modulations and heads carry gradient)."""
+    import dataclasses
+
+    import torch
+
+    from deco_tpu_torch.models.uniflow.model import UniFlowConfig, UniFlowVision
+
+    cfg = dataclasses.replace(UniFlowConfig.from_pretrained(), **UNIFLOW_SLICE)
+    model = UniFlowVision(cfg, dtype=getattr(torch, dtype), device="cpu")
+    model.shallow_encoder.layers = model.shallow_encoder.layers[:UNIFLOW_SLICE_SHALLOW]
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            r = torch.randn(p.shape, generator=gen)
+            if name.endswith(("norm1.weight", "norm2.weight", "norm.weight", "in_ln.weight",
+                              "mlp1.0.weight")) or name.endswith(("q_norm.weight",
+                                                                  "k_norm.weight")):
+                p.copy_(1.0 + 0.1 * r)
+            else:
+                p.copy_(r * 0.5 / (p[0].numel() if p.dim() > 1 else p.numel()) ** 0.5)
+    return model.to(device)
+
+
+def uniflow_slice_step(device: str, dtype: str = "bfloat16", attention: str = "kernel") -> dict:
+    """One ``forward_loss`` and its gradients of the slice model at batch 2
+    (224 px) with fixed images and draws: the five loss terms and the
+    gradients by group, on the CPU in fp32. ``attention`` "zero" gives zeros
+    for every attention (the calibration's yardstick)."""
+    import torch
+
+    from deco_tpu_torch.models import layers
+
+    model = _uniflow_slice_model(device, dtype)
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 224, 224, 3)).astype(np.float32)).to(device)
+
+    def draws(n, c):
+        return {"t_normal": rng.standard_normal((2, n)).astype(np.float32),
+                "t_mix": rng.uniform(0, 1, (2, n)).astype(np.float32),
+                "t_uniform": rng.uniform(0, 1, (2, n)).astype(np.float32),
+                "x0": rng.standard_normal((2, n, c)).astype(np.float32)}
+
+    d = {"sem": draws(64, 4096), "pix": draws(256, 588)}
+    kernel = layers.flash_attention
+    if attention == "zero":
+        layers.flash_attention = lambda q, k, v, scale=None, causal=False: torch.zeros_like(q)
+    try:
+        losses = model.forward_loss(x, draws=d)
+        losses["loss"].backward()
+    finally:
+        layers.flash_attention = kernel
+
+    def flat(prefix=""):  # a parameter the loss does not read (the mask tokens): zeros
+        return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float()
+                          .reshape(-1).cpu() for n, p in model.named_parameters()
+                          if n.startswith(prefix)])
+
+    return {"losses": {k: float(v.detach()) for k, v in losses.items()},
+            "grads": flat(), "causal_trunk_grads": flat("sem_global_blocks."),
+            "pixel_trunk_grads": flat("global_blocks."), "tower_grads": flat("encoder."),
+            "shallow_grads": flat("shallow_encoder.")}
+
+
+def _uniflow_slice_rows(a: dict, b: dict) -> dict:
+    """Each reading of ``a`` against ``b``: the relative difference of each
+    loss term, relative L2 of the gradients, all and by group."""
+    row = {f"{k}_rel": abs(a["losses"][k] - v) / abs(v) for k, v in b["losses"].items()
+           if k != "lpips_loss" and v}
+    row.update({f"{k}_rel_l2": _rel_l2(a[k], b[k]) for k in (
+        "grads", "causal_trunk_grads", "pixel_trunk_grads", "tower_grads", "shallow_grads")})
+    return row
+
+
+def calibrate_uniflow_slice() -> None:
+    """On the CPU: the readings between which UNIFLOW_SLICE_GATES sit."""
+    bf16 = uniflow_slice_step("cpu")
+    print(json.dumps({"bf16_vs_fp32": _uniflow_slice_rows(bf16, uniflow_slice_step(
+        "cpu", "float32")), "zero_attention_vs_bf16": _uniflow_slice_rows(
+        uniflow_slice_step("cpu", attention="zero"), bf16)}))
+
+
+def _causal_kernels():
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    return {"fwd": fa.flash_attention, "fwd_lse": fa.flash_attention_fwd_lse,
+            "bwd_dq": fa.flash_attention_bwd_dq, "bwd_dkv": fa.flash_attention_bwd_dkv}
+
+
+def _reset_launches() -> None:
+    for f in {**_fit_kernels(), **_causal_kernels()}.values():
+        f.launches = 0
+    for f in _causal_kernels().values():
+        f.causal_launches = 0
+
+
+def _uniflow_launches() -> dict:
+    """The launches since :func:`_reset_launches`: each kernel's, and each
+    causal instantiation's under ``<name>_causal``."""
+    out = {k: f.launches for k, f in _fit_kernels().items()}
+    out.update({f"{k}_causal": f.causal_launches for k, f in _causal_kernels().items()})
+    return out
+
+
+def phase_uniflow_kernels(card: str) -> dict:
+    """The four causal instantiations at UNIFLOW_CAUSAL_SHAPES against their
+    masked plain versions (the forward bit-identical over two runs, the
+    training kernels through ``hold_attention_training``), timed beside the
+    bound (half the non-causal operations, or the bytes), the plain versions
+    and SDPA's ``is_causal`` as a yardstick; and each one's registers,
+    spills, shared memory and resident CTAs."""
+    import torch
+
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    errs = {"fwd": 0.0, "fwd_lse": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
+    scaled = {"fwd": 0.0, "fwd_lse": 0.0}  # the gated errors, in units of max(1, |plain|)
+    timings: dict = {key: {} for key in errs}
+    for name, shape in UNIFLOW_CAUSAL_SHAPES.items():
+        b, nq, nkv, h, d = shape
+        q, k, v, do = attention_operands(gen, *shape)
+        out = fa.flash_attention(q, k, v, causal=True)
+        again = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, causal=True)
+        err, abs_err = _attn_err(out, ref, causal=True), _attn_err(out, ref)
+        check(bool(torch.isfinite(out).all()) and err < ATTN_ATOL,
+              f"causal attention {name} error {err} >= {ATTN_ATOL} x max(1, |plain|)")
+        check(torch.equal(out, again), f"causal attention {name} differs between two runs")
+        errs["fwd"], scaled["fwd"] = max(errs["fwd"], abs_err), max(scaled["fwd"], err)
+        timings["fwd"][name] = {
+            "b_nq_nkv_h_d": list(shape), "max_abs_err": abs_err, "max_err_scaled": err,
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 30, flush),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 5,
+                                flush),
+            **sdpa_forward_yardsticks(q, k, v, d ** -0.5, False, flush, 30, causal=True),
+            **_bound(card, 2 * (2 * q.numel() + k.numel() + v.numel()),
+                     4 * b * h * nq * nkv * d / 2)}
+        emit({"phase": "uniflow_kernels", "timing": f"fwd_causal_{name}",
+              **timings["fwd"][name], "atol": ATTN_ATOL, "atol_unit": "max(1, |plain|)",
+              "bit_identical": True,
+              "l2": "flushed before each call", "card": card})
+        row = hold_attention_training("uniflow_kernels", name, shape, (q, k, v, do), causal=True)
+        for key, value in row["errs"].items():
+            errs[key] = max(errs[key], value)
+        scaled["fwd_lse"] = max(scaled["fwd_lse"], row["o_max_err"])
+        for kernel, timing in _attention_timings(card, (q, k, v, do), flush, 20,
+                                                 causal=True).items():
+            timings[kernel][name] = {"b_nq_nkv_h_d": list(shape), **timing}
+            emit({"phase": "uniflow_kernels", "timing": f"{kernel}_causal_{name}",
+                  **timings[kernel][name], "l2": "flushed before each call", "card": card})
+        del q, k, v, do, out, again, ref
+        torch.cuda.empty_cache()
+    resources = {k: v for k, v in {**fa.forward_kernel_info(64),
+                                   **fa.backward_kernel_info(64)}.items() if "causal" in k}
+    emit({"phase": "uniflow_kernels", "causal_resources": resources, "card": card})
+    check(len(resources) == 4, f"causal instantiations {sorted(resources)}")
+    for kind, info in resources.items():
+        check(info["local_bytes"] == 0, f"{kind}<64> uses local memory: {info}")
+    return {"errs": errs, "scaled": scaled, "timings": timings, "resources": resources}
+
+
+def phase_uniflow_slice() -> dict:
+    """The UniFlow slice, the card's kernels against the CPU's plain versions."""
+    import torch
+
+    _reset_launches()
+    card = uniflow_slice_step("cuda")
+    launches = _uniflow_launches()
+    torch.cuda.empty_cache()
+    cpu = uniflow_slice_step("cpu")
+    row = _uniflow_slice_rows(card, cpu)
+    layers = UNIFLOW_SLICE["num_hidden_layers"] + UNIFLOW_SLICE_SHALLOW + UNIFLOW_SLICE[
+        "global_blocks_depth"]
+    causal = UNIFLOW_SLICE["global_blocks_depth"]
+    emit({"phase": "uniflow_slice_vs_plain", "config": "the vendored config.json",
+          "cut": {**UNIFLOW_SLICE, "shallow_layers": UNIFLOW_SLICE_SHALLOW}, "batch": 2,
+          "image_size": 224, **row, "gates": UNIFLOW_SLICE_GATES,
+          "cpu_readings": UNIFLOW_SLICE_READINGS, "losses": card["losses"],
+          "cpu_losses": cpu["losses"], "launches": launches,
+          "params_with_grad": int(card["grads"].numel())})
+    check(all(np.isfinite(list(card["losses"].values()))), f"uniflow slice {card['losses']}")
+    want = {**{k: 0 for k in launches}, "fwd_lse": layers, "bwd_dq": layers, "bwd_dkv": layers,
+            "fwd_lse_causal": causal, "bwd_dq_causal": causal, "bwd_dkv_causal": causal}
+    check(launches == want, f"uniflow slice launches {launches}, expected {want}")
+    for key, limit in UNIFLOW_SLICE_GATES.items():
+        check(row[key] < limit, f"uniflow slice {key} {row[key]} >= {limit}")
+    return row
+
+
+def _write_uniflow_config(path: str, config_path: str, workroot: str, train=None,
+                          eval_root=None) -> dict:
+    """``config_path`` as shipped but for its data nodes (``train``: a PNG
+    folder read by PixImageNet, or for a PixWebDataset node a tar shard in
+    place of its ``data_files``; ``eval_root`` a PNG folder; each at the
+    node's resolution: the card host's ``datasets`` would look for the hub
+    dataset), its work directory and a log line every step."""
+    from deco_tpu_torch.config import _yaml, registry
+
+    config = registry.load_yaml(config_path)
+    node = config["data"]["train_dataset"]
+    if node["class_path"].endswith("PixWebDataset"):
+        node["init_args"]["data_files"] = train
+    else:
+        check(node["class_path"].endswith("PixHFDataset"), f"{config_path} train node changed")
+        config["data"]["train_dataset"] = {
+            "class_path": "src.data.dataset.imagenet.PixImageNet",
+            "init_args": {"root": train, "resolution": node["init_args"]["resolution"]}}
+    if eval_root is not None:
+        enode = config["data"]["eval_dataset"]
+        check(enode["class_path"].endswith("PixHFDataset"), f"{config_path} eval node changed")
+        config["data"]["eval_dataset"] = {
+            "class_path": "src.data.dataset.imagenet.PixImageNet",
+            "init_args": {"root": eval_root, "resolution": enode["init_args"]["resolution"]}}
+    config["trainer"].update(default_root_dir=workroot, log_every_n_steps=1)
+    with open(path, "w") as f:
+        f.write(_yaml.dump(config))
+    return config
+
+
+class _MemoryCheckpoints:
+    """``CheckpointManager.save`` and ``load`` in host memory: the payload
+    goes through ``torch.save`` into a buffer (its bytes and seconds are the
+    checkpoint's) and comes back through ``torch.load``, without a disk write."""
+
+    def __init__(self):
+        self.files: dict = {}
+        self.saves: list = []
+
+    def save(self, manager, obj, step):
+        import io
+
+        import torch
+
+        t0 = time.perf_counter()
+        buf = io.BytesIO()
+        torch.save(obj, buf)
+        self.files[(manager.directory, int(step))] = buf
+        self.saves.append({"bytes": buf.getbuffer().nbytes, "seconds": time.perf_counter() - t0})
+        return f"memory:{manager.directory}/{step}.pt"
+
+    def latest_step(self, manager):
+        steps = [s for d, s in self.files if d == manager.directory]
+        return max(steps) if steps else None
+
+    def load(self, manager, step=None):
+        import torch
+
+        step = self.latest_step(manager) if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {manager.directory}")
+        buf = self.files[(manager.directory, int(step))]
+        buf.seek(0)
+        return torch.load(buf, weights_only=True)
+
+
+def _uniflow_step_breakdown(exp, state, batch: int) -> dict:
+    """The fit's own step (``UniFlowExperiment.train_step``) on the fit's
+    state, steady: the wall time of a step ended by a synchronize (median of
+    3 after one more warm-up), then one more step's device time by kind of
+    kernel (:func:`profile_breakdown`); synthetic images of the fit's shape."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand(batch, 224, 224, 3, generator=gen, device="cuda") * 2 - 1
+
+    def one():
+        exp.train_step(state, x, generator=gen)
+        torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        one()
+        walls.append(time.perf_counter() - t0)
+    return {"step_wall_s": walls, **profile_breakdown(one, float(np.median(walls[1:])) * 1e3)}
+
+
+def _uniflow_one_step(path: str, card: str) -> dict:
+    """``cli fit`` of one step of ``path`` without a checkpoint: its peak
+    memory, s/step and launches, or "out of memory" with what PyTorch held."""
+    import torch
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.train import checkpoint
+
+    _reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with Spy(checkpoint.CheckpointManager, "save", replace=lambda self, obj, step: None):
+            state = cli.main(["fit", "-c", path, "--max_steps", "1"])
+        torch.cuda.synchronize()
+        result, error = "fits", None
+        del state
+    except torch.cuda.OutOfMemoryError as err:
+        result, error = "out of memory", " ".join(str(err).split())[:300]
+    row = {"result": result, "error": error, "seconds": time.perf_counter() - t0,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "card_mem_bytes": torch.cuda.get_device_properties(0).total_memory,
+           "launches": _uniflow_launches(), "card": card}
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_uniflow(card: str, seed: int) -> dict:
+    """UniFlow through the CLI as users run it. ``uniflow_fit``: ``cli fit``
+    on uniflow_internvit_2b_base.yaml as shipped (the full 1.09B model,
+    batch 16 at 224 px, the vision towers frozen, its WandbLogger node kept)
+    but for its data nodes (PixImageNet over seeded PNG folders), the work
+    directory and 3 steps. Its checkpoint (~10 GB: parameters and the
+    trainable ones' AdamW moments) is serialized into host memory, not
+    written: phases 9-15 write ~45 GB of the call's 45 GiB of disk writes,
+    and no depth cut at full width brings the checkpoint under the ~3 GB
+    left while keeping the exact launches a step (34 + 6 causal), so the
+    model keeps its full depth. ``uniflow_validate``: ``cli validate`` from
+    that checkpoint, one batch of 32 at 256 px (padded to 280): 34 forward
+    launches, no causal one, a (32, 256, 256, 3) reconstruction, PSNR, SSIM
+    and FID. ``uniflow_semantic``: the validated model's semantic
+    reconstruction of a batch (28 + 6 causal forward launches).
+    ``uniflow_448``: one step of uniflow_internvit_2b_blip3o_stage2.yaml
+    (EMA, frozen encoder) at its shipped batch 16 at 448 px from its
+    PixWebDataset node (random crop and flip) over a seeded PNG tar shard,
+    without a checkpoint: peak memory (or "out of memory") and s/step.
+    ``uniflow_sem``: one step of uniflow_internvit_2b_blip3o_sem.yaml, the
+    pixel branch off (28 + 6 causal launches), without a checkpoint."""
+    import importlib.util
+    import json
+    import os
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.train import checkpoint, workloads
+    from deco_tpu_torch.utils.flops import card_peaks, uniflow_flops
+
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    has_wandb = importlib.util.find_spec("wandb") is not None
+    memory = _MemoryCheckpoints()
+    layers = UNIFLOW_TOWER + UNIFLOW_SHALLOW + UNIFLOW_TRUNK
+    per_step = {"fwd_lse": layers, "bwd_dq": layers, "bwd_dkv": layers,
+                "fwd_lse_causal": UNIFLOW_TRUNK, "bwd_dq_causal": UNIFLOW_TRUNK,
+                "bwd_dkv_causal": UNIFLOW_TRUNK}
+    try:
+        images = write_image_folder(f"{UNIFLOW_DIR}/train", seed, per_class=16)
+        evals = write_image_folder(f"{UNIFLOW_DIR}/eval", seed + 1, per_class=16)
+        workroot = f"{UNIFLOW_DIR}/work"
+        path = f"{UNIFLOW_DIR}/uniflow_internvit_2b_base.yaml"
+        config = _write_uniflow_config(path, UNIFLOW_CONFIG, workroot, f"{UNIFLOW_DIR}/train",
+                                       f"{UNIFLOW_DIR}/eval")
+        batch = config["data"]["train_batch_size"]
+        _reset_launches()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "save", replace=memory.save), \
+                Spy(workloads.UniFlowRun, "fit") as fits, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state = cli.main(["fit", "-c", path, "--max_steps", str(UNIFLOW_FIT_STEPS)])
+        fit_s = time.perf_counter() - t0
+        launches = _uniflow_launches()
+        peak = torch.cuda.max_memory_allocated()
+        workdir = f"{workroot}/{config['tags']['exp']}"
+        records, ends, step_s = _fit_records(workdir)
+        s_per_step = float(np.median(step_s[1:]))
+        busy_ms = _kernel_busy_ms(prof)
+        flops = 3 * uniflow_flops() * batch
+        terms = ("distill_loss", "vit_distill_loss", "sem_mse_loss", "flow_loss", "lpips_loss")
+        fit = {"phase": "uniflow_fit", "config": UNIFLOW_CONFIG, "images": images,
+               "batch": batch, "image_size": 224, "steps": UNIFLOW_FIT_STEPS,
+               "wandb": "importable (WANDB_MODE=disabled)" if has_wandb else "absent: JSONL only",
+               "losses": {k: [r[k] for r in records] for k in terms + ("loss", "grad_norm")},
+               "step_s": step_s, "s_per_step": s_per_step, "images_per_s": batch / s_per_step,
+               "mfu": flops / s_per_step / card_peaks(card)[0], "flops_per_step": flops,
+               "device_kernel_ms": busy_ms, "kernel_ms_by_kind": _kernel_ms_by_kind(prof),
+               "idle_share": 1 - busy_ms / 1e3 / ends[-1], "peak_mem_bytes": peak,
+               "fit_call_s": fit_s, "launches": launches,
+               "launches_per_step": {k: v / UNIFLOW_FIT_STEPS for k, v in launches.items()},
+               "checkpoint_bytes": [s["bytes"] for s in memory.saves],
+               "checkpoint_save_s": [s["seconds"] for s in memory.saves],
+               "checkpoint_note": "torch.save into host memory (no disk write: the call's "
+                                  "45 GiB write budget)",
+               "params": sum(p.numel() for p in state.model.parameters()),
+               "trainable_params": sum(p.numel() for g in state.optimizer.param_groups
+                                       for p in g["params"]), "card": card,
+               "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl"}
+        emit(fit)
+        model = state.model
+        check(type(model).__name__ == "UniFlowVision" and len(model.encoder.layers) == UNIFLOW_TOWER
+              and len(model.sem_global_blocks) == UNIFLOW_TRUNK and model.dtype == torch.bfloat16
+              and all(b.is_causal for b in model.sem_global_blocks),
+              "the fit did not build the shipped UniFlowVision")
+        check(len(records) == UNIFLOW_FIT_STEPS and all(
+            np.isfinite(r[k]) for r in records for k in terms + ("loss", "grad_norm")),
+              f"uniflow fit records {records}")
+        expected = {**{k: 0 for k in launches},
+                    **{k: n * UNIFLOW_FIT_STEPS for k, n in per_step.items()}}
+        check(launches == expected, f"uniflow fit launches {launches}, expected {expected}")
+        check(len(memory.saves) == 1, f"{len(memory.saves)} checkpoint saves, expected one")
+        emit({"phase": "uniflow_step_breakdown", **_uniflow_step_breakdown(
+            fits.calls[0]["args"][0].exp, state, batch), "card": card})
+        del state, model, fits
+        torch.cuda.empty_cache()
+
+        _reset_launches()
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "load", replace=memory.load), \
+                Spy(workloads.UniFlowRun, "validate") as validates, \
+                Spy(checkpoint.CheckpointManager, "latest_step", replace=memory.latest_step):
+            scores = cli.main(["validate", "-c", path, f"--ckpt_path={workdir}/checkpoints",
+                               "--max_batches", "1"])
+        torch.cuda.synchronize()
+        validate_s = time.perf_counter() - t0
+        val_launches = _uniflow_launches()
+        panels = sorted(os.listdir(f"{workdir}/images"))
+        pred_batch = config["data"]["pred_batch_size"]
+        emit({"phase": "uniflow_validate", "config": UNIFLOW_CONFIG, "eval_images": evals,
+              "batch": pred_batch, "image_size": 256, "canvas": 280,
+              "validate_call_s": validate_s, "launches": val_launches, "scores": scores,
+              "side_by_side_panels": len(panels), "card": card,
+              "note": "one batch; FID with the seed-0 random Inception tower"})
+        check({"metrics/psnr", "metrics/ssim", "metrics/fid"} <= set(scores) and all(
+            np.isfinite(list(scores.values()))), f"uniflow validate scores {scores}")
+        want = {**{k: 0 for k in val_launches}, "fwd": layers}
+        check(val_launches == want, f"uniflow validate launches {val_launches}, want {want}")
+        check(json.load(open(f"{workdir}/validate_metrics.json")) == scores,
+              "validate_metrics.json")
+        check(len(panels) == min(pred_batch, 16), f"side-by-side panels {len(panels)}")
+        memory.files.clear()
+        torch.cuda.empty_cache()
+
+        # the semantic reconstruction of a validate batch, on the model the
+        # validate built (its run object, kept by the Spy)
+        run = validates.calls[0]["args"][0]
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.rand(8, 224, 224, 3, generator=gen, device="cuda") * 2 - 1
+        _reset_launches()
+        tokens = run.exp.reconstruct(x, mode="semantic", generator=gen)
+        torch.cuda.synchronize()
+        sem_launches = _uniflow_launches()
+        emit({"phase": "uniflow_semantic", "batch": 8, "shape": list(tokens.shape),
+              "launches": sem_launches, "card": card})
+        check(tuple(tokens.shape) == (8, 64, 4096) and bool(torch.isfinite(tokens).all()),
+              f"semantic reconstruction {tuple(tokens.shape)}")
+        check(sem_launches == {**{k: 0 for k in sem_launches}, "fwd": UNIFLOW_TOWER
+                               + UNIFLOW_SHALLOW, "fwd_causal": UNIFLOW_TRUNK},
+              f"semantic reconstruction launches {sem_launches}")
+        del run, validates, tokens, x
+        torch.cuda.empty_cache()
+
+        shard = f"{UNIFLOW_DIR}/shards/shard-000000.tar"
+        write_tar_shard(shard, seed + 2, count=32)
+        rows = {}
+        # whether the shipped 448 px batch fits is what uniflow_448 asks, so
+        # "out of memory" is a reading there; uniflow_sem must run its step
+        for name, cfg_path, may_overflow, want_step in (
+                ("uniflow_448", UNIFLOW_448_CONFIG, True, per_step),
+                ("uniflow_sem", UNIFLOW_SEM_CONFIG, False, {
+                    "fwd_lse": UNIFLOW_TOWER + UNIFLOW_SHALLOW,
+                    "bwd_dq": UNIFLOW_TOWER + UNIFLOW_SHALLOW,
+                    "bwd_dkv": UNIFLOW_TOWER + UNIFLOW_SHALLOW,
+                    "fwd_lse_causal": UNIFLOW_TRUNK, "bwd_dq_causal": UNIFLOW_TRUNK,
+                    "bwd_dkv_causal": UNIFLOW_TRUNK})):
+            one = f"{UNIFLOW_DIR}/{os.path.basename(cfg_path)}"
+            oconfig = _write_uniflow_config(one, cfg_path, f"{UNIFLOW_DIR}/work_{name}", shard)
+            row = _uniflow_one_step(one, card)
+            node = oconfig["data"]["train_dataset"]["init_args"]
+            if row["result"] == "fits":
+                records, _, (row["step_s"],) = _fit_records(
+                    f"{UNIFLOW_DIR}/work_{name}/{oconfig['tags']['exp']}")
+                row["loss"] = records[0]["loss"]
+            emit({"phase": name, "config": cfg_path, "batch": oconfig["data"]["train_batch_size"],
+                  "image_size": node["resolution"], "random_crop": node.get("random_crop"),
+                  "random_flip": node.get("random_flip"), **row})
+            check(may_overflow or row["result"] == "fits", f"{name}: {row['error']}")
+            if row["result"] == "fits":
+                check(np.isfinite(row["loss"]), f"{name} loss {row['loss']}")
+                check(row["launches"] == {**{k: 0 for k in row["launches"]}, **want_step},
+                      f"{name} launches {row['launches']}")
+            rows[name] = row
+        return {"fit": launches, "validate": val_launches, "semantic": sem_launches,
+                "448": rows["uniflow_448"], "sem": rows["uniflow_sem"], "per_step": per_step}
+    finally:
+        shutil.rmtree(UNIFLOW_DIR, ignore_errors=True)
+
 def main() -> int:
     import torch
 
@@ -3528,6 +4161,9 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--calibrate-vae-slice"]:
         calibrate_vae_slice()  # on the CPU; sets no result
+        return 2
+    if sys.argv[1:] == ["--calibrate-uniflow-slice"]:
+        calibrate_uniflow_slice()  # on the CPU; sets no result
         return 2
     seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
     if not torch.cuda.is_available():
@@ -3578,6 +4214,11 @@ def main() -> int:
     phase_vae_slice()
     torch.cuda.empty_cache()
     vae = phase_vae(card, seed)
+    torch.cuda.empty_cache()
+    uniflow_kernels = phase_uniflow_kernels(card)
+    phase_uniflow_slice()
+    torch.cuda.empty_cache()
+    uniflow = phase_uniflow(card, seed)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     n1024 = {"fwd": kernel["n1024"], "fwd_lse": train_times.get("fwd_lse_512"),
              "bwd_dq": train_times.get("bwd_dq_512"), "bwd_dkv": train_times.get("bwd_dkv_512")}
@@ -3588,14 +4229,16 @@ def main() -> int:
         extra = {}
         if n1024.get(key):  # the 512 px shape, N = 1024
             extra["n1024"] = {k: v for k, v in n1024[key].items() if k in keys + (
-                "library_backend", "whole_backward_ms", "sdpa_backward_ms")}
+                "library_backend", "whole_backward_ms", "sdpa_backward_ms",
+                "sdpa_backward_backend")}
         return {"name": name, "route": "cuda", "source": f"deco_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 f"cli_{path}_launches": cli_launches[path][key],
                 f"cli_512_{path}_launches": cli_512_launches[path][key],
                 **{k: timing[k] for k in keys},
                 "library_backend": timing.get("library_backend"),
-                **{k: v for k, v in timing.items() if k.endswith("backward_ms")}, **extra}
+                **{k: v for k, v in timing.items()
+                   if k.endswith("backward_ms") or k == "sdpa_backward_backend"}, **extra}
 
     fwd = row("flash_attention_fwd", "flash_attention_fwd.cu",
               "deco_tpu/ops/flash_attention.py:63", launches,
@@ -3621,7 +4264,8 @@ def main() -> int:
         r.update(t2i_fit_launches=t2i_fit_launches["fit"][key],
                  baseline_fit_launches=families["fit"][key],
                  t2i={name: {k: v for k, v in t.items() if k in keys + (
-                     "library_backend", "whole_backward_ms", "sdpa_backward_ms")}
+                     "library_backend", "whole_backward_ms", "sdpa_backward_ms",
+                "sdpa_backward_backend")}
                      for name, t in t2i_train["timings"][key].items()})
         # ReCo (ReCo_large.yaml): launches in the 3-step CLI fit and the
         # 448 px step, and the times at the tower's and the decoder's shapes
@@ -3631,6 +4275,11 @@ def main() -> int:
         # the VAE-GAN (vae_training_stage2_224.yaml, D = 32 in the decoder):
         # launches in the 3-step CLI fit, the step with the discriminator
         # started and the 448 px step, and the times at the D = 32 shapes
+        # UniFlow (uniflow_internvit_2b_base.yaml): the non-causal launches in
+        # the 3-step CLI fit, the 448 px and the semantic-AE steps
+        r.update(uniflow_fit_launches=uniflow["fit"][key],
+                 uniflow_448_step_launches=uniflow["448"]["launches"][key],
+                 uniflow_sem_step_launches=uniflow["sem"]["launches"][key])
         r.update(vae_fit_launches=vae["fit"][key],
                  vae_fit_launches_per_step=vae["per_step"][key],
                  vae_disc_start_step_launches=vae["disc_start"][key],
@@ -3642,6 +4291,8 @@ def main() -> int:
                reco=_reco_timing_rows(reco_kernels["timings"]["fwd"], keys),
                vae_validate_launches={r: v["fwd"] for r, v in vae["validate"].items()},
                dcae_eval_launches=vae["dcae_eval"]["fwd"],
+               uniflow_validate_launches=uniflow["validate"]["fwd"],
+               uniflow_semantic_launches=uniflow["semantic"]["fwd"],
                d32=_reco_timing_rows(vae_kernels["timings"]["fwd"], keys + ("plain_b",)))
     d32_resources = {name: {k: info[k] for k in ("registers", "local_bytes", "dynamic_smem",
                                                  "ctas_per_sm")}
@@ -3673,8 +4324,44 @@ def main() -> int:
                              "ctas_per_sm": r["runtime"]["ctas_per_sm"]}
                          for d, r in fp32["resources"].items()},
            "families_fit_launches": {p: r["fwd_f32"] for p, r in families["others"].items()}}
+    # the causal instantiations (UniFlow's semantic trunk): launches on their
+    # path (the fit for the training three, the semantic reconstruction for
+    # the forward), times at the 224 px fit shape (16 x 64 tokens x 32
+    # heads), every other shape beside it
+    causal_rows = []
+    for key, source, line in (("fwd", "flash_attention_fwd.cu", 63),
+                              ("fwd_lse", "flash_attention_fwd.cu", 270),
+                              ("bwd_dq", "flash_attention_bwd.cu", 344),
+                              ("bwd_dkv", "flash_attention_bwd.cu", 379)):
+        timing = uniflow_kernels["timings"][key]["n64"]
+        kind = {"fwd": "flash_fwd_kernel_causal", "fwd_lse": "flash_fwd_kernel_lse_causal",
+                "bwd_dq": "flash_bwd_dq_kernel_causal",
+                "bwd_dkv": "flash_bwd_dkv_kernel_causal"}[key]
+        causal_rows.append({
+            "name": f"flash_attention_{key}_causal", "route": "cuda",
+            "source": f"deco_tpu_torch/csrc/{source}",
+            "replaces": f"deco_tpu/ops/flash_attention.py:{line}",
+            "replaces_note": "its causal instantiation: the JAX package sends the masked call "
+                             "to XLA (deco_tpu/models/layers.py:503-521)",
+            "launches": (uniflow["semantic"] if key == "fwd" else uniflow["fit"])[
+                f"{key}_causal"],
+            "max_abs_err": uniflow_kernels["errs"][key],
+            **({"max_err_scaled": uniflow_kernels["scaled"][key],
+                "max_err_scaled_unit": "max(1, |plain|)"} if key in uniflow_kernels["scaled"]
+               else {}),
+            **{k: timing[k] for k in keys},
+            "library_backend": timing.get("library_backend"),
+            "library_note": "SDPA with is_causal, a yardstick",
+            **{k: v for k, v in timing.items()
+               if k.endswith("backward_ms") or k == "sdpa_backward_backend"},
+            "b_nq_nkv_h_d": timing["b_nq_nkv_h_d"],
+            "uniflow_448_step_launches": uniflow["448"]["launches"][f"{key}_causal"],
+            "uniflow_sem_step_launches": uniflow["sem"]["launches"][f"{key}_causal"],
+            "shapes": _reco_timing_rows(uniflow_kernels["timings"][key], keys),
+            "resources": {k: uniflow_kernels["resources"][kind][k] for k in (
+                "registers", "local_bytes", "dynamic_smem", "ctas_per_sm")}})
     emit({"kernels": [
-        fwd, *training, f32,
+        fwd, *training, f32, *causal_rows,
         row("freq_mse", "freq_mse.cu", "deco_tpu/ops/block_dct.py:175",
             train_launches["freq_mse"], train_errs["freq_mse"], train_times["freq_mse"]),
     ]})

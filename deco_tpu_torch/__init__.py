@@ -16,5 +16,8 @@ from the reference YAML configs through ``python -m deco_tpu_torch.cli``
 (image-folder data, loader, step checkpoints, hooks, the run loop), with FID
 scoring at 512 px; and DeCo-XXL/16 text-to-image serving (``DeCoT2I``, the
 text conditioners, ``python -m deco_tpu_torch.serve``, and the DPG/GenEval
-predict through the CLI), whose joint attention runs the same forward kernel.
+predict through the CLI), whose joint attention runs the same forward kernel;
+then the other c2i families with REPA, ReCo, the VAE-GAN and DC-AE eval, and
+UniFlow, whose causal semantic trunk runs the kernels' causal
+instantiations.
 """

@@ -16,7 +16,8 @@ raises where there is no card; ``--device cpu`` runs the plain PyTorch
 versions of the kernels. The VAE-GAN configs (``configs/vae_*.yaml``) and
 the DC-AE decoder eval (``configs_flow/dcae_decoder_eval.yaml``) route to
 ``train/workloads.py``: ``fit`` trains, ``validate`` and ``predict``
-score reconstructions. UniFlow configs raise.
+score reconstructions; so do the UniFlow configs
+(``configs_flow/uniflow_*.yaml``).
 """
 
 from __future__ import annotations
@@ -83,11 +84,14 @@ def main(argv: Optional[list] = None):
     config = registry.load_yaml(known.config)
     registry.apply_overrides(config, parse_overrides(unknown))
     kind = detect_workload(config)
-    if kind == "uniflow":
-        raise registry.not_ported(f"the {kind} workload ({known.config})", 5)
-    if kind in ("vae_gan", "dcae_eval"):
+    if kind in ("uniflow", "vae_gan", "dcae_eval"):
         from deco_tpu_torch.train import workloads
 
+        if kind == "uniflow":
+            return workloads.run_uniflow(
+                config, max_steps=known.max_steps, workdir=known.workdir,
+                ckpt_path=known.ckpt_path, max_batches=known.max_batches, device=known.device,
+                subcommand="fit" if known.subcommand == "fit" else "validate")
         if kind == "dcae_eval":
             return workloads.run_dcae_eval(config, max_batches=known.max_batches,
                                            device=known.device)

@@ -91,6 +91,10 @@ _PORTED: Dict[str, str] = {
     "src.diffusion.base.guidance.c3_guidance_fn": "deco_tpu_torch.diffusion.guidance.c3_guidance_fn",
     "src.data.dataset.imagenet.PixImageNet": "deco_tpu_torch.data.imagenet.PixImageNet",
     "src.data.dataset.imagenet.PixHFDataset": "deco_tpu_torch.data.imagenet.PixHFDataset",
+    "src.data.dataset.imagenet.PixWebDataset": "deco_tpu_torch.data.webdataset.PixWebDataset",
+    "src.data.dataset.imagenet.PixJSONLDataset": "deco_tpu_torch.data.jsonl.PixJSONLDataset",
+    "src.data.dataset.imagenet.PixMultiJSONLDataset":
+        "deco_tpu_torch.data.jsonl.PixMultiJSONLDataset",
     "src.data.dataset.randn.RandomNDataset": "deco_tpu_torch.data.randn.RandomNDataset",
     "src.data.dataset.randn.ClassLabelRandomNDataset":
         "deco_tpu_torch.data.randn.ClassLabelRandomNDataset",
@@ -114,9 +118,6 @@ _PORTED: Dict[str, str] = {
 
 # class path -> the ROADMAP section A item that ports it
 UNPORTED: Dict[str, int] = {
-    "src.data.dataset.imagenet.PixWebDataset": 2,
-    "src.data.dataset.imagenet.PixJSONLDataset": 2,
-    "src.data.dataset.imagenet.PixMultiJSONLDataset": 2,
     "src.data.dataset.blip3o_ori_dataset.LazySupervisedMixDataset": 5,
     "src.models.modules.losses.ReconstructionLoss_Base": 5,
     "src.models.modules.losses.ReconstructionLoss_Stage1": 5,

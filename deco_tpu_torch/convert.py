@@ -28,6 +28,13 @@ geometry inferred from the weights as ``deco_tpu/convert/dcae_bridge.py``
 does; the port's modules carry the diffusers names, so the dict loads
 as it is.
 
+:func:`state_dict_from_jax_uniflow` writes the reference UniFlow layout
+(``uniflow_bridge.uniflow_params_to_torch(prefix="")``), and
+:func:`uniflow_state_dict` selects the ``model.`` (or ``ema_model.``)
+namespace of a reference Lightning checkpoint and fills the absent
+``mask_token`` of each flow head with zeros, so that either loads into
+``UniFlowVision`` as it is.
+
 :func:`train_checkpoint_from_jax` turns a JAX c2i, t2i or ReCo training
 state (params, EMA, optax AdamW moments and count) into the port's step
 checkpoint (``train/checkpoint.py``), so a run started in the JAX package
@@ -345,9 +352,97 @@ def state_dict_from_jax_reco(params: dict, **layout) -> dict[str, torch.Tensor]:
     return {**vit_state_dict_from_jax(p["vision_model"], prefix="vision_model."), **_tensors(out)}
 
 
+def _res_blocks(tree: dict, out: dict, prefix: str):
+    """The gated res blocks ``res_blocks_{i}`` of a JAX subtree under ``prefix + res_blocks.{i}.``."""
+    i = 0
+    while f"res_blocks_{i}" in tree:
+        rb, pre = tree[f"res_blocks_{i}"], f"{prefix}res_blocks.{i}."
+        out[pre + "in_ln.weight"] = np.asarray(rb["in_ln"]["scale"])
+        out[pre + "in_ln.bias"] = np.asarray(rb["in_ln"]["bias"])
+        _dense(rb["mlp_0"], out, pre + "mlp.0")
+        _dense(rb["mlp_2"], out, pre + "mlp.2")
+        _dense(rb["adaLN_modulation"], out, pre + "adaLN_modulation.1")
+        i += 1
+
+
+def _gated_final_layer(tree: dict, out: dict, prefix: str):
+    _dense(tree["adaLN_modulation"], out, prefix + "adaLN_modulation.1")
+    _dense(tree["linear"], out, prefix + "linear")
+
+
+def _flow_decoder(tree: dict, out: dict, prefix: str):
+    net, pre = tree["net"], prefix + "net."
+    _dense(tree["nerf_embedder"]["embedder"], out, prefix + "nerf_embedder.embedder.0")
+    _dense(net["time_embed"]["mlp_0"], out, pre + "time_embed.mlp.0")
+    _dense(net["time_embed"]["mlp_2"], out, pre + "time_embed.mlp.2")
+    _dense(net["cond_embed"], out, pre + "cond_embed")
+    _dense(net["input_proj"], out, pre + "input_proj")
+    _res_blocks(net, out, pre)
+    _gated_final_layer(net["final_layer"], out, pre + "final_layer.")
+    out[prefix + "mask_token"] = np.asarray(tree["mask_token"])
+
+
+def state_dict_from_jax_uniflow(params: dict) -> dict[str, torch.Tensor]:
+    """JAX ``UniFlowVision`` params (optionally under ``"params"``) -> the
+    port's ``UniFlowVision`` state dict: the reference ``UniFlowVisionModel``
+    keys that ``uniflow_params_to_torch(prefix="")`` writes (``embeddings.*``,
+    ``encoder.layers.N.*``, ``shallow_embeddings.*``, ``shallow_encoder.*``,
+    ``mlp1.{0,1,3}``, ``shared_latent_proj.*``, ``gen_latent_proj.{0,2}``,
+    ``sem_latent_proj.{0,2}``, the position embeddings, ``global_blocks.N.*``,
+    ``sem_global_blocks.N.*``, ``flow_head.*``, ``sem_flow_head.*`` with
+    ``mask_token``). The DC-AE pixel branch's ``dcae_decoder.*`` is not
+    written: those weights carry the diffusers names (``dcae_from_torch_state``)."""
+    p = params.get("params", params)
+    out: dict = {"mlp1.0.weight": np.asarray(p["mlp1_norm"]["scale"]),
+                 "mlp1.0.bias": np.asarray(p["mlp1_norm"]["bias"])}
+    _dense(p["mlp1_fc1"], out, "mlp1.1")
+    _dense(p["mlp1_fc2"], out, "mlp1.3")
+    slp, pre = p["shared_latent_proj"], "shared_latent_proj."
+    for name in ("input_proj", "cond_proj", "post_shuffle_proj"):
+        _dense(slp[name], out, pre + name)
+    _res_blocks(slp, out, pre)
+    _gated_final_layer(slp["final_layer"], out, pre + "final_layer.")
+    for jax_name, key in (("gen_latent_proj", "gen_latent_proj"), ("sem_latent_proj",
+                                                                    "sem_latent_proj")):
+        if f"{jax_name}_fc1" in p:
+            _dense(p[f"{jax_name}_fc1"], out, key + ".0")
+            _dense(p[f"{jax_name}_fc2"], out, key + ".2")
+    for branch in ("", "sem_"):
+        if f"{branch}global_block_pos_embed" in p:
+            out[f"{branch}global_block_pos_embed"] = np.asarray(p[f"{branch}global_block_pos_embed"])
+        i = 0
+        while f"{branch}global_blocks_{i}" in p:
+            _plain_dit_block(p[f"{branch}global_blocks_{i}"], out, f"{branch}global_blocks.{i}.")
+            i += 1
+        head = f"{branch}flow_head"
+        if head in p:
+            _flow_decoder(p[head], out, head + ".")
+    return {**vit_state_dict_from_jax(p["vision"]),
+            **vit_state_dict_from_jax(p["shallow"], "shallow_"), **_tensors(out)}
+
+
+def uniflow_state_dict(sd: dict, use_ema: bool = False) -> dict:
+    """A reference UniFlow checkpoint's state dict as ``UniFlowVision``
+    loads it: the Lightning ``model.`` namespace (``ema_model.`` with
+    ``use_ema``) selected when present, as ``uniflow_bridge._strip_prefix``
+    does, and each flow head's ``mask_token`` filled with zeros when absent
+    (the reference model has none)."""
+    want = "ema_model." if use_ema else "model."
+    if any(k.startswith(want) for k in sd):
+        sd = {k[len(want):]: v for k, v in sd.items() if k.startswith(want)}
+    sd = dict(sd)
+    for head in ("flow_head", "sem_flow_head"):
+        key = f"{head}.net.cond_embed.weight"
+        if key in sd and f"{head}.mask_token" not in sd:
+            sd[f"{head}.mask_token"] = torch.zeros(1, 1, sd[key].shape[1])
+    return sd
+
+
 def _model_bridge(params: dict):
     """The converter of a JAX model tree, told apart by its top-level keys."""
     p = params.get("params", params)
+    if "shared_latent_proj" in p:
+        return state_dict_from_jax_uniflow
     if "pixel_decoder" in p:
         return state_dict_from_jax_reco
     if "trunk" in p:

@@ -63,6 +63,11 @@
 //   code at two k16 steps and four n8 tiles over D: 5 KB tiles, so both
 //   kernels keep the D <= 72 sizing (three slots, three CTAs an SM) with
 //   less than half its shared memory.
+// - CAUSAL (key > query masked, Nq = Nkv, D = 64): the dQ CTA of query tile
+//   i visits key tiles 0..i and masks the keys past each row in tile i; the
+//   dK/dV CTA of key tile i starts its query ring at tile i and masks the
+//   queries before each key there. Each output row still has one owner, so
+//   the causal gradients are bit-identical from run to run too.
 // The tile layout, copies, fragment loads and MMA tiles it shares with the
 // forward are in attention_sm90.cuh.
 
@@ -154,35 +159,36 @@ __device__ __forceinline__ void copy_stats(uint32_t dst, const float* src, int i
 
 // dS = P o (dP - delta) in place of s, for a warp's 16 query rows (g and
 // g + 8 of this thread) and the 8 * NK keys of a tile, where P = exp(scale *
-// s - lse) as exp2(s * scale_log2 - lse_log2); with MASK, P = 0 for keys
-// (columns) at or past `valid`.
+// s - lse) as exp2(s * scale_log2 - lse_log2); with MASK, P = 0 for the keys
+// (columns) of row r past `last[r]` (past Nkv, or with CAUSAL past the row).
 template <bool MASK, int NK>
 __device__ __forceinline__ void ds_rows(float (&s)[NK][4], const float (&dp)[NK][4],
                                         const float (&lse_log2)[2], const float (&delta)[2],
-                                        float scale_log2, int t, int valid) {
+                                        float scale_log2, int t, const int (&last)[2]) {
 #pragma unroll
   for (int nt = 0; nt < NK; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float p = exp2_ftz(fmaf(s[nt][e], scale_log2, -lse_log2[e >> 1]));
-      if (MASK && nt * 8 + 2 * t + (e & 1) >= valid) p = 0.0f;
+      if (MASK && nt * 8 + 2 * t + (e & 1) > last[e >> 1]) p = 0.0f;
       s[nt][e] = p * (dp[nt][e] - delta[e >> 1]);
     }
 }
 
 // P^T = exp(scale * s - lse) in place of s, for a warp's 16 key rows and the
 // 8 * NQ queries (columns) of a tile, whose lse the tile's `lse` holds; with
-// MASK, P = 0 for queries at or past `valid`.
+// MASK, P = 0 for queries at or past `valid` and, for key row r, before
+// `first[r]` (with CAUSAL, the queries before the key).
 template <bool MASK, int NQ>
 __device__ __forceinline__ void p_cols(float (&s)[NQ][4], const float* lse, float scale_log2,
-                                       int t, int valid) {
+                                       int t, int valid, const int (&first)[2]) {
 #pragma unroll
   for (int nt = 0; nt < NQ; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int qi = nt * 8 + 2 * t + (e & 1);
       const float p = exp2_ftz(fmaf(s[nt][e], scale_log2, lse[qi] * -kLog2e));
-      s[nt][e] = MASK && qi >= valid ? 0.0f : p;
+      s[nt][e] = MASK && (qi >= valid || qi < first[e >> 1]) ? 0.0f : p;
     }
 }
 
@@ -203,7 +209,7 @@ __device__ __forceinline__ void store_rows(bf16* base, Strides s, int b, int h, 
   }
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, min_ctas(D))
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -229,7 +235,9 @@ __global__ void __launch_bounds__(kThreads, min_ctas(D))
   const int wr = warp * 16;  // this warp's first row in the tile
   const bf16* kp = k + b * sk.b + h * sk.h;
   const bf16* vp = v + b * sv.b + h * sv.h;
-  const int ntiles = (nkv + kBlock - 1) / kBlock;
+  // CAUSAL visits the key tiles up to the diagonal one, blockIdx.x, only.
+  const int ntiles = CAUSAL ? min((nkv + kBlock - 1) / kBlock, static_cast<int>(blockIdx.x) + 1)
+                            : (nkv + kBlock - 1) / kBlock;
   auto copy_kv = [&](int j) {
     if (j < ntiles) {
       copy_rows<D>(k_slot(j), kp, sk.n, j * kBlock, nkv);
@@ -308,12 +316,19 @@ __global__ void __launch_bounds__(kThreads, min_ctas(D))
       for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
     mma_abt<D>(s, qs + 2 * wr * LD, ks, lane);
     mma_abt<D>(dp, dos + 2 * wr * LD, vs, lane);
-    // dS = P o (dP - delta); only the last tile can hold keys past the end.
+    // dS = P o (dP - delta); only the last tile can hold keys past the end,
+    // and with CAUSAL only the diagonal tile keys past a row.
     const int kvalid = nkv - j * kBlock;
-    if (kvalid >= kBlock)
-      ds_rows<false>(s, dp, row_lse_log2, row_delta, scale_log2, t, kvalid);
+    int last[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      last[r] = kvalid - 1;
+      if (CAUSAL) last[r] = min(last[r], q0 + wr + g + 8 * r - j * kBlock);
+    }
+    if (kvalid >= kBlock && !(CAUSAL && j == static_cast<int>(blockIdx.x)))
+      ds_rows<false>(s, dp, row_lse_log2, row_delta, scale_log2, t, last);
     else
-      ds_rows<true>(s, dp, row_lse_log2, row_delta, scale_log2, t, kvalid);
+      ds_rows<true>(s, dp, row_lse_log2, row_delta, scale_log2, t, last);
     // dQ += dS K: dS (bf16) is the A operand, K read down its key axis.
 #pragma unroll
     for (int kk = 0; kk < NK / 2; ++kk) {
@@ -325,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, min_ctas(D))
   store_rows(dq, sdq, b, h, q0 + wr + g, nq, acc, scale, t);
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, min_ctas(D))
     flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -352,9 +367,11 @@ __global__ void __launch_bounds__(kThreads, min_ctas(D))
   auto do_slot = [&](int j) { return base + (2 + S + j % S) * T::kBytes; };
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = lane % 4;
+  const int g = lane / 4, t = lane % 4;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int k0 = blockIdx.x * kBlock;
+  // CAUSAL starts at the diagonal query tile (Nq = Nkv, so its index is the key tile's).
+  const int j0 = CAUSAL ? static_cast<int>(blockIdx.x) : 0;
   const int wr = warp * 16;
   const bf16* qp = q + b * sq.b + h * sq.h;
   const bf16* dop = dout + b * sdo.b + h * sdo.h;
@@ -376,7 +393,7 @@ __global__ void __launch_bounds__(kThreads, min_ctas(D))
   copy_rows<D>(ks, k + b * sk.b + h * sk.h, sk.n, k0, nkv);
   copy_rows<D>(vs, v + b * sv.b + h * sv.h, sv.n, k0, nkv);
   cp_async_commit();
-  for (int j = 0; j < S - 1; ++j) copy_tile(j);
+  for (int j = j0; j < j0 + S - 1; ++j) copy_tile(j);
 
   float dk_acc[N8][4], dv_acc[N8][4];
 #pragma unroll
@@ -384,7 +401,7 @@ __global__ void __launch_bounds__(kThreads, min_ctas(D))
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.0f;
 
-  for (int j = 0; j < ntiles; ++j) {
+  for (int j = j0; j < ntiles; ++j) {
     cp_async_wait<S - 2>();  // tile j (and K, V) have landed for this thread ...
     __syncthreads();         // ... and for every thread, and every warp is done with tile j - 1
     copy_tile(j + S - 1);    // into the slot of tile j - 1
@@ -392,6 +409,7 @@ __global__ void __launch_bounds__(kThreads, min_ctas(D))
     const float* lse_s = stats + (j % S) * kBlock;
     const float* delta_s = stats + (S + j % S) * kBlock;
     const int qvalid = nq - j * kBlock;  // only the last tile can hold queries past the end
+    const bool masked = qvalid < kBlock || (CAUSAL && j == j0);
 
     // One part of the tile's queries at a time, for the warp's 16 keys (rows);
     // a rolled loop, so that the parts' registers are not live together.
@@ -403,10 +421,14 @@ __global__ void __launch_bounds__(kThreads, min_ctas(D))
 #pragma unroll
       for (int nt = 0; nt < NP; ++nt) p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.0f;
       mma_abt<D>(p, ks + 2 * wr * LD, qs + 2 * h0 * LD, lane);
-      if (qvalid >= kBlock)
-        p_cols<false>(p, lse_s + h0, scale_log2, t, 0);
+      int first[2] = {0, 0};  // with CAUSAL, a key's first query, relative to the part
+      if (CAUSAL)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) first[r] = k0 + wr + g + 8 * r - j * kBlock - h0;
+      if (!masked)
+        p_cols<false>(p, lse_s + h0, scale_log2, t, 0, first);
       else
-        p_cols<true>(p, lse_s + h0, scale_log2, t, qvalid - h0);
+        p_cols<true>(p, lse_s + h0, scale_log2, t, qvalid - h0, first);
       // dV += P^T dO: P^T (bf16) is the A operand, dO read down its query axis.
 #pragma unroll
       for (int kq = 0; kq < NP / 2; ++kq) {
@@ -439,17 +461,17 @@ __global__ void __launch_bounds__(kThreads, min_ctas(D))
   store_rows(dv, sdv, b, h, row, nkv, dv_acc, 1.0f, t);
 }
 
-template <int D>
+template <int D, bool CAUSAL = false>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* o, const void* lse, void* delta, void* dq, int batch,
                       int heads, int nq, int nkv, Strides sq, Strides sk, Strides sv,
                       Strides sdo, Strides so, Strides sdq, float scale, cudaStream_t stream) {
   constexpr int smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + kBlock - 1) / kBlock, batch * heads);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<D, CAUSAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const bf16*>(o),
       static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq),
@@ -457,17 +479,17 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool CAUSAL = false>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int batch,
                        int heads, int nq, int nkv, Strides sq, Strides sk, Strides sv,
                        Strides sdo, Strides sdk, Strides sdv, float scale, cudaStream_t stream) {
   constexpr int smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nkv + kBlock - 1) / kBlock, batch * heads);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_kernel<D, CAUSAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads,
@@ -488,11 +510,16 @@ int deco_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* o, const void* lse,
                                 void* delta, void* dq, int batch, int heads, int nq,
                                 int nkv, int head_dim, const long long* strides, float scale,
-                                void* stream) {
+                                int causal, void* stream) {
   const long long* s = strides;  // q, k, v, do, o, dq
   const Strides sq{s[0], s[1], s[2]}, sk{s[3], s[4], s[5]}, sv{s[6], s[7], s[8]};
   const Strides sdo{s[9], s[10], s[11]}, so{s[12], s[13], s[14]}, sdq{s[15], s[16], s[17]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (causal) {  // Nq = Nkv, D = 64
+    if (nq != nkv || head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dq<64, true>(q, k, v, dout, o, lse, delta, dq, batch, heads, nq, nkv, sq, sk,
+                               sv, sdo, so, sdq, scale, st);
+  }
   switch (head_dim) {
     case 32:
       return launch_dq<32>(q, k, v, dout, o, lse, delta, dq, batch, heads, nq, nkv, sq, sk, sv, sdo, so, sdq, scale, st);
@@ -511,11 +538,16 @@ int deco_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  void* dk, void* dv, int batch, int heads, int nq,
                                  int nkv, int head_dim, const long long* strides,
-                                 float scale, void* stream) {
+                                 float scale, int causal, void* stream) {
   const long long* s = strides;  // q, k, v, do, dk, dv
   const Strides sq{s[0], s[1], s[2]}, sk{s[3], s[4], s[5]}, sv{s[6], s[7], s[8]};
   const Strides sdo{s[9], s[10], s[11]}, sdk{s[12], s[13], s[14]}, sdv{s[15], s[16], s[17]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (causal) {  // Nq = Nkv, D = 64
+    if (nq != nkv || head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dkv<64, true>(q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nkv, sq,
+                                sk, sv, sdo, sdk, sdv, scale, st);
+  }
   switch (head_dim) {
     case 32:
       return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nkv, sq, sk, sv, sdo, sdk, sdv, scale, st);
@@ -531,26 +563,34 @@ int deco_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 // What the current device makes of one instantiation (dkv = 0: the dQ
-// kernel, 1: the dK/dV kernel): registers, local bytes, static and dynamic
-// shared memory, resident CTAs per SM, threads, into out[0..5].
+// kernel, 1: the dK/dV kernel; 2 and 3: their causal instantiations, D =
+// 64): registers, local bytes, static and dynamic shared memory, resident
+// CTAs per SM, threads, into out[0..5].
 int deco_flash_attention_bwd_info(int dkv, int head_dim, int* out) {
+  if (dkv >= 2) {
+    if (head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
+    return dkv == 3 ? kernel_info(flash_bwd_dkv_kernel<64, true>, kThreads,
+                                  dkv_smem_bytes<64>(), out)
+                    : kernel_info(flash_bwd_dq_kernel<64, true>, kThreads, dq_smem_bytes<64>(),
+                                  out);
+  }
   switch (head_dim * 2 + (dkv != 0)) {
     case 64:
-      return kernel_info(flash_bwd_dq_kernel<32>, kThreads, dq_smem_bytes<32>(), out);
+      return kernel_info(flash_bwd_dq_kernel<32, false>, kThreads, dq_smem_bytes<32>(), out);
     case 65:
-      return kernel_info(flash_bwd_dkv_kernel<32>, kThreads, dkv_smem_bytes<32>(), out);
+      return kernel_info(flash_bwd_dkv_kernel<32, false>, kThreads, dkv_smem_bytes<32>(), out);
     case 128:
-      return kernel_info(flash_bwd_dq_kernel<64>, kThreads, dq_smem_bytes<64>(), out);
+      return kernel_info(flash_bwd_dq_kernel<64, false>, kThreads, dq_smem_bytes<64>(), out);
     case 129:
-      return kernel_info(flash_bwd_dkv_kernel<64>, kThreads, dkv_smem_bytes<64>(), out);
+      return kernel_info(flash_bwd_dkv_kernel<64, false>, kThreads, dkv_smem_bytes<64>(), out);
     case 144:
-      return kernel_info(flash_bwd_dq_kernel<72>, kThreads, dq_smem_bytes<72>(), out);
+      return kernel_info(flash_bwd_dq_kernel<72, false>, kThreads, dq_smem_bytes<72>(), out);
     case 145:
-      return kernel_info(flash_bwd_dkv_kernel<72>, kThreads, dkv_smem_bytes<72>(), out);
+      return kernel_info(flash_bwd_dkv_kernel<72, false>, kThreads, dkv_smem_bytes<72>(), out);
     case 256:
-      return kernel_info(flash_bwd_dq_kernel<128>, kThreads, dq_smem_bytes<128>(), out);
+      return kernel_info(flash_bwd_dq_kernel<128, false>, kThreads, dq_smem_bytes<128>(), out);
     case 257:
-      return kernel_info(flash_bwd_dkv_kernel<128>, kThreads, dkv_smem_bytes<128>(), out);
+      return kernel_info(flash_bwd_dkv_kernel<128, false>, kThreads, dkv_smem_bytes<128>(), out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

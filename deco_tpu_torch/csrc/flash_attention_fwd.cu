@@ -66,6 +66,14 @@
 //   tile is 5 KB (rows of 40 bf16, five 16-byte chunks, so ldmatrix rows
 //   still fall in distinct banks), the Q/K/V ring 40 KB. The row tiles,
 //   stages and 2-CTA register cap were sized for D >= 64 and are kept.
+// - CAUSAL (UniFlow's semantic trunk: 32 heads of 64, Nq = Nkv; the JAX
+//   package sends this masked call to XLA, `jax.nn.dot_product_attention`
+//   with a lower-triangular mask) computes softmax(scale * Q K^T + M) V with
+//   M = -inf where key > query. A CTA visits the key tiles up to its last
+//   row only, about half the work; the tiles that hold a key past the CTA's
+//   first row take the masked softmax with a per-row last key, which also
+//   keeps the ragged-Nkv mask. Tile 0 holds key 0 for every row, so no row
+//   is masked whole where its max is still -inf. Instantiated at D = 64.
 // Resources (ptxas and the CUDA runtime's `forward_kernel_info`, on an H100
 // SXM), each instantiation without spills, 2 CTAs (8 warps) per SM:
 //   D = 64:  242 registers, 72 KB of shared memory (2 Q tiles + 6 K/V);
@@ -170,20 +178,23 @@ __device__ __forceinline__ void mma_pv(float (&acc)[MT][Tile<D>::N8][4],
 // The online softmax over one key tile, for rows g and g + 8 of the warp
 // (this thread's columns 2t, 2t + 1 of each n8 tile): s holds the raw
 // scores Q K^T and leaves holding P = exp2(s * sl2 - m2), with MASK giving
-// P = 0 for keys at or past `valid`; m2 is the running max in units of
-// s * sl2, l this thread's share of the running sum, and corr the factor
-// by which the accumulator is to be rescaled. Needs sl2 > 0. Every tile
-// holds a valid key, so the new max is finite, and the first tile's
-// correction exp2(-inf) = 0.
+// P = 0 for the keys of row r past `last[r]` (past Nkv, or with CAUSAL past
+// the row itself); m2 is the running max in units of s * sl2, l this
+// thread's share of the running sum, and corr the factor by which the
+// accumulator is to be rescaled. Needs sl2 > 0. The first tile holds a
+// valid key for every row (key 0, causal or not), so the max is finite from
+// then on, the first tile's correction is exp2(-inf) = 0, and a row a later
+// tile masks whole (a causal diagonal tile) keeps corr = 1 and adds P = 0.
 template <bool MASK, int NK>
 __device__ __forceinline__ void softmax_tile(float (&s)[NK][4], float (&m2)[2], float (&l)[2],
-                                             float (&corr)[2], float sl2, int t, int valid) {
+                                             float (&corr)[2], float sl2, int t,
+                                             const int (&last)[2]) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int nt = 0; nt < NK; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      if (MASK && nt * 8 + 2 * t + (e & 1) >= valid) s[nt][e] = -INFINITY;
+      if (MASK && nt * 8 + 2 * t + (e & 1) > last[e >> 1]) s[nt][e] = -INFINITY;
       mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
     }
   float neg[2], sum[2] = {0.0f, 0.0f};
@@ -208,7 +219,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NK][4], float (&m2)[2], 
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
 }
 
-template <int D, bool LSE>
+template <int D, bool LSE, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, kMinCtas)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
@@ -230,7 +241,10 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
   const int wr = warp * 16;  // this warp's first row in each 64-row tile
   const bf16* kp = k + b * sk.b + h * sk.h;
   const bf16* vp = v + b * sv.b + h * sv.h;
-  const int ntiles = (nkv + kBlock - 1) / kBlock;
+  // CAUSAL visits the key tiles up to the CTA's last row only.
+  const int ntiles = CAUSAL ? min((nkv + kBlock - 1) / kBlock,
+                                  (min(q0 + MT * kBlock, nq) - 1) / kBlock + 1)
+                            : (nkv + kBlock - 1) / kBlock;
   auto copy_kv = [&](int j) {
     if (j < ntiles) {
       copy_rows<D>(k_slot(j), kp, sk.n, j * kBlock, nkv);
@@ -277,13 +291,21 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
       for (int nt = 0; nt < NK; ++nt) s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.0f;
     mma_qk<D>(s, qa, qa8, ks, lane);
     const int kvalid = nkv - j * kBlock;  // only the last tile can hold keys past the end
+    // with CAUSAL, the tiles that hold a key past the CTA's first row are masked too
+    const bool masked = kvalid < kBlock || (CAUSAL && (j + 1) * kBlock - 1 > q0);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       float corr[2];
-      if (kvalid >= kBlock)
-        softmax_tile<false>(s[mt], m2[mt], l[mt], corr, sl2, t, kvalid);
+      int last[2];  // the last key of the tile that rows g and g + 8 attend to
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        last[r] = kvalid - 1;
+        if (CAUSAL) last[r] = min(last[r], q0 + mt * kBlock + wr + g + 8 * r - j * kBlock);
+      }
+      if (!masked)
+        softmax_tile<false>(s[mt], m2[mt], l[mt], corr, sl2, t, last);
       else
-        softmax_tile<true>(s[mt], m2[mt], l[mt], corr, sl2, t, kvalid);
+        softmax_tile<true>(s[mt], m2[mt], l[mt], corr, sl2, t, last);
 #pragma unroll
       for (int dt = 0; dt < N8; ++dt) {
         acc[mt][dt][0] *= corr[0];
@@ -345,17 +367,17 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
   }
 }
 
-template <int D, bool LSE>
+template <int D, bool LSE, bool CAUSAL = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int batch, int heads, int nq, int nkv, Strides sq, Strides sk, Strides sv,
                    Strides so, float scale, cudaStream_t stream) {
   constexpr int smem = fwd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, LSE>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, LSE, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   constexpr int rows = row_tiles(D) * kBlock;
   const dim3 grid((nq + rows - 1) / rows, batch * heads);
-  flash_fwd_kernel<D, LSE><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<D, LSE, CAUSAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, heads, nq, nkv, sq, sk, sv, so, scale);
   return cudaGetLastError();
@@ -364,8 +386,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 template <bool LSE>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
              int heads, int nq, int nkv, int head_dim, Strides sq, Strides sk, Strides sv,
-             Strides so, float scale, cudaStream_t st) {
+             Strides so, float scale, int causal, cudaStream_t st) {
   if (!(scale > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
+  if (causal) {  // Nq = Nkv; every causal call in the repository is at D = 64
+    if (nq != nkv) return static_cast<int>(cudaErrorInvalidValue);
+    switch (head_dim) {
+      case 64:
+        return launch<64, LSE, true>(q, k, v, o, lse, batch, heads, nq, nkv, sq, sk, sv, so,
+                                     scale, st);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (head_dim) {
     case 32:
       return launch<32, LSE>(q, k, v, o, lse, batch, heads, nq, nkv, sq, sk, sv, so, scale, st);
@@ -380,10 +412,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
   }
 }
 
-template <int D>
+template <int D, bool CAUSAL = false>
 cudaError_t info(bool with_lse, int* out) {
-  return with_lse ? kernel_info(flash_fwd_kernel<D, true>, kThreads, fwd_smem_bytes<D>(), out)
-                  : kernel_info(flash_fwd_kernel<D, false>, kThreads, fwd_smem_bytes<D>(), out);
+  return with_lse
+             ? kernel_info(flash_fwd_kernel<D, true, CAUSAL>, kThreads, fwd_smem_bytes<D>(), out)
+             : kernel_info(flash_fwd_kernel<D, false, CAUSAL>, kThreads, fwd_smem_bytes<D>(),
+                           out);
 }
 
 // ---- fp32 operands ------------------------------------------------------
@@ -541,7 +575,8 @@ __device__ __forceinline__ void f32_tile(float (&acc)[D / 8][4], float (&m2)[2],
   }
 
   float corr[2];
-  softmax_tile<PARTIAL>(s, m2, l, corr, sl2, t, valid);
+  const int last[2] = {valid - 1, valid - 1};
+  softmax_tile<PARTIAL>(s, m2, l, corr, sl2, t, last);
 #pragma unroll
   for (int n = 0; n < T::K8; ++n) {
     acc[n][0] *= corr[0];
@@ -725,17 +760,18 @@ extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // Strides are in elements; the head dim of every operand has stride 1.
+// causal != 0 masks key > query (Nq = Nkv, D = 64).
 int deco_flash_attention_fwd(const void* q, const void* k, const void* v,
                              void* o, int batch, int heads, int nq, int nkv,
                              int head_dim, long long q_sb, long long q_sn,
                              long long q_sh, long long k_sb, long long k_sn,
                              long long k_sh, long long v_sb, long long v_sn,
                              long long v_sh, long long o_sb, long long o_sn,
-                             long long o_sh, float scale, void* stream) {
+                             long long o_sh, float scale, int causal, void* stream) {
   const Strides sq{q_sb, q_sn, q_sh}, sk{k_sb, k_sn, k_sh};
   const Strides sv{v_sb, v_sn, v_sh}, so{o_sb, o_sn, o_sh};
   return dispatch<false>(q, k, v, o, nullptr, batch, heads, nq, nkv, head_dim,
-                         sq, sk, sv, so, scale, static_cast<cudaStream_t>(stream));
+                         sq, sk, sv, so, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 // As deco_flash_attention_fwd, and also writes lse, fp32 (B, H, Nq) contiguous.
@@ -746,11 +782,11 @@ int deco_flash_attention_fwd_lse(const void* q, const void* k, const void* v,
                                  long long k_sn, long long k_sh, long long v_sb,
                                  long long v_sn, long long v_sh, long long o_sb,
                                  long long o_sn, long long o_sh, float scale,
-                                 void* stream) {
+                                 int causal, void* stream) {
   const Strides sq{q_sb, q_sn, q_sh}, sk{k_sb, k_sn, k_sh};
   const Strides sv{v_sb, v_sn, v_sh}, so{o_sb, o_sn, o_sh};
   return dispatch<true>(q, k, v, o, static_cast<float*>(lse), batch, heads, nq,
-                        nkv, head_dim, sq, sk, sv, so, scale,
+                        nkv, head_dim, sq, sk, sv, so, scale, causal,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -761,8 +797,8 @@ int deco_flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                  long long q_sh, long long k_sb, long long k_sn,
                                  long long k_sh, long long v_sb, long long v_sn,
                                  long long v_sh, long long o_sb, long long o_sn,
-                                 long long o_sh, float scale, void* stream) {
-  if (!(scale > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
+                                 long long o_sh, float scale, int causal, void* stream) {
+  if (!(scale > 0.0f) || causal) return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{q_sb, q_sn, q_sh}, sk{k_sb, k_sn, k_sh};
   const Strides sv{v_sb, v_sn, v_sh}, so{o_sb, o_sn, o_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -777,10 +813,15 @@ int deco_flash_attention_fwd_f32(const void* q, const void* k, const void* v,
 }
 
 // What the current device makes of one kernel (kind 0: sampling, 1: with
-// lse, both at D = 32, 64, 72 or 128; 2: fp32 operands, D = 32 or 64):
-// registers, local bytes, static and dynamic shared memory, resident CTAs
-// per SM, threads, into out[0..5].
+// lse, both at D = 32, 64, 72 or 128; 2: fp32 operands, D = 32 or 64; 3 and
+// 4: the causal sampling and with-lse kernels, D = 64): registers, local
+// bytes, static and dynamic shared memory, resident CTAs per SM, threads,
+// into out[0..5].
 int deco_flash_attention_fwd_info(int lse, int head_dim, int* out) {
+  if (lse == 3 || lse == 4) {
+    if (head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
+    return info<64, true>(lse == 4, out);
+  }
   if (lse == 2) {
     switch (head_dim) {
       case 32:

@@ -276,19 +276,20 @@ def apply_rope(xq, xk, rope):
     return rot(xq), rot(xk)
 
 
-def sdpa(q, k, v, mask=None):
-    """Unmasked attention dispatch. q: (B, Nq, H, Hc); k/v: (B, Nkv, H, Hc).
+def sdpa(q, k, v, mask=None, causal: bool = False):
+    """Attention dispatch. q: (B, Nq, H, Hc); k/v: (B, Nkv, H, Hc).
 
     Without a mask this is :func:`flash_attention` (the kernel on CUDA, its
-    plain version on CPU). A mask takes the plain version on CPU and raises
-    on CUDA: the kernel is unmasked and neither c2i nor t2i passes one.
+    plain version on CPU), ``causal`` masking the keys past each query (the
+    kernel's causal instantiation). Any other mask takes the plain version
+    on CPU and raises on CUDA: no ported model passes one.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
     if mask is None:
-        return flash_attention(q, k, v, scale=scale)
+        return flash_attention(q, k, v, scale=scale, causal=causal)
     if q.is_cuda:
         raise NotImplementedError("masked attention has no CUDA kernel in the port")
-    return flash_attention_plain(q, k, v, scale=scale, mask=mask)
+    return flash_attention_plain(q, k, v, scale=scale, mask=mask, causal=causal)
 
 
 class RAttention(nn.Module):
@@ -303,13 +304,13 @@ class RAttention(nn.Module):
         self.k_norm = RMSNorm(dim // num_heads)
         self.proj = Linear(dim, dim, dtype=dtype, param_dtype=param_dtype)
 
-    def forward(self, x, rope, mask=None):
+    def forward(self, x, rope, mask=None, causal: bool = False):
         b, n, c = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
         q, k, v = self.q_norm(qkv[:, :, 0]), self.k_norm(qkv[:, :, 1]), qkv[:, :, 2]
         if rope is not None:
             q, k = apply_rope(q, k, rope)
-        out = sdpa(q, k, v, mask=mask)
+        out = sdpa(q, k, v, mask=mask, causal=causal)
         return self.proj(out.reshape(b, n, c))
 
 

@@ -1,6 +1,24 @@
-"""The VAE-GAN and DC-AE-eval workloads, driven by a run config
-(``deco_tpu/train/workloads.py`` ``VAEGANRun``, ``run_vae_gan``,
-``run_dcae_eval``); ``deco_tpu_torch.cli`` routes their configs here.
+"""The UniFlow, VAE-GAN and DC-AE-eval workloads, driven by a run config
+(``deco_tpu/train/workloads.py`` ``UniFlowRun``, ``run_uniflow``,
+``VAEGANRun``, ``run_vae_gan``, ``run_dcae_eval``); ``deco_tpu_torch.cli``
+routes their configs here.
+
+UniFlow (:class:`UniFlowRun`) takes two schemas, as in JAX: the reference
+one (``configs_flow/uniflow_internvit_2b_*.yaml``: ``model.config_path``,
+the vendored ``config.json`` when that path is absent, ``train_semantic_ae``
+drops the pixel branch, ``use_ema`` with the ``ema_tracker`` decay,
+``frozen_encoder`` and ``frozen_mlp`` (true unless set), ``distill``,
+``pretrain_model_path``, ``eval_original_model``, the AdamW node) and the
+flat ``uniflow_internvit.yaml`` (``model`` is the UniFlow config, ``train``
+the train config, ``data.train_root`` an image folder). fit trains with a
+checkpoint on exit (``model.``, ``ema_model.`` and the AdamW moments by
+name); validate reconstructs the eval dataset (zero-padded to 28 px
+multiples, cropped back) and gives PSNR, SSIM, FID, side-by-side panels and
+``validate_metrics.json``, from the EMA when ``eval_original_model`` is
+false. ``pretrain_model_path`` warm-starts only from a directory, as in JAX
+(ROADMAP §C 13: the shipped ``.ckpt`` files would never be read); anything
+else gives a fresh init. ``distill: true`` without teacher weights trains
+on the self-distillation target, as JAX does.
 
 Two schemas, as in JAX:
 
@@ -33,6 +51,7 @@ same names, ``lecam`` and ``step``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import warnings
@@ -96,6 +115,230 @@ def _workdir(config, trainer: _TrainerSection, workdir: Optional[str], default: 
     exp = (config.get("tags") or {}).get("exp")
     return os.path.join(trainer.default_root_dir, str(exp)) if exp else default
 
+
+# ---------------------------------------------------------------------------
+# UniFlow
+# ---------------------------------------------------------------------------
+
+def resolve_uniflow_config_path(path: Optional[str]) -> str:
+    """The reference's ``config_path`` (a config.json or a directory holding
+    one); the port's vendored ``config.json`` when it is absent or missing."""
+    from deco_tpu_torch.models.uniflow.model import CONFIG_JSON
+
+    if not path:
+        return CONFIG_JSON
+    if os.path.exists(path):
+        return path
+    cand = os.path.join(path, "config.json")
+    return cand if os.path.exists(cand) else CONFIG_JSON
+
+
+def _build_uniflow_teacher(path: Optional[str]):
+    """The frozen InternVL distillation teacher: None, with a warning when a
+    path was named, where its weights are absent (self-distillation then,
+    as in JAX); a weights directory raises (the teacher is not ported)."""
+    if path and os.path.isdir(path):
+        raise registry.not_ported(f"the InternVL distillation teacher ({path})", 5)
+    if path:
+        warnings.warn(f"distill=true but teacher weights not found at {path}; "
+                      "falling back to self-distillation targets (weights-gated).")
+    return None
+
+
+class UniFlowRun:
+    """The UniFlow workload (the reference's ``LightningUniFlowModel``)."""
+
+    def __init__(self, config: Dict[str, Any], workdir: Optional[str] = None, device="cuda"):
+        from deco_tpu_torch.models.uniflow.model import UniFlowConfig
+        from deco_tpu_torch.train.uniflow_loop import UniFlowExperiment, UniFlowTrainConfig
+
+        self.config = config
+        self.device = resolve_device(device)
+        self.trainer = _TrainerSection(config)
+        self.seed = int(config.get("seed", 0))
+        m = config["model"]
+        if "config_path" in m:  # the reference schema
+            model_cfg = UniFlowConfig.from_pretrained(
+                resolve_uniflow_config_path(m.get("config_path")))
+            if m.get("train_semantic_ae", False):
+                model_cfg = dataclasses.replace(model_cfg, enable_pixel_branch=False)
+            lr, wd, betas = _opt_args(m.get("optimizer"), 2e-4)
+            ema_decay = ((m.get("ema_tracker") or {}).get("init_args", {}) or {}).get(
+                "decay", 0.9999)
+            train_cfg = UniFlowTrainConfig(
+                lr=lr, weight_decay=wd, betas=betas,
+                total_steps=self.trainer.max_steps or 200000, use_ema=m.get("use_ema", True),
+                ema_decay=ema_decay, frozen_encoder=m.get("frozen_encoder", True),
+                frozen_mlp=m.get("frozen_mlp", True), grad_clip=self.trainer.grad_clip)
+            self.distill = bool(m.get("distill", False))
+            self.teacher_path = m.get("teacher_model_path")
+            self.pretrain_path = m.get("pretrain_model_path")
+            self.eval_original_model = bool(m.get("eval_original_model", False))
+        else:  # the flat schema
+            fields = {f.name for f in dataclasses.fields(UniFlowConfig)}
+            model_cfg = UniFlowConfig(**{k: v for k, v in m.items() if k in fields})
+            train_cfg = UniFlowTrainConfig(**{
+                k: v for k, v in (config.get("train") or {}).items()
+                if k in UniFlowTrainConfig.__dataclass_fields__})
+            self.distill, self.teacher_path, self.pretrain_path = False, None, None
+            self.eval_original_model = True
+        teacher = _build_uniflow_teacher(self.teacher_path) if self.distill else None
+        self.exp = UniFlowExperiment(model_cfg, train_cfg, teacher_fn=teacher,
+                                     device=self.device)
+        self.model_cfg, self.train_cfg = model_cfg, train_cfg
+        self.workdir = _workdir(config, self.trainer, workdir, "./workdirs_uniflow")
+        os.makedirs(self.workdir, exist_ok=True)
+
+    def _loader(self, key: str, infinite: bool):
+        data_cfg = self.config.get("data", {}) or {}
+        dataset = _make_dataset(data_cfg, key, data_cfg.get("resolution", self.model_cfg.image_size))
+        if dataset is None:
+            raise ValueError(f"config has no data.{key}")
+        size_key = "train_batch_size" if key == "train_dataset" else "pred_batch_size"
+        batch = int(data_cfg.get(size_key, data_cfg.get("batch_size", 8)))
+        return make_loader(dataset, batch, infinite=infinite, shuffle=infinite,
+                           num_workers=data_cfg.get("train_num_workers", 2)), batch
+
+    def _payload(self, state) -> dict:
+        model = self.exp.model
+        sd = {"model." + n: p.detach().cpu() for n, p in model.named_parameters()}
+        if state.ema_params is not None:
+            sd.update({"ema_model." + n: e.detach().cpu()
+                       for (n, _), e in zip(model.named_parameters(), state.ema_params)})
+        moments = {n: {k: state.optimizer.state[p][k].detach().cpu() for k in MOMENTS}
+                   for n, p in model.named_parameters() if p in state.optimizer.state}
+        return {"state_dict": sd, "optimizer": moments, "step": int(state.step)}
+
+    def _restore(self, manager: CheckpointManager, state, step: Optional[int] = None):
+        obj = manager.load(step)
+        sd, model = obj["state_dict"], self.exp.model
+        with torch.no_grad():
+            named = list(model.named_parameters())
+            for n, p in named:
+                p.copy_(sd["model." + n])
+            if state.ema_params is not None:
+                for (n, p), e in zip(named, state.ema_params):
+                    e.copy_(sd.get("ema_model." + n, p))
+            flat = {p: k for k, p in enumerate(
+                p for g in state.optimizer.param_groups for p in g["params"])}
+            osd = state.optimizer.state_dict()
+            osd["state"] = {flat[p]: dict(obj["optimizer"][n]) for n, p in named
+                            if p in flat and n in obj["optimizer"]}
+            state.optimizer.load_state_dict(osd)
+        state.step = int(obj["step"])
+        return state
+
+    def _to_device(self, array) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(array, np.float32))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def fit(self, max_steps: Optional[int] = None, ckpt_path: Optional[str] = None):
+        """Train to ``max_steps`` (else the trainer's); returns the state."""
+        from deco_tpu_torch.train.hooks import ScalarLogger
+        from deco_tpu_torch.train.loop import step_seed
+        from deco_tpu_torch.utils.preemption import PreemptionGuard
+
+        loader, _ = self._loader("train_dataset", infinite=True)
+        state = self.exp.init_state(self.seed)
+        ckpt = CheckpointManager(os.path.join(self.workdir, "checkpoints"),
+                                 every_n_steps=self.trainer.ckpt_every)
+        if ckpt_path:
+            self._restore(CheckpointManager(ckpt_path, 0), state)
+        elif ckpt.latest_step() is not None:
+            self._restore(ckpt, state)
+        elif self.pretrain_path and os.path.isdir(str(self.pretrain_path)):
+            try:  # a warm start: the state restored, the step reset
+                self._restore(CheckpointManager(self.pretrain_path, 0), state)
+                state.step = 0
+            except Exception as e:  # noqa: BLE001 - as JAX: warn, keep the fresh init
+                warnings.warn(f"pretrain warm-start failed ({e}); fresh init")
+        logger = ScalarLogger(self.workdir, log_every_n_steps=self.trainer.log_every,
+                              wandb_project=self.trainer.wandb_project, run_config=self.config)
+        limit = max_steps if max_steps is not None else (
+            self.trainer.max_steps or self.train_cfg.total_steps)
+
+        def checkpoint(force: bool = False):
+            if force or (ckpt.every_n_steps > 0 and state.step % ckpt.every_n_steps == 0):
+                ckpt.save(self._payload(state), state.step)
+
+        try:
+            with PreemptionGuard() as preempt:
+                for bx, _, _ in loader:
+                    if state.step >= limit or preempt.requested:
+                        break
+                    x = self._to_device(bx)
+                    teacher = self.exp.teacher_fn(x) if self.exp.teacher_fn else None
+                    gen = torch.Generator(device=self.device).manual_seed(
+                        step_seed(self.seed, state.step))
+                    step = state.step
+                    logger.log(step, self.exp.train_step(state, x, generator=gen,
+                                                         teacher_feat=teacher))
+                    checkpoint()
+        except BaseException:
+            checkpoint(force=True)
+            raise
+        finally:
+            logger.close()
+        checkpoint(force=True)
+        return state
+
+    @torch.no_grad()
+    def validate(self, state=None, ckpt_path: Optional[str] = None,
+                 max_batches: Optional[int] = None, mode: str = "pixel") -> dict:
+        """Reconstruction scores of the eval dataset; returns them."""
+        from deco_tpu_torch.train.hooks import ComputeMetricsHook, ImageLogger
+
+        loader, _ = self._loader("eval_dataset", infinite=False)
+        if state is None:
+            state = self.exp.init_state(seed=None)  # a restore overwrites every value
+            path = ckpt_path or os.path.join(self.workdir, "checkpoints")
+            try:
+                self._restore(CheckpointManager(path, 0), state)
+            except FileNotFoundError:
+                warnings.warn(f"validate with randomly initialized params (no checkpoint under "
+                              f"{path})")
+                self.exp.model.init_like_jax_(self.seed)
+        params = list(self.exp.model.parameters())
+        kept = None
+        if not self.eval_original_model and state.ema_params is not None:
+            kept = [p.clone() for p in params]
+            torch._foreach_copy_(params, state.ema_params)
+        metrics_hook = ComputeMetricsHook(**(self.trainer.metrics_cfg or {}), device=self.device)
+        imlog = ImageLogger(self.workdir)
+        try:
+            for bi, (bx, _, _) in enumerate(loader):
+                if max_batches is not None and bi >= max_batches:
+                    break
+                x = self._to_device(bx)
+                gen = torch.Generator(device=self.device).manual_seed(1234 + bi)
+                recon = self.exp.reconstruct(x, mode=mode, generator=gen)
+                ru8, ou8 = fp_to_uint8(recon).cpu().numpy(), fp_to_uint8(x).cpu().numpy()
+                metrics_hook.on_batch_end(ru8, ou8)
+                imlog.log_side_by_side(state.step, ou8, ru8)
+        finally:
+            if kept is not None:
+                torch._foreach_copy_(params, kept)
+        scores = metrics_hook.on_epoch_end()
+        if scores:
+            with open(os.path.join(self.workdir, "validate_metrics.json"), "w") as f:
+                json.dump({k: float(v) for k, v in scores.items()}, f)
+        return scores
+
+
+def run_uniflow(config: Dict[str, Any], max_steps: Optional[int] = None,
+                workdir: Optional[str] = None, ckpt_path: Optional[str] = None,
+                subcommand: str = "fit", max_batches: Optional[int] = None, device="cuda"):
+    run = UniFlowRun(config, workdir=workdir, device=device)
+    if subcommand == "fit":
+        return run.fit(max_steps=max_steps, ckpt_path=ckpt_path)
+    return run.validate(ckpt_path=ckpt_path, max_batches=max_batches)
+
+
+# ---------------------------------------------------------------------------
+# VAE-GAN
+# ---------------------------------------------------------------------------
 
 class VAEGANRun:
     """The VAE-GAN workload (the reference's ``LightningModelVAE``)."""

@@ -1,5 +1,5 @@
 """Analytic matmul FLOPs of the c2i models (DeCo, the baseline DiT, PixNerd),
-of the DINOv2 tower and of ReCo, and H100 peak rates.
+of the DINOv2 tower, of ReCo and of UniFlow, and H100 peak rates.
 
 A copy of ``deco_tpu/utils/flops.py``'s counting (2*M*N*K per GEMM; norms,
 softmax and elementwise work are left out, as is conventional for MFU),
@@ -169,3 +169,47 @@ def reco_flops(image_size: int = 224, patch: int = 14, vit_hidden: int = 1024,
     return (vit_flops(image_size, patch, vit_hidden, vit_layers) + projector + embed
             + num_blocks * block
             + deco_pixel_decoder_flops(patches, patch, hidden_x, hidden, num_res_blocks))
+
+
+def _plain_block_flops(tokens: int, width: int, causal: bool = False) -> float:
+    """One ``PlainDiTBlock`` forward: qkv, attention (half of QK^T and PV when
+    causal: the kernel visits the tiles up to the diagonal), proj, the fused
+    SwiGLU of exact width 4 x width (three width x 4 width matrices)."""
+    attn = 2 * 2 * tokens * tokens * width / (2 if causal else 1)
+    return 2 * tokens * width * 3 * width + attn + 2 * tokens * width * width \
+        + 3 * 2 * tokens * width * 4 * width
+
+
+def _flow_head_flops(tokens: int, target: int, z: int, width: int, depth: int,
+                     max_freqs: int = 32) -> float:
+    """One ``FlowDecoder`` network call: the NerfEmbedder, the input, time
+    and condition projections, ``depth`` gated res blocks (adaLN 3 x width,
+    two width x width linears) and the gated final layer."""
+    embed = 2 * tokens * (z + max_freqs**2) * z
+    proj = 2 * tokens * (target * width + 256 * width + width * width + z * width)
+    blocks = depth * 2 * tokens * (3 * width * width + 2 * width * width)
+    final = 2 * tokens * (2 * width * width + width * target)
+    return float(embed + proj + blocks + final)
+
+
+def uniflow_flops(image_size: int = 224, patch: int = 14, vit_hidden: int = 1024,
+                  vit_layers: int = 24, llm_hidden: int = 1536, depth: int = 6,
+                  decoder_layers: int = 12) -> float:
+    """Forward matmul FLOPs of ``UniFlowVision.forward_loss`` for one image:
+    both ViTs, the latent projector, ``mlp1`` twice on the semantic branch,
+    each trunk and one call of each flow head. A train step is 3 x this: the
+    frozen towers' gradients are computed too
+    (``uniflow_internvit_2b_base.yaml`` at 224 px: ~0.363 TFLOP)."""
+    n = (image_size // patch) ** 2
+    vh = vit_hidden
+    encoder = vit_flops(image_size, patch, vh, vit_layers) + vit_flops(image_size, patch, vh, 4)
+    projector = 2 * n * vh * vh * 2 + 3 * 10 * n * vh * vh + 6 * n * vh * vh \
+        + 2 * (n // 4) * 4 * vh * 256
+    mlp1 = 2 * (n // 4) * (4 * vh * llm_hidden + llm_hidden * llm_hidden)
+    m, w = n // 4, 2 * vh
+    semantic = (mlp1 + 2 * m * (256 * 4 * vh + 4 * vh * w)
+                + depth * _plain_block_flops(m, w, causal=True)
+                + _flow_head_flops(m, 4 * vh, w, 2048, 4))
+    pixel = (2 * n * (64 * 4 * vh + 4 * vh * vh) + depth * _plain_block_flops(n, vh)
+             + _flow_head_flops(n, 3 * patch * patch, vh, vh, decoder_layers))
+    return float(encoder + projector + mlp1 + semantic + pixel)

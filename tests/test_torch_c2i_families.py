@@ -35,7 +35,7 @@ from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I, init_like_jax_
 from deco_tpu_torch.models.dit_c2i_pixnerd import PixNerdC2I
 from deco_tpu_torch.models.dit_t2i import DeCoT2I, PixNerdT2I
 from deco_tpu_torch.utils import flops
-from torch_port_util import redrawn_init
+from torch_port_util import fast_jit, redrawn_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 32
@@ -83,7 +83,7 @@ def _jax(model, inputs, seed=0, **kw):
     if key not in _JAX_RUNS:
         args = [jnp.asarray(a) for a in inputs]
         params = redrawn_init(model, *args, seed=seed)
-        out = jax.jit(functools.partial(model.apply, **kw))(params, *args)
+        out = fast_jit(functools.partial(model.apply, **kw))(params, *args)
         _JAX_RUNS[key] = (jax.tree_util.tree_map(np.asarray, params),
                           jax.tree_util.tree_map(np.asarray, out))
     return _JAX_RUNS[key]

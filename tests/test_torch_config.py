@@ -401,10 +401,21 @@ def test_cli_parses_override_values_like_jax(token):
     assert type(cli._parse_value(token)) is type(jax_cli._parse_value(token))
 
 
-def test_cli_refuses_unported_workloads(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 5"):
-        cli.main(["fit", "-c", os.path.join(REPO, "configs_flow/uniflow_internvit.yaml"),
-                  "--device", "cpu", f"--workdir={tmp_path}"])
+def test_cli_routes_the_uniflow_configs(tmp_path, monkeypatch):
+    """``fit`` and ``validate`` of a UniFlow config reach ``run_uniflow`` with
+    the CLI's arguments (the workload raised here before it was ported)."""
+    from deco_tpu_torch.train import workloads
+
+    calls = []
+    monkeypatch.setattr(workloads, "run_uniflow",
+                        lambda config, **kw: calls.append((config["model"], kw)) or "ran")
+    path = os.path.join(REPO, "configs_flow/uniflow_internvit_2b_base.yaml")
+    for sub in ("fit", "validate"):
+        assert cli.main([sub, "-c", path, "--device", "cpu", "--max_steps", "2",
+                         f"--workdir={tmp_path}"]) == "ran"
+    assert [kw["subcommand"] for _, kw in calls] == ["fit", "validate"]
+    assert calls[0][1]["max_steps"] == 2 and calls[0][1]["workdir"] == str(tmp_path)
+    assert calls[0][0]["config_path"] == "deco_tpu/models/uniflow/config.json"
 
 
 def test_cli_without_a_card_raises_unless_asked_for_the_cpu(tmp_path):

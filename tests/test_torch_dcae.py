@@ -28,7 +28,7 @@ from deco_tpu.models.autoencoders import DCLatentAE as JaxDCLatentAE
 from deco_tpu_torch import convert
 from deco_tpu_torch.models import dcae, vae_models
 from deco_tpu_torch.models.autoencoders import DCLatentAE
-from torch_port_util import numpy_state, randomize_
+from torch_port_util import fast_jit, numpy_state, randomize_
 
 CHANNELS = (8, 16, 32, 32, 64, 64)
 ENC_LAYERS = (1, 1, 1, 1, 1, 1)
@@ -94,7 +94,7 @@ def test_state_dict_is_the_diffusers_layout(pair):
 def test_encoder_matches_jax(pair):
     port, module, params = pair
     x = _images(1)
-    ref = jax.jit(lambda p, v: module.apply({"params": p}, v, method=module.encode))(params, x)
+    ref = fast_jit(lambda p, v: module.apply({"params": p}, v, method=module.encode))(params, x)
     with torch.no_grad():
         _close(port.encode(torch.from_numpy(x)).numpy(), ref)
 
@@ -103,7 +103,7 @@ def test_encoder_matches_jax(pair):
 def test_decoder_matches_jax(pair, grid):
     port, module, params = pair
     z = np.random.default_rng(2).standard_normal((2, grid, grid, 8)).astype(np.float32)
-    ref = jax.jit(lambda p, v: module.apply({"params": p}, v, method=module.decode))(params, z)
+    ref = fast_jit(lambda p, v: module.apply({"params": p}, v, method=module.decode))(params, z)
     with torch.no_grad():
         out = port.decode(torch.from_numpy(z)).numpy()
     assert out.shape == (2, 32 * grid, 32 * grid, 3)
@@ -113,7 +113,7 @@ def test_decoder_matches_jax(pair, grid):
 def test_autoencoder_round_trip_matches_jax(pair):
     port, module, params = pair
     x = _images(3)
-    ref = jax.jit(lambda p, v: module.apply({"params": p}, v))(params, x)
+    ref = fast_jit(lambda p, v: module.apply({"params": p}, v))(params, x)
     with torch.no_grad():
         _close(port(torch.from_numpy(x)).numpy(), ref)
 
@@ -124,7 +124,7 @@ def test_tiled_decode_matches_jax(pair):
     the left."""
     port, module, params = pair
     z = np.random.default_rng(4).standard_normal((1, 2, 2, 8)).astype(np.float32)
-    ref = jax.jit(lambda p, v: module.apply({"params": p}, v, tile_latent=2, tile_stride=1,
+    ref = fast_jit(lambda p, v: module.apply({"params": p}, v, tile_latent=2, tile_stride=1,
                                             method=module.tiled_decode))(params, z)
     with torch.no_grad():
         out = port.tiled_decode(torch.from_numpy(z), tile_latent=2, tile_stride=1).numpy()
@@ -139,7 +139,7 @@ def test_headless_decoder_matches_jax():
     module, params = dcae_bridge.dcae_flax_from_torch(numpy_state(port))
     assert not module.decoder_head
     z = np.random.default_rng(6).standard_normal((1, 2, 2, 8)).astype(np.float32)
-    ref = jax.jit(lambda p, v: module.apply({"params": p}, v, method=module.decode))(params, z)
+    ref = fast_jit(lambda p, v: module.apply({"params": p}, v, method=module.decode))(params, z)
     with torch.no_grad():
         out = port.decode(torch.from_numpy(z)).numpy()
     assert out.shape == (1, 64, 64, CHANNELS[0])

@@ -20,7 +20,7 @@ import torch
 
 from deco_tpu.models import inception as jinception
 from deco_tpu_torch.models import inception
-from torch_port_util import inception_state_dict as _state_dict
+from torch_port_util import fast_jit, inception_state_dict as _state_dict
 
 TAPS = inception.FEATURE_DIMS
 
@@ -39,7 +39,7 @@ def _jax_taps(fid_variant: bool):
         return [jinception.InceptionV3Features(fid_variant=fid_variant, feature_dim=d).apply(v, x)
                 for d in TAPS]
 
-    return dict(zip(TAPS, map(np.asarray, jax.jit(taps)(variables, jnp.asarray(_images())))))
+    return dict(zip(TAPS, map(np.asarray, fast_jit(taps)(variables, jnp.asarray(_images())))))
 
 
 @pytest.fixture(scope="module")

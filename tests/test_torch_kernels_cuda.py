@@ -20,6 +20,9 @@ Tolerances:
   from run to run (no atomics);
 - the frequency MSE, rtol 1e-4 (fp32 sums of ~6M terms in another order),
   and bit-identical from run to run;
+- the causal instantiations, as the non-causal kernels, the output's
+  atol in units of max(1, |plain|) (a causal row's first queries average
+  one to a few values, outputs reach ~4.5, where one bf16 step is 2^-5);
 - the fp32 forward (the DINOv2 tower's, D = 64, and the DC-AE's, D = 32),
   atol 1e-5 x max|v|: the kernel's 3xTF32 products carry about 2^-22 of
   relative error each (tests/test_torch_fp32_split.py), the plain version's
@@ -148,10 +151,10 @@ def test_nonpositive_scale_raises_on_card(cuda_device):
         fa.flash_attention(q, k, v, scale=-0.1)
 
 
-def _backward(q, k, v, o, lse, do, scale):
+def _backward(q, k, v, o, lse, do, scale, causal=False):
     """(dQ, delta, dK, dV) from the two backward kernels."""
-    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
-    return (dq, delta, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, causal)
+    return (dq, delta, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal))
 
 
 @pytest.mark.cuda
@@ -639,3 +642,86 @@ def test_d32_autograd_through_strided_qkv_on_card(cuda_device):
     ref = qkv.detach().clone().requires_grad_(True)
     fa.flash_attention_plain(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2]).float().square().sum().backward()
     assert _rel(qkv.grad, ref.grad) < BWD_REL
+
+
+# UniFlow's causal semantic trunk (32 heads of 64, Nq = Nkv): 256 tokens at
+# 448 px, 64 at 224 px, 1,024 at 896 px, and a ragged 100 (280 px / 28)
+CAUSAL_SHAPES = [(16, 256, 256, 32, 64), (16, 64, 64, 32, 64), (2, 1024, 1024, 32, 64),
+                 (16, 100, 100, 32, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CAUSAL_SHAPES, ids=lambda s: f"causal_n{s[1]}")
+def test_causal_forward_and_backward_match_plain_on_card(cuda_device, shape):
+    """The causal instantiations: the forward, the forward with lse, dQ (with
+    delta) and dK/dV against their plain versions, which mask key > query,
+    under the gates of the non-causal holds, bit-identical over two runs;
+    each counts in ``causal_launches`` and not in ``launches``."""
+    q, k, v, do = _qkv(cuda_device, *shape)
+    scale = shape[-1] ** -0.5
+    kernels = (fa.flash_attention, fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    plain_before = [f.launches for f in kernels]
+    before = [f.causal_launches for f in kernels]
+    out = fa.flash_attention(q, k, v, scale, causal=True)
+    again = fa.flash_attention(q, k, v, scale, causal=True)
+    assert torch.equal(out, again)
+    ref = fa.flash_attention_plain(q, k, v, scale, causal=True)
+    # in units of max(1, |plain|): a row's first queries average few values
+    # (|o| up to ~4.5, where one bf16 step is 2^-5)
+    assert ((out.float() - ref.float()).abs() / ref.float().abs().clamp(min=1)).max() < ATOL
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale, causal=True)
+    o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale, causal=True)
+    assert torch.equal(o, out) and (lse - lse_ref).abs().max().item() < LSE_ATOL
+    dq, delta, dk, dv = _backward(q, k, v, o, lse, do, scale, causal=True)
+    repeat = _backward(q, k, v, o, lse, do, scale, causal=True)
+    torch.cuda.synchronize()
+    dq_ref, delta_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale, causal=True)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale,
+                                                      causal=True)
+    assert _rel(delta, delta_ref) < DELTA_REL
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert _rel(got, want) < BWD_REL
+    assert all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), repeat))
+    assert [f.causal_launches - b for f, b in zip(kernels, before)] == [2, 1, 2, 2]
+    assert [f.launches for f in kernels] == plain_before
+
+
+@pytest.mark.cuda
+def test_causal_autograd_and_the_refusals_on_card(cuda_device):
+    """``sdpa(causal=True)`` under autograd takes the causal forward with lse
+    and both causal backward kernels, gradients within the backward gate of
+    the plain version's; Nq != Nkv, a head dim without a causal
+    instantiation and fp32 operands raise."""
+    from deco_tpu_torch.models.layers import sdpa
+
+    qkv = torch.randn(2, 100, 3, 32, 64, device=cuda_device, dtype=torch.bfloat16,
+                      requires_grad=True)
+    before = fa.flash_attention_bwd_dkv.causal_launches
+    sdpa(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=True).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dkv.causal_launches == before + 1
+    ref = qkv.detach().clone().requires_grad_(True)
+    fa.flash_attention_plain(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2],
+                             causal=True).float().square().sum().backward()
+    assert _rel(qkv.grad, ref.grad) < BWD_REL
+    q, k, v, _ = _qkv(cuda_device, 2, 64, 128, 4, 64)
+    with pytest.raises(ValueError, match="Nq = Nkv"):
+        fa.flash_attention(q, k, v, causal=True)
+    q, k, v, _ = _qkv(cuda_device, 2, 64, 64, 4, 72)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q.float(), k.float(), v.float(), causal=True)
+
+
+@pytest.mark.cuda
+def test_causal_kernel_info_reports_no_spills_on_card(cuda_device):
+    """The four causal instantiations at D = 64: no local memory, and the
+    resident CTAs the non-causal ones are compiled for (2 forward, 3 backward)."""
+    infos = {**fa.forward_kernel_info(64), **fa.backward_kernel_info(64)}
+    for name in ("flash_fwd_kernel_causal", "flash_fwd_kernel_lse_causal"):
+        assert infos[name]["local_bytes"] == 0 and infos[name]["ctas_per_sm"] >= 2, infos[name]
+    for name in ("flash_bwd_dq_kernel_causal", "flash_bwd_dkv_kernel_causal"):
+        assert infos[name]["local_bytes"] == 0 and infos[name]["ctas_per_sm"] >= 3, infos[name]

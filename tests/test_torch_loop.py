@@ -33,7 +33,7 @@ from deco_tpu_torch.train.state import TrainState
 from deco_tpu_torch.utils.pipeline import pipelined_map
 from deco_tpu_torch.utils.preemption import PreemptionGuard
 from deco_tpu_torch.utils.png import read as png_read
-from torch_port_util import TINY_C2I, TINY_IMAGE, TINY_T2I, redraw
+from torch_port_util import TINY_C2I, TINY_IMAGE, TINY_T2I, fast_jit, redraw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -138,7 +138,9 @@ def test_cli_predict_matches_jax_predict_from_the_same_weights(tmp_path):
     config["data"]["pred_dataset"]["init_args"]["num_classes"] = 2
     jexp = JaxExperiment(copy.deepcopy(config))
     params, ema = jax_params(0), jax_params(1)
-    state = JaxTrainState.create(params, optax.adamw(1e-3)).replace(ema_params=ema)
+    # jitted: the zero moments in one compile, not one per leaf shape
+    state = jax.jit(lambda p: JaxTrainState.create(p, optax.adamw(1e-3)))(params).replace(
+        ema_params=ema)
     ref = np.load(jexp.predict(state=state))["arr_0"]
 
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
@@ -206,7 +208,8 @@ def test_t2i_predict_writes_the_files_of_the_jax_predict(tmp_path, dataset_key):
     config["data"]["eval_dataset"]["init_args"].update(
         meta_json_path=str(geneval), num_samples_per_instance=2, latent_shape=[3, 32, 32])
     _, params = tiny_jax_t2i(0)
-    state = JaxTrainState.create(params, optax.adamw(1e-3)).replace(ema_params=params)
+    state = jax.jit(lambda p: JaxTrainState.create(p, optax.adamw(1e-3)))(params).replace(
+        ema_params=params)
     ref_npz = JaxExperiment(copy.deepcopy(config)).predict(state=state, dataset_key=dataset_key)
     ref = np.load(ref_npz)["arr_0"]
 
@@ -377,11 +380,12 @@ def test_jax_training_state_resumes_in_the_port(tmp_path):
     params, mu, nu, grads = jax_params(2), jax_params(3, 0.01), jax_params(4, 0.01), jax_params(5)
     nu = jax.tree_util.tree_map(lambda x: x * x, nu)  # second moments are >= 0
     tx = optax.adamw(1e-3, weight_decay=0.01)
-    jstate = JaxTrainState.create(params, tx)
+    jstate = jax.jit(lambda p: JaxTrainState.create(p, tx))(params)  # one compile
     adam = jstate.opt_state[0]._replace(count=np.int32(7), mu=mu, nu=nu)
     opt_state = (adam,) + tuple(jstate.opt_state[1:])
-    updates, _ = tx.update(grads, opt_state, params)
-    expected = optax.apply_updates(params, updates)
+    # jitted: one compile, not an eager dispatch per leaf and op
+    expected = fast_jit(lambda g, o, p: optax.apply_updates(p, tx.update(g, o, p)[0]))(
+        grads, opt_state, params)
 
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     obj = convert.train_checkpoint_from_jax(to_np(params), to_np(params), to_np(mu), to_np(nu),

@@ -7,6 +7,7 @@ tolerance is atol = 1e-5 * max|ref|: fp32 sums over a 2-block trunk and a
 2-block decoder in two frameworks' orders.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I
-from torch_port_util import TINY_C2I, TINY_IMAGE, port_c2i_from_jax, tiny_jax_c2i
+from torch_port_util import TINY_C2I, TINY_IMAGE, fast_jit, port_c2i_from_jax, tiny_jax_c2i
 
 
 def _inputs(batch=2, seed=3):
@@ -39,7 +40,7 @@ def _close(out, ref):
 def test_forward_matches_jax():
     jmodel, params = tiny_jax_c2i(seed=0)
     x, t, y = _inputs()
-    ref = jmodel.apply(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(y))
+    ref = fast_jit(jmodel.apply)(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(y))
     out = _port(port_c2i_from_jax(params), x, t, y)
     assert out.shape == (2, TINY_IMAGE, TINY_IMAGE, 3) and out.dtype == np.float32
     _close(out, ref)
@@ -52,7 +53,7 @@ def test_forward_matches_jax_pallas_flash(monkeypatch):
     x, t, y = _inputs(seed=4)
     monkeypatch.setenv("DECO_ATTN_IMPL", "flash")
     with pltpu.force_tpu_interpret_mode():
-        ref = jmodel.apply(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(y))
+        ref = fast_jit(jmodel.apply)(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(y))
     monkeypatch.delenv("DECO_ATTN_IMPL")
     _close(_port(port_c2i_from_jax(params), x, t, y), ref)
 

@@ -50,7 +50,7 @@ from deco_tpu_torch.models.reco import ReCoModel
 from deco_tpu_torch.models.uniflow import components
 from deco_tpu_torch.train import hooks
 from deco_tpu_torch.train.loop import Experiment
-from torch_port_util import redraw
+from torch_port_util import fast_jit, redraw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENOISER = "src.models.transformer.dit_t2i_DeCo.PixNerDiT"
@@ -116,7 +116,7 @@ def jax_reco(config_path):
                 "extract_feature": model.apply(p, image, method=model.extract_feature),
                 "loss": loss}
 
-    return model, params, jax.tree_util.tree_map(np.asarray, jax.jit(outputs)(params))
+    return model, params, jax.tree_util.tree_map(np.asarray, fast_jit(outputs)(params))
 
 
 @pytest.fixture(scope="module")
@@ -146,7 +146,7 @@ def test_plain_dit_block_matches_jax():
     shapes = jax.eval_shape(lambda r: block.init(r, jnp.asarray(x), (cos, sin)),
                             jax.random.PRNGKey(0))
     params = redraw(shapes, seed=5)
-    want = np.asarray(jax.jit(lambda p: block.apply(p, x, (cos, sin)))(params))
+    want = np.asarray(fast_jit(lambda p: block.apply(p, x, (cos, sin)))(params))
     ours = components.PlainDiTBlock(64, 4)
     p = params["params"]
     sd = {"norm1.weight": p["norm1"]["weight"], "norm2.weight": p["norm2"]["weight"],

@@ -27,7 +27,7 @@ from deco_tpu.models.dit_c2i_deco import DeCoC2I as JaxDeCoC2I
 from deco_tpu_torch.convert import state_dict_from_jax
 from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I
 from deco_tpu_torch.ops import flash_attention as fa
-from torch_port_util import redrawn_init
+from torch_port_util import fast_jit, redrawn_init
 
 CFG = dict(in_channels=3, patch_size=8, num_groups=2, hidden_size=144, hidden_size_x=16,
            num_blocks=4, num_cond_blocks=2, num_classes=10)
@@ -85,7 +85,7 @@ def _jax_run(seed=0, **kw):
         out = model.apply(params, x, t, y)
         return jnp.sum(out * w), out
 
-    (loss, out), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(_jax_params())
+    (loss, out), grads = fast_jit(jax.value_and_grad(loss_fn, has_aux=True))(_jax_params())
     sd = _state_dict(grads)
     return np.asarray(out), float(loss), {k: v.numpy() for k, v in sd.items()}
 

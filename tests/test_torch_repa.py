@@ -43,7 +43,7 @@ from deco_tpu_torch.train import hooks
 from deco_tpu_torch.train.checkpoint import CheckpointManager
 from deco_tpu_torch.train.state import TrainState
 from deco_tpu_torch.train.train_step import make_train_step
-from torch_port_util import TINY_C2I, TINY_IMAGE, tiny_jax_c2i
+from torch_port_util import TINY_C2I, TINY_IMAGE, all_cores, fast_jit, tiny_jax_c2i
 
 HID, ENC, N = TINY_C2I["hidden_size"], 24, 4
 PROJ = dict(proj_denoiser_dim=HID, proj_hidden_dim=32, proj_encoder_dim=ENC)
@@ -161,8 +161,11 @@ def test_trainer_loss_and_gradients_match_jax(name):
         return out["loss"], out
 
     patches = _patched(d, uniform_t=name == "jit")
+    # vp's losses sit within the ulps that XLA:CPU's LLVM passes move (7.2e-8
+    # against 6.8e-8 under fast_jit): it keeps the default compile
+    jit = jax.jit if name == "vp" else fast_jit
     with patches[0], patches[1], patches[2]:
-        (_, want), (gm, gp) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
+        (_, want), (gm, gp) = jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
             params, proj)
     assert sorted(losses) == sorted(want)
     for key in want:
@@ -213,6 +216,7 @@ def test_projection_names_follow_the_reference_trainer():
 
 @pytest.mark.parametrize("opts", [dict(), dict(accumulate_grad_batches=2, diffusion_batch_mul=2,
                                                 grad_clip=0.5)])
+@all_cores()
 def test_train_step_trains_the_projection_like_jax(opts):
     """One REPA step over the combined {"model", "trainer"} state with the
     raw images in the metadata: post-step parameters, projection and EMA
@@ -226,8 +230,8 @@ def test_train_step_trains_the_projection_like_jax(opts):
     k, mul = opts.get("accumulate_grad_batches", 1), opts.get("diffusion_batch_mul", 1)
     d = _draws(N // k * mul, seed=5)
     raw = _raw(seed=6)
-    jstate = JTrainState.create({"model": params, "trainer": proj},
-                                optax.adamw(LR, weight_decay=WD))
+    jstate = jax.jit(lambda p: JTrainState.create(p, optax.adamw(LR, weight_decay=WD)))(
+        {"model": params, "trainer": proj})  # one compile, not one per leaf shape
     jstep = jmake_train_step(lambda p, *a, **kw: jmodel.apply(p, *a, **kw), jt, ema_decay=EMA,
                              donate=False, **opts)
     patches = _patched(d)

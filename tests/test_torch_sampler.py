@@ -1,6 +1,7 @@
 """The port's sampling stack (deco_tpu_torch.diffusion, data.randn,
 utils.flops, models.conditioners/autoencoders) against the JAX package's."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ from deco_tpu_torch.diffusion.scheduling import LinearScheduler
 from deco_tpu_torch.models.autoencoders import fp_to_uint8
 from deco_tpu_torch.models.conditioners import LabelConditioner
 from deco_tpu_torch.utils import flops as tflops
-from torch_port_util import TINY_C2I, TINY_IMAGE, port_c2i_from_jax, tiny_jax_c2i
+from torch_port_util import TINY_C2I, TINY_IMAGE, fast_jit, port_c2i_from_jax, tiny_jax_c2i
 
 
 def _samplers(**kw):
@@ -57,8 +58,9 @@ def test_eight_step_cfg_sample_matches_jax():
     noise = np.stack([seeded_noise(s, (3, TINY_IMAGE, TINY_IMAGE)) for s in (0, 1)])
     cond, uncond = LabelConditioner(TINY_C2I["num_classes"])([3, 7])
 
-    ref = js(lambda x, t, y: jmodel.apply(params, x, t, y), jnp.asarray(noise),
-             jnp.asarray(cond.numpy(), jnp.int32), jnp.asarray(uncond.numpy(), jnp.int32))
+    ref = fast_jit(lambda n, c, u: js(lambda x, t, y: jmodel.apply(params, x, t, y), n, c, u))(
+        jnp.asarray(noise), jnp.asarray(cond.numpy(), jnp.int32),
+        jnp.asarray(uncond.numpy(), jnp.int32))
     out = ts(model, torch.from_numpy(noise), cond, uncond).numpy()
     ref = np.array(ref)
     assert np.abs(ref - noise).max() > 0.1  # the network moved the sample

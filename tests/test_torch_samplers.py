@@ -31,7 +31,7 @@ from deco_tpu.diffusion import sampling as jsampling
 from deco_tpu.diffusion import scheduling as jsched
 from deco_tpu_torch.diffusion import adam_sampling, ddpm_sampling, pre_integral, sampling
 from deco_tpu_torch.diffusion import scheduling as sched
-from torch_port_util import TINY_C2I, TINY_IMAGE, port_c2i_from_jax, tiny_jax_c2i
+from torch_port_util import TINY_C2I, TINY_IMAGE, fast_jit, port_c2i_from_jax, tiny_jax_c2i
 
 SCHEDULERS = {
     "GVPScheduler": (np.linspace(0, 1, 64), {}),
@@ -134,7 +134,7 @@ def test_sampler_matches_jax_on_a_closed_form_net(name):
     port, ref = _build(name)
     noise = _noise(0, (B, 4, 4, 3))
     cond, uncond = np.array([1.0, -2.0], np.float32), np.zeros(B, np.float32)
-    want = jax.jit(lambda n, c, u: ref(_jax_net, n, c, u))(*map(jnp.asarray, (noise, cond, uncond)))
+    want = fast_jit(lambda n, c, u: ref(_jax_net, n, c, u))(*map(jnp.asarray, (noise, cond, uncond)))
     got = port(_port_net, *map(torch.from_numpy, (noise, cond, uncond)))
     _close(got.numpy(), want)
 
@@ -152,7 +152,7 @@ def test_sampler_matches_jax_on_the_tiny_model(name):
     noise = _noise(1, (B, TINY_IMAGE, TINY_IMAGE, 3))
     cond = np.array([2, 7], np.int32)
     uncond = np.full(B, TINY_C2I["num_classes"], np.int32)
-    want = jax.jit(lambda n, c, u: ref(lambda *a: jmodel.apply(params, *a), n, c, u))(
+    want = fast_jit(lambda n, c, u: ref(lambda *a: jmodel.apply(params, *a), n, c, u))(
         *map(jnp.asarray, (noise, cond, uncond)))
     with torch.no_grad():
         got = port(model, torch.from_numpy(noise), torch.from_numpy(cond).long(),

@@ -28,7 +28,7 @@ from deco_tpu_torch.models import conditioners as tc
 from deco_tpu_torch.models import layers as tl
 from deco_tpu_torch.models.dit_c2i_deco import init_like_jax_
 from deco_tpu_torch.models.dit_t2i import DeCoT2I
-from torch_port_util import TINY_T2I, redrawn_init, tiny_jax_t2i
+from torch_port_util import TINY_T2I, fast_jit, redrawn_init, tiny_jax_t2i
 
 LAYER_ATOL = 1e-6
 MODEL_ATOL = 1e-5
@@ -161,7 +161,8 @@ def _inputs(h, w, seed=4):
 
 def _ref(params, x, t, y, scale=(1.0, 1.0)):
     jmodel = JaxDeCoT2I(**TINY_T2I, dtype=jnp.float32, patch_scaling_hw=scale)
-    return np.asarray(jmodel.apply(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(y)))
+    return np.asarray(fast_jit(jmodel.apply)(params, jnp.asarray(x), jnp.asarray(t),
+                                            jnp.asarray(y)))
 
 
 @pytest.mark.parametrize("h,w,scale,chunks", [(16, 16, (1.0, 1.0), 0), (16, 16, (1.0, 1.0), 4),

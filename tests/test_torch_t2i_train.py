@@ -38,7 +38,7 @@ from deco_tpu_torch.train.checkpoint import CheckpointManager
 from deco_tpu_torch.train.state import TrainState
 from deco_tpu_torch.utils import png
 from test_torch_training import _patched_jax_draws
-from torch_port_util import redraw
+from torch_port_util import fast_jit, redraw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # 2 heads of 64 (the DeCo-XXL head width), 2 joint and 1 text blocks, patch 8
@@ -102,7 +102,7 @@ def _jax_loss_and_grads(params, batch, draws, grad_checkpoint: bool):
     jtrainer = jtraining.DeCoTrainer(JLinear(), **TRAINER_KW)
     normal, uniform = _patched_jax_draws(draws)
     with normal, uniform:  # the patched draws are constants of the traced step
-        out, grads = jax.jit(jax.value_and_grad(lambda p: jtrainer(
+        out, grads = fast_jit(jax.value_and_grad(lambda p: jtrainer(
             jax.random.PRNGKey(0), lambda *a: jmodel.apply(p, *a),
             *(jnp.asarray(a) for a in batch))["loss"]))(params)
     return float(out), jax.tree_util.tree_map(np.asarray, grads)
@@ -255,10 +255,10 @@ def test_jax_t2i_training_state_resumes_in_the_port(tmp_path):
     mu = jax.tree_util.tree_map(lambda x: x * 0.01, mu)
     nu = jax.tree_util.tree_map(lambda x: (x * 0.01) ** 2, nu)
     tx = optax.adamw(1e-3, weight_decay=0.01)
-    jstate = JaxTrainState.create(params, tx)
+    jstate = jax.jit(lambda p: JaxTrainState.create(p, tx))(params)  # one compile
     adam = jstate.opt_state[0]._replace(count=np.int32(7), mu=mu, nu=nu)
     opt_state = (adam,) + tuple(jstate.opt_state[1:])
-    expected = jax.tree_util.tree_map(np.asarray, jax.jit(
+    expected = jax.tree_util.tree_map(np.asarray, fast_jit(
         lambda g, s, p: optax.apply_updates(p, tx.update(g, s, p)[0]))(grads, opt_state, params))
 
     obj = convert.train_checkpoint_from_jax(params, ema, mu, nu, adam.count, step=7,

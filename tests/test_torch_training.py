@@ -38,7 +38,8 @@ from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I
 from deco_tpu_torch.train.schedules import cosine_with_min_lr
 from deco_tpu_torch.train.state import TrainState, ema_decay_schedule
 from deco_tpu_torch.train.train_step import make_train_step
-from torch_port_util import TINY_C2I, TINY_IMAGE, port_c2i_from_jax, tiny_jax_c2i
+from torch_port_util import (TINY_C2I, TINY_IMAGE, all_cores,
+                             fast_jit, port_c2i_from_jax, tiny_jax_c2i)
 
 TRAINER_KW = dict(lognorm_t=True, null_condition_p=0.5, enable_freq_loss=True)
 LR, WD, EMA = 1e-3, 0.05, 0.999
@@ -109,9 +110,9 @@ def test_trainer_losses_match_jax(name):
     with torch.no_grad():
         got = tt(model, *(torch.from_numpy(a) for a in (x, y, uy)), draws=d)
     normal, uniform = _patched_jax_draws(d)
-    with normal, uniform:
-        want = jt(jax.random.PRNGKey(0), lambda *a: jmodel.apply(params, *a),
-                  *(jnp.asarray(a) for a in (x, y, uy)))
+    with normal, uniform:  # jitted: one compile, not an eager dispatch per op
+        want = fast_jit(lambda p: jt(jax.random.PRNGKey(0), lambda *a: jmodel.apply(p, *a),
+                                    *(jnp.asarray(a) for a in (x, y, uy))))(params)
     assert sorted(got) == sorted(want)
     for key in want:
         np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=1e-5, err_msg=key)
@@ -121,6 +122,7 @@ def test_trainer_losses_match_jax(name):
     dict(),
     dict(accumulate_grad_batches=2, diffusion_batch_mul=2, grad_clip=0.5),
 ])
+@all_cores()
 def test_train_step_matches_jax(opts):
     """One whole step: loss, gradients (without accumulation), post-step
     parameters and EMA, against make_train_step + optax.adamw."""
@@ -130,7 +132,8 @@ def test_train_step_matches_jax(opts):
     k, mul = opts.get("accumulate_grad_batches", 1), opts.get("diffusion_batch_mul", 1)
     d = _draws(4 // k * mul, seed=5)
     jtrainer = jtraining.DeCoTrainer(JLinear(), **TRAINER_KW)
-    jstate = JTrainState.create(params, optax.adamw(LR, weight_decay=WD))
+    jstate = jax.jit(lambda p: JTrainState.create(p, optax.adamw(LR, weight_decay=WD)))(
+        params)  # one compile, not one per leaf shape
     jstep = jmake_train_step(lambda p, *a, **kw: jmodel.apply(p, *a, **kw), jtrainer,
                              ema_decay=EMA, donate=False, **opts)
     batch = dict(x=x, condition=y, uncondition=uy)
@@ -138,10 +141,10 @@ def test_train_step_matches_jax(opts):
     with normal, uniform:
         jstate, jmetrics = jstep(jstate, {k_: jnp.asarray(v) for k_, v in batch.items()},
                                  jax.random.PRNGKey(0))
-        if k == 1:
-            grads = jax.grad(lambda p: jtrainer(
+        if k == 1:  # jitted: one compile, not an eager dispatch per op (~10 s here)
+            grads = fast_jit(jax.grad(lambda p: jtrainer(
                 jax.random.PRNGKey(0), lambda *a: jmodel.apply(p, *a),
-                *(jnp.asarray(a) for a in (x, y, uy)))["loss"])(params)
+                *(jnp.asarray(a) for a in (x, y, uy)))["loss"]))(params)
 
     state = TrainState.create(model, lr=LR, weight_decay=WD)
     step = make_train_step(ttraining.DeCoTrainer(LinearScheduler(), **TRAINER_KW),

@@ -51,7 +51,7 @@ from deco_tpu_torch.models import internvl, perceptual, vae_models
 from deco_tpu_torch.models.gan import discriminator, vae_loss
 from deco_tpu_torch.models.uniflow.vit import ViTConfig
 from deco_tpu_torch.train import hooks, schedules, vae_gan_step, workloads
-from torch_port_util import numpy_state, randomize_
+from torch_port_util import FAST_COMPILE, all_cores, fast_jit, numpy_state, randomize_
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIT = dict(hidden_size=64, num_layers=2, num_heads=2, intermediate_size=128, patch_size=14,
@@ -115,7 +115,7 @@ def test_vae_model_matches_jax(stochastic):
     params, jmodel = jax_vae_params(model), jax_vae(stochastic)
     x = _images(1)
     key = jax.random.PRNGKey(3)
-    recon, extra = jax.jit(lambda p, v: jmodel.apply({"params": p}, v, key if stochastic
+    recon, extra = fast_jit(lambda p, v: jmodel.apply({"params": p}, v, key if stochastic
                                                       else None))(params, x)
     noise = None
     if stochastic:
@@ -130,7 +130,7 @@ def test_vae_model_matches_jax(stochastic):
         np.testing.assert_allclose(float(ours["kl"]), float(extra["kl"]), rtol=RTOL)
         with torch.no_grad():  # no noise and no generator: the posterior mean
             mean_out, _ = model(torch.from_numpy(x))
-        ref_mean, _ = jax.jit(lambda p, v: jmodel.apply({"params": p}, v))(params, x)
+        ref_mean, _ = fast_jit(lambda p, v: jmodel.apply({"params": p}, v))(params, x)
         _close(mean_out.numpy(), ref_mean)
 
 
@@ -174,7 +174,7 @@ def test_internvl_vision_and_dcae_decoder_eval_match_jax():
                                     dtype=jnp.float32)
     jdec = jvae.DCAEDecoderEval(llm_hidden_size=48, dtype=jnp.float32, **DECODER)
     x = _images(6)
-    feats, out = jax.jit(lambda pe, pd, v: (lambda f: (f, jdec.apply({"params": pd}, f)))(
+    feats, out = fast_jit(lambda pe, pd, v: (lambda f: (f, jdec.apply({"params": pd}, f)))(
         jenc.apply({"params": pe}, v)))(enc_params, dec_params, x)
     with torch.no_grad():
         ours = enc(torch.from_numpy(x))
@@ -190,7 +190,7 @@ def test_discriminator_matches_jax(hw):
     params = convert_discriminator(numpy_state(disc))
     jd = jdisc.NLayerDiscriminator(hidden_channels=32)
     x = np.random.default_rng(8).uniform(0, 1, (2, *hw, 3)).astype(np.float32)
-    ref = jax.jit(lambda p, v: jd.apply({"params": p}, v))(params, x)
+    ref = fast_jit(lambda p, v: jd.apply({"params": p}, v))(params, x)
     with torch.no_grad():
         out = disc(torch.from_numpy(x)).numpy()
     assert out.shape == np.shape(ref) and out.shape[-1] == 1
@@ -202,7 +202,7 @@ def test_lpips_matches_jax():
     params = jperceptual.vgg16_params_from_torch(numpy_state(lp))
     a, b = (np.random.default_rng(s).uniform(0, 1, (2, 32, 40, 3)).astype(np.float32)
             for s in (10, 11))
-    ref = jax.jit(lambda p, u, v: jperceptual.LPIPS().apply(p, u, v))(params, a, b)
+    ref = fast_jit(lambda p, u, v: jperceptual.LPIPS().apply(p, u, v))(params, a, b)
     with torch.no_grad():
         out = lp(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     assert out.shape == (2,)
@@ -213,7 +213,7 @@ def test_convnext_s_matches_jax():
     cn = randomize_(perceptual.ConvNeXtS(), 12, 0.5)
     params = jperceptual.convnext_s_params_from_torch(numpy_state(cn))
     x = np.random.default_rng(13).uniform(-2, 2, (2, 32, 32, 3)).astype(np.float32)
-    ref = jax.jit(lambda p, v: jperceptual.ConvNeXtS().apply(p, v))(params, x)
+    ref = fast_jit(lambda p, v: jperceptual.ConvNeXtS().apply(p, v))(params, x)
     with torch.no_grad():
         _close(cn(torch.from_numpy(x)).numpy(), ref)
 
@@ -354,6 +354,7 @@ def _flat(tree) -> dict:
 
 
 @pytest.fixture(scope="module")
+@all_cores()
 def two_steps():
     """Two steps of the JAX step (jitted) and the port's on the same
     weights, images and posterior noise; the discriminator starts at step 1."""
@@ -374,8 +375,10 @@ def two_steps():
     make_tx = lambda: optax.adamw(jschedules.cosine_with_min_lr(LR, 0, 100, 0.0), b1=BETAS[0],
                                   b2=BETAS[1], eps=EPS, weight_decay=WD)
     gen_params = jax_vae_params(model)
-    jstate = jstep.VAEGANTrainState.create(gen_params, convert_discriminator(before["disc"]),
-                                           make_tx(), make_tx(), ema=True)
+    # jitted: the zero moments and the EMA copy in one compile, not one per leaf shape
+    jstate = jax.jit(lambda g, d: jstep.VAEGANTrainState.create(g, d, make_tx(), make_tx(),
+                                                                ema=True))(
+        gen_params, convert_discriminator(before["disc"]))
     loss_cfg = jloss.VAEGANLoss(**LOSS)
     step_fn = jstep.make_vae_gan_step(
         vae_apply=lambda p, x, r: jmodel.apply({"params": p}, x, r),
@@ -395,6 +398,8 @@ def two_steps():
     for i in range(2):
         x = _images(30 + i)
         key = jax.random.PRNGKey(40 + i)
+        if i == 0:  # one compile for both steps, as fast_jit compiles
+            step_fn = step_fn.lower(jstate, {"x": jnp.asarray(x)}, key).compile(FAST_COMPILE)
         jstate, jmetrics = step_fn(jstate, {"x": jnp.asarray(x)}, key)
         noise = torch.from_numpy(np.asarray(jax.random.normal(key, (2, 4, 32), jnp.float32)))
         metrics = ours(state, torch.from_numpy(x), noise=noise)
@@ -578,11 +583,12 @@ def test_reference_schema_fit_and_validate_match_jax(tmp_path, monkeypatch):
         Flax init (whose eager initializers take ~20 s here)."""
         make = lambda spec: optax.adamw(jschedules.cosine_with_min_lr(spec[0], 0, 200000, 0.0),
                                         b1=spec[2][0], b2=spec[2][1], weight_decay=spec[1])
-        return jrun._place(jstep.VAEGANTrainState.create(
-            jax.tree.map(jnp.asarray, gen0), jax.tree.map(jnp.asarray, disc0),
-            make(jrun.gen_opt), make(jrun.disc_opt), ema=jrun.use_ema))
+        # jitted: the optimizers' zero moments in one compile, not one per leaf shape
+        return jrun._place(jax.jit(lambda g, d: jstep.VAEGANTrainState.create(
+            g, d, make(jrun.gen_opt), make(jrun.disc_opt), ema=jrun.use_ema))(gen0, disc0))
 
     jrun._init_state = init_from_port
+    jrun._step_fn = fast_jit(jrun._make_step())  # its step compiled as the fixture's is
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         jrun.fit(max_steps=1)
@@ -719,13 +725,28 @@ def _jax_vae_params_count(stochastic: bool) -> int:
 
 
 @pytest.mark.parametrize("name", JSONL_CONFIGS)
-def test_jsonl_trained_configs_raise_at_their_data_node(name):
-    """Their model and loss nodes build; the PixMultiJSONLDataset node raises
-    naming ROADMAP §A 2."""
+def test_jsonl_trained_configs_read_through_their_data_node(name, tmp_path):
+    """Their model and loss nodes build, and their PixMultiJSONLDataset node
+    (which raised before the reader was ported) builds from the config's
+    arguments over a JSON source list of PNGs and reads an item at the
+    config's resolution, as ``VAEGANRun`` loads it."""
+    from deco_tpu_torch.utils import png
+
     config = registry.load_yaml(os.path.join(REPO, "configs", name))
-    run = workloads.VAEGANRun(config, workdir="/tmp/unused_vae_workdir", device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 2"):
-        run.fit(max_steps=1)
+    workloads.VAEGANRun(config, workdir=str(tmp_path / "w"), device="meta")
+    rng = np.random.default_rng(0)
+    png.write(str(tmp_path / "a.png"), rng.integers(0, 256, (40, 48, 3), dtype=np.uint8))
+    (tmp_path / "ann.jsonl").write_text(json.dumps({"target_image": "a.png"}) + "\n")
+    (tmp_path / "sources.json").write_text(json.dumps({"src": {
+        "root": str(tmp_path), "annotation": str(tmp_path / "ann.jsonl"), "repeat_time": 2}}))
+    node = config["data"]["train_dataset"]
+    node["init_args"]["config_path"] = str(tmp_path / "sources.json")
+    data = config["data"]
+    dataset = workloads._make_dataset(data, "train_dataset", 224)
+    assert len(dataset) == 2 and data["train_batch_size"] > 0
+    x, label, meta = dataset[0]
+    res = node["init_args"]["resolution"]
+    assert x.shape == (res, res, 3) and label == 0 and meta["raw_image"].shape == x.shape
 
 
 @pytest.mark.parametrize("path,kind,sub", [

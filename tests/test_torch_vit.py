@@ -12,6 +12,9 @@ softmax in another order).
 
 import sys
 
+import copy
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +28,7 @@ from deco_tpu_torch import convert
 from deco_tpu_torch.models import encoders
 from deco_tpu_torch.models.uniflow import vit
 from deco_tpu_torch.ops import flash_attention as fa
-from torch_port_util import redraw, redrawn_init
+from torch_port_util import fast_jit, redraw, redrawn_init
 
 HID, HEADS, LAYERS, IMAGE_SIZE = 128, 2, 2, 70
 ATOL = 1e-4
@@ -70,7 +73,7 @@ def test_vision_model_matches_jax(kw, select_layer):
     jmodel = jvit.VisionModel(jvit.ViTConfig(**_cfg(**kw)), dtype=jnp.float32,
                               select_layer=select_layer)
     params = redrawn_init(jmodel, jnp.asarray(x), seed=3)
-    ref, ref_tap = jax.jit(jmodel.apply)(params, jnp.asarray(x))
+    ref, ref_tap = fast_jit(jmodel.apply)(params, jnp.asarray(x))
     model = vit.VisionModel(vit.ViTConfig(**_cfg(**kw)), select_layer=select_layer)
     model.load_state_dict(convert.vit_state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, params)), strict=True)
@@ -95,11 +98,19 @@ def test_vit_init_follows_the_jax_initializers():
     assert abs(float(w.std()) * (3 * 14 * 14) ** 0.5 - 1.0) < 0.1
 
 
-def _jax_dinov2(final_norm: bool):
+@functools.lru_cache(maxsize=None)
+def _jax_dinov2_tower():
+    """The random-weight JAX tower (its eager init runs once) and its redrawn params."""
     with pytest.warns(UserWarning):
         tower = jenc.DINOv2(hidden_size=HID, num_layers=LAYERS, num_heads=HEADS,
                             image_size=IMAGE_SIZE)
-    params = {"params": redraw(tower.params, 4)["params"]}
+    return tower, redraw(tower.params, 4)["params"]
+
+
+def _jax_dinov2(final_norm: bool):
+    base, redrawn = _jax_dinov2_tower()
+    tower = copy.copy(base)
+    params = {"params": redrawn}
     if final_norm:
         rng = np.random.default_rng(5)
         params["final_norm"] = {"scale": 1 + 0.1 * rng.standard_normal(HID).astype(np.float32),
@@ -112,7 +123,7 @@ def _jax_dinov2(final_norm: bool):
 def test_dinov2_matches_jax(final_norm):
     tower = _jax_dinov2(final_norm)
     x = _images(seed=6)
-    ref = np.asarray(tower(jnp.asarray(x)))
+    ref = np.asarray(jax.jit(tower)(jnp.asarray(x)))  # one compile, not an eager op each
     with pytest.warns(UserWarning, match="random weights"):
         port = encoders.DINOv2(hidden_size=HID, num_layers=LAYERS, num_heads=HEADS,
                                image_size=IMAGE_SIZE, device="cpu")

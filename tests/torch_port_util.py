@@ -4,7 +4,9 @@ Inputs and parameters are drawn with numpy from a seed and handed to both
 the JAX package and the port as numpy arrays.
 """
 
+import contextlib
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +28,51 @@ TINY_IMAGE = 16
 TINY_T2I = dict(in_channels=3, patch_size=4, num_groups=2, hidden_size=32,
                 decoder_hidden_size=8, num_encoder_blocks=2, num_decoder_blocks=1,
                 num_text_blocks=1, txt_embed_dim=16, txt_max_length=6)
+
+# Under pytest-xdist every worker would start one torch thread per core: six
+# workers on eight cores run ~48 compute threads, and each big CPU product
+# waits on threads that the other workers hold. A worker takes its share.
+_ALL_CORES = torch.get_num_threads()
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
+
+
+@contextlib.contextmanager
+def all_cores():
+    """Torch on every core inside, as in a one-process run. For the parity
+    tests whose tolerances hold only at that thread count's summation order:
+    with fewer threads the port's side moves past them (one thread: a VAE-GAN
+    step's metric 8.1e-5 relative against its 1e-5, a train step's parameter
+    1.05e-4 against 1e-4; two and four threads fail the latter too)."""
+    capped = torch.get_num_threads()
+    torch.set_num_threads(_ALL_CORES)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(capped)
+
+
+# XLA:CPU without its LLVM optimisations: a test's program compiles in ~60%
+# of the time and runs the same fp32 operations (tests/test_torch_uniflow.py
+# measured 7.7 s -> 4.8 s on a UniFlow train step)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def fast_jit(fn, **jit_kwargs):
+    """``jax.jit(fn)`` whose programs compile with :data:`FAST_COMPILE`, one
+    executable per pytree structure and leaf shape/dtype of the arguments."""
+    jitted = jax.jit(fn, **jit_kwargs)
+    compiled = {}
+
+    def call(*args):
+        leaves, tree = jax.tree_util.tree_flatten(args)
+        key = (tree, tuple((np.shape(x), np.result_type(x)) for x in leaves))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile(FAST_COMPILE)
+        return compiled[key](*args)
+
+    return call
 
 
 def redraw(params, seed: int, scale: float = 1.0):
