@@ -11,8 +11,10 @@ serving, prompt-set predict and training with DeCo-XXL/16
 objectives (Baseline-DiT-L/16, PixNerd-L/16, DeCo-L/16 with the DINOv2
 tower), ReCo image reconstruction (``configs_c2i/ReCo_large.yaml``, the
 InternViT tower), the VAE-GAN and DC-AE eval (``configs/vae_*.yaml``,
-the DC-AE decoder) and UniFlow (``configs_flow/uniflow_*.yaml``), and holds each hand-written kernel against its plain
-PyTorch version. Phases, in the order they run:
+the DC-AE decoder) and UniFlow (``configs_flow/uniflow_*.yaml``), the
+t2i and UniFlow fits again from JPEG data through the port's own decoder,
+and holds each hand-written kernel against its plain PyTorch version.
+Phases, in the order they run:
 
 1. build: compile every ``deco_tpu_torch/csrc/*.cu`` with nvcc (one process
    per source, started together); print the card's name and power limit.
@@ -216,7 +218,24 @@ PyTorch version. Phases, in the order they run:
    of the 448 px stage-2 config (EMA, frozen encoder) and the semantic-AE
    config from a PixWebDataset node over a PNG tar shard. The files go under
    ``build/chip_smoke_uniflow/``, which is deleted.
-17. kernels: one JSON line listing every kernel with its launches on its
+17. jpeg: JPEG data, decoded by the port's own decoder
+   (``csrc/jpeg_decode.cpp``, host C++ built here by the host compiler).
+   ``jpeg_decode``: every fixture of ``tests/torch_jpeg_fixtures/`` held to
+   the sha256 of PIL's ``convert("RGB")`` (equal or the phase fails), the
+   port's ``PixImageNet`` items over them (center and random crop) held to
+   the digests the CPU wrote, and the host's decode ms per megapixel on one
+   thread and on the t2i loader's 8, with the host CPU's name.
+   ``jpeg_t2i_fit``: ``cli fit -c configs_t2i/sft_res512.yaml`` as shipped
+   (DeCo-XXL/16, full width and depth) from 64 JPEG + caption pairs, 3
+   steps: finite losses, exactly 80 / 80 / 80 forward-with-lse / dQ /
+   dK-dV launches a step, s/step, idle share, peak memory and the host
+   decode share of a step. ``jpeg_uniflow_fit``: ``cli fit`` on
+   uniflow_internvit_2b_blip3o.yaml as shipped (448 px, batch 16, random
+   crop and flip) from a tar of 64 JPEG members, 3 steps, 34 + 6 causal
+   launches of each training kernel a step. Neither fit writes a
+   checkpoint. The files go under ``build/chip_smoke_jpeg/``, which is
+   deleted.
+18. kernels: one JSON line listing every kernel with its launches on its
    path (sampling for the forward, training for the others) and on the CLI
    paths, error, times, bound, library time and the library call's
    backend, for the attention kernels the same at N = 1024, for the
@@ -227,7 +246,8 @@ PyTorch version. Phases, in the order they run:
    attention kernels their ReCo fit, validate and 448 px launches and their
    times at the ReCo shapes, and their VAE-GAN launches (fit, validate,
    DC-AE eval), times at the D = 32 shapes and D = 32 resources, and their
-   UniFlow launches; and the four causal instantiations with their UniFlow
+   UniFlow launches, and the training kernels their launches in phase
+   17's JPEG fits; and the four causal instantiations with their UniFlow
    launches, times at the causal shapes and resources.
 
 ``python3 chip_smoke.py --calibrate-train-slice`` (and ``--calibrate-t2i-slice``,
@@ -1112,14 +1132,20 @@ def write_image_folder(root: str, seed: int, per_class: int = 32,
 
 
 class Spy:
-    """Wraps ``owner.name`` for the phase: records each call's arguments,
-    result and seconds, and puts the original back on exit. With
-    ``replace`` the calls go to it in place of the original."""
+    """Wraps ``owner.name`` for the phase: counts the calls that return and
+    sums their seconds over every thread that makes them, records each
+    one's arguments, result and seconds unless ``record`` is off (a loader's
+    decodes), and puts the original back on exit. With ``replace`` the
+    calls go to it in place of the original."""
 
-    def __init__(self, owner, name: str, replace=None):
+    def __init__(self, owner, name: str, replace=None, record: bool = True):
+        import threading
+
         self.owner, self.name, self.calls = owner, name, []
         self.original = getattr(owner, name)
-        self.replace = replace
+        self.replace, self.record = replace, record
+        self.count, self.seconds = 0, 0.0
+        self._lock = threading.Lock()
 
     def __enter__(self):
         original, calls = self.replace or self.original, self.calls
@@ -1127,8 +1153,13 @@ class Spy:
         def wrapped(*args, **kwargs):
             t0 = time.perf_counter()
             out = original(*args, **kwargs)
-            calls.append({"args": args, "kwargs": kwargs, "out": out,
-                          "seconds": time.perf_counter() - t0, "end": time.perf_counter()})
+            end = time.perf_counter()
+            with self._lock:
+                self.count += 1
+                self.seconds += end - t0
+                if self.record:
+                    calls.append({"args": args, "kwargs": kwargs, "out": out,
+                                  "seconds": end - t0, "end": end})
             return out
 
         setattr(self.owner, self.name, wrapped)
@@ -1137,6 +1168,9 @@ class Spy:
     def __exit__(self, *exc):
         setattr(self.owner, self.name, self.original)
         return False
+
+    def mean_s(self) -> float:
+        return self.seconds / max(self.count, 1)
 
 
 def _kernel_ms_by_kind(prof) -> dict:
@@ -2029,6 +2063,10 @@ def phase_t2i_train_slice():
         check(row[key] < limit, f"t2i train slice {key} {row[key]} >= {limit}")
 
 
+CAPTION_WORDS = ("red", "blue", "small", "old", "fox", "cup", "house", "tree", "on", "a", "table",
+                 "in", "the", "snow", "river", "city")
+
+
 def write_caption_folder(root: str, seed: int, count: int = 64) -> int:
     """``count`` PNG + caption pairs from ``seed``: non-square images with
     short sides of 512-576 px (so ImageText's bicubic resize and crop are
@@ -2039,8 +2077,6 @@ def write_caption_folder(root: str, seed: int, count: int = 64) -> int:
 
     rng = np.random.default_rng(seed)
     sizes = ((512, 640), (600, 520), (640, 576), (560, 608))  # (H, W)
-    words = ("red", "blue", "small", "old", "fox", "cup", "house", "tree", "on", "a", "table",
-             "in", "the", "snow", "river", "city")
     os.makedirs(root, exist_ok=True)
     for i in range(count):
         h, w = sizes[i % len(sizes)]
@@ -2049,7 +2085,7 @@ def write_caption_folder(root: str, seed: int, count: int = 64) -> int:
         image = np.clip(base + rng.normal(0, 25, (h, w, 3)), 0, 255).astype(np.uint8)
         png.write(f"{root}/{i:03d}.png", image)
         with open(f"{root}/{i:03d}.txt", "w") as f:
-            f.write("a photo of " + " ".join(rng.choice(words, size=8)))
+            f.write("a photo of " + " ".join(rng.choice(CAPTION_WORDS, size=8)))
     return count
 
 
@@ -2067,6 +2103,7 @@ def phase_t2i_fit(card: str, seed: int) -> dict:
 
     from deco_tpu_torch import cli
     from deco_tpu_torch.config import registry
+    from deco_tpu_torch.data import image_txt
     from deco_tpu_torch.ops import block_dct
     from deco_tpu_torch.ops import flash_attention as fa
     from deco_tpu_torch.train import checkpoint
@@ -2087,6 +2124,8 @@ def phase_t2i_fit(card: str, seed: int) -> dict:
         t0 = time.perf_counter()
         # log_every_n_steps=1: a loss read (and so a sync) each step, for the step times
         with Spy(checkpoint.CheckpointManager, "maybe_save") as saves, \
+                Spy(png, "decode", record=False) as decodes, \
+                Spy(image_txt.ImageText, "__getitem__", record=False) as items, \
                 profile(activities=[ProfilerActivity.CUDA]) as prof:
             state = cli.main(["fit", "-c", T2I_CONFIG,
                               f"--data.train_dataset.init_args.root={T2I_FIT_DIR}/images",
@@ -2127,8 +2166,10 @@ def phase_t2i_fit(card: str, seed: int) -> dict:
                "launches_per_step": {k: v / T2I_FIT_STEPS for k, v in launches.items()},
                "checkpoint_bytes": os.path.getsize(ckpt_path),
                "checkpoint_save_s": [c["seconds"] for c in written],
-               "checkpoint_keys_ok": keys_ok, "card": card,
-               "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl"}
+               "checkpoint_keys_ok": keys_ok,
+               **_host_shares(decodes, items, batch, s_per_step), "card": card,
+               "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl; "
+                       "the PNG decode and item shares as phase 17's for JPEG"}
         emit(fit)
         check(xxl, "the t2i fit did not build DeCo-XXL/16 as shipped (no grad_checkpoint)")
         check(len(records) == T2I_FIT_STEPS and all(np.isfinite(fit["losses"])),
@@ -3989,7 +4030,9 @@ def phase_uniflow(card: str, seed: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from deco_tpu_torch import cli
+    from deco_tpu_torch.data import imagenet
     from deco_tpu_torch.train import checkpoint, workloads
+    from deco_tpu_torch.utils import png
     from deco_tpu_torch.utils.flops import card_peaks, uniflow_flops
 
     os.environ.setdefault("WANDB_MODE", "disabled")
@@ -4013,6 +4056,8 @@ def phase_uniflow(card: str, seed: int) -> dict:
         t0 = time.perf_counter()
         with Spy(checkpoint.CheckpointManager, "save", replace=memory.save), \
                 Spy(workloads.UniFlowRun, "fit") as fits, \
+                Spy(png, "decode", record=False) as decodes, \
+                Spy(imagenet.PixImageNet, "__getitem__", record=False) as items, \
                 profile(activities=[ProfilerActivity.CUDA]) as prof:
             state = cli.main(["fit", "-c", path, "--max_steps", str(UNIFLOW_FIT_STEPS)])
         fit_s = time.perf_counter() - t0
@@ -4040,8 +4085,10 @@ def phase_uniflow(card: str, seed: int) -> dict:
                                   "45 GiB write budget)",
                "params": sum(p.numel() for p in state.model.parameters()),
                "trainable_params": sum(p.numel() for g in state.optimizer.param_groups
-                                       for p in g["params"]), "card": card,
-               "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl"}
+                                       for p in g["params"]),
+               **_host_shares(decodes, items, batch, s_per_step), "card": card,
+               "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl; "
+                       "the PNG decode and item shares as phase 17's for JPEG"}
         emit(fit)
         model = state.model
         check(type(model).__name__ == "UniFlowVision" and len(model.encoder.layers) == UNIFLOW_TOWER
@@ -4141,6 +4188,330 @@ def phase_uniflow(card: str, seed: int) -> dict:
     finally:
         shutil.rmtree(UNIFLOW_DIR, ignore_errors=True)
 
+JPEG_FIXTURES = "tests/torch_jpeg_fixtures"  # committed; Pillow wrote them (no PIL on the card host)
+JPEG_DIR = "build/chip_smoke_jpeg"  # git-ignored; deleted at the end of the phase
+JPEG_READER = dict(resolution=256, seed=0)  # the PixImageNet items behind digests.json's readers
+JPEG_TIMING_ROUNDS = 3  # decodes of each fixture for the host's ms per megapixel
+JPEG_T2I_COPIES = 8  # 8 fixtures x 8 = 64 JPEG + caption pairs for the t2i fit
+JPEG_UNIFLOW_CONFIG = "configs_flow/uniflow_internvit_2b_blip3o.yaml"
+JPEG_UNIFLOW_COPIES = 8  # 64 JPEG members in the webdataset tar
+
+
+def jpeg_fixture_folder(root: str, fixtures: str = JPEG_FIXTURES) -> int:
+    """The JPEG fixtures as an image folder: the first four (sorted) under
+    ``class_0``, the others under ``class_1``."""
+    import os
+    import shutil
+
+    names = sorted(n for n in os.listdir(fixtures) if n.endswith(".jpg"))
+    for i, name in enumerate(names):
+        os.makedirs(f"{root}/class_{i * 2 // len(names)}", exist_ok=True)
+        shutil.copyfile(f"{fixtures}/{name}", f"{root}/class_{i * 2 // len(names)}/{name}")
+    return len(names)
+
+
+def reader_digest(dataset) -> str:
+    """sha256 over a map-style dataset's items in order: each class as 8
+    bytes and the [0, 1] image as the uint8 bytes it came from."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for i in range(len(dataset)):
+        _, target, md = dataset[i]
+        digest.update(np.int64(target).tobytes())
+        digest.update(np.round(md["raw_image"] * 255).astype(np.uint8).tobytes())
+    return digest.hexdigest()
+
+
+def jpeg_reader_digests(root: str) -> dict:
+    """The digests of the port's ``PixImageNet`` over the fixture folder
+    ``root`` at :data:`JPEG_READER`: the ADM center crop, and the random
+    crop with its flips."""
+    from deco_tpu_torch.data import imagenet
+
+    return {crop: reader_digest(imagenet.PixImageNet(root, random_crop=crop == "random_crop",
+                                                     **JPEG_READER))
+            for crop in ("center", "random_crop")}
+
+
+def _cpu_model() -> str:
+    """The host CPU's model name (``/proc/cpuinfo``, else ``lscpu``); where
+    both say nothing or "unknown", as on some virtual machines, its vendor,
+    family and model numbers, else the machine type."""
+    import platform
+    import subprocess
+
+    fields: dict = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor's block
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=10).stdout
+        for line in out.splitlines():
+            key, _, value = line.partition(":")
+            fields.setdefault("lscpu " + key.strip(), value.strip())
+    except (OSError, subprocess.SubprocessError):
+        pass
+    for key in ("model name", "lscpu Model name"):
+        if fields.get(key, "unknown").lower() not in ("", "unknown", "-"):
+            return fields[key]
+    vendor = fields.get("vendor_id") or fields.get("lscpu Vendor ID")
+    if vendor:
+        return (f"{vendor} family {fields.get('cpu family', '?')} model "
+                f"{fields.get('model', '?')} (model name not reported)")
+    return f"not reported ({platform.machine()})"
+
+
+def _host_shares(decodes: Spy, items: Spy, batch: int, s_per_step: float) -> dict:
+    """The host's image decodes and dataset items in a fit: calls, ms an
+    image, and seconds a step (the mean per image x the batch, summed over
+    the loader's threads: it decodes ahead of the step) over the median
+    step."""
+    decode_s, item_s = decodes.mean_s() * batch, items.mean_s() * batch
+    return {"image_decodes": decodes.count, "decode_ms_per_image": decodes.mean_s() * 1e3,
+            "item_ms_per_image": items.mean_s() * 1e3, "host_decode_s_per_step": decode_s,
+            "host_decode_share_of_step": decode_s / s_per_step, "host_item_s_per_step": item_s,
+            "host_item_share_of_step": item_s / s_per_step}
+
+
+def phase_jpeg_decode(card: str, workers: int) -> dict:
+    """``jpeg_decode``: the port's JPEG decoder (``csrc/jpeg_decode.cpp``)
+    built on the card's host by its C++ compiler; every fixture decoded and
+    held to the digest of PIL's ``convert("RGB")`` (equal or the phase
+    fails); the port's ``PixImageNet`` over a folder of the fixtures, center
+    crop and random crop, held to the digests the same code wrote on the
+    CPU; the host's decode time per megapixel on one thread and on
+    ``workers`` threads (the t2i loader's), beside the host CPU's name."""
+    import hashlib
+    import json
+    import os
+    import shutil
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deco_tpu_torch.data import jpeg
+    from deco_tpu_torch.ops import _build
+
+    with open(f"{JPEG_FIXTURES}/digests.json") as f:
+        want = json.load(f)
+    compiler = _build.host_compiler()
+    version = subprocess.run([compiler, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[:1]
+    # built into a fresh folder: a library already in build/ (the CPU tests
+    # build one there) is never taken for this host's build
+    build_dir = _build.BUILD_DIR
+    _build.BUILD_DIR = type(build_dir)(f"{JPEG_DIR}/build")
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+    _build._loaded.pop("jpeg_decode", None)
+    jpeg._lib = None
+    try:
+        build_s = _build.build_host("jpeg_decode")
+        jpeg.load()
+    finally:
+        _build.BUILD_DIR = build_dir
+    blobs, files = {}, {}
+    for name, d in sorted(want["files"].items()):
+        with open(f"{JPEG_FIXTURES}/{name}", "rb") as f:
+            blobs[name] = f.read()
+        rgb = jpeg.decode(blobs[name])
+        files[name] = {"shape": list(rgb.shape), "kind": jpeg.info(blobs[name])[3],
+                       "equal": hashlib.sha256(rgb.tobytes()).hexdigest() == d["sha256"]
+                       and list(rgb.shape) == d["shape"]}
+    try:
+        jpeg_fixture_folder(f"{JPEG_DIR}/folder")
+        readers = jpeg_reader_digests(f"{JPEG_DIR}/folder")
+    finally:
+        shutil.rmtree(f"{JPEG_DIR}/folder", ignore_errors=True)
+    mp = sum(np.prod(files[n]["shape"][:2]) for n in blobs) / 1e6
+    t0 = time.perf_counter()
+    for _ in range(JPEG_TIMING_ROUNDS):
+        for data in blobs.values():
+            jpeg.decode(data)
+    one_thread = (time.perf_counter() - t0) * 1e3 / (mp * JPEG_TIMING_ROUNDS)
+    work = list(blobs.values()) * JPEG_TIMING_ROUNDS * workers
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        list(pool.map(jpeg.decode, work[:workers]))  # the threads started
+        t0 = time.perf_counter()
+        list(pool.map(jpeg.decode, work))
+        threaded = (time.perf_counter() - t0) * 1e3 / (mp * JPEG_TIMING_ROUNDS * workers)
+    out = {"phase": "jpeg_decode", "compiler": compiler, "compiler_version": version,
+           "host_flags": " ".join(_build.HOST_FLAGS), "build_s": build_s, "files": files,
+           "readers": {k: readers[k] == want["readers"][k] for k in readers},
+           "reader_settings": JPEG_READER, "megapixels": mp,
+           "decode_ms_per_mp_one_thread": one_thread,
+           "decode_ms_per_mp_threads": threaded, "threads": workers,
+           "host_cpu": _cpu_model(), "host_cpus": os.cpu_count(), "card": card,
+           "note": "host time on the card's host, not the card's"}
+    emit(out)
+    check(build_s > 0, "the JPEG decoder was not built from source in this run")
+    check(all(f["equal"] for f in files.values()), f"JPEG decodes differ from PIL's: {files}")
+    check(all(out["readers"].values()), f"PixImageNet JPEG items differ: {out['readers']}")
+    return out
+
+
+def write_jpeg_caption_folder(root: str, seed: int, copies: int = JPEG_T2I_COPIES) -> int:
+    """``copies`` copies of each JPEG fixture (4:2:0, 4:2:2, 4:4:4,
+    progressive, restart intervals, gray, Adobe CMYK; 300-1,024 px short
+    sides), each with a seeded caption, for ``ImageText``."""
+    import os
+    import shutil
+
+    rng = np.random.default_rng(seed)
+    names = sorted(n for n in os.listdir(JPEG_FIXTURES) if n.endswith(".jpg"))
+    os.makedirs(root, exist_ok=True)
+    count = 0
+    for c in range(copies):
+        for name in names:
+            stem = f"{root}/{c:02d}_{os.path.splitext(name)[0]}"
+            shutil.copyfile(f"{JPEG_FIXTURES}/{name}", f"{stem}.jpg")
+            with open(f"{stem}.txt", "w") as f:
+                f.write("a photo of " + " ".join(rng.choice(CAPTION_WORDS, size=8)))
+            count += 1
+    return count
+
+
+def write_jpeg_tar_shard(path: str, copies: int = JPEG_UNIFLOW_COPIES) -> int:
+    """A webdataset tar of ``copies`` x 8 JPEG members (the fixtures, as a
+    BLIP3o shard holds JPEG) with ``.cls`` and ``.txt`` members."""
+    import io
+    import os
+    import tarfile
+
+    names = sorted(n for n in os.listdir(JPEG_FIXTURES) if n.endswith(".jpg"))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    count = 0
+    with tarfile.open(path, "w") as tf:
+        for c in range(copies):
+            for i, name in enumerate(names):
+                with open(f"{JPEG_FIXTURES}/{name}", "rb") as f:
+                    members = ((f"{count:05d}.jpg", f.read()), (f"{count:05d}.cls", str(i).encode()),
+                               (f"{count:05d}.txt", f"a photo of thing {count}".encode()))
+                for member, data in members:
+                    info = tarfile.TarInfo(member)
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+                count += 1
+    return count
+
+
+def _jpeg_fit(name: str, argv: list, card: str, workdir: str, batch: int, expected: dict,
+              item_owner, steps: int, **extra) -> dict:
+    """``cli.main(argv)`` with the checkpoint skipped, under the CUDA
+    profiler, with the JPEG decodes and the dataset's items timed over the
+    loader's threads: s/step, idle share, peak memory, the host decode
+    share of a step and the launches (each reset to 0 just before)."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.data import jpeg
+    from deco_tpu_torch.train import checkpoint
+
+    _reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Spy(jpeg, "decode", record=False) as decodes, Spy(*item_owner, record=False) as items, \
+            Spy(checkpoint.CheckpointManager, "maybe_save",  # the t2i loop's; no payload
+                replace=lambda self, state, force=False, step=None: False), \
+            Spy(checkpoint.CheckpointManager, "save",  # the UniFlow run's
+                replace=lambda self, obj, step: None), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state = cli.main(argv)
+    fit_s = time.perf_counter() - t0
+    launches = _uniflow_launches()
+    peak = torch.cuda.max_memory_allocated()
+    records, ends, step_s = _fit_records(workdir)
+    s_per_step = float(np.median(step_s[1:]))
+    busy_ms = _kernel_busy_ms(prof)
+    row = {"phase": name, "batch": batch, "steps": steps,
+           "losses": [r["loss"] for r in records], "step_s": step_s, "s_per_step": s_per_step,
+           "images_per_s": batch / s_per_step, "device_kernel_ms": busy_ms,
+           "kernel_ms_by_kind": _kernel_ms_by_kind(prof),
+           "idle_share": 1 - busy_ms / 1e3 / ends[-1], "peak_mem_bytes": peak,
+           "fit_call_s": fit_s, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           **_host_shares(decodes, items, batch, s_per_step),
+           "checkpoint_files": sorted(os.listdir(f"{workdir}/checkpoints"))
+           if os.path.isdir(f"{workdir}/checkpoints") else [],
+           "params": sum(p.numel() for p in state.model.parameters()), **extra, "card": card,
+           "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl; "
+                   "the decode and item shares sum the seconds of every loader thread "
+                   "(mean per image x the batch) over the median step"}
+    emit(row)
+    check(len(records) == steps and all(np.isfinite(row["losses"])), f"{name} records {records}")
+    want = {**{k: 0 for k in launches}, **{k: v * steps for k, v in expected.items()}}
+    check(launches == want, f"{name} launches {launches}, expected {want}")
+    check(decodes.count >= batch * steps, f"{name}: {decodes.count} JPEG decodes")
+    check(row["checkpoint_files"] == [], f"{name} wrote a checkpoint")
+    del state
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_jpeg(card: str, seed: int) -> dict:
+    """Phase 17: JPEG data on the card's path. ``jpeg_decode`` (see
+    :func:`phase_jpeg_decode`); ``jpeg_t2i_fit``: ``cli fit -c
+    configs_t2i/sft_res512.yaml`` as shipped (DeCo-XXL/16, batch 16 x
+    accumulation 4, 512 px, full width and depth) but for its folder, 64
+    JPEG + caption pairs read by ``ImageText``, and its work directory, 3
+    steps; ``jpeg_uniflow_fit``: ``cli fit`` on
+    uniflow_internvit_2b_blip3o.yaml as shipped (448 px, batch 16,
+    ``random_crop`` and ``random_flip``) but for its tar of 64 JPEG members
+    and its work directory, 3 steps with the causal launches counted. Both
+    fits skip their checkpoint (the call's disk-write budget)."""
+    import os
+    import shutil
+
+    from deco_tpu_torch.config import registry
+    from deco_tpu_torch.data import image_txt, webdataset
+
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    t2i_config = registry.load_yaml(T2I_CONFIG)
+    decode = phase_jpeg_decode(card, t2i_config["data"].get("train_num_workers", 4))
+    layers = UNIFLOW_TOWER + UNIFLOW_SHALLOW + UNIFLOW_TRUNK
+    uniflow_step = {"fwd_lse": layers, "bwd_dq": layers, "bwd_dkv": layers,
+                    "fwd_lse_causal": UNIFLOW_TRUNK, "bwd_dq_causal": UNIFLOW_TRUNK,
+                    "bwd_dkv_causal": UNIFLOW_TRUNK}
+    try:
+        images = write_jpeg_caption_folder(f"{JPEG_DIR}/t2i", seed)
+        batch = t2i_config["data"]["train_batch_size"] * t2i_config["trainer"][
+            "accumulate_grad_batches"]
+        workroot = f"{JPEG_DIR}/work_t2i"
+        t2i = _jpeg_fit("jpeg_t2i_fit", [
+            "fit", "-c", T2I_CONFIG, f"--data.train_dataset.init_args.root={JPEG_DIR}/t2i",
+            f"--trainer.default_root_dir={workroot}", "--max_steps", str(T2I_FIT_STEPS),
+            "--trainer.log_every_n_steps=1"], card, f"{workroot}/sftpix512ema", batch,
+            {k: v for k, v in T2I_FIT_LAUNCHES.items() if v}, (image_txt.ImageText, "__getitem__"),
+            T2I_FIT_STEPS, config=T2I_CONFIG, images=images)
+        shard = f"{JPEG_DIR}/shards/blip3o-000000.tar"
+        members = write_jpeg_tar_shard(shard)
+        path = f"{JPEG_DIR}/{os.path.basename(JPEG_UNIFLOW_CONFIG)}"
+        config = _write_uniflow_config(path, JPEG_UNIFLOW_CONFIG, f"{JPEG_DIR}/work_uniflow",
+                                       shard)
+        node = config["data"]["train_dataset"]["init_args"]
+        check(node["resolution"] == 448 and node["random_crop"] and node["random_flip"],
+              f"{JPEG_UNIFLOW_CONFIG} data node changed: {node}")
+        uniflow = _jpeg_fit("jpeg_uniflow_fit", [
+            "fit", "-c", path, "--max_steps", str(UNIFLOW_FIT_STEPS)], card,
+            f"{JPEG_DIR}/work_uniflow/{config['tags']['exp']}",
+            config["data"]["train_batch_size"], uniflow_step,
+            (webdataset.PixWebDataset, "_process"), UNIFLOW_FIT_STEPS,
+            config=JPEG_UNIFLOW_CONFIG, members=members, image_size=node["resolution"])
+        print(card, flush=True)
+        return {"decode": decode, "t2i": t2i["launches"], "uniflow": uniflow["launches"]}
+    finally:
+        shutil.rmtree(JPEG_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4219,6 +4590,8 @@ def main() -> int:
     phase_uniflow_slice()
     torch.cuda.empty_cache()
     uniflow = phase_uniflow(card, seed)
+    torch.cuda.empty_cache()
+    jpeg = phase_jpeg(card, seed)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     n1024 = {"fwd": kernel["n1024"], "fwd_lse": train_times.get("fwd_lse_512"),
              "bwd_dq": train_times.get("bwd_dq_512"), "bwd_dkv": train_times.get("bwd_dkv_512")}
@@ -4280,6 +4653,10 @@ def main() -> int:
         r.update(uniflow_fit_launches=uniflow["fit"][key],
                  uniflow_448_step_launches=uniflow["448"]["launches"][key],
                  uniflow_sem_step_launches=uniflow["sem"]["launches"][key])
+        # phase 17: the 3-step fits from JPEG data (sft_res512.yaml,
+        # uniflow_internvit_2b_blip3o.yaml)
+        r.update(jpeg_t2i_fit_launches=jpeg["t2i"][key],
+                 jpeg_uniflow_fit_launches=jpeg["uniflow"][key])
         r.update(vae_fit_launches=vae["fit"][key],
                  vae_fit_launches_per_step=vae["per_step"][key],
                  vae_disc_start_step_launches=vae["disc_start"][key],
@@ -4357,6 +4734,7 @@ def main() -> int:
             "b_nq_nkv_h_d": timing["b_nq_nkv_h_d"],
             "uniflow_448_step_launches": uniflow["448"]["launches"][f"{key}_causal"],
             "uniflow_sem_step_launches": uniflow["sem"]["launches"][f"{key}_causal"],
+            "jpeg_uniflow_fit_launches": jpeg["uniflow"][f"{key}_causal"],
             "shapes": _reco_timing_rows(uniflow_kernels["timings"][key], keys),
             "resources": {k: uniflow_kernels["resources"][kind][k] for k in (
                 "registers", "local_bytes", "dynamic_smem", "ctas_per_sm")}})

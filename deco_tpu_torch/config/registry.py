@@ -105,6 +105,8 @@ _PORTED: Dict[str, str] = {
         "deco_tpu_torch.data.packed.PackedParquetDataset",
     "src.data.dataset.blip3o_dataset.WebDatasetPackedDataset":
         "deco_tpu_torch.data.packed.WebDatasetPacked",
+    "src.data.dataset.blip3o_ori_dataset.LazySupervisedMixDataset":
+        "deco_tpu_torch.data.blip3o_sft.LazySupervisedMixDataset",
     "src.models.transformer.encoder_ae_sim.VAEModel": "deco_tpu_torch.config.registry._vae_model_sim",
     "src.models.transformer.encoder_ae.VAEModel":
         "deco_tpu_torch.config.registry._vae_model_stochastic",
@@ -118,7 +120,6 @@ _PORTED: Dict[str, str] = {
 
 # class path -> the ROADMAP section A item that ports it
 UNPORTED: Dict[str, int] = {
-    "src.data.dataset.blip3o_ori_dataset.LazySupervisedMixDataset": 5,
     "src.models.modules.losses.ReconstructionLoss_Base": 5,
     "src.models.modules.losses.ReconstructionLoss_Stage1": 5,
     "src.models.modules.losses.ReconstructionLoss_Stage2": 5,

@@ -6,9 +6,10 @@ The folder is walked in sorted order and each image with a same-name
 ``.txt`` caption is one item. An item's short side is resized to the
 resolution with PIL's BICUBIC filter to ``(round(w * scale), round(h *
 scale))``, byte for byte (:func:`~deco_tpu_torch.data.imagenet.resize_short_side`),
-then center-cropped. PNG files are read with :mod:`deco_tpu_torch.utils.png`;
-a JPEG raises (the port has no full-size JPEG decoder, ROADMAP §A 2) rather
-than being skipped.
+then center-cropped. Images are read by
+:func:`~deco_tpu_torch.data.imagenet.read_image` (PNG and JPEG, equal to
+PIL's ``convert("RGB")``); a file that does not decode raises, as PIL's
+``open`` does in the JAX reader.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 
 import numpy as np
 
-from deco_tpu_torch.data.imagenet import center_crop, read_png, resize_short_side
+from deco_tpu_torch.data.imagenet import center_crop, read_image, resize_short_side
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".JPEG")
 
@@ -44,6 +45,6 @@ class ImageText:
 
     def __getitem__(self, idx: int):
         path, text = self.image_paths[idx], self.texts[idx]
-        arr = center_crop(resize_short_side(read_png(path), self.resolution), self.resolution)
+        arr = center_crop(resize_short_side(read_image(path), self.resolution), self.resolution)
         raw = arr.astype(np.float32) / 255.0
         return raw * 2.0 - 1.0, text, {"image_path": path, "prompt": text, "raw_image": raw}

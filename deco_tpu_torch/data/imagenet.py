@@ -4,7 +4,7 @@
 The crop (repeated halving with a BOX filter while the short side is at
 least twice the resolution, one BICUBIC resize of the short side to the
 resolution, a center crop) decides FID parity. The JAX package runs it in
-PIL or in ``native/libdataplane.so``; the port has no PIL, so
+PIL or in its native data-plane library; the port has no PIL, so
 :func:`resample` is a numpy copy of PIL's 8-bit convolution resampler:
 per output pixel a clamped window of normalized filter weights, the weights
 in 22-bit fixed point, a horizontal pass rounded to a uint8 image, then a
@@ -12,9 +12,10 @@ vertical pass. Each pass is one dense (out x in) weight matrix applied with
 ``np.matmul`` in float64, which holds the fixed-point sums exactly, so the
 result equals PIL's.
 
-Images are read with :mod:`deco_tpu_torch.utils.png` (``.png``) or the
-native library (``.jpg``/``.jpeg``, decode and crop in one call); other
-formats raise. Items are NHWC float32 in [-1, 1] with
+Images are read by :func:`decode_image`: PNG with
+:mod:`deco_tpu_torch.utils.png`, JPEG with the port's own decoder
+(:mod:`deco_tpu_torch.data.jpeg`), both equal to PIL's ``convert("RGB")``;
+WebP, GIF and BMP raise naming ROADMAP §A 2b. Items are NHWC float32 in [-1, 1] with
 ``metadata['raw_image']`` the [0, 1] image; :class:`LocalCachedDataset`
 gives VAE latents sampled from a cache of ``.npz`` posteriors instead.
 :class:`PixHFDataset` reads a Hugging Face ``datasets`` split the same way.
@@ -27,7 +28,7 @@ import os
 
 import numpy as np
 
-from deco_tpu_torch.data import native
+from deco_tpu_torch.data import jpeg
 from deco_tpu_torch.utils import png
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".JPEG", ".JPG", ".PNG", ".bmp", ".webp")
@@ -120,18 +121,27 @@ def adm_center_crop(image: np.ndarray, image_size: int) -> np.ndarray:
     return center_crop(resize_short_side(arr, image_size), image_size)
 
 
-def read_png(path: str) -> np.ndarray:
-    """A PNG file as (H, W, 3) uint8 RGB. JPEG is read only through the
-    native library's decode-and-crop (:func:`PixImageNet._load_center_cropped`),
-    which exposes no full-size decode, so a JPEG path raises, as do other
-    formats."""
-    if path.lower().endswith(".png"):
-        return png.read(path)
-    if path.lower().endswith((".jpg", ".jpeg")):
-        raise NotImplementedError(
-            f"{path}: a full-size JPEG decode is not ported to deco_tpu_torch (the native "
-            "library decodes JPEG only behind the ADM crop): ROADMAP §A 2")
-    raise ValueError(f"{path}: the port reads PNG and JPEG images only")
+def decode_image(data: bytes) -> np.ndarray:
+    """Image bytes as (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
+    them: PNG through :mod:`deco_tpu_torch.utils.png`, JPEG through
+    :mod:`deco_tpu_torch.data.jpeg`. Corrupt or truncated data raises
+    ``ValueError`` (PIL's ``OSError``); a WebP, GIF or BMP image raises
+    ``NotImplementedError`` naming ROADMAP §A 2b; bytes of no image format
+    raise ``ValueError``."""
+    if data[:8] == png.SIGNATURE:
+        return png.decode(data)
+    if jpeg.is_jpeg(data):
+        return jpeg.decode(data)
+    if data[:4] in (b"RIFF", b"GIF8") or data[:2] == b"BM":
+        raise NotImplementedError("a WebP, GIF or BMP image: the port decodes PNG and JPEG "
+                                  "only: ROADMAP §A 2b")
+    raise ValueError("not an image the port recognises (no PNG or JPEG signature)")
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file as (H, W, 3) uint8 RGB (:func:`decode_image`)."""
+    with open(path, "rb") as f:
+        return decode_image(f.read())
 
 
 def _scan_image_folder(root: str):
@@ -190,14 +200,11 @@ class PixImageNet:
         return len(self.samples)
 
     def _load_center_cropped(self, path: str) -> np.ndarray:
-        if path.lower().endswith((".jpg", ".jpeg")):
-            with open(path, "rb") as f:
-                return native.decode_jpeg_adm(f.read(), self.resolution)
-        return adm_center_crop(read_png(path), self.resolution)
+        return adm_center_crop(read_image(path), self.resolution)
 
     def __getitem__(self, idx: int):
         path, target = self.samples[idx]
-        raw = _crop_and_flip(self, lambda: read_png(path),
+        raw = _crop_and_flip(self, lambda: read_image(path),
                              lambda: self._load_center_cropped(path))
         return raw * 2.0 - 1.0, target, {"raw_image": raw, "class": target}
 
@@ -230,9 +237,6 @@ class LocalCachedDataset(PixImageNet):
         return latent, target, {"raw_image": raw, "class": target}
 
 
-_PNG, _JPEG = b"\x89PNG", b"\xff\xd8"
-
-
 class PixHFDataset:
     """A Hugging Face ``datasets`` split of images (and ``label``), through
     the ADM crop -> [-1, 1] NHWC (``deco_tpu/data/imagenet.py`` ``PixHFDataset``).
@@ -247,12 +251,10 @@ class PixHFDataset:
     :class:`PixImageNet`'s. ``datasets`` is imported here; without it the
     constructor raises ``ImportError``.
 
-    The ``image`` column is read undecoded (the port has no PIL): PNG bytes
-    through the port's PNG codec and the numpy ADM crop, JPEG bytes through
-    the native library's decode-and-crop (``native.decode_jpeg_adm``), which
-    equals PIL's to 1 LSB; a JPEG under ``random_crop`` needs the full-size
-    decode, which raises naming ROADMAP §A 2, as does any other format.
-    ``label`` (0 where absent) is the item's class.
+    The ``image`` column is read undecoded (the port has no PIL) and
+    decoded by :func:`decode_image` (PNG and JPEG, equal to PIL's), then
+    cropped by the numpy resampler. ``label`` (0 where absent) is the
+    item's class.
     """
 
     def __init__(self, root: str, split: str = "train", resolution: int = 256,
@@ -282,24 +284,10 @@ class PixHFDataset:
         with open(image["path"], "rb") as f:  # an image folder keeps only the path
             return f.read()
 
-    def _full(self, data: bytes) -> np.ndarray:
-        if data.startswith(_PNG):
-            return png.decode(data)
-        if data.startswith(_JPEG):
-            raise NotImplementedError(
-                "PixHFDataset(random_crop=True): a full-size JPEG decode is not ported to "
-                "deco_tpu_torch (the native library decodes JPEG only behind the ADM crop): "
-                "ROADMAP §A 2")
-        raise ValueError("PixHFDataset: the port reads PNG and JPEG images only")
-
-    def _center_cropped(self, data: bytes) -> np.ndarray:
-        if data.startswith(_JPEG):
-            return native.decode_jpeg_adm(data, self.resolution)
-        return adm_center_crop(self._full(data), self.resolution)
-
     def __getitem__(self, idx: int):
         rec = self.ds[int(idx)]
         data = self._bytes(rec["image"])
-        raw = _crop_and_flip(self, lambda: self._full(data), lambda: self._center_cropped(data))
+        raw = _crop_and_flip(self, lambda: decode_image(data),
+                             lambda: adm_center_crop(decode_image(data), self.resolution))
         target = rec.get("label", 0)
         return raw * 2.0 - 1.0, target, {"raw_image": raw, "class": target}

@@ -13,15 +13,17 @@ Departures from the JAX package:
 
 - The shard index and count come from ``torch.distributed`` when it is
   initialised, else (0, 1), in place of ``jax.process_index()``.
-- Images are decoded with :mod:`deco_tpu_torch.utils.png` and resized with
-  the PIL-exact resampler. The port has no full-size JPEG decoder, so a
-  JPEG sample raises ``NotImplementedError`` naming ROADMAP §A 2, as does
-  any other image format, and a PNG kind the codec does not take raises
-  :class:`~deco_tpu_torch.utils.png.UnsupportedPNG`. The JAX readers skip
-  every sample that fails; the port skips only what they would also
-  reject: images smaller than the resolution, corrupt PNG data, unreadable
-  tars. Copying the JAX rule would skip every JPEG sample of a BLIP3o tar
-  and spin forever.
+- Images are decoded by :func:`~deco_tpu_torch.data.imagenet.decode_image`
+  (PNG and JPEG, equal to PIL's ``convert("RGB")``) and resized with the
+  PIL-exact resampler. The JAX readers skip every sample that fails; the
+  port skips what PIL also rejects (images smaller than the resolution,
+  corrupt or truncated PNG and JPEG data, bytes of no image format,
+  unreadable tars) and raises where the port lacks a decoder PIL has: a
+  WebP, GIF or BMP sample and a JPEG kind the port's decoder refuses
+  (``NotImplementedError``, ROADMAP §A 2b and 2c), a PNG kind the codec
+  does not take (:class:`~deco_tpu_torch.utils.png.UnsupportedPNG`).
+  Skipping those would drop every sample of such a shard and spin
+  forever.
 - ``WebDatasetPacked`` takes the reference ``WebDatasetPackedDataset``'s
   ``sample_shuffle`` (the pretraining YAMLs set it; the JAX class has no
   such argument, ROADMAP §C 8): False turns the shuffle buffer off.
@@ -38,6 +40,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from deco_tpu_torch.data import imagenet
 from deco_tpu_torch.data.imagenet import center_crop, resize_short_side
 from deco_tpu_torch.utils import png
 
@@ -66,16 +69,12 @@ def shard_of_process(shard_index: Optional[int], shard_count: Optional[int]):
 
 
 def decode_image(data: bytes) -> Optional[np.ndarray]:
-    """Image bytes as (H, W, 3) uint8 RGB, or None for corrupt PNG data (the
-    sample the JAX reader skips). A JPEG, any other format and a PNG kind
-    the codec does not read raise."""
-    if data[:8] != png.SIGNATURE:
-        kind = "a JPEG" if data[:3] == b"\xff\xd8\xff" else "a non-PNG"
-        raise NotImplementedError(
-            f"packed dataset: {kind} sample; the port decodes PNG only (a full-size JPEG "
-            "decode is not ported to deco_tpu_torch): ROADMAP §A 2")
+    """Image bytes as (H, W, 3) uint8 RGB
+    (:func:`~deco_tpu_torch.data.imagenet.decode_image`), or None for corrupt
+    or truncated data and bytes of no image format (the samples the JAX
+    reader skips). A format or kind the port does not decode raises."""
     try:
-        return png.decode(data)
+        return imagenet.decode_image(data)
     except png.UnsupportedPNG:
         raise
     except (ValueError, zlib.error, struct.error):
@@ -157,7 +156,7 @@ class PackedParquetDataset:
 
 
 class WebDatasetPacked:
-    """Local webdataset tar shards of (png + txt/json caption) members
+    """Local webdataset tar shards of (jpg/png + txt/json caption) members
     grouped by stem, through a shuffle buffer of ``shuffle_buffer``
     samples; ``repeat`` starts over after the last tar. ``urls`` are tar
     files or folders of them."""
@@ -184,7 +183,7 @@ class WebDatasetPacked:
 
     def _samples_from_tar(self, path: str) -> list:
         """(image bytes, caption) of each stem with an image and a caption, in
-        tar order; a JPEG image raises (:func:`decode_image`)."""
+        tar order."""
         groups: Dict[str, dict] = {}
         with tarfile.open(path) as tf:
             for member in tf.getmembers():
@@ -199,8 +198,6 @@ class WebDatasetPacked:
             cap = parts.get(self.caption_key)
             if img_bytes is None or cap is None:
                 continue
-            if img_bytes[:8] != png.SIGNATURE:
-                decode_image(img_bytes)  # raises: the port reads no JPEG
             samples.append((img_bytes, cap.decode("utf-8").strip()))
         return samples
 

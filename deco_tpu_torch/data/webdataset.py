@@ -13,15 +13,14 @@ Departures from the JAX package:
 
 - The process index and count come from ``torch.distributed`` when it is
   initialised, else (0, 1), in place of ``jax.process_index()``.
-- PNG members are decoded by :mod:`deco_tpu_torch.utils.png` and cropped by
-  the PIL-exact resampler (the ADM center crop, or with ``random_crop`` a
-  bicubic resize of the short side and a random crop); JPEG members go
-  through the native library's decode-and-crop (``data/native.py``) when
-  ``random_crop`` is false. The port has no full-size JPEG decoder, so a
-  JPEG member with ``random_crop`` raises ``NotImplementedError`` naming
-  ROADMAP §A 2, as does any other image format; the JAX reader would decode
-  it. Every other failing sample (corrupt data, bytes of no image format)
-  is skipped with a warning, as in JAX.
+- Members are decoded by :func:`~deco_tpu_torch.data.imagenet.decode_image`
+  (PNG and JPEG, equal to PIL's ``convert("RGB")``) and cropped by the
+  PIL-exact resampler (the ADM center crop, or with ``random_crop`` a
+  bicubic resize of the short side and a random crop). A WebP, GIF or BMP
+  member, or a JPEG kind the port's decoder refuses, raises
+  ``NotImplementedError`` (ROADMAP §A 2b, 2c), where the JAX reader would
+  decode it. Every other failing sample (corrupt or truncated data, bytes
+  of no image format) is skipped with a warning, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,10 +34,8 @@ from typing import Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
-from deco_tpu_torch.data import native
-from deco_tpu_torch.data.imagenet import adm_center_crop, resize_short_side
+from deco_tpu_torch.data.imagenet import adm_center_crop, decode_image, resize_short_side
 from deco_tpu_torch.data.packed import shard_of_process
-from deco_tpu_torch.utils import png
 
 _IMAGE_EXT = (".jpg", ".jpeg", ".png", ".webp")
 
@@ -46,28 +43,16 @@ _IMAGE_EXT = (".jpg", ".jpeg", ".png", ".webp")
 def decode_and_crop(data: bytes, resolution: int, random_crop: bool, crop_at) -> np.ndarray:
     """Image bytes -> (resolution, resolution, 3) uint8: the ADM center crop,
     or with ``random_crop`` the short side resized to ``resolution`` and the
-    window that ``crop_at(max_y0, max_x0)`` gives as (y0, x0). PNG through
-    the port's codec; JPEG through the native decode-and-crop, center crop
-    only. A format the port does not decode raises ``NotImplementedError``;
+    window that ``crop_at(max_y0, max_x0)`` gives as (y0, x0). The bytes go
+    through :func:`~deco_tpu_torch.data.imagenet.decode_image`: a format the
+    port does not decode raises ``NotImplementedError``; corrupt data and
     bytes of no known format raise ``ValueError`` (a bad sample)."""
-    if data[:8] == png.SIGNATURE:
-        image = png.decode(data)
-        if not random_crop:
-            return adm_center_crop(image, resolution)
-        arr = resize_short_side(image, resolution)
-        y0, x0 = crop_at(arr.shape[0] - resolution, arr.shape[1] - resolution)
-        return arr[y0:y0 + resolution, x0:x0 + resolution]
-    if data[:3] == b"\xff\xd8\xff":
-        if random_crop:
-            raise NotImplementedError(
-                "a JPEG with random_crop: a full-size JPEG decode is not ported to "
-                "deco_tpu_torch (the native library decodes JPEG only behind the ADM center "
-                "crop): ROADMAP §A 2")
-        return native.decode_jpeg_adm(data, resolution)
-    if data[:4] in (b"RIFF", b"GIF8") or data[:2] == b"BM":
-        raise NotImplementedError("a WebP, GIF or BMP image: the port decodes PNG and JPEG "
-                                  "only: ROADMAP §A 2")
-    raise ValueError("not an image the port recognises (no PNG or JPEG signature)")
+    image = decode_image(data)
+    if not random_crop:
+        return adm_center_crop(image, resolution)
+    arr = resize_short_side(image, resolution)
+    y0, x0 = crop_at(arr.shape[0] - resolution, arr.shape[1] - resolution)
+    return arr[y0:y0 + resolution, x0:x0 + resolution]
 
 
 class PixWebDataset:

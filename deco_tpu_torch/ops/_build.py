@@ -1,4 +1,4 @@
-"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's C++ and CUDA sources and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on its own into ``build/deco_tpu_torch/
 <name>-<digest>.so`` at the repository root (listed in ``.gitignore``), where
@@ -7,13 +7,24 @@ The sources expose a plain C interface, which keeps a build to seconds: no
 PyTorch header is compiled. The build happens at first use, or up front for
 every source at once through :func:`build` (one ``nvcc`` per source, all
 started together). A failed build raises; there is no fallback.
+
+Each ``csrc/<name>.cpp`` is host code (the JPEG decoder of the data layer):
+the host C++ compiler builds it (:func:`host_compiler`, no ``nvcc``) with
+:data:`HOST_FLAGS` into the same folder, at first use, under a file lock so
+that parallel processes build it once. Its digest covers the ``.cpp``
+sources, the flags and the compiler with its version and the machine type
+(a library built on another host is never loaded), and the CUDA digest the
+``.cu`` and ``.cuh`` files only, so neither kind rebuilds the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import functools
 import hashlib
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -26,6 +37,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+HOST_COMPILERS = ("c++", "g++", "clang++")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -51,6 +65,63 @@ def library_path(name: str) -> Path:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: ``$CXX``, else the first of
+    :data:`HOST_COMPILERS` on ``PATH`` (``nvcc`` needs one of them too)."""
+    for name in (os.environ.get("CXX"), *HOST_COMPILERS):
+        path = name and shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError(
+        "no host C++ compiler found (searched $CXX and " + ", ".join(HOST_COMPILERS)
+        + " on PATH): the port's host sources (csrc/*.cpp, the JPEG decoder) are built "
+        "from source and need one"
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _compiler_identity(compiler: str) -> str:
+    """``compiler``, the first line of its ``--version`` and the machine type."""
+    out = subprocess.run([compiler, "--version"], capture_output=True, text=True).stdout
+    return " ".join([compiler, *out.splitlines()[:1], platform.machine()])
+
+
+def host_library_path(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    digest.update(_compiler_identity(host_compiler()).encode())
+    for path in sorted(CSRC.glob("*.cpp")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> float:
+    """Compile ``csrc/<name>.cpp`` with the host compiler unless it is
+    built; returns the seconds the build took (0.0 if it was built). The
+    compiler's output is kept as ``<name>.log``."""
+    src = CSRC / f"{name}.cpp"
+    if not src.is_file():
+        raise FileNotFoundError(f"no host source {src}")
+    target = host_library_path(name)
+    if target.exists():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building it
+        if target.exists():
+            return 0.0
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [host_compiler(), *HOST_FLAGS, "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        (BUILD_DIR / f"{name}.log").write_text(proc.stdout)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{cmd[0]} failed for {name} (exit {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, target)
+        return time.perf_counter() - t0
 
 
 def build(names=None) -> dict[str, float]:
@@ -94,12 +165,17 @@ def build(names=None) -> dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The shared library built from ``csrc/<name>.cu``, built if missing."""
+    """The shared library built from ``csrc/<name>.cpp`` (host code) or
+    ``csrc/<name>.cu``, built if missing."""
     lib = _loaded.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
+        if (CSRC / f"{name}.cpp").is_file():
+            build_host(name)
+            path = host_library_path(name)
+        else:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
 

@@ -68,3 +68,17 @@ def test_port_sources_import_no_jax():
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert offenders == []
+
+
+def test_port_reaches_no_native_data_plane():
+    """JPEG is the port's own (csrc/jpeg_decode.cpp): no source of
+    deco_tpu_torch and not chip_smoke.py loads the JAX package's
+    native/libdataplane.so, names its build script, or imports a module
+    that binds it."""
+    pattern = re.compile(r"libdataplane|native/|build_native|data\.native\b|data import native\b")
+    files = [f for f in sorted((ROOT / "deco_tpu_torch").rglob("*"))
+             if f.suffix in (".py", ".cpp", ".cu", ".cuh")] + [ROOT / "chip_smoke.py"]
+    assert any(f.suffix == ".cpp" for f in files)
+    offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
+    assert not (ROOT / "deco_tpu_torch" / "data" / "native.py").exists()

@@ -4,9 +4,7 @@ PIL, the ADM crop, the ImageNet folder dataset and the loader's order."""
 
 import io
 import os
-import shutil
 import struct
-import subprocess
 import zlib
 
 import numpy as np
@@ -18,6 +16,7 @@ from deco_tpu.data import loader as jax_loader
 from deco_tpu.data import randn as jax_randn
 from deco_tpu_torch.data import imagenet, loader, randn
 from deco_tpu_torch.utils import png
+from torch_port_util import jax_decodes_with_pil, jax_native_data_plane
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -224,36 +223,41 @@ def test_pix_imagenet_matches_jax_on_png(png_folder, kw):
         assert np.abs(md["raw_image"] - rmd["raw_image"]).max() <= 1.0 / 255 + 1e-6
 
 
-@pytest.fixture(scope="module")
-def native_lib():
-    so = os.path.join(REPO, "native", "libdataplane.so")
-    if not os.path.exists(so) and shutil.which("g++"):
-        subprocess.run(["bash", os.path.join(REPO, "scripts", "build_native.sh")],
-                       capture_output=True, timeout=300)
-    if not os.path.exists(so):
-        pytest.skip("native/libdataplane.so is not built and g++ cannot build it")
-    return so
-
-
-def test_pix_imagenet_jpeg_equals_jax_native_path(native_lib, tmp_path):
+def test_pix_imagenet_jpeg_equals_jax_native_path(monkeypatch, tmp_path):
+    """JPEG through the port's own decoder and the numpy ADM crop: equal to
+    the JAX package's PIL path byte for byte, and within one level of its
+    native data plane (``native/libdataplane.so``) where that is built."""
     rng = np.random.default_rng(7)
     for c in ("a", "b"):
         (tmp_path / c).mkdir()
         for i, hw in enumerate([(300, 260), (140, 190)]):
             Image.fromarray(_smooth_image(rng, *hw)).save(tmp_path / c / f"{i}.jpg", quality=90)
     ours = imagenet.PixImageNet(str(tmp_path), resolution=128)
+    items = [ours[i][0] for i in range(len(ours))]
+    jax_decodes_with_pil(monkeypatch)
     ref = jax_imagenet.PixImageNet(str(tmp_path), resolution=128)
     for i in range(len(ref)):
-        np.testing.assert_array_equal(ours[i][0], ref[i][0])
+        np.testing.assert_array_equal(items[i], ref[i][0])
+    if jax_native_data_plane(monkeypatch):
+        native = jax_imagenet.PixImageNet(str(tmp_path), resolution=128)
+        for i in range(len(native)):
+            assert np.abs(items[i] - native[i][0]).max() <= 2.0 / 255 + 1e-6
 
 
 def test_jpeg_without_the_library_names_the_build(monkeypatch, tmp_path):
-    from deco_tpu_torch.data import native
+    """The decoder's library is built at first use; with no host C++
+    compiler to build it, a JPEG read raises naming the compilers sought."""
+    from deco_tpu_torch.data import jpeg
+    from deco_tpu_torch.ops import _build
 
-    monkeypatch.setattr(native, "LIB_PATH", str(tmp_path / "missing.so"))
-    monkeypatch.setattr(native, "_lib", None)
-    with pytest.raises(RuntimeError, match="build_native.sh"):
-        native.decode_jpeg_adm(b"\xff\xd8", 16)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(jpeg, "_lib", None)
+    monkeypatch.delenv("CXX", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match=r"no host C\+\+ compiler found.*c\+\+, g\+\+"):
+        jpeg.decode(b"\xff\xd8\xff\xe0")
+    assert not (tmp_path / "build").exists() or not list((tmp_path / "build").glob("*.so"))
 
 
 # ---- the loader's order ----

@@ -38,9 +38,14 @@ def _png_bytes(rng, h, w) -> bytes:
     return png.encode(np.clip(base + rng.normal(0, 30, (h, w, 3)), 0, 255).astype(np.uint8))
 
 
-def _jpeg_bytes(h=40, w=40) -> bytes:
+def _jpeg_bytes(rng, h=40, w=40, **kw) -> bytes:
+    """A photo-like JPEG written by PIL (its default 4:2:0 unless ``kw``
+    says otherwise)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 255.0 / w, yy * 255.0 / h, np.full((h, w), 150.0)], -1)
     buf = io.BytesIO()
-    Image.fromarray(np.full((h, w, 3), 128, np.uint8)).save(buf, format="JPEG")
+    Image.fromarray(np.clip(base + rng.normal(0, 25, (h, w, 3)), 0, 255).astype(np.uint8)).save(
+        buf, format="JPEG", **kw)
     return buf.getvalue()
 
 
@@ -86,12 +91,17 @@ def test_image_text_equals_jax_byte_for_byte(caption_folder, resolution):
 
 
 def test_image_text_raises_on_a_jpeg(tmp_path):
-    (tmp_path / "x.jpg").write_bytes(_jpeg_bytes())
-    (tmp_path / "x.txt").write_text("a grey square")
-    dataset = image_txt.ImageText(str(tmp_path), 16)
-    assert len(dataset) == len(jimage_txt.ImageText(str(tmp_path), 16)) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 2"):
-        dataset[0]
+    """JPEG + caption pairs (a baseline, a progressive and a 4:4:4 file):
+    once a refusal (the port had no JPEG decoder), now the JAX reader's
+    items byte for byte, through the port's own decoder."""
+    rng = np.random.default_rng(5)
+    for i, kw in enumerate([dict(quality=90), dict(progressive=True), dict(subsampling=0)]):
+        (tmp_path / f"x{i}.jpg").write_bytes(_jpeg_bytes(rng, *SIZES[i], **kw))
+        (tmp_path / f"x{i}.txt").write_text(f"a photo {i}")
+    ours = image_txt.ImageText(str(tmp_path), 24)
+    theirs = jimage_txt.ImageText(str(tmp_path), 24)
+    assert len(ours) == len(theirs) == 3
+    _same_items([ours[i] for i in range(3)], [theirs[i] for i in range(3)])
 
 
 # ---- IterableLoader ----
@@ -206,16 +216,18 @@ def test_webdataset_packed_takes_sample_shuffle(tar_folder):
 
 
 def test_webdataset_packed_raises_on_a_jpeg_sample(tmp_path):
+    """A tar of PNG and JPEG samples (a BLIP3o tar is all JPEG): once a
+    refusal, now the JAX reader's items in its order, byte for byte."""
     rng = np.random.default_rng(2)
     _write_tar(tmp_path / "0.tar", [("a.png", _png_bytes(rng, 30, 30)), ("a.txt", b"ok"),
-                                    ("b.jpg", _jpeg_bytes()), ("b.txt", b"jpeg")])
-    # the JAX reader decodes it with PIL; the port has no JPEG decoder and
-    # must not skip the sample (a BLIP3o tar is all JPEG)
-    assert len(list(jpacked.WebDatasetPacked(str(tmp_path), resolution=16, repeat=False,
-                                             shard_index=0, shard_count=1))) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 2"):
-        list(packed.WebDatasetPacked(str(tmp_path), resolution=16, repeat=False,
-                                     shard_index=0, shard_count=1))
+                                    ("b.jpg", _jpeg_bytes(rng)), ("b.txt", b"jpeg"),
+                                    ("c.jpg", _jpeg_bytes(rng, 44, 36, progressive=True)),
+                                    ("c.txt", b"progressive")])
+    kw = dict(resolution=16, random_crop=True, repeat=False, shuffle_buffer=2,
+              shard_index=0, shard_count=1)
+    theirs = list(jpacked.WebDatasetPacked(str(tmp_path), **kw))
+    assert len(theirs) == 3
+    _same_items(list(packed.WebDatasetPacked(str(tmp_path), **kw)), theirs)
 
 
 def test_shards_come_from_torch_distributed(tar_folder, monkeypatch):
@@ -274,15 +286,22 @@ def test_packed_parquet_yields_the_jax_items_in_order(parquet_sources, weights):
 
 
 def test_packed_parquet_raises_on_a_jpeg_sample(tmp_path):
+    """Parquet rows of JPEG bytes: once a refusal, now the JAX reader's
+    items in its order, byte for byte."""
     pa = pytest.importorskip("pyarrow", reason="PackedParquetDataset reads parquet with pyarrow")
     import pyarrow.parquet as pq
 
-    pq.write_table(pa.table({"image": [_jpeg_bytes()], "caption_long": ["jpeg"]}),
+    rng = np.random.default_rng(6)
+    images = [_jpeg_bytes(rng, *SIZES[i % 4], quality=70 + 5 * i) for i in range(3)]
+    pq.write_table(pa.table({"image": images, "caption_long": ["j0", "j1", "j2"]}),
                    str(tmp_path / "0.parquet"))
-    stream = packed.PackedParquetDataset({str(tmp_path): 1}, {"caption_long": 1.0},
-                                         resolution=16, shard_index=0, shard_count=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 2"):
-        next(iter(stream))
+    runs = []
+    for make in (packed.PackedParquetDataset, jpacked.PackedParquetDataset):
+        np.random.seed(2)
+        stream = make({str(tmp_path): 1}, {"caption_long": 1.0}, resolution=16,
+                      random_crop=True, seed=3, shard_index=0, shard_count=1)
+        runs.append([item for _, item in zip(range(5), stream)])
+    _same_items(*runs)
 
 
 # ---- the registry ----

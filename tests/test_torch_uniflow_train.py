@@ -35,18 +35,18 @@ from PIL import Image
 
 from deco_tpu.convert.uniflow_bridge import uniflow_params_from_torch
 from deco_tpu.data import jsonl as jjsonl
-from deco_tpu.data import native as jnative
 from deco_tpu.data import webdataset as jwebdataset
 from deco_tpu.models.uniflow import UniFlowConfig as JaxUniFlowConfig
 from deco_tpu.train import schedules as jschedules
 from deco_tpu.train import uniflow_loop as juniflow
 from deco_tpu_torch import cli, convert
 from deco_tpu_torch.config import registry
-from deco_tpu_torch.data import jsonl, native, webdataset
+from deco_tpu_torch.data import jsonl, webdataset
 from deco_tpu_torch.models.uniflow.model import UniFlowConfig
 from deco_tpu_torch.train import hooks, uniflow_loop, workloads
 from deco_tpu_torch.utils import png
-from torch_port_util import FAST_COMPILE, fast_jit, numpy_state, randomize_
+from torch_port_util import (FAST_COMPILE, fast_jit, jax_decodes_with_pil, jax_native_data_plane,
+                             numpy_state, randomize_)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(vit_hidden_size=64, llm_hidden_size=24, num_hidden_layers=2, num_attention_heads=4,
@@ -399,23 +399,22 @@ def test_pix_webdataset_matches_jax_on_png(shards, crop, rank):
     _same_items(ours, ref)
 
 
-def test_pix_webdataset_jpeg_through_the_adm_path(shards):
-    """JPEG members: the native decode-and-crop without ``random_crop`` (the
-    JAX reader's native path, or PIL within one level where the library is
-    not built on its side); with ``random_crop`` the port raises naming
-    ROADMAP §A 2 (no full-size JPEG decode)."""
-    if not os.path.exists(native.LIB_PATH):
-        pytest.skip("native/libdataplane.so is not built (scripts/build_native.sh)")
-    kw = dict(resolution=24, random_flip=True, is_train=False, process_index=0, process_count=1)
-    ours = _items(webdataset.PixWebDataset(shards[1], **kw))
-    ref = _items(jwebdataset.PixWebDataset(shards[1], **kw))
-    assert len(ours) == len(ref) == 3
-    exact = jnative.available()
-    for (x, c, _), (rx, rc, _) in zip(ours, ref):
-        assert c == rc and x.shape == (24, 24, 3)
-        assert np.abs(x - rx).max() <= (0.0 if exact else 2.0 / 255 + 1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 2"):
-        next(iter(webdataset.PixWebDataset(shards[1], random_crop=True, **kw)))
+def test_pix_webdataset_jpeg_through_the_adm_path(shards, monkeypatch):
+    """JPEG members through the port's own decoder: with the ADM center crop
+    and with ``random_crop`` (which once raised naming ROADMAP §A 2), the
+    JAX reader's PIL path byte for byte; the center crop also within one
+    level of the JAX native data plane where that is built."""
+    for crop in (False, True):
+        kw = dict(resolution=24, random_crop=crop, random_flip=True, is_train=False,
+                  process_index=0, process_count=1)
+        ours = _items(webdataset.PixWebDataset(shards[1], **kw))
+        assert len(ours) == 3 and ours[0][0].shape == (24, 24, 3)
+        jax_decodes_with_pil(monkeypatch)
+        _same_items(ours, _items(jwebdataset.PixWebDataset(shards[1], **kw)))
+        if not crop and jax_native_data_plane(monkeypatch):
+            native = _items(jwebdataset.PixWebDataset(shards[1], **kw))
+            for (x, c, _), (rx, rc, _) in zip(ours, native):
+                assert c == rc and np.abs(x - rx).max() <= 2.0 / 255 + 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -454,18 +453,28 @@ def test_jsonl_readers_match_jax_on_png(jsonl_sources, crop):
         _same_items([ours[i] for i in range(len(ours))], [ref[i] for i in range(len(ref))])
 
 
-def test_jsonl_retries_a_bad_sample_and_refuses_a_random_crop_jpeg(jsonl_sources, tmp_path):
+def test_jsonl_retries_a_bad_sample_and_refuses_a_random_crop_jpeg(jsonl_sources, tmp_path,
+                                                                     monkeypatch):
     """A missing file is retried at a random index, as in JAX; a JPEG under
-    ``random_crop`` raises at once naming ROADMAP §A 2."""
+    ``random_crop`` (which once raised naming ROADMAP §A 2) reads as the JAX
+    reader's PIL path reads it, byte for byte; a WebP raises naming
+    ROADMAP §A 2b at once, without a retry."""
     root, _, _ = jsonl_sources
     ann = tmp_path / "ann.jsonl"
     ann.write_text("\n".join(json.dumps({"target_image": n}) for n in ("missing.png", "0.png")))
     for cls in (jsonl.PixJSONLDataset, jjsonl.PixJSONLDataset):
         ds = cls(os.path.join(root, "src0"), str(ann), resolution=24, seed=1)
         assert ds[0][0].shape == (24, 24, 3)
+    rng = np.random.default_rng(4)
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(buf, "JPEG")
+    Image.fromarray(rng.integers(0, 256, (32, 40, 3), dtype=np.uint8)).save(buf, "JPEG")
     (tmp_path / "a.jpg").write_bytes(buf.getvalue())
     ann.write_text(json.dumps({"target_image": "a.jpg"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 2"):
-        jsonl.PixJSONLDataset(str(tmp_path), str(ann), resolution=24, random_crop=True)[0]
+    jax_decodes_with_pil(monkeypatch)
+    kw = dict(resolution=24, random_crop=True, seed=2)
+    _same_items([jsonl.PixJSONLDataset(str(tmp_path), str(ann), **kw)[0]],
+                [jjsonl.PixJSONLDataset(str(tmp_path), str(ann), **kw)[0]])
+    (tmp_path / "a.webp").write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
+    ann.write_text(json.dumps({"target_image": "a.webp"}))
+    with pytest.raises(NotImplementedError, match="ROADMAP §A 2b"):
+        jsonl.PixJSONLDataset(str(tmp_path), str(ann), **kw)[0]

@@ -51,7 +51,8 @@ from deco_tpu_torch.models import internvl, perceptual, vae_models
 from deco_tpu_torch.models.gan import discriminator, vae_loss
 from deco_tpu_torch.models.uniflow.vit import ViTConfig
 from deco_tpu_torch.train import hooks, schedules, vae_gan_step, workloads
-from torch_port_util import FAST_COMPILE, all_cores, fast_jit, numpy_state, randomize_
+from torch_port_util import (FAST_COMPILE, all_cores, fast_jit, numpy_state, randomize_,
+                             shared_across_workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIT = dict(hidden_size=64, num_layers=2, num_heads=2, intermediate_size=128, patch_size=14,
@@ -353,11 +354,13 @@ def _flat(tree) -> dict:
             for path, v in jax.tree_util.tree_leaves_with_path(tree)}
 
 
-@pytest.fixture(scope="module")
 @all_cores()
-def two_steps():
+def _two_steps() -> dict:
     """Two steps of the JAX step (jitted) and the port's on the same
-    weights, images and posterior noise; the discriminator starts at step 1."""
+    weights, images and posterior noise; the discriminator starts at step 1.
+    What the tests read, as numpy: each step's metrics and generator
+    parameters on both sides, and after both steps the LeCam EMA, the step,
+    the discriminator's parameters and the generator EMA."""
     model = port_vae(stochastic=True, seed=20)
     disc = randomize_(discriminator.NLayerDiscriminator(hidden_channels=32, num_stages=2), 21)
     # the perceptual term: a seeded stand-in on both sides (the towers are
@@ -404,9 +407,25 @@ def two_steps():
         noise = torch.from_numpy(np.asarray(jax.random.normal(key, (2, 4, 32), jnp.float32)))
         metrics = ours(state, torch.from_numpy(x), noise=noise)
         results.append((jax.device_get(jmetrics), {k: float(v) for k, v in metrics.items()},
-                        _flat(jax.device_get(jstate.gen_params)), _port_params(model),
-                        jax.device_get(jstate), state))
-    return before, results, (model, disc)
+                        _flat(jax.device_get(jstate.gen_params)), _port_params(model)))
+    ema_model = port_vae(stochastic=True)
+    with torch.no_grad():
+        for p, e in zip(ema_model.parameters(), state.gen_ema):
+            p.copy_(e)
+    return {"before_conv_out": before["vae"]["decoder.conv_out.weight"], "steps": results,
+            "lecam": ([float(state.lecam.ema_real), float(state.lecam.ema_fake)],
+                      [float(jstate.lecam.ema_real), float(jstate.lecam.ema_fake)]),
+            "step": (state.step, int(jstate.step)),
+            "disc": (_flat(convert_discriminator(numpy_state(disc))),
+                     _flat(jax.device_get(jstate.disc_params))),
+            "ema": (_port_params(ema_model), _flat(jax.device_get(jstate.gen_ema_params)))}
+
+
+@pytest.fixture(scope="module")
+def two_steps(tmp_path_factory):
+    """:func:`_two_steps`, computed once for the whole run (one JAX compile
+    however many pytest-xdist workers draw its tests)."""
+    return shared_across_workers(tmp_path_factory, "vae_gan_two_steps", _two_steps)
 
 
 # after the discriminator starts, the terms through it (its mean logits
@@ -427,8 +446,7 @@ def test_two_steps_match_jax(two_steps, step):
     """Each step's metrics (``gen_grad_norm``, ``d_weight`` and the losses)
     at rtol 1e-5 (after the discriminator starts, its terms at GAN_RTOL) and
     the parameters after it."""
-    _, results, _ = two_steps
-    jmetrics, metrics, jparams, params, _, _ = results[step]
+    jmetrics, metrics, jparams, params = two_steps["steps"][step]
     for k in ("total_loss", "reconstruction_loss", "perceptual_loss", "gan_loss", "d_weight",
               "kl_loss", "discriminator_loss", "logits_real", "logits_fake", "lecam_loss",
               "gen_grad_norm", "disc_grad_norm"):
@@ -444,24 +462,16 @@ def test_two_steps_match_jax(two_steps, step):
 def test_two_steps_move_the_state_like_jax(two_steps):
     """After both steps: the LeCam EMA, the discriminator's parameters and
     the generator EMA (e d + p (1 - d) after each update)."""
-    before, results, (model, disc) = two_steps
-    _, _, _, _, jstate, state = results[-1]
-    np.testing.assert_allclose([float(state.lecam.ema_real), float(state.lecam.ema_fake)],
-                               [float(jstate.lecam.ema_real), float(jstate.lecam.ema_fake)],
-                               rtol=GAN_RTOL)
-    assert state.step == int(jstate.step) == 2
-    jd = _flat(jstate.disc_params)
-    ours = _flat(convert_discriminator(numpy_state(disc)))
+    np.testing.assert_allclose(*two_steps["lecam"], rtol=GAN_RTOL)
+    ours_step, jax_step = two_steps["step"]
+    assert ours_step == jax_step == 2
+    ours, jd = two_steps["disc"]
     for k in jd:
         np.testing.assert_allclose(ours[k], jd[k], rtol=RTOL, atol=UPDATE_ATOL, err_msg=k)
-    ema_model = port_vae(stochastic=True)
-    with torch.no_grad():
-        for p, e in zip(ema_model.parameters(), state.gen_ema):
-            p.copy_(e)
-    ema, jema = _port_params(ema_model), _flat(jstate.gen_ema_params)
+    ema, jema = two_steps["ema"]
     for k in jema:
         np.testing.assert_allclose(ema[k], jema[k], rtol=RTOL, atol=UPDATE_ATOL, err_msg=k)
-    start = np.transpose(before["vae"]["decoder.conv_out.weight"], (2, 3, 1, 0))
+    start = np.transpose(two_steps["before_conv_out"], (2, 3, 1, 0))
     assert np.abs(ema["decoder/conv_out/kernel"] - start).max() > 0
 
 

@@ -180,3 +180,51 @@ def randomize_(module, seed: int, scale: float = 1.0):
 def numpy_state(module) -> dict:
     """A copy of the state dict as numpy arrays (not views of the parameters)."""
     return {k: v.detach().numpy().copy() for k, v in module.state_dict().items()}
+
+
+def jax_decodes_with_pil(monkeypatch):
+    """Send the JAX package's JPEG reads to PIL for one test: its native data
+    plane off (``DECO_NATIVE_DECODE=0``), the cached library cleared so the
+    switch is read again."""
+    from deco_tpu.data import native
+
+    monkeypatch.setenv("DECO_NATIVE_DECODE", "0")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_checked", False)
+
+
+def jax_native_data_plane(monkeypatch) -> bool:
+    """Let the JAX package read JPEG through its native data plane for one
+    test; True where ``native/libdataplane.so`` is built and loads."""
+    from deco_tpu.data import native
+
+    monkeypatch.delenv("DECO_NATIVE_DECODE", raising=False)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_checked", False)
+    return native.available()
+
+
+def shared_across_workers(tmp_path_factory, name: str, compute):
+    """``compute()`` once for the whole run: under pytest-xdist the first
+    worker that asks computes it under a file lock in the run's shared
+    temporary folder and pickles it, and every other worker loads that
+    (a module fixture would compile its JAX program again on each worker
+    that draws one of its tests). In one process it just computes. The
+    result must pickle: numpy arrays, not live modules or compiled code."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return compute()
+    import fcntl
+    import pickle
+
+    root = tmp_path_factory.getbasetemp().parent  # one folder per run, shared by its workers
+    path = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        out = compute()
+        with open(path.with_suffix(".tmp"), "wb") as f:
+            pickle.dump(out, f)
+        os.replace(path.with_suffix(".tmp"), path)
+        return out
