@@ -13,7 +13,8 @@ tower), ReCo image reconstruction (``configs_c2i/ReCo_large.yaml``, the
 InternViT tower), the VAE-GAN and DC-AE eval (``configs/vae_*.yaml``,
 the DC-AE decoder) and UniFlow (``configs_flow/uniflow_*.yaml``), the
 t2i and UniFlow fits again from JPEG data through the port's own decoder,
-and holds each hand-written kernel against its plain PyTorch version.
+UniFlow's distillation from an InternVL teacher folder, and holds each
+hand-written kernel against its plain PyTorch version.
 Phases, in the order they run:
 
 1. build: compile every ``deco_tpu_torch/csrc/*.cu`` with nvcc (one process
@@ -216,8 +217,11 @@ Phases, in the order they run:
    finite PSNR/SSIM/FID; ``uniflow_semantic``: a semantic reconstruction
    (the causal forward); ``uniflow_448`` and ``uniflow_sem``: one step each
    of the 448 px stage-2 config (EMA, frozen encoder) and the semantic-AE
-   config from a PixWebDataset node over a PNG tar shard. The files go under
-   ``build/chip_smoke_uniflow/``, which is deleted.
+   config from a PixWebDataset node over a PNG tar shard, the semantic-AE
+   one holding a member of each PNG kind the codec once refused (palette,
+   16-bit, gray + alpha, 1-bit, Adam7); ``png_kinds``: one pass of that
+   node over the shard yields every member and skips none. The files go
+   under ``build/chip_smoke_uniflow/``, which is deleted.
 17. jpeg: JPEG data, decoded by the port's own decoder
    (``csrc/jpeg_decode.cpp``, host C++ built here by the host compiler).
    ``jpeg_decode``: every fixture of ``tests/torch_jpeg_fixtures/`` held to
@@ -225,17 +229,35 @@ Phases, in the order they run:
    port's ``PixImageNet`` items over them (center and random crop) held to
    the digests the CPU wrote, and the host's decode ms per megapixel on one
    thread and on the t2i loader's 8, with the host CPU's name.
+   ``png_decode``: every fixture of ``tests/torch_png_fixtures/`` (every PNG
+   colour type and bit depth, plain and Adam7) held to the sha256 of PIL's
+   ``convert("RGB")``, and the host's decode ms per megapixel.
    ``jpeg_t2i_fit``: ``cli fit -c configs_t2i/sft_res512.yaml`` as shipped
-   (DeCo-XXL/16, full width and depth) from 64 JPEG + caption pairs, 3
-   steps: finite losses, exactly 80 / 80 / 80 forward-with-lse / dQ /
-   dK-dV launches a step, s/step, idle share, peak memory and the host
-   decode share of a step. ``jpeg_uniflow_fit``: ``cli fit`` on
+   (DeCo-XXL/16 at full width, its 16 encoder blocks cut to 4 since phase
+   12 fits the full depth) from 64 JPEG + caption pairs, 3 steps: finite
+   losses, exactly 32 / 32 / 32 forward-with-lse / dQ / dK-dV launches a
+   step, s/step, idle share, peak memory and the host decode share of a
+   step. ``jpeg_uniflow_fit``: ``cli fit`` on
    uniflow_internvit_2b_blip3o.yaml as shipped (448 px, batch 16, random
    crop and flip) from a tar of 64 JPEG members, 3 steps, 34 + 6 causal
    launches of each training kernel a step. Neither fit writes a
    checkpoint. The files go under ``build/chip_smoke_jpeg/``, which is
    deleted.
-18. kernels: one JSON line listing every kernel with its launches on its
+18. uniflow_distill: the InternVL distillation teacher. A seeded
+   InternViT-300M folder at full width (bf16 ``.safetensors`` in two
+   shards, the release's keys), then ``cli fit -c
+   configs_flow/uniflow_internvit_2b_distill.yaml
+   --model.teacher_model_path=<folder>`` as shipped but for the data nodes
+   and the work directory, 3 steps at batch 16 and 224 px: finite loss
+   terms, ``vit_distill_loss`` non-zero, exactly 34 + 6 causal launches of
+   each training kernel a step plus the teacher's 24 forward launches,
+   s/step, idle share, peak memory. ``uniflow_distill_teacher``: the
+   teacher's features on the kernel against the plain attention path on
+   the card. ``uniflow_distill_export``: the fitted tower exported with
+   ``export_internvl_folder``, loaded back as a teacher, its features
+   against the tower's own. The files go under
+   ``build/chip_smoke_distill/``, which is deleted.
+19. kernels: one JSON line listing every kernel with its launches on its
    path (sampling for the forward, training for the others) and on the CLI
    paths, error, times, bound, library time and the library call's
    backend, for the attention kernels the same at N = 1024, for the
@@ -247,7 +269,8 @@ Phases, in the order they run:
    times at the ReCo shapes, and their VAE-GAN launches (fit, validate,
    DC-AE eval), times at the D = 32 shapes and D = 32 resources, and their
    UniFlow launches, and the training kernels their launches in phase
-   17's JPEG fits; and the four causal instantiations with their UniFlow
+   17's JPEG fits and phase 18's distill fit, the forward its teacher
+   launches there; and the four causal instantiations with their UniFlow
    launches, times at the causal shapes and resources.
 
 ``python3 chip_smoke.py --calibrate-train-slice`` (and ``--calibrate-t2i-slice``,
@@ -2655,8 +2678,9 @@ def phase_baseline_fit(card: str, seed: int) -> dict:
         shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
 
 
-def write_tar_shard(path: str, seed: int, count: int = 64) -> int:
-    """A webdataset tar of ``count`` seeded PNG + caption members, 256-320 px."""
+def write_tar_shard(path: str, seed: int, count: int = 64, extra=()) -> int:
+    """A webdataset tar of ``count`` seeded PNG + caption members, 256-320 px,
+    then the (name, PNG bytes) members of ``extra``, each with a caption."""
     import io
     import os
     import tarfile
@@ -2674,7 +2698,12 @@ def write_tar_shard(path: str, seed: int, count: int = 64) -> int:
                 info = tarfile.TarInfo(name)
                 info.size = len(data)
                 tf.addfile(info, io.BytesIO(data))
-    return count
+        for key, data in extra:
+            for name, blob in ((f"{key}.png", data), (f"{key}.txt", f"a {key} image".encode())):
+                info = tarfile.TarInfo(name)
+                info.size = len(blob)
+                tf.addfile(info, io.BytesIO(blob))
+    return count + len(extra)
 
 
 def _families_runs() -> list:
@@ -4000,6 +4029,31 @@ def _uniflow_one_step(path: str, card: str) -> dict:
     return row
 
 
+def _read_every_member(shard: str, members: int, config: dict, card: str) -> dict:
+    """``png_kinds``: one pass of the config's PixWebDataset node over the
+    shard with a member of each PNG kind the codec decodes since it reads
+    them as PIL does: every member yields an item, no sample is skipped."""
+    import warnings
+
+    from deco_tpu_torch.config import registry
+
+    node = config["data"]["train_dataset"]
+    dataset = registry.instantiate({**node, "init_args": {**node["init_args"],
+                                                          "data_files": shard}})
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        items = list(dataset)
+    skipped = [str(w.message) for w in caught if "skipping" in str(w.message)]
+    row = {"phase": "png_kinds", "shard_members": members, "items": len(items),
+           "skipped": skipped, "finite": all(bool(np.isfinite(x).all()) for x, _, _ in items),
+           "seconds": time.perf_counter() - t0, "card": card}
+    emit(row)
+    check(len(items) == members and not skipped and row["finite"],
+          f"png_kinds: {len(items)} of {members} items, skipped {skipped}")
+    return row
+
+
 def phase_uniflow(card: str, seed: int) -> dict:
     """UniFlow through the CLI as users run it. ``uniflow_fit``: ``cli fit``
     on uniflow_internvit_2b_base.yaml as shipped (the full 1.09B model,
@@ -4155,6 +4209,9 @@ def phase_uniflow(card: str, seed: int) -> dict:
 
         shard = f"{UNIFLOW_DIR}/shards/shard-000000.tar"
         write_tar_shard(shard, seed + 2, count=32)
+        kinds_shard = f"{UNIFLOW_DIR}/shards/kinds-000000.tar"
+        kinds_members = write_tar_shard(kinds_shard, seed + 2, count=32,
+                                        extra=png_kind_members(seed + 5))
         rows = {}
         # whether the shipped 448 px batch fits is what uniflow_448 asks, so
         # "out of memory" is a reading there; uniflow_sem must run its step
@@ -4167,7 +4224,8 @@ def phase_uniflow(card: str, seed: int) -> dict:
                     "fwd_lse_causal": UNIFLOW_TRUNK, "bwd_dq_causal": UNIFLOW_TRUNK,
                     "bwd_dkv_causal": UNIFLOW_TRUNK})):
             one = f"{UNIFLOW_DIR}/{os.path.basename(cfg_path)}"
-            oconfig = _write_uniflow_config(one, cfg_path, f"{UNIFLOW_DIR}/work_{name}", shard)
+            oconfig = _write_uniflow_config(one, cfg_path, f"{UNIFLOW_DIR}/work_{name}",
+                                            kinds_shard if name == "uniflow_sem" else shard)
             row = _uniflow_one_step(one, card)
             node = oconfig["data"]["train_dataset"]["init_args"]
             if row["result"] == "fits":
@@ -4183,6 +4241,7 @@ def phase_uniflow(card: str, seed: int) -> dict:
                 check(row["launches"] == {**{k: 0 for k in row["launches"]}, **want_step},
                       f"{name} launches {row['launches']}")
             rows[name] = row
+        rows["png_kinds"] = _read_every_member(kinds_shard, kinds_members, oconfig, card)
         return {"fit": launches, "validate": val_launches, "semantic": sem_launches,
                 "448": rows["uniflow_448"], "sem": rows["uniflow_sem"], "per_step": per_step}
     finally:
@@ -4195,6 +4254,9 @@ JPEG_TIMING_ROUNDS = 3  # decodes of each fixture for the host's ms per megapixe
 JPEG_T2I_COPIES = 8  # 8 fixtures x 8 = 64 JPEG + caption pairs for the t2i fit
 JPEG_UNIFLOW_CONFIG = "configs_flow/uniflow_internvit_2b_blip3o.yaml"
 JPEG_UNIFLOW_COPIES = 8  # 64 JPEG members in the webdataset tar
+# the JPEG t2i fit's encoder blocks (of 16): phase 12 fits the full depth,
+# phase 17 measures the decoder and the reader
+JPEG_T2I_BLOCKS = 4
 
 
 def jpeg_fixture_folder(root: str, fixtures: str = JPEG_FIXTURES) -> int:
@@ -4477,6 +4539,15 @@ def phase_jpeg(card: str, seed: int) -> dict:
     os.environ.setdefault("WANDB_MODE", "disabled")
     t2i_config = registry.load_yaml(T2I_CONFIG)
     decode = phase_jpeg_decode(card, t2i_config["data"].get("train_num_workers", 4))
+    png_decode = phase_png_decode(card, t2i_config["data"].get("train_num_workers", 4))
+    # DeCo-XXL/16 cut to JPEG_T2I_BLOCKS encoder blocks (its 4 text blocks
+    # kept): one forward with lse, dQ and dK/dV per attention block and microbatch
+    denoiser = t2i_config["model"]["denoiser"]["init_args"]
+    accum = t2i_config["trainer"]["accumulate_grad_batches"]
+    check((denoiser["num_encoder_blocks"] + denoiser["num_text_blocks"]) * accum
+          == T2I_FIT_LAUNCHES["fwd_lse"], f"{T2I_CONFIG}: its depth changed")
+    t2i_step = {k: (JPEG_T2I_BLOCKS + denoiser["num_text_blocks"]) * accum
+                for k in ("fwd_lse", "bwd_dq", "bwd_dkv")}
     layers = UNIFLOW_TOWER + UNIFLOW_SHALLOW + UNIFLOW_TRUNK
     uniflow_step = {"fwd_lse": layers, "bwd_dq": layers, "bwd_dkv": layers,
                     "fwd_lse_causal": UNIFLOW_TRUNK, "bwd_dq_causal": UNIFLOW_TRUNK,
@@ -4488,10 +4559,11 @@ def phase_jpeg(card: str, seed: int) -> dict:
         workroot = f"{JPEG_DIR}/work_t2i"
         t2i = _jpeg_fit("jpeg_t2i_fit", [
             "fit", "-c", T2I_CONFIG, f"--data.train_dataset.init_args.root={JPEG_DIR}/t2i",
+            f"--model.denoiser.init_args.num_encoder_blocks={JPEG_T2I_BLOCKS}",
             f"--trainer.default_root_dir={workroot}", "--max_steps", str(T2I_FIT_STEPS),
             "--trainer.log_every_n_steps=1"], card, f"{workroot}/sftpix512ema", batch,
-            {k: v for k, v in T2I_FIT_LAUNCHES.items() if v}, (image_txt.ImageText, "__getitem__"),
-            T2I_FIT_STEPS, config=T2I_CONFIG, images=images)
+            t2i_step, (image_txt.ImageText, "__getitem__"), T2I_FIT_STEPS, config=T2I_CONFIG,
+            images=images, encoder_blocks=JPEG_T2I_BLOCKS)
         shard = f"{JPEG_DIR}/shards/blip3o-000000.tar"
         members = write_jpeg_tar_shard(shard)
         path = f"{JPEG_DIR}/{os.path.basename(JPEG_UNIFLOW_CONFIG)}"
@@ -4507,9 +4579,357 @@ def phase_jpeg(card: str, seed: int) -> dict:
             (webdataset.PixWebDataset, "_process"), UNIFLOW_FIT_STEPS,
             config=JPEG_UNIFLOW_CONFIG, members=members, image_size=node["resolution"])
         print(card, flush=True)
-        return {"decode": decode, "t2i": t2i["launches"], "uniflow": uniflow["launches"]}
+        return {"decode": decode, "png_decode": png_decode, "t2i": t2i["launches"],
+                "uniflow": uniflow["launches"]}
     finally:
         shutil.rmtree(JPEG_DIR, ignore_errors=True)
+
+
+PNG_FIXTURES = "tests/torch_png_fixtures"  # committed; Pillow and its generate.py wrote them
+PNG_TIMING_ROUNDS = 3  # decodes of each fixture for the host's ms per megapixel
+PNG_LARGE = "pil_RGB_512x512.png"
+
+
+def phase_png_decode(card: str, workers: int) -> dict:
+    """``png_decode``: the port's PNG decoder (``utils/png.py`` over
+    ``csrc/png_decode.cpp``, host C++ built by the host compiler at first
+    use) on every fixture of ``tests/torch_png_fixtures/`` (every colour
+    type and bit depth, plain and Adam7, ``tRNS``, short palettes), each held
+    to the sha256 of PIL's ``convert("RGB")`` (equal or the phase fails);
+    the host's decode ms per megapixel over them on one thread, and the
+    512 x 512 RGB file's ms and ms per megapixel on one thread and on
+    ``workers`` threads."""
+    import hashlib
+    import json
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deco_tpu_torch.utils import png
+
+    with open(f"{PNG_FIXTURES}/digests.json") as f:
+        want = json.load(f)["files"]
+    blobs, files = {}, {}
+    for name, d in sorted(want.items()):
+        with open(f"{PNG_FIXTURES}/{name}", "rb") as f:
+            blobs[name] = f.read()
+        rgb = png.decode(blobs[name])
+        files[name] = {"shape": list(rgb.shape), "mode": d["mode"],
+                       "equal": hashlib.sha256(rgb.tobytes()).hexdigest() == d["sha256"]
+                       and list(rgb.shape) == d["shape"]}
+    mp = sum(np.prod(files[n]["shape"][:2]) for n in blobs) / 1e6
+    t0 = time.perf_counter()
+    for _ in range(PNG_TIMING_ROUNDS):
+        for data in blobs.values():
+            png.decode(data)
+    fixtures = (time.perf_counter() - t0) * 1e3 / (mp * PNG_TIMING_ROUNDS)
+    # the rates on the 512 x 512 file: the small fixtures time Python's
+    # chunk parsing more than the decode, and hold the GIL while they do
+    large_mp = np.prod(files[PNG_LARGE]["shape"][:2]) / 1e6
+    large = []
+    for _ in range(PNG_TIMING_ROUNDS):
+        t0 = time.perf_counter()
+        png.decode(blobs[PNG_LARGE])
+        large.append((time.perf_counter() - t0) * 1e3)
+    rounds = PNG_TIMING_ROUNDS * 4 * workers
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        list(pool.map(png.decode, [blobs[PNG_LARGE]] * workers))  # the threads started
+        t0 = time.perf_counter()
+        list(pool.map(png.decode, [blobs[PNG_LARGE]] * rounds))
+        threaded = (time.perf_counter() - t0) * 1e3 / (large_mp * rounds)
+    out = {"phase": "png_decode", "files": files, "kinds": len(files), "megapixels": mp,
+           "fixtures_decode_ms_per_mp_one_thread": fixtures,
+           f"ms_{PNG_LARGE}": float(np.median(large)),
+           "decode_ms_per_mp_one_thread": float(np.median(large)) / large_mp,
+           "decode_ms_per_mp_threads": threaded, "threads": workers,
+           "host_cpu": _cpu_model(), "card": card,
+           "note": "host time on the card's host, not the card's; the rates on one thread and "
+                   f"on {workers} are the 512 x 512 file's"}
+    emit(out)
+    check(all(f["equal"] for f in files.values()),
+          f"PNG decodes differ from PIL's: {[n for n, f in files.items() if not f['equal']]}")
+    return out
+
+
+def _png_fixture_encoder():
+    """``tests/torch_png_fixtures/generate.py``, whose :func:`encode` writes
+    PNG of any colour type, bit depth and interlace (numpy and ``zlib``
+    only: it loads on the card's host, which has no PIL)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_png_fixtures_generate",
+                                                  f"{PNG_FIXTURES}/generate.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def png_kind_members(seed: int, h: int = 288, w: int = 256) -> list:
+    """(name, PNG bytes) of one member of each PNG kind the port's codec
+    refused before it decoded them as PIL does: palette (8-bit, and 4-bit
+    with a short palette), 16-bit gray and RGB, gray + alpha (8 and 16
+    bits), 1-bit gray, and Adam7-interlaced RGB and 16-bit RGBA."""
+    rng = np.random.default_rng(seed)
+
+    def draw(c, depth):
+        return rng.integers(0, 1 << depth, (h, w, c))
+
+    pal = rng.integers(0, 256, 3 * 256).astype(np.uint8).tobytes()
+    kinds = [("palette8", draw(1, 8), 3, 8, False, pal),
+             ("palette4_short", draw(1, 4), 3, 4, False, pal[:3 * 9]),
+             ("gray16", draw(1, 16), 0, 16, False, None),
+             ("rgb16", draw(3, 16), 2, 16, False, None),
+             ("gray_alpha8", draw(2, 8), 4, 8, False, None),
+             ("gray_alpha16", draw(2, 16), 4, 16, False, None),
+             ("gray1", draw(1, 1), 0, 1, False, None),
+             ("rgb8_adam7", draw(3, 8), 2, 8, True, None),
+             ("rgba16_adam7", draw(4, 16), 6, 16, True, None)]
+    encode = _png_fixture_encoder().encode
+    return [(name, encode(img, color, depth, lace, palette=p))
+            for name, img, color, depth, lace, p in kinds]
+
+
+DISTILL_CONFIG = "configs_flow/uniflow_internvit_2b_distill.yaml"
+DISTILL_DIR = "build/chip_smoke_distill"  # git-ignored; deleted at the end of the phase
+# the InternVL3-2B teacher: InternViT-300M (24 layers of 1,024, 16 heads of
+# 64, patch 14, 448 px) and mlp1 (4,096 -> 1,536 -> 1,536)
+TEACHER_VISION = dict(hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+                      intermediate_size=4096, patch_size=14, image_size=448, qkv_bias=True,
+                      qk_normalization=False, norm_type="layer_norm")
+TEACHER_LLM = 1536
+# the teacher's features on the kernel against the plain attention path on
+# the same card and batch, relative L2: bf16 roundings of a 24-layer tower,
+# one bf16 step is 2^-8 relative, so each layer's attention output moves by
+# under ~0.4% and the tower's LayerNorms keep it from compounding; a wrong
+# kernel moves them by tens of percent
+TEACHER_GATE_REL_L2 = 0.05
+# an exported tower loaded back as a teacher against the tower's own
+# features: vit_embeds are the same bf16 products (equal, or within one
+# rounding); vit_embeds_mlp differ in mlp1's precision (the teacher's
+# linears in fp32, UniFlow's in bf16)
+EXPORT_GATE_REL_L2 = {"vit_embeds": 1e-3, "vit_embeds_mlp": 2e-2}
+
+
+def write_teacher_folder(root: str, seed: int, vision: dict = None, llm: int = TEACHER_LLM,
+                         device: str = "cuda") -> int:
+    """A seeded InternVL folder as the release lays it out: ``config.json``
+    and two bf16 ``.safetensors`` shards of ``vision_model.*`` and
+    ``mlp1.*`` keys, with a stray ``language_model.*`` key. Weights drawn on
+    ``device``: matrices normal / sqrt(fan in), norm scales 1, biases and
+    the class and position embeddings 0.02 normal, LayerScale 0.1. Returns
+    the bytes written."""
+    import json
+    import os
+
+    import torch
+
+    from deco_tpu_torch import convert_vit
+    from deco_tpu_torch.models.uniflow.vit import VisionModel
+
+    vision = vision or TEACHER_VISION
+    cfg = convert_vit.vit_config_from_json(vision)
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in VisionModel(cfg).state_dict().items()}
+    width = 4 * cfg.hidden_size
+    shapes.update({"mlp1.0.weight": (width,), "mlp1.0.bias": (width,),
+                   "mlp1.1.weight": (llm, width), "mlp1.1.bias": (llm,),
+                   "mlp1.3.weight": (llm, llm), "mlp1.3.bias": (llm,)})
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sd = {}
+    for k, shape in shapes.items():
+        r = torch.randn(shape, generator=gen, device=device)
+        if k.endswith(("ls1", "ls2")):
+            r = torch.full(shape, 0.1, device=device)
+        elif k in ("mlp1.0.weight",) or k.endswith(("norm1.weight", "norm2.weight")):
+            r = torch.ones(shape, device=device)
+        elif len(shape) >= 2 and not k.endswith("embedding"):
+            r = r / float(np.prod(shape[1:])) ** 0.5
+        else:
+            r = 0.02 * r
+        name = k if k.startswith("mlp1.") else "vision_model." + k
+        sd[name] = r.to(torch.bfloat16).cpu()
+    sd["language_model.model.embed_tokens.weight"] = torch.zeros(8, llm, dtype=torch.bfloat16)
+    os.makedirs(root, exist_ok=True)
+    with open(f"{root}/config.json", "w") as f:
+        json.dump({"vision_config": vision, "model_type": "internvl_chat",
+                   "downsample_ratio": 0.5}, f)
+    keys = sorted(sd)
+    for i, part in enumerate((keys[::2], keys[1::2])):
+        convert_vit.write_safetensors(f"{root}/model-0000{i + 1}-of-00002.safetensors",
+                                      {k: sd[k] for k in part})
+    return sum(os.path.getsize(f"{root}/{n}") for n in os.listdir(root))
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def teacher_on_kernel_and_plain(teacher, x) -> dict:
+    """The teacher's features on the card through the kernel (its launches
+    counted from 0) and through the plain attention version (``layers.sdpa``
+    sent to ``flash_attention_plain``: no launch), with their relative L2."""
+    import torch
+
+    from deco_tpu_torch.models import layers
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    _reset_launches()
+    kernel = teacher(x)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    with Spy(layers, "flash_attention", replace=lambda q, k, v, scale=None, causal=False:
+             fa.flash_attention_plain(q, k, v, scale, causal=causal)):
+        _reset_launches()
+        plain = teacher(x)
+        torch.cuda.synchronize()
+        plain_launches = fa.flash_attention.launches
+    return {"kernel": kernel, "plain": plain, "launches": launches,
+            "plain_launches": plain_launches,
+            "rel_l2": {k: _rel_l2(kernel[k], plain[k]) for k in kernel}}
+
+
+def phase_uniflow_distill(card: str, seed: int) -> dict:
+    """Phase 18: the InternVL distillation teacher on the card's path.
+    ``uniflow_distill``: a seeded InternViT-300M teacher folder at full width
+    (24 layers of 1,024, 16 heads, patch 14, and mlp1 4,096 -> 1,536 -> 1,536;
+    bf16 ``.safetensors`` in two shards with the release's keys), then
+    ``cli fit -c configs_flow/uniflow_internvit_2b_distill.yaml
+    --model.teacher_model_path=<folder>`` as shipped but for its data nodes
+    (PixImageNet over seeded PNGs, as phase 16) and work directory, 3 steps
+    at batch 16 and 224 px, no checkpoint: finite loss terms with
+    ``vit_distill_loss`` non-zero (0 in self-distillation), exactly phase
+    16's 34 + 6 causal launches of each training kernel a step plus the
+    teacher's 24 forward launches, s/step, idle share, peak memory.
+    ``uniflow_distill_teacher``: the teacher's features on a batch of 16 on
+    the kernel against the plain attention version on the card
+    (``TEACHER_GATE_REL_L2``). ``uniflow_distill_export``: the fitted tower
+    and mlp1 written by ``export_internvl_folder`` and loaded back as a
+    teacher, its features against the tower's own (``EXPORT_GATE_REL_L2``).
+    The files go under ``build/chip_smoke_distill/``, which is deleted."""
+    import os
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deco_tpu_torch import cli, convert_vit
+    from deco_tpu_torch.models.uniflow import teacher as teacher_lib
+    from deco_tpu_torch.train import checkpoint, workloads
+
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    layers = UNIFLOW_TOWER + UNIFLOW_SHALLOW + UNIFLOW_TRUNK
+    teacher_layers = TEACHER_VISION["num_hidden_layers"]
+    per_step = {"fwd_lse": layers, "bwd_dq": layers, "bwd_dkv": layers,
+                "fwd_lse_causal": UNIFLOW_TRUNK, "bwd_dq_causal": UNIFLOW_TRUNK,
+                "bwd_dkv_causal": UNIFLOW_TRUNK, "fwd": teacher_layers}
+    try:
+        t0 = time.perf_counter()
+        folder = f"{DISTILL_DIR}/teacher"
+        folder_bytes = write_teacher_folder(folder, seed + 3)
+        write_s = time.perf_counter() - t0
+        images = write_image_folder(f"{DISTILL_DIR}/train", seed, per_class=16)
+        workroot = f"{DISTILL_DIR}/work"
+        path = f"{DISTILL_DIR}/{os.path.basename(DISTILL_CONFIG)}"
+        config = _write_uniflow_config(path, DISTILL_CONFIG, workroot, f"{DISTILL_DIR}/train")
+        check(config["model"]["distill"] is True, f"{DISTILL_CONFIG}: distill is not on")
+        batch = config["data"]["train_batch_size"]
+        _reset_launches()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "save", replace=lambda self, obj, step: None), \
+                Spy(workloads.UniFlowRun, "fit") as fits, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state = cli.main(["fit", "-c", path, f"--model.teacher_model_path={folder}",
+                              "--max_steps", str(UNIFLOW_FIT_STEPS)])
+        fit_s = time.perf_counter() - t0
+        launches = _uniflow_launches()
+        peak = torch.cuda.max_memory_allocated()
+        run = fits.calls[0]["args"][0]
+        workdir = f"{workroot}/{config['tags']['exp']}"
+        records, ends, step_s = _fit_records(workdir)
+        s_per_step = float(np.median(step_s[1:]))
+        busy_ms = _kernel_busy_ms(prof)
+        terms = ("distill_loss", "vit_distill_loss", "sem_mse_loss", "flow_loss", "lpips_loss")
+        fit = {"phase": "uniflow_distill", "config": DISTILL_CONFIG, "images": images,
+               "teacher": {"vision_config": TEACHER_VISION, "mlp1": [4 * 1024, TEACHER_LLM,
+                                                                    TEACHER_LLM],
+                           "files": sorted(os.listdir(folder)), "bytes": folder_bytes,
+                           "write_s": write_s, "class": type(run.exp.teacher_fn).__name__},
+               "batch": batch, "image_size": 224, "steps": UNIFLOW_FIT_STEPS,
+               "losses": {k: [r[k] for r in records] for k in terms + ("loss", "grad_norm")},
+               "step_s": step_s, "s_per_step": s_per_step, "images_per_s": batch / s_per_step,
+               "device_kernel_ms": busy_ms, "kernel_ms_by_kind": _kernel_ms_by_kind(prof),
+               "idle_share": 1 - busy_ms / 1e3 / ends[-1], "peak_mem_bytes": peak,
+               "fit_call_s": fit_s, "launches": launches,
+               "launches_per_step": {k: v / UNIFLOW_FIT_STEPS for k, v in launches.items()},
+               "teacher_launches_per_step": launches["fwd"] / UNIFLOW_FIT_STEPS, "card": card,
+               "note": "timed under torch.profiler (CUDA activity); step_s from metrics.jsonl; "
+                       "no checkpoint written; the teacher's launches are the forward's"}
+        emit(fit)
+        check(isinstance(run.exp.teacher_fn, teacher_lib.InternVLTeacher),
+              "the fit did not load the teacher folder")
+        check(len(records) == UNIFLOW_FIT_STEPS and all(
+            np.isfinite(r[k]) for r in records for k in terms + ("loss", "grad_norm")),
+              f"uniflow distill records {records}")
+        check(all(r["vit_distill_loss"] > 0 for r in records),
+              "vit_distill_loss is 0: the fit self-distilled")
+        expected = {**{k: 0 for k in launches},
+                    **{k: n * UNIFLOW_FIT_STEPS for k, n in per_step.items()}}
+        check(launches == expected, f"uniflow distill launches {launches}, expected {expected}")
+
+        # the teacher on the kernel against its plain attention path, on the
+        # fit's own teacher and a batch of the fit's shape
+        teacher = run.exp.teacher_fn
+        gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+        x = torch.rand(batch, 224, 224, 3, generator=gen, device="cuda") * 2 - 1
+        both = teacher_on_kernel_and_plain(teacher, x)
+        row = {"phase": "uniflow_distill_teacher", "batch": batch, "image_size": 224,
+               "b_n_h_d": [batch, 257, TEACHER_VISION["num_attention_heads"], 64],
+               "shapes": {k: list(v.shape) for k, v in both["kernel"].items()},
+               "dtypes": {k: str(v.dtype) for k, v in both["kernel"].items()},
+               "launches": both["launches"], "plain_launches": both["plain_launches"],
+               "rel_l2": both["rel_l2"], "gate_rel_l2": TEACHER_GATE_REL_L2, "card": card}
+        emit(row)
+        check(both["launches"] == teacher_layers and both["plain_launches"] == 0,
+              f"teacher launches {both['launches']} / plain {both['plain_launches']}")
+        check(row["shapes"] == {"vit_embeds": [batch, 64, 4096],
+                                "vit_embeds_mlp": [batch, 64, TEACHER_LLM]}
+              and all(bool(torch.isfinite(v).all()) for v in both["kernel"].values()),
+              f"teacher features {row['shapes']}")
+        check(max(both["rel_l2"].values()) <= TEACHER_GATE_REL_L2,
+              f"teacher kernel vs plain {both['rel_l2']}")
+        del both, teacher
+
+        # the fitted tower exported as an InternVL folder (its fp32
+        # parameters) and read back as a teacher, against the tower's own
+        # features
+        model = state.model
+        tower = {k: v.detach() for k, v in model.state_dict().items()
+                 if k.startswith(("embeddings.", "encoder."))}
+        mlp1 = {k: v.detach() for k, v in model.mlp1.state_dict().items()}
+        export = f"{DISTILL_DIR}/export"
+        t0 = time.perf_counter()
+        convert_vit.export_internvl_folder(tower, export, convert_vit.vision_config_of(
+            run.model_cfg.vit()), mlp1)
+        export_s = time.perf_counter() - t0
+        del tower
+        back = teacher_lib.load_teacher_feature_fn(export, device="cuda")
+        with torch.no_grad():
+            sem_down, sem_mlp, _ = model.forward_encoder(x)
+            feats = back(x)
+        rel = {"vit_embeds": _rel_l2(feats["vit_embeds"], sem_down),
+               "vit_embeds_mlp": _rel_l2(feats["vit_embeds_mlp"], sem_mlp)}
+        emit({"phase": "uniflow_distill_export", "files": sorted(os.listdir(export)),
+              "bytes": sum(os.path.getsize(f"{export}/{n}") for n in os.listdir(export)),
+              "export_s": export_s, "rel_l2": rel, "gate_rel_l2": EXPORT_GATE_REL_L2,
+              "card": card})
+        check(all(rel[k] <= EXPORT_GATE_REL_L2[k] for k in rel), f"export round trip {rel}")
+        print(card, flush=True)
+        del state, model, run, fits, back, feats
+        torch.cuda.empty_cache()
+        return {"fit": launches, "per_step": per_step}
+    finally:
+        shutil.rmtree(DISTILL_DIR, ignore_errors=True)
 
 
 def main() -> int:
@@ -4547,9 +4967,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # each group of phases' wall seconds, for the script's time limit
+    marks = [time.perf_counter()]
+    seconds = {}
+
+    def mark(name):
+        marks.append(time.perf_counter())
+        seconds[name] = marks[-1] - marks[-2]
+
     card = phase_build()
     kernel = phase_kernel(card)
     train_errs, train_times = phase_kernels_train(card)
+    mark("1-3 build and kernels")
     model = phase_model()
     phase_slice()
     phase_train_slice()
@@ -4557,41 +4986,56 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     train_launches = phase_train(card)
+    mark("4-8 model, slices, sampling, training")
     cli_launches = phase_cli(card, seed)
+    mark("9 cli")
     torch.cuda.empty_cache()
     cli_512_launches = phase_cli_512(card, seed)
+    mark("10 cli_512")
     torch.cuda.empty_cache()
     t2i_kernel = phase_t2i_kernel(card)
     phase_t2i_slice()
     t2i_serve_launches = phase_t2i_serve(card)
     t2i_predict_launches = phase_t2i_predict(card)
+    mark("11 t2i")
     torch.cuda.empty_cache()
     t2i_train = phase_t2i_train_kernels(card)
     phase_t2i_train_slice()
     t2i_fit_launches = phase_t2i_fit(card, seed)
+    mark("12 t2i_fit")
     torch.cuda.empty_cache()
     fp32 = phase_fp32_attention(card)
     phase_families_slice()
     families = phase_baseline_fit(card, seed)
     torch.cuda.empty_cache()
     families["others"] = phase_families_fit(card, seed)
+    mark("13 families")
     torch.cuda.empty_cache()
     reco_kernels = phase_reco_kernels(card)
     phase_reco_slice()
     torch.cuda.empty_cache()
     reco = phase_reco(card, seed)
+    mark("14 reco")
     torch.cuda.empty_cache()
     vae_kernels = phase_vae_kernels(card)
     phase_vae_slice()
     torch.cuda.empty_cache()
     vae = phase_vae(card, seed)
+    mark("15 vae")
     torch.cuda.empty_cache()
     uniflow_kernels = phase_uniflow_kernels(card)
     phase_uniflow_slice()
     torch.cuda.empty_cache()
     uniflow = phase_uniflow(card, seed)
+    mark("16 uniflow")
     torch.cuda.empty_cache()
     jpeg = phase_jpeg(card, seed)
+    mark("17 jpeg")
+    torch.cuda.empty_cache()
+    distill = phase_uniflow_distill(card, seed)
+    mark("18 uniflow_distill")
+    emit({"phase": "phase_seconds", "seconds": seconds, "total_s": marks[-1] - marks[0],
+          "card": card})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     n1024 = {"fwd": kernel["n1024"], "fwd_lse": train_times.get("fwd_lse_512"),
              "bwd_dq": train_times.get("bwd_dq_512"), "bwd_dkv": train_times.get("bwd_dkv_512")}
@@ -4656,7 +5100,8 @@ def main() -> int:
         # phase 17: the 3-step fits from JPEG data (sft_res512.yaml,
         # uniflow_internvit_2b_blip3o.yaml)
         r.update(jpeg_t2i_fit_launches=jpeg["t2i"][key],
-                 jpeg_uniflow_fit_launches=jpeg["uniflow"][key])
+                 jpeg_uniflow_fit_launches=jpeg["uniflow"][key],
+                 uniflow_distill_fit_launches=distill["fit"][key])
         r.update(vae_fit_launches=vae["fit"][key],
                  vae_fit_launches_per_step=vae["per_step"][key],
                  vae_disc_start_step_launches=vae["disc_start"][key],
@@ -4670,6 +5115,8 @@ def main() -> int:
                dcae_eval_launches=vae["dcae_eval"]["fwd"],
                uniflow_validate_launches=uniflow["validate"]["fwd"],
                uniflow_semantic_launches=uniflow["semantic"]["fwd"],
+               # phase 18: the InternVL teacher's tower in the 3-step distill fit
+               uniflow_distill_teacher_launches=distill["fit"]["fwd"],
                d32=_reco_timing_rows(vae_kernels["timings"]["fwd"], keys + ("plain_b",)))
     d32_resources = {name: {k: info[k] for k in ("registers", "local_bytes", "dynamic_smem",
                                                  "ctas_per_sm")}
@@ -4735,6 +5182,7 @@ def main() -> int:
             "uniflow_448_step_launches": uniflow["448"]["launches"][f"{key}_causal"],
             "uniflow_sem_step_launches": uniflow["sem"]["launches"][f"{key}_causal"],
             "jpeg_uniflow_fit_launches": jpeg["uniflow"][f"{key}_causal"],
+            "uniflow_distill_fit_launches": distill["fit"][f"{key}_causal"],
             "shapes": _reco_timing_rows(uniflow_kernels["timings"][key], keys),
             "resources": {k: uniflow_kernels["resources"][kind][k] for k in (
                 "registers", "local_bytes", "dynamic_smem", "ctas_per_sm")}})

@@ -114,15 +114,19 @@ _PORTED: Dict[str, str] = {
         "deco_tpu_torch.config.registry._VAELossConfig",
     "src.models.modules.discriminator.NLayerDiscriminator":
         "deco_tpu_torch.models.gan.discriminator.NLayerDiscriminator",
+    # the legacy TiTok loss stages: all three to TiTokLoss, as in JAX (ROADMAP §C 16)
+    "src.models.modules.losses.ReconstructionLoss_Base":
+        "deco_tpu_torch.models.gan.legacy_losses.TiTokLoss",
+    "src.models.modules.losses.ReconstructionLoss_Stage1":
+        "deco_tpu_torch.models.gan.legacy_losses.TiTokLoss",
+    "src.models.modules.losses.ReconstructionLoss_Stage2":
+        "deco_tpu_torch.models.gan.legacy_losses.TiTokLoss",
     "src.callbacks.simple_ema.SimpleEMA": "deco_tpu_torch.config.registry._SimpleEMAConfig",
     "torch.optim.AdamW": "deco_tpu_torch.config.registry._AdamWConfig",
 }
 
 # class path -> the ROADMAP section A item that ports it
 UNPORTED: Dict[str, int] = {
-    "src.models.modules.losses.ReconstructionLoss_Base": 5,
-    "src.models.modules.losses.ReconstructionLoss_Stage1": 5,
-    "src.models.modules.losses.ReconstructionLoss_Stage2": 5,
     "optax.adafactor": 7,
     "transformers.Adafactor": 7,
 }

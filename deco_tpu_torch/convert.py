@@ -560,3 +560,25 @@ def dcae_from_torch_state(sd: dict, dtype=torch.float32, attention_head_dim: int
         device=device)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def adv_head_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """A JAX adversarial head's params (``ConvHead``, ``ConvLinearMMHead`` or
+    ``ConvMMHead``, optionally under ``"params"``) -> the port's head's
+    state dict: each tower's ``conv{i}`` (HWIO kernel) becomes
+    ``convs.{i}`` (OIHW), ``norm{i}``'s scale ``norms.{i}.weight``, each
+    Dense a Linear."""
+    p = params.get("params", params)
+    out: dict = {}
+    for name, node in p.items():
+        if "conv0" in node:  # a conv tower
+            for i in range(3):
+                conv, norm = node[f"conv{i}"], node[f"norm{i}"]
+                out[f"{name}.convs.{i}.weight"] = np.transpose(np.asarray(conv["kernel"]),
+                                                               (3, 2, 0, 1))
+                out[f"{name}.convs.{i}.bias"] = conv["bias"]
+                out[f"{name}.norms.{i}.weight"] = norm["scale"]
+                out[f"{name}.norms.{i}.bias"] = norm["bias"]
+        else:
+            _dense(node, out, name)
+    return _tensors(out)

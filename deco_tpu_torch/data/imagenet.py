@@ -12,7 +12,7 @@ vertical pass. Each pass is one dense (out x in) weight matrix applied with
 ``np.matmul`` in float64, which holds the fixed-point sums exactly, so the
 result equals PIL's.
 
-Images are read by :func:`decode_image`: PNG with
+Images are read by :func:`decode_image`: PNG of every kind with
 :mod:`deco_tpu_torch.utils.png`, JPEG with the port's own decoder
 (:mod:`deco_tpu_torch.data.jpeg`), both equal to PIL's ``convert("RGB")``;
 WebP, GIF and BMP raise naming ROADMAP §A 2b. Items are NHWC float32 in [-1, 1] with
@@ -123,8 +123,10 @@ def adm_center_crop(image: np.ndarray, image_size: int) -> np.ndarray:
 
 def decode_image(data: bytes) -> np.ndarray:
     """Image bytes as (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
-    them: PNG through :mod:`deco_tpu_torch.utils.png`, JPEG through
-    :mod:`deco_tpu_torch.data.jpeg`. Corrupt or truncated data raises
+    them: PNG of every kind (any colour type, bit depth and interlace)
+    through :mod:`deco_tpu_torch.utils.png`, baseline and progressive
+    Huffman JPEG through :mod:`deco_tpu_torch.data.jpeg`. Corrupt or
+    truncated data raises
     ``ValueError`` (PIL's ``OSError``); a WebP, GIF or BMP image raises
     ``NotImplementedError`` naming ROADMAP §A 2b; bytes of no image format
     raise ``ValueError``."""

@@ -20,10 +20,9 @@ Departures from the JAX package:
   corrupt or truncated PNG and JPEG data, bytes of no image format,
   unreadable tars) and raises where the port lacks a decoder PIL has: a
   WebP, GIF or BMP sample and a JPEG kind the port's decoder refuses
-  (``NotImplementedError``, ROADMAP §A 2b and 2c), a PNG kind the codec
-  does not take (:class:`~deco_tpu_torch.utils.png.UnsupportedPNG`).
-  Skipping those would drop every sample of such a shard and spin
-  forever.
+  (``NotImplementedError``, ROADMAP §A 2b and 2c). Skipping those would
+  drop every sample of such a shard and spin forever. Every well-formed
+  PNG decodes.
 - ``WebDatasetPacked`` takes the reference ``WebDatasetPackedDataset``'s
   ``sample_shuffle`` (the pretraining YAMLs set it; the JAX class has no
   such argument, ROADMAP §C 8): False turns the shuffle buffer off.
@@ -42,7 +41,6 @@ import numpy as np
 
 from deco_tpu_torch.data import imagenet
 from deco_tpu_torch.data.imagenet import center_crop, resize_short_side
-from deco_tpu_torch.utils import png
 
 PREFIX_TEMPLATES = [
     "A photo of ",
@@ -75,8 +73,6 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
     reader skips). A format or kind the port does not decode raises."""
     try:
         return imagenet.decode_image(data)
-    except png.UnsupportedPNG:
-        raise
     except (ValueError, zlib.error, struct.error):
         return None
 

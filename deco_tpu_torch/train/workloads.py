@@ -17,8 +17,10 @@ multiples, cropped back) and gives PSNR, SSIM, FID, side-by-side panels and
 ``validate_metrics.json``, from the EMA when ``eval_original_model`` is
 false. ``pretrain_model_path`` warm-starts only from a directory, as in JAX
 (ROADMAP §C 13: the shipped ``.ckpt`` files would never be read); anything
-else gives a fresh init. ``distill: true`` without teacher weights trains
-on the self-distillation target, as JAX does.
+else gives a fresh init. ``distill: true`` distills from the InternVL
+teacher of the ``teacher_model_path`` folder (``models/uniflow/teacher.py``);
+without one, or when its load fails, it trains on the self-distillation
+target with a warning, as JAX does.
 
 Two schemas, as in JAX:
 
@@ -133,16 +135,26 @@ def resolve_uniflow_config_path(path: Optional[str]) -> str:
     return cand if os.path.exists(cand) else CONFIG_JSON
 
 
-def _build_uniflow_teacher(path: Optional[str]):
-    """The frozen InternVL distillation teacher: None, with a warning when a
-    path was named, where its weights are absent (self-distillation then,
-    as in JAX); a weights directory raises (the teacher is not ported)."""
-    if path and os.path.isdir(path):
-        raise registry.not_ported(f"the InternVL distillation teacher ({path})", 5)
-    if path:
-        warnings.warn(f"distill=true but teacher weights not found at {path}; "
-                      "falling back to self-distillation targets (weights-gated).")
-    return None
+def _build_uniflow_teacher(path: Optional[str], device):
+    """The frozen InternVL distillation teacher of an InternVL folder
+    (``models/uniflow/teacher.py``), or None with a warning, as in JAX,
+    where the path is not a folder or the load fails (self-distillation
+    then). Only the load is caught: the files, ``config.json`` and the
+    keys. Placing the weights on the card and every kernel the teacher
+    launches run outside it, so a fault there stops the run."""
+    if not path or not os.path.isdir(path):
+        if path:
+            warnings.warn(f"distill=true but teacher weights not found at {path}; "
+                          "falling back to self-distillation targets (weights-gated).")
+        return None
+    from deco_tpu_torch.models.uniflow.teacher import build_teacher, load_teacher_weights
+
+    try:
+        weights = load_teacher_weights(path)
+    except Exception as e:  # noqa: BLE001 - as JAX: warn, train with self-distillation
+        warnings.warn(f"teacher load failed ({e}); self-distillation fallback")
+        return None
+    return build_teacher(weights, device=device)
 
 
 class UniFlowRun:
@@ -182,7 +194,8 @@ class UniFlowRun:
                 if k in UniFlowTrainConfig.__dataclass_fields__})
             self.distill, self.teacher_path, self.pretrain_path = False, None, None
             self.eval_original_model = True
-        teacher = _build_uniflow_teacher(self.teacher_path) if self.distill else None
+        teacher = (_build_uniflow_teacher(self.teacher_path, self.device) if self.distill
+                   else None)
         self.exp = UniFlowExperiment(model_cfg, train_cfg, teacher_fn=teacher,
                                      device=self.device)
         self.model_cfg, self.train_cfg = model_cfg, train_cfg

@@ -168,8 +168,19 @@ def _interlaced(data: bytes) -> bytes:
     lambda: b"GIF89a" + bytes(20),
 ], ids=["palette", "16bit", "interlaced", "not_png"])
 def test_png_decode_rejects_other_formats(make):
-    with pytest.raises(ValueError):
-        png.decode(make())
+    """What PIL rejects the decoder rejects, and what PIL reads it reads as
+    PIL does: the palette and 16-bit files decode to PIL's image; the
+    interlaced one (filter-0 rows relabelled Adam7) is shorter than its
+    seven passes, so PIL and the decoder both refuse it, as they refuse
+    bytes that are no PNG."""
+    data = make()
+    try:
+        expected = np.array(Image.open(io.BytesIO(data)).convert("RGB"))
+    except Exception:  # noqa: BLE001 - PIL's OSError or UnidentifiedImageError
+        with pytest.raises(ValueError):
+            png.decode(data)
+    else:
+        np.testing.assert_array_equal(png.decode(data), expected)
 
 
 # ---- ADM crop against PIL ----

@@ -725,3 +725,29 @@ def test_causal_kernel_info_reports_no_spills_on_card(cuda_device):
         assert infos[name]["local_bytes"] == 0 and infos[name]["ctas_per_sm"] >= 2, infos[name]
     for name in ("flash_bwd_dq_kernel_causal", "flash_bwd_dkv_kernel_causal"):
         assert infos[name]["local_bytes"] == 0 and infos[name]["ctas_per_sm"] >= 3, infos[name]
+
+
+# The InternVL distillation teacher (UniFlow's distill configs): its tower
+# runs the bf16 forward kernel at D = 64, one launch a layer (no grad). A
+# 2-layer InternViT at full width (1,024, 16 heads of 64) written as the
+# release lays it out (bf16 safetensors in two shards), a batch of 4 at
+# 224 px (N = 257): features on the kernel against the plain attention path
+# on the card, relative L2 under chip_smoke.TEACHER_GATE_REL_L2.
+@pytest.mark.cuda
+def test_teacher_runs_the_forward_kernel_and_matches_its_plain_path_on_card(cuda_device,
+                                                                           tmp_path):
+    import chip_smoke
+
+    from deco_tpu_torch.models.uniflow import teacher as teacher_lib
+
+    vision = dict(chip_smoke.TEACHER_VISION, num_hidden_layers=2)
+    chip_smoke.write_teacher_folder(str(tmp_path), 3, vision=vision)
+    teacher = teacher_lib.load_teacher_feature_fn(str(tmp_path), device=cuda_device)
+    x = torch.rand(4, 224, 224, 3, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    both = chip_smoke.teacher_on_kernel_and_plain(teacher, x.to(cuda_device))
+    assert both["launches"] == 2 and both["plain_launches"] == 0
+    assert both["kernel"]["vit_embeds"].shape == (4, 64, 4096)
+    assert both["kernel"]["vit_embeds"].dtype == torch.bfloat16
+    assert both["kernel"]["vit_embeds_mlp"].shape == (4, 64, chip_smoke.TEACHER_LLM)
+    assert both["kernel"]["vit_embeds_mlp"].dtype == torch.float32
+    assert max(both["rel_l2"].values()) < chip_smoke.TEACHER_GATE_REL_L2, both["rel_l2"]

@@ -325,15 +325,37 @@ def test_reference_schema_fit_from_a_webdataset_and_a_warm_start(tmp_path):
 
 
 def test_teacher_weights_directory_raises_and_a_missing_one_warns(tmp_path):
+    """The distill config's ``teacher_model_path``: an InternVL folder loads
+    the teacher (it no longer raises); a missing path warns and trains with
+    self-distillation, as JAX does; a folder whose load fails (no
+    checkpoint files, a bad ``config.json``, missing keys) warns and
+    self-distills too."""
+    from deco_tpu_torch.models.uniflow import teacher as teacher_lib
+    from test_torch_teacher import _weights, write_folder
+
     config = registry.load_yaml(os.path.join(REPO, "configs_flow/uniflow_internvit_2b_distill.yaml"))
-    config["model"]["teacher_model_path"] = str(tmp_path / "absent")
+
+    def run_with(path):
+        config["model"]["teacher_model_path"] = str(path)
+        return workloads.UniFlowRun(json.loads(json.dumps(config)), workdir=str(tmp_path),
+                                    device="meta")
+
+    vision, mlp1 = _weights()
+    folder = write_folder(tmp_path / "teacher", vision, mlp1, "sharded")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        assert isinstance(run_with(folder).exp.teacher_fn, teacher_lib.InternVLTeacher)
+    assert not [w for w in caught if "self-distillation" in str(w.message)]
     with pytest.warns(UserWarning, match="self-distillation"):
-        run = workloads.UniFlowRun(json.loads(json.dumps(config)), workdir=str(tmp_path),
-                                   device="meta")
-    assert run.exp.teacher_fn is None
-    config["model"]["teacher_model_path"] = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 5"):
-        workloads.UniFlowRun(config, workdir=str(tmp_path), device="meta")
+        assert run_with(tmp_path / "absent").exp.teacher_fn is None
+    broken = [tmp_path / "empty", write_folder(tmp_path / "no_mlp1", vision, {}, "bin"),
+              write_folder(tmp_path / "bad_json", vision, mlp1, "bin")]
+    broken[0].mkdir()
+    with open(os.path.join(broken[2], "config.json"), "w") as f:
+        f.write("{not json")
+    for path in broken:
+        with pytest.warns(UserWarning, match="teacher load failed.*self-distillation"):
+            assert run_with(path).exp.teacher_fn is None
 
 
 # ---- the readers ----
