@@ -13,8 +13,10 @@ tower), ReCo image reconstruction (``configs_c2i/ReCo_large.yaml``, the
 InternViT tower), the VAE-GAN and DC-AE eval (``configs/vae_*.yaml``,
 the DC-AE decoder) and UniFlow (``configs_flow/uniflow_*.yaml``), the
 t2i and UniFlow fits again from JPEG data through the port's own decoder,
-UniFlow's distillation from an InternVL teacher folder, and holds each
-hand-written kernel against its plain PyTorch version.
+UniFlow's distillation from an InternVL teacher folder, and the opt-in
+extras (W8A8 int8 serving of DeCo-XL/16 and DeCo-XXL/16, Adafactor,
+MSDCN), and holds each hand-written kernel against its plain PyTorch
+version.
 Phases, in the order they run:
 
 1. build: compile every ``deco_tpu_torch/csrc/*.cu`` with nvcc (one process
@@ -69,7 +71,13 @@ Phases, in the order they run:
    and CFG 3.2 on (0.1, 1]: a non-constant uint8 (20, 256, 256, 3)
    ``output.npz``, the FID protocol's file names ``0_0`` ... ``0_9``,
    exactly 400 forward launches, and the EMA weights loaded equal to those saved. Step times,
-   s/step, the device's idle share and images/s; the folder is deleted.
+   s/step, the device's idle share and images/s. ``int8_cli_predict``: the
+   same predict with ``--model.denoiser.init_args.quantize=int8`` (W8A8
+   trunk, ``ops/quant.py``): 400 forward and 1,600 int8 GEMM launches.
+   ``adafactor_fit``: 2 steps of the fit with an ``optax.adafactor``
+   optimizer node, no checkpoint: finite losses, and one more Adafactor
+   step on the card against the same step on the CPU. The folder is
+   deleted.
 10. cli_512: DeCo-XL/16 at 512 px end to end through the CLI and the
    eval entry points. ``fit`` on ``configs_c2i/DeCo_XL_512.yaml``
    unmodified but for the image folder (2 x 48 PNGs of 576x544 and
@@ -92,8 +100,9 @@ Phases, in the order they run:
    544x480 canvas (1,020 queries over 1,148 keys), at the serve and the
    CLI predict batch, against its plain version, timed beside bound and
    cuDNN. ``t2i_slice_vs_plain``: a 2 joint + 1 text block model at full
-   width, 4 AdamLM steps on a 512x512 and the 544x480 canvas, card against
-   CPU (both bf16), 12 launches a canvas. ``t2i_serve``:
+   width, 4 AdamLM steps on a 512x512 and the 544x480 canvas, the kernels
+   against the plain attention, both on the card in bf16, 12 launches a
+   canvas. ``t2i_serve``:
    ``serve.load_pipeline`` with random weights and the hash text encoder,
    2 prompts at 512x512, 25 steps, order 2, CFG 4.0, time shift 3.0, with
    trajectories: exactly 500 launches a call, s/image, images/s, a
@@ -109,7 +118,8 @@ Phases, in the order they run:
    1,148; text: 128 x 128) against their plain versions, bit-identical over
    two runs, timed beside bound, plain versions and SDPA.
    ``t2i_train_slice_vs_plain``: one training step of a 2 joint + 1 text
-   block model at full width (batch 2, 512 px), card against CPU: the loss
+   block model at full width (batch 2, 512 px), the kernels against the
+   plain attention (autograd), both on the card: the loss
    and the gradients, those of every ``kv_y`` and of the ``y_embedder`` by
    name. ``t2i_fit``: ``cli fit`` on the YAML as shipped (batch 16 x
    accumulation 4, no remat) but for the folder (64 seeded PNG + caption
@@ -206,7 +216,8 @@ Phases, in the order they run:
    ``uniflow_slice_vs_plain``: the full widths with the InternViT cut to 2
    layers, the shallow ViT to 1 and each trunk to 1 block, one
    ``forward_loss`` and its gradients at batch 2, the card's kernels against
-   the CPU's plain versions (gates from ``--calibrate-uniflow-slice``).
+   the plain attention on the card (gates from
+   ``--calibrate-uniflow-slice``).
    ``uniflow_fit``: ``cli fit`` on uniflow_internvit_2b_base.yaml as
    shipped but for the data nodes (PixImageNet over seeded PNGs) and the
    work directory, 3 steps at batch 16 and 224 px: finite loss terms,
@@ -233,11 +244,12 @@ Phases, in the order they run:
    colour type and bit depth, plain and Adam7) held to the sha256 of PIL's
    ``convert("RGB")``, and the host's decode ms per megapixel.
    ``jpeg_t2i_fit``: ``cli fit -c configs_t2i/sft_res512.yaml`` as shipped
-   (DeCo-XXL/16 at full width, its 16 encoder blocks cut to 4 since phase
-   12 fits the full depth) from 64 JPEG + caption pairs, 3 steps: finite
-   losses, exactly 32 / 32 / 32 forward-with-lse / dQ / dK-dV launches a
-   step, s/step, idle share, peak memory and the host decode share of a
-   step. ``jpeg_uniflow_fit``: ``cli fit`` on
+   (DeCo-XXL/16 at full width, its 16 encoder blocks cut to 4 and its
+   accumulation of 4 microbatches to 1, since phase 12 fits the full depth
+   and batch and this fit is the host's: 16 items a step, not 64) from 64
+   JPEG + caption pairs, 3 steps: finite losses, exactly 8 / 8 / 8
+   forward-with-lse / dQ / dK-dV launches a step, s/step, idle share, peak
+   memory and the host decode share of a step. ``jpeg_uniflow_fit``: ``cli fit`` on
    uniflow_internvit_2b_blip3o.yaml as shipped (448 px, batch 16, random
    crop and flip) from a tar of 64 JPEG members, 3 steps, 34 + 6 causal
    launches of each training kernel a step. Neither fit writes a
@@ -257,7 +269,25 @@ Phases, in the order they run:
    ``export_internvl_folder``, loaded back as a teacher, its features
    against the tower's own. The files go under
    ``build/chip_smoke_distill/``, which is deleted.
-19. kernels: one JSON line listing every kernel with its launches on its
+19. int8: the opt-in extras. ``int8_gemm``: the library int8 GEMM
+   (``torch._int_mm``, as the JAX package's is XLA's) exact against the
+   CPU's int32 product, a padded 3-row call, and at DeCo-XL/16's and
+   DeCo-XXL/16's trunk shapes its time beside the bf16 product's, the
+   quantisation's, the rescale's and its bound. ``int8_sample``: full-width
+   DeCo-XL/16 sampled at batch 8, 50 Euler steps, CFG 3.2, in bf16 and in
+   int8 from the same weights and noise (bf16, int8, int8, bf16): images/s
+   of both, exactly 1,400 attention and 5,600 int8 GEMM launches a sample,
+   one network call's device time by kind (int8 GEMM, quantisation and
+   rescale, other GEMMs, attention, the rest), and int8 against bf16 under
+   a gate. ``int8_slice_vs_cpu``: the 4-block cut of phase 5, card int8
+   against CPU int8 (gates from ``--calibrate-int8``). ``int8_t2i_serve``:
+   ``serve.load_pipeline`` of ``configs_t2i/sft_res512.yaml`` with
+   ``quantize: int8``, phase 11's call (500 attention and 2,400 int8 GEMM
+   launches), s/image beside phase 11's bf16 call; a weight load after the
+   cache makes the Pipeline raise ``StaleQuantCacheError`` until the cache
+   is rebuilt. ``msdcn``: ``ops/msdcn.MultiScaleDCN`` at DeCo-XL/16's grid
+   and width, forward and parameter gradients on the card against the CPU.
+20. kernels: one JSON line listing every kernel with its launches on its
    path (sampling for the forward, training for the others) and on the CLI
    paths, error, times, bound, library time and the library call's
    backend, for the attention kernels the same at N = 1024, for the
@@ -270,15 +300,17 @@ Phases, in the order they run:
    DC-AE eval), times at the D = 32 shapes and D = 32 resources, and their
    UniFlow launches, and the training kernels their launches in phase
    17's JPEG fits and phase 18's distill fit, the forward its teacher
-   launches there; and the four causal instantiations with their UniFlow
-   launches, times at the causal shapes and resources.
+   launches there, and the forward its launches inside phase 19's int8
+   trunks (and phase 9's int8 predict); and the four causal instantiations
+   with their UniFlow launches, times at the causal shapes and resources.
 
 ``python3 chip_smoke.py --calibrate-train-slice`` (and ``--calibrate-t2i-slice``,
 ``--calibrate-t2i-train-slice``, ``--calibrate-c2i-families-slice``,
 ``--calibrate-reco-slice``, ``--calibrate-vae-slice``,
-``--calibrate-uniflow-slice``) prints, on the CPU, the readings between
-which the train-slice (t2i slice, t2i train slice, c2i families slice, ReCo
-slice, VAE slice, UniFlow slice) gates sit, and no result.
+``--calibrate-uniflow-slice``, ``--calibrate-int8``) prints, on the CPU, the
+readings between which the train-slice (t2i slice, t2i train slice, c2i
+families slice, ReCo slice, VAE slice, UniFlow slice, int8) gates sit, and
+no result.
 
 Every phase prints JSON lines; a failed phase raises and the script exits
 non-zero without the last line. The last line is
@@ -1323,8 +1355,13 @@ def phase_cli(card: str, seed: int) -> dict:
         check(pred_launches["fwd"] == want and sum(pred_launches.values()) == want,
               f"cli predict launches {pred_launches}, expected {want} forward")
         check(ema_equal, "the predict's weights differ from the saved EMA")
+        del model, restores
+        torch.cuda.empty_cache()
+        int8 = cli_int8_predict(card, f"{CLI_DIR}/work_int8", f"{workdir}/checkpoints", arr)
+        adafactor = cli_adafactor_fit(card, f"{CLI_DIR}/images", f"{CLI_DIR}/work_adafactor")
         print(card, flush=True)
-        return {"fit": fit_launches, "predict": pred_launches}
+        return {"fit": fit_launches, "predict": pred_launches, "int8_predict": int8,
+                "adafactor": adafactor}
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
 
@@ -1599,12 +1636,14 @@ def phase_cli_512(card: str, seed: int) -> dict:
 
 T2I_CONFIG = "configs_t2i/sft_res512.yaml"
 T2I_DIR = "build/chip_smoke_t2i"  # git-ignored; deleted at the end of the phase
-# The t2i slice, card vs CPU, both bf16: 4 AdamLM steps of a 2 joint + 1 text
-# block DeCoT2I at full width on two canvases. On the CPU
-# (`--calibrate-t2i-slice`) its bf16 images differ from fp32 by rel L2 0.0232,
-# and zeroing every attention of the trunk moves them by 0.0755; 0.045 sits
-# between (1.9x the first, 1/1.7 of the second), so it passes rounding and
-# fails a wrong attention, as SLICE_REL_L2 does for c2i.
+# The t2i slice, the kernels against the plain attention, both on the card in
+# bf16: 4 AdamLM steps of a 2 joint + 1 text block DeCoT2I at full width on
+# two canvases. On the CPU (`--calibrate-t2i-slice`) its bf16 images differ
+# from fp32 by rel L2 0.0232, and zeroing every attention of the trunk moves
+# them by 0.0755; 0.045 sits between (1.9x the first, 1/1.7 of the second),
+# so it passes rounding and fails a wrong attention, as SLICE_REL_L2 does
+# for c2i. The reference runs on the card, not the CPU (42 s of host time
+# saved): only the attention differs, so it reads under a CPU reference.
 T2I_SLICE_REL_L2 = 0.045
 T2I_SLICE_READINGS = {"bf16_vs_fp32": 0.0232, "zero_attention_vs_bf16": 0.0755}
 T2I_SLICE = dict(num_encoder_blocks=2, num_text_blocks=1)  # full width, cut depth
@@ -1680,14 +1719,15 @@ def phase_t2i_kernel(card: str) -> dict:
     return {"max_abs_err": worst, "timings": rows}
 
 
-def t2i_slice_images(device: str, dtype=None, zero_attention: bool = False) -> list:
+def t2i_slice_images(device: str, dtype=None, attention: str = "kernel") -> list:
     """The cut-depth DeCoT2I (full width, 2 joint + 1 text blocks, seeded
     random weights) sampled with ``T2I_SLICE_STEPS`` AdamLM steps (order 2,
     CFG 4.0, time shift 3.0) on each canvas of ``T2I_CANVASES``, from seeded
     noise and seeded text embeddings (0.02 * randn, the hash encoder's scale;
     Python's salted ``hash()`` would tie the prompt to the process): the
-    final images, float32 on the CPU. ``zero_attention`` makes every
-    attention of the trunk return zeros (the reading that sets the gate)."""
+    final images, float32 on the CPU. ``attention`` "plain" runs every
+    attention through the plain version, "zero" returns zeros (the reading
+    that sets the gate)."""
     import torch
 
     from deco_tpu_torch.diffusion.adam_sampling import AdamLMSampler
@@ -1695,6 +1735,7 @@ def t2i_slice_images(device: str, dtype=None, zero_attention: bool = False) -> l
     from deco_tpu_torch.models import layers
     from deco_tpu_torch.models.dit_c2i_deco import init_random_
     from deco_tpu_torch.models.dit_t2i import DeCoT2I
+    from deco_tpu_torch.ops import flash_attention as fa
 
     model = init_random_(DeCoT2I(**T2I_SLICE, dtype=dtype or torch.bfloat16, device=device),
                          seed=1).eval()
@@ -1704,8 +1745,10 @@ def t2i_slice_images(device: str, dtype=None, zero_attention: bool = False) -> l
     cond = (torch.randn(1, 128, 2048, generator=gen) * 0.02).to(torch.bfloat16).to(device)
     uncond = (torch.randn(1, 128, 2048, generator=gen) * 0.02).to(torch.bfloat16).to(device)
     saved = layers.sdpa
-    if zero_attention:
+    if attention == "zero":
         layers.sdpa = lambda q, k, v, mask=None, causal=False: torch.zeros_like(q)
+    elif attention == "plain":
+        layers.sdpa = lambda q, k, v, mask=None, causal=False: fa.flash_attention_plain(q, k, v)
     try:
         images = []
         for h, w in T2I_CANVASES:
@@ -1732,7 +1775,7 @@ def calibrate_t2i_slice() -> None:
 
     fp32 = t2i_slice_images("cpu", torch.float32)
     bf16 = t2i_slice_images("cpu")
-    zero = t2i_slice_images("cpu", zero_attention=True)
+    zero = t2i_slice_images("cpu", attention="zero")
     emit({"phase": "calibrate_t2i_slice", "bf16_vs_fp32_rel_l2": _rel_l2_images(bf16, fp32),
           "zero_attention_vs_bf16_rel_l2": _rel_l2_images(zero, bf16)})
 
@@ -1741,27 +1784,29 @@ def phase_t2i_slice():
     from deco_tpu_torch.ops.flash_attention import flash_attention
 
     results = {}
-    for device in ("cuda", "cpu"):
+    for attention in ("kernel", "plain"):
         before = flash_attention.launches
         t0 = time.perf_counter()
-        results[device] = t2i_slice_images(device)
-        results[device + "_s"] = time.perf_counter() - t0
-        results[device + "_launches"] = flash_attention.launches - before
-    rel_l2 = _rel_l2_images(results["cuda"], results["cpu"])
+        results[attention] = t2i_slice_images("cuda", attention=attention)
+        results[attention + "_s"] = time.perf_counter() - t0
+        results[attention + "_launches"] = flash_attention.launches - before
+    rel_l2 = _rel_l2_images(results["kernel"], results["plain"])
     per_canvas = [_rel_l2(a.reshape(-1), b.reshape(-1))
-                  for a, b in zip(results["cuda"], results["cpu"])]
+                  for a, b in zip(results["kernel"], results["plain"])]
     want = len(T2I_CANVASES) * T2I_SLICE_STEPS * 3  # 2 joint + 1 text attention a call
     emit({"phase": "t2i_slice_vs_plain", **T2I_SLICE, "steps": T2I_SLICE_STEPS,
-          "canvases": T2I_CANVASES, "rel_l2": rel_l2, "rel_l2_per_canvas": per_canvas,
+          "canvases": T2I_CANVASES, "reference": "the plain attention on the card",
+          "rel_l2": rel_l2, "rel_l2_per_canvas": per_canvas,
           "rel_l2_limit": T2I_SLICE_REL_L2, "calibration": T2I_SLICE_READINGS,
-          "cuda_flash_launches": results["cuda_launches"],
-          "cpu_flash_launches": results["cpu_launches"], "cuda_s": results["cuda_s"],
-          "cpu_s": results["cpu_s"]})
-    check(all(bool(x.isfinite().all()) for x in results["cuda"]), "t2i slice images not finite")
-    check(results["cuda_launches"] == want,
-          f"t2i slice launched {results['cuda_launches']} kernels, expected {want}")
-    check(results["cpu_launches"] == 0, "the CPU t2i slice launched a kernel")
-    check(rel_l2 < T2I_SLICE_REL_L2, f"t2i slice card vs CPU rel L2 {rel_l2} >= "
+          "kernel_flash_launches": results["kernel_launches"],
+          "plain_flash_launches": results["plain_launches"], "kernel_s": results["kernel_s"],
+          "plain_s": results["plain_s"]})
+    check(all(bool(x.isfinite().all()) for x in results["kernel"]),
+          "t2i slice images not finite")
+    check(results["kernel_launches"] == want,
+          f"t2i slice launched {results['kernel_launches']} kernels, expected {want}")
+    check(results["plain_launches"] == 0, "the plain t2i slice launched a kernel")
+    check(rel_l2 < T2I_SLICE_REL_L2, f"t2i slice kernel vs plain rel L2 {rel_l2} >= "
                                      f"{T2I_SLICE_REL_L2}")
 
 
@@ -1798,7 +1843,7 @@ def _t2i_call_breakdown(pipe, rows: int, wall_ms: float) -> dict:
             "attention_kernels": len(attention), "by_kind_ms": kinds}
 
 
-def phase_t2i_serve(card: str) -> int:
+def phase_t2i_serve(card: str) -> dict:
     """``serve.load_pipeline(sft_res512.yaml)`` at full width (DeCo-XXL/16,
     random init_like_jax_ weights, the hash text encoder): 2 prompts at
     512x512, 25 AdamLM steps, order 2, CFG 4.0, time shift 3.0, with
@@ -1896,7 +1941,7 @@ def phase_t2i_serve(card: str) -> int:
               "serve.main outputs")
         check(flash_attention.launches == 20 * steps, "serve.main launches")
         print(card, flush=True)
-        return calls[-1]["launches"]
+        return {"launches": calls[-1]["launches"], "s_per_image": calls[-1]["s_per_image"]}
     finally:
         shutil.rmtree(T2I_DIR, ignore_errors=True)
 
@@ -1953,14 +1998,16 @@ def phase_t2i_predict(card: str) -> int:
 T2I_TRAIN_SHAPES = {"joint": (16, 1024, 1152, 24, 64), "ragged": (16, 1020, 1148, 24, 64),
                     "text": (16, 128, 128, 24, 64)}
 # The one-step t2i train slice (2 joint + 1 text blocks at full width, batch
-# 2 at 512 px), card vs CPU, both bf16 compute with fp32 parameters. The
+# 2 at 512 px), the kernels against the plain attention (autograd), both on
+# the card in bf16 compute with fp32 parameters (a CPU reference took 24 s
+# of host time). The
 # gates sit between the CPU readings of --calibrate-t2i-train-slice (bf16 vs
 # fp32, and a zeroed attention backward vs bf16; T2I_TRAIN_SLICE_READINGS),
 # set before the first card run: the gradients of all parameters and, by
 # name, of the text side (every kv_y, the y_embedder), which only the text
 # half of dK/dV reaches. The loss, which the backward cannot move, is held to
-# 10x its bf16-vs-fp32 reading. Two independent bf16 roundings (card, CPU)
-# should read ~1.4x the bf16-vs-fp32 numbers.
+# 10x its bf16-vs-fp32 reading. Two independent bf16 roundings of the
+# attention alone should read under the bf16-vs-fp32 numbers.
 T2I_TRAIN_SLICE_GATES = {"loss_rel": 8e-3, "all": 0.015, "kv_y": 0.05, "y_embedder": 0.05}
 T2I_TRAIN_SLICE_READINGS = {
     "bf16_vs_fp32": {"loss_rel": 7.6e-4, "all": 0.0043, "kv_y": 0.0079, "y_embedder": 0.0081},
@@ -1996,7 +2043,8 @@ def phase_t2i_train_kernels(card: str) -> dict:
     return {"errs": errs, "timings": timings}
 
 
-def t2i_train_slice_step(device: str, dtype=None, zero_attention_backward: bool = False):
+def t2i_train_slice_step(device: str, dtype=None, zero_attention_backward: bool = False,
+                         plain_attention: bool = False):
     """One sft_res512.yaml training step (its DeCoTrainer, AdamW and
     gradient clip) of the cut-depth DeCoT2I (2 joint + 1 text blocks, full
     width, fp32 parameters, seeded random weights) at batch 2 on 512x512:
@@ -2004,10 +2052,12 @@ def t2i_train_slice_step(device: str, dtype=None, zero_attention_backward: bool 
     The batch, the text embeddings (0.02 * randn, the hash encoder's
     scale) and the draws (one row's condition dropped, both t branches) come
     from fixed seeds; ``zero_attention_backward`` makes the attention
-    backward return zeros (the reading that sets the gates)."""
+    backward return zeros (the reading that sets the gates),
+    ``plain_attention`` runs every attention through the plain version."""
     import torch
 
     from deco_tpu_torch.config import registry
+    from deco_tpu_torch.models import layers
     from deco_tpu_torch.models.dit_c2i_deco import init_random_
     from deco_tpu_torch.models.dit_t2i import DeCoT2I
     from deco_tpu_torch.ops import flash_attention as fa
@@ -2029,13 +2079,16 @@ def t2i_train_slice_step(device: str, dtype=None, zero_attention_backward: bool 
                  t_uniform=rng.uniform(size=2).astype(np.float32),
                  mix_u=np.array([0.5, 0.95], np.float32),  # both t branches
                  noise=rng.standard_normal((2, 512, 512, 3)).astype(np.float32))
-    saved = fa.flash_attention_bwd
+    saved, kernel = fa.flash_attention_bwd, layers.flash_attention
     if zero_attention_backward:
         fa.flash_attention_bwd = lambda q, k, v, *_: tuple(map(torch.zeros_like, (q, k, v)))
+    if plain_attention:
+        layers.flash_attention = lambda q, k, v, scale=None, causal=False: (
+            fa.flash_attention_plain(q, k, v, scale, causal=causal))
     try:
         metrics = step(state, batch, draws=[draws])
     finally:
-        fa.flash_attention_bwd = saved
+        fa.flash_attention_bwd, layers.flash_attention = saved, kernel
     named = [(n, p.grad.reshape(-1).float().cpu()) for n, p in model.named_parameters()]
     groups = {"all": torch.cat([g for _, g in named]),
               "kv_y": torch.cat([g for n, g in named if ".attn.kv_y." in n]),
@@ -2061,27 +2114,31 @@ def calibrate_t2i_train_slice() -> None:
 
 
 def phase_t2i_train_slice():
+    import torch
+
     from deco_tpu_torch.ops import flash_attention as fa
 
     kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
     results = {}
-    for device in ("cuda", "cpu"):
+    for attention in ("kernel", "plain"):
         before = [f.launches for f in kernels]
         t0 = time.perf_counter()
-        results[device] = t2i_train_slice_step(device)
-        results[device + "_s"] = time.perf_counter() - t0
-        results[device + "_launches"] = [f.launches - n for f, n in zip(kernels, before)]
-    row = _t2i_slice_rows(results["cuda"], results["cpu"])
+        results[attention] = t2i_train_slice_step("cuda", plain_attention=attention == "plain")
+        results[attention + "_s"] = time.perf_counter() - t0
+        results[attention + "_launches"] = [f.launches - n for f, n in zip(kernels, before)]
+        torch.cuda.empty_cache()
+    row = _t2i_slice_rows(results["kernel"], results["plain"])
     emit({"phase": "t2i_train_slice_vs_plain", **T2I_SLICE, "batch": 2, "size": [512, 512],
-          "loss": results["cuda"][0], "loss_cpu": results["cpu"][0], **row,
+          "reference": "the plain attention on the card", "loss": results["kernel"][0],
+          "loss_plain": results["plain"][0], **row,
           "limits": T2I_TRAIN_SLICE_GATES, "calibration": T2I_TRAIN_SLICE_READINGS,
-          "cuda_launches_fwd_lse_dq_dkv": results["cuda_launches"],
-          "cpu_launches": results["cpu_launches"], "cuda_s": results["cuda_s"],
-          "cpu_s": results["cpu_s"]})
-    check(all(np.isfinite([results["cuda"][0], results["cpu"][0]])), "t2i train slice loss")
-    check(results["cuda_launches"] == [3, 3, 3],
-          f"t2i train slice launches {results['cuda_launches']}, expected [3, 3, 3]")
-    check(results["cpu_launches"] == [0, 0, 0], "the CPU t2i train slice launched a kernel")
+          "kernel_launches_fwd_lse_dq_dkv": results["kernel_launches"],
+          "plain_launches": results["plain_launches"], "kernel_s": results["kernel_s"],
+          "plain_s": results["plain_s"]})
+    check(all(np.isfinite([results["kernel"][0], results["plain"][0]])), "t2i train slice loss")
+    check(results["kernel_launches"] == [3, 3, 3],
+          f"t2i train slice launches {results['kernel_launches']}, expected [3, 3, 3]")
+    check(results["plain_launches"] == [0, 0, 0], "the plain t2i train slice launched a kernel")
     for key, limit in T2I_TRAIN_SLICE_GATES.items():
         check(row[key] < limit, f"t2i train slice {key} {row[key]} >= {limit}")
 
@@ -3694,10 +3751,10 @@ UNIFLOW_TOWER, UNIFLOW_SHALLOW, UNIFLOW_TRUNK = 24, 4, 6
 # The UniFlow slice: the full widths with the InternViT cut to 2 layers, the
 # shallow ViT to 1 and each trunk to 1 block, batch 2 at 224 px, bf16
 # compute with fp32 parameters, the same weights, images and draws on the
-# card (the kernels) and on the CPU (the plain versions). The gates are 2x
-# the CPU reading of bf16 against fp32 compute (--calibrate-uniflow-slice,
-# UNIFLOW_SLICE_READINGS), set before the first card run: card against CPU
-# changes only roundings, so it should read under bf16 vs fp32, while a
+# card with the kernels and with the plain attention. The gates are 2x the
+# CPU reading of bf16 against fp32 compute (--calibrate-uniflow-slice,
+# UNIFLOW_SLICE_READINGS): kernel against plain changes only the
+# attention's roundings, so it should read under bf16 vs fp32, while a
 # zeroed attention reads 4-100x over each gradient gate. The loss terms,
 # which the attention hardly moves at random weights (the zeroed reading is
 # under the bf16 one), are held to 10x their bf16-vs-fp32 readings.
@@ -3748,8 +3805,9 @@ def _uniflow_slice_model(device: str, dtype: str = "bfloat16"):
 def uniflow_slice_step(device: str, dtype: str = "bfloat16", attention: str = "kernel") -> dict:
     """One ``forward_loss`` and its gradients of the slice model at batch 2
     (224 px) with fixed images and draws: the five loss terms and the
-    gradients by group, on the CPU in fp32. ``attention`` "zero" gives zeros
-    for every attention (the calibration's yardstick)."""
+    gradients by group, on the CPU in fp32. ``attention`` "plain" runs every
+    attention through the plain version (autograd), "zero" gives zeros for
+    every attention (the calibration's yardstick)."""
     import torch
 
     from deco_tpu_torch.models import layers
@@ -3768,6 +3826,11 @@ def uniflow_slice_step(device: str, dtype: str = "bfloat16", attention: str = "k
     kernel = layers.flash_attention
     if attention == "zero":
         layers.flash_attention = lambda q, k, v, scale=None, causal=False: torch.zeros_like(q)
+    elif attention == "plain":
+        from deco_tpu_torch.ops.flash_attention import flash_attention_plain
+
+        layers.flash_attention = lambda q, k, v, scale=None, causal=False: (
+            flash_attention_plain(q, k, v, scale, causal=causal))
     try:
         losses = model.forward_loss(x, draws=d)
         losses["loss"].backward()
@@ -3886,14 +3949,20 @@ def phase_uniflow_kernels(card: str) -> dict:
 
 
 def phase_uniflow_slice() -> dict:
-    """The UniFlow slice, the card's kernels against the CPU's plain versions."""
+    """The UniFlow slice, the card's kernels against the plain attention on
+    the card (not the CPU: host time; only the attention differs, so the
+    gates, set from the CPU readings, still sit between rounding and a wrong
+    attention)."""
     import torch
 
     _reset_launches()
     card = uniflow_slice_step("cuda")
     launches = _uniflow_launches()
     torch.cuda.empty_cache()
-    cpu = uniflow_slice_step("cpu")
+    _reset_launches()
+    cpu = uniflow_slice_step("cuda", attention="plain")
+    plain_launches = _uniflow_launches()
+    torch.cuda.empty_cache()
     row = _uniflow_slice_rows(card, cpu)
     layers = UNIFLOW_SLICE["num_hidden_layers"] + UNIFLOW_SLICE_SHALLOW + UNIFLOW_SLICE[
         "global_blocks_depth"]
@@ -3902,12 +3971,14 @@ def phase_uniflow_slice() -> dict:
           "cut": {**UNIFLOW_SLICE, "shallow_layers": UNIFLOW_SLICE_SHALLOW}, "batch": 2,
           "image_size": 224, **row, "gates": UNIFLOW_SLICE_GATES,
           "cpu_readings": UNIFLOW_SLICE_READINGS, "losses": card["losses"],
-          "cpu_losses": cpu["losses"], "launches": launches,
+          "reference": "the plain attention on the card", "plain_losses": cpu["losses"],
+          "launches": launches,
           "params_with_grad": int(card["grads"].numel())})
     check(all(np.isfinite(list(card["losses"].values()))), f"uniflow slice {card['losses']}")
     want = {**{k: 0 for k in launches}, "fwd_lse": layers, "bwd_dq": layers, "bwd_dkv": layers,
             "fwd_lse_causal": causal, "bwd_dq_causal": causal, "bwd_dkv_causal": causal}
     check(launches == want, f"uniflow slice launches {launches}, expected {want}")
+    check(not any(plain_launches.values()), f"the plain uniflow slice launched {plain_launches}")
     for key, limit in UNIFLOW_SLICE_GATES.items():
         check(row[key] < limit, f"uniflow slice {key} {row[key]} >= {limit}")
     return row
@@ -4254,9 +4325,11 @@ JPEG_TIMING_ROUNDS = 3  # decodes of each fixture for the host's ms per megapixe
 JPEG_T2I_COPIES = 8  # 8 fixtures x 8 = 64 JPEG + caption pairs for the t2i fit
 JPEG_UNIFLOW_CONFIG = "configs_flow/uniflow_internvit_2b_blip3o.yaml"
 JPEG_UNIFLOW_COPIES = 8  # 64 JPEG members in the webdataset tar
-# the JPEG t2i fit's encoder blocks (of 16): phase 12 fits the full depth,
-# phase 17 measures the decoder and the reader
+# the JPEG t2i fit's encoder blocks (of 16) and microbatches a step (of 4):
+# phase 12 fits the full depth and batch, phase 17 measures the decoder and
+# the reader, whose items hold the step (6.7 s a step of 64 items)
 JPEG_T2I_BLOCKS = 4
+JPEG_T2I_ACCUMULATION = 1
 
 
 def jpeg_fixture_folder(root: str, fixtures: str = JPEG_FIXTURES) -> int:
@@ -4522,10 +4595,10 @@ def _jpeg_fit(name: str, argv: list, card: str, workdir: str, batch: int, expect
 def phase_jpeg(card: str, seed: int) -> dict:
     """Phase 17: JPEG data on the card's path. ``jpeg_decode`` (see
     :func:`phase_jpeg_decode`); ``jpeg_t2i_fit``: ``cli fit -c
-    configs_t2i/sft_res512.yaml`` as shipped (DeCo-XXL/16, batch 16 x
-    accumulation 4, 512 px, full width and depth) but for its folder, 64
-    JPEG + caption pairs read by ``ImageText``, and its work directory, 3
-    steps; ``jpeg_uniflow_fit``: ``cli fit`` on
+    configs_t2i/sft_res512.yaml`` as shipped (DeCo-XXL/16, batch 16, 512 px,
+    full width) but for its folder, 64 JPEG + caption pairs read by
+    ``ImageText``, its work directory, its depth (``JPEG_T2I_BLOCKS``) and
+    its accumulation (``JPEG_T2I_ACCUMULATION``), 3 steps; ``jpeg_uniflow_fit``: ``cli fit`` on
     uniflow_internvit_2b_blip3o.yaml as shipped (448 px, batch 16,
     ``random_crop`` and ``random_flip``) but for its tar of 64 JPEG members
     and its work directory, 3 steps with the causal launches counted. Both
@@ -4546,7 +4619,7 @@ def phase_jpeg(card: str, seed: int) -> dict:
     accum = t2i_config["trainer"]["accumulate_grad_batches"]
     check((denoiser["num_encoder_blocks"] + denoiser["num_text_blocks"]) * accum
           == T2I_FIT_LAUNCHES["fwd_lse"], f"{T2I_CONFIG}: its depth changed")
-    t2i_step = {k: (JPEG_T2I_BLOCKS + denoiser["num_text_blocks"]) * accum
+    t2i_step = {k: (JPEG_T2I_BLOCKS + denoiser["num_text_blocks"]) * JPEG_T2I_ACCUMULATION
                 for k in ("fwd_lse", "bwd_dq", "bwd_dkv")}
     layers = UNIFLOW_TOWER + UNIFLOW_SHALLOW + UNIFLOW_TRUNK
     uniflow_step = {"fwd_lse": layers, "bwd_dq": layers, "bwd_dkv": layers,
@@ -4554,12 +4627,12 @@ def phase_jpeg(card: str, seed: int) -> dict:
                     "bwd_dkv_causal": UNIFLOW_TRUNK}
     try:
         images = write_jpeg_caption_folder(f"{JPEG_DIR}/t2i", seed)
-        batch = t2i_config["data"]["train_batch_size"] * t2i_config["trainer"][
-            "accumulate_grad_batches"]
+        batch = t2i_config["data"]["train_batch_size"] * JPEG_T2I_ACCUMULATION
         workroot = f"{JPEG_DIR}/work_t2i"
         t2i = _jpeg_fit("jpeg_t2i_fit", [
             "fit", "-c", T2I_CONFIG, f"--data.train_dataset.init_args.root={JPEG_DIR}/t2i",
             f"--model.denoiser.init_args.num_encoder_blocks={JPEG_T2I_BLOCKS}",
+            f"--trainer.accumulate_grad_batches={JPEG_T2I_ACCUMULATION}",
             f"--trainer.default_root_dir={workroot}", "--max_steps", str(T2I_FIT_STEPS),
             "--trainer.log_every_n_steps=1"], card, f"{workroot}/sftpix512ema", batch,
             t2i_step, (image_txt.ImageText, "__getitem__"), T2I_FIT_STEPS, config=T2I_CONFIG,
@@ -4932,6 +5005,509 @@ def phase_uniflow_distill(card: str, seed: int) -> dict:
         shutil.rmtree(DISTILL_DIR, ignore_errors=True)
 
 
+# ---- int8: W8A8 serving of DeCoC2I and DeCoT2I (ops/quant.py) ----
+
+# The trunk products of DeCo-XL/16 at the CFG batch of 8 (16 rows x 256
+# tokens) and of DeCo-XXL/16 at a serve call of 2 prompts with CFG (4 rows x
+# 1,024 image tokens, 4 x 128 text tokens): (name, rows, K, N)
+INT8_GEMM_SHAPES = (
+    ("c2i_qkv", 4096, 1152, 3456), ("c2i_proj", 4096, 1152, 1152),
+    ("c2i_w13", 4096, 1152, 6144), ("c2i_w2", 4096, 3072, 1152),
+    ("t2i_qkv_x", 4096, 1536, 4608), ("t2i_kv_y", 512, 1536, 3072),
+    ("t2i_proj", 4096, 1536, 1536), ("t2i_w12", 4096, 1536, 12288),
+    ("t2i_w3", 4096, 6144, 1536), ("t2i_text_qkv", 512, 1536, 4608),
+)
+# int8 products a network call: DeCo-XL/16's 28 blocks x (qkv, proj, w13, w2);
+# DeCo-XXL/16's 4 text blocks x (qkv, proj, w12, w3) + 16 joint blocks x
+# (qkv_x, kv_y, proj, w12, w3)
+INT8_C2I_PER_CALL = 28 * 4
+INT8_T2I_PER_CALL = 4 * 4 + 16 * 5
+# The cut-depth int8 slice (4 of 28 trunk blocks at full width, 8 CFG steps
+# of batch 2, phase 5's): the card's int8 against the CPU's int8. The CPU
+# readings (--calibrate-int8 at 4 blocks; the same slice at 2, 8 and 12
+# blocks by hand, INT8_READINGS), set before the first card run: int8 moves
+# the images from bf16 by rel L2 0.011-0.019, growing slowly with depth,
+# where a stale cache (quantised from other weights) moves them by
+# 0.20-0.40, and bf16 differs from fp32 by 0.009. Card against CPU in int8
+# is bf16 rounding on each side (activation codes that round the other
+# way follow from it): phase 5's SLICE_REL_L2, 0.03, passes it and fails a
+# stale cache 8x over. Whether int8 ran at all is the launch counts' to
+# say: int8 against bf16 reads too close to rounding for a gate. The full
+# depth (28 blocks, 50 steps, batch 8): int8 against bf16 must be > 0 (int8
+# ran) and under 0.1, 3-5x the extrapolated 0.02-0.03 and under a stale
+# cache's reading at 12 blocks by 4x.
+INT8_SLICE = dict(num_cond_blocks=4, num_blocks=7)
+INT8_SLICE_STEPS = 8
+INT8_READINGS = {"int8_vs_bf16_by_blocks": {2: 0.0112, 4: 0.0125, 8: 0.0169, 12: 0.0188},
+                 "stale_cache_vs_int8_by_blocks": {2: 0.198, 4: 0.256, 8: 0.369, 12: 0.397},
+                 "bf16_vs_fp32": 0.0090}
+INT8_GATES = {"card_vs_cpu_rel_l2": 0.03, "sample_rel_l2": 0.1}
+# the full-width MSDCN of the check: DeCo-XL/16's token grid and width,
+# 16 groups of 72 channels, 9 points (the reference's defaults at this width)
+MSDCN_SHAPE = dict(batch=8, grid=16, dim=1152, groups=16, channels=72, kernels=9)
+# fp32 on both sides, TF32 off: the card's and the CPU's sums differ in order
+# (~1e-7 relative), and the bilinear weights of a point that lands within an
+# ulp of a pixel edge may take the other pixel; 1e-4 passes that and fails a
+# wrong corner or a wrong prior (O(1e-1)).
+MSDCN_REL = 1e-4
+# one Adafactor step on the card against the same step on the CPU from the
+# same parameters, gradients and state, fp32. The second moments it keeps
+# (v_row, v_col, v) are sums taken in other orders: ~1e-7 relative, held to
+# 1e-5. The update is read as the parameters' change, and each parameter
+# rounds p - u to its own ulp, ~6e-4 of an update of 1e-4 of it: an element
+# that rounds the other way on one side moves it by that much (the card
+# reads ~2e-5 over the whole update). 1e-3 passes that and fails a swapped
+# factor, a missing clip or parameter scale (O(1e-1) or more).
+ADAFACTOR_STATE_REL = 1e-5
+ADAFACTOR_UPDATE_REL = 1e-3
+
+
+def _int8_peak(card: str) -> float:
+    """Dense int8 operations a second: twice the card's bf16 rate (the H100's
+    published 1,979 TOP/s against 989 TFLOP/s)."""
+    from deco_tpu_torch.utils.flops import card_peaks
+
+    return 2 * card_peaks(card)[0]
+
+
+def phase_int8_gemm(card: str) -> dict:
+    """The library int8 product (``torch._int_mm`` through ``ops/quant.int8_mm``)
+    at the trunk shapes: exact against the CPU's int32 product, a 3-row call
+    through the padding, and its time beside the bf16 product of the same
+    shape, the quantisation and the rescale around it, and its bound (the
+    operations at the int8 rate, or the bytes: int8 in, int32 out)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deco_tpu_torch.ops import quant
+    from deco_tpu_torch.utils.flops import card_peaks
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    peak_bytes = card_peaks(card)[1]
+    rows = {}
+    for name, m, k, n in INT8_GEMM_SHAPES:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5).to(torch.bfloat16)
+        wq, ws = quant.quantize_weight(w)
+        xq, xs = quant.quantize_rowwise(x)
+        acc = quant.int8_mm(xq, wq)
+        if name == "c2i_qkv":
+            check(torch.equal(acc.cpu(), torch._int_mm(xq.cpu(), wq.cpu().t())),
+                  "int8 GEMM differs from the CPU's int32 product")
+            check(torch.equal(quant.int8_mm(xq[:3], wq).cpu(), acc[:3].cpu()),
+                  "the padded 3-row int8 GEMM differs")
+        ops = 2.0 * m * k * n
+        int8_bytes = m * k + n * k + 4 * m * n
+        bf16_bytes = 2 * (m * k + n * k + m * n)
+        rows[name] = {
+            "m_k_n": [m, k, n],
+            "int_mm_ms": cuda_ms(lambda: quant.int8_mm(xq, wq), 30, flush),
+            "bf16_matmul_ms": cuda_ms(lambda: F.linear(x, w), 30, flush),
+            "quantize_ms": cuda_ms(lambda: quant.quantize_rowwise(x), 30, flush),
+            "rescale_ms": cuda_ms(lambda: (acc.float() * xs * ws).to(torch.bfloat16), 30, flush),
+            "int8_linear_ms": cuda_ms(
+                lambda: quant.int8_matmul_prequant(x, wq, ws).to(torch.bfloat16), 30, flush),
+            "bound_ms": max(ops / _int8_peak(card), int8_bytes / peak_bytes) * 1e3,
+            "bound_by": "operations" if ops / _int8_peak(card) > int8_bytes / peak_bytes
+            else "bytes",
+            "bf16_bound_ms": max(ops / card_peaks(card)[0], bf16_bytes / peak_bytes) * 1e3}
+        emit({"phase": "int8_gemm", "shape": name, **rows[name], "l2": "flushed before each call",
+              "card": card})
+    return rows
+
+
+def _kernels_under(ev) -> list:
+    return list(ev.kernels) + [k for ch in ev.cpu_children for k in _kernels_under(ch)]
+
+
+def int8_call_breakdown(model, batch: int) -> dict:
+    """Device time of one CFG network call of DeCo-XL/16 (``2 * batch`` rows)
+    by kind: the int8 GEMM (the kernels under ``aten::_int_mm``), the
+    activation quantisation and the rescale (the kernels under
+    ``ops/quant``'s ranges), the other GEMMs, the attention, the rest;
+    the wall time without the profiler (median of 5)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(2 * batch, 256, 256, 3, generator=gen, device="cuda")
+    t = torch.full((2 * batch,), 0.5, device="cuda")
+    y = torch.arange(2 * batch, device="cuda")
+
+    def call():
+        with torch.no_grad():
+            model(x, t, y)
+        torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        call()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+    events = prof.events()
+    kinds = dict.fromkeys(("int8_gemm", "quantize_rescale", "other_gemm", "attention",
+                           "other"), 0.0)
+    int8_kernels, ranged = set(), set()
+    for ev in events:
+        if ev.device_type != DeviceType.CPU:
+            continue
+        if ev.name == "aten::_int_mm":
+            for k in _kernels_under(ev):
+                int8_kernels.add(k.name)
+                kinds["int8_gemm"] += k.duration / 1e3
+        elif ev.name in ("int8_quantize", "int8_rescale"):
+            for k in _kernels_under(ev):
+                ranged.add(k.name)
+                kinds["quantize_rescale"] += k.duration / 1e3
+    count = 0
+    for ev in events:
+        # the ranges' own spans on the device timeline enclose kernels counted already
+        if ev.device_type != DeviceType.CUDA or ev.name in ("int8_quantize", "int8_rescale"):
+            continue
+        count += 1
+        ms = ev.time_range.elapsed_us() / 1e3
+        kind = _kernel_kind(ev.name)
+        if ev.name in int8_kernels:
+            continue
+        if kind.startswith("attention"):
+            kinds["attention"] += ms
+        elif kind == "gemm":
+            kinds["other_gemm"] += ms
+        else:
+            kinds["other"] += ms
+    kinds["other"] -= kinds["quantize_rescale"]
+    wall_ms = float(np.median(walls[1:]))
+    busy = sum(kinds.values())
+    return {"rows": 2 * batch, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms, "kernels": count, "by_kind_ms": kinds,
+            "int8_gemm_kernels": sorted(n[:80] for n in int8_kernels)}
+
+
+def phase_int8_sample(card: str) -> dict:
+    """Full-width DeCo-XL/16 sampled at batch 8, 256 px, 50 Euler steps, CFG
+    3.2 on (0.1, 1], through ``sample.generate``, in bf16 and in int8 from
+    the same weights and noise, alternately (bf16, int8, int8, bf16)."""
+    import torch
+
+    from deco_tpu_torch.ops import quant
+    from deco_tpu_torch.ops.flash_attention import flash_attention
+    from deco_tpu_torch.sample import build_model, build_sampler, generate
+
+    batch, steps = 8, 50
+    models = {"bf16": build_model("deco_xl_256", device="cuda", seed=0),
+              "int8": build_model("deco_xl_256", device="cuda", seed=0, quantize="int8")}
+    same = all(torch.equal(a, b) for a, b in zip(models["bf16"].state_dict().values(),
+                                                 models["int8"].state_dict().values()))
+    check(same, "the int8 model's weights differ from the bf16 model's")
+    quant.refresh_quant_cache(models["int8"])
+    check(models["int8"].blocks[0].mlp.w13_q is not None, "no int8 cache")
+    sampler = build_sampler("deco_xl_256", steps)
+    for model in models.values():
+        generate(model, build_sampler("deco_xl_256", 2), batch, batch, 256)  # warm-up
+    runs, images = {"bf16": [], "int8": []}, {}
+    for mode in ("bf16", "int8", "int8", "bf16"):
+        flash_attention.launches = quant.int8_mm.launches = 0
+        t0 = time.perf_counter()
+        images[mode] = generate(models[mode], sampler, batch, batch, image_size=256)
+        seconds = time.perf_counter() - t0  # ends in a copy to the host
+        runs[mode].append({"seconds": seconds, "images_per_s": batch / seconds,
+                           "attention_launches": flash_attention.launches,
+                           "int8_gemm_launches": quant.int8_mm.launches})
+    rel_l2 = _rel_l2(images["int8"], images["bf16"])
+    breakdown = {mode: int8_call_breakdown(model, batch) for mode, model in models.items()}
+    row = {"phase": "int8_sample", "batch": batch, "steps": steps, "runs": runs,
+           "images_per_s": {m: float(np.median([r["images_per_s"] for r in v]))
+                            for m, v in runs.items()},
+           "int8_vs_bf16_rel_l2": rel_l2, "rel_l2_limit": INT8_GATES.get("sample_rel_l2"),
+           "calibration": INT8_READINGS, "one_network_call": breakdown, "card": card}
+    emit(row)
+    check(all(bool(torch.isfinite(x).all()) for x in images.values()), "int8 images not finite")
+    want = {"bf16": (28 * steps, 0), "int8": (28 * steps, INT8_C2I_PER_CALL * steps)}
+    for mode, v in runs.items():
+        got = [(r["attention_launches"], r["int8_gemm_launches"]) for r in v]
+        check(all(g == want[mode] for g in got),
+              f"{mode} sampling launches {got}, expected {want[mode]}")
+    check(0 < rel_l2 < INT8_GATES["sample_rel_l2"],
+          f"int8 vs bf16 images rel L2 {rel_l2}, gate (0, {INT8_GATES['sample_rel_l2']})")
+    return {"launches": runs["int8"][0]["attention_launches"],
+            "images_per_s": row["images_per_s"]}
+
+
+def int8_slice_images(device: str, quantize="int8", dtype=None, stale: bool = False):
+    """The cut-depth DeCo-XL/16 (``INT8_SLICE``, full width, seed 1) sampled
+    with ``INT8_SLICE_STEPS`` CFG steps at batch 2 (phase 5's slice), with
+    its int8 cache built from its weights, or from other weights (``stale``:
+    the yardstick of a wrong cache); the images on the CPU."""
+    import torch
+
+    from deco_tpu_torch.models.dit_c2i_deco import init_random_
+    from deco_tpu_torch.ops import quant
+    from deco_tpu_torch.sample import build_model, build_sampler, generate
+
+    model = build_model("deco_xl_256", device=device, dtype=dtype or torch.bfloat16, seed=1,
+                        quantize=quantize, **INT8_SLICE)
+    if stale:
+        quant.refresh_quant_cache(init_random_(model, 2))
+        init_random_(model, 1)
+    else:
+        quant.refresh_quant_cache(model)
+    return generate(model, build_sampler("deco_xl_256", INT8_SLICE_STEPS), 2, 2, 256,
+                    device=device)
+
+
+def calibrate_int8() -> None:
+    """On the CPU, the cut-depth slice's readings behind INT8_GATES: int8 vs
+    bf16, bf16 vs fp32, and a stale cache vs int8."""
+    import torch
+
+    int8 = int8_slice_images("cpu")
+    bf16 = int8_slice_images("cpu", None)
+    emit({"phase": "calibrate_int8", **INT8_SLICE, "steps": INT8_SLICE_STEPS,
+          "int8_vs_bf16_rel_l2": _rel_l2(int8, bf16),
+          "bf16_vs_fp32_rel_l2": _rel_l2(bf16, int8_slice_images("cpu", None, torch.float32)),
+          "stale_cache_vs_int8_rel_l2": _rel_l2(int8_slice_images("cpu", stale=True), int8)})
+
+
+def phase_int8_slice() -> dict:
+    """The cut-depth int8 slice, the card against the CPU."""
+    from deco_tpu_torch.ops import quant
+    from deco_tpu_torch.ops.flash_attention import flash_attention
+
+    flash_attention.launches = quant.int8_mm.launches = 0
+    t0 = time.perf_counter()
+    card = int8_slice_images("cuda")
+    card_s = time.perf_counter() - t0
+    launches = [flash_attention.launches, quant.int8_mm.launches]
+    t0 = time.perf_counter()
+    cpu = int8_slice_images("cpu")
+    cpu_s = time.perf_counter() - t0
+    rel_l2 = _rel_l2(card, cpu)
+    blocks = INT8_SLICE["num_cond_blocks"]
+    want = [blocks * INT8_SLICE_STEPS, 4 * blocks * INT8_SLICE_STEPS]
+    emit({"phase": "int8_slice_vs_cpu", **INT8_SLICE, "steps": INT8_SLICE_STEPS, "batch": 2,
+          "rel_l2": rel_l2, "rel_l2_limit": INT8_GATES["card_vs_cpu_rel_l2"],
+          "calibration": INT8_READINGS, "launches_attention_int8": launches,
+          "cuda_s": card_s, "cpu_s": cpu_s})
+    check(bool(card.isfinite().all()), "int8 slice images not finite")
+    check(launches == want, f"int8 slice launches {launches}, expected {want}")
+    check(rel_l2 < INT8_GATES["card_vs_cpu_rel_l2"],
+          f"int8 slice card vs CPU rel L2 {rel_l2} >= {INT8_GATES['card_vs_cpu_rel_l2']}")
+    return {"rel_l2": rel_l2}
+
+
+def phase_int8_t2i(card: str, bf16_s_per_image: float) -> dict:
+    """``serve.load_pipeline(sft_res512.yaml)`` with ``quantize: int8`` at full
+    width (DeCo-XXL/16, its random init, the hash text encoder): phase 11's
+    call (2 prompts at 512x512, 25 AdamLM steps, order 2, CFG 4.0, time shift
+    3.0, trajectories); then a weight load after the cache, which the
+    Pipeline must refuse (``StaleQuantCacheError``) until the cache is
+    rebuilt."""
+    import torch
+
+    from deco_tpu_torch import serve
+    from deco_tpu_torch.config import registry
+    from deco_tpu_torch.models.layers import StaleQuantCacheError
+    from deco_tpu_torch.ops import quant
+    from deco_tpu_torch.ops.flash_attention import flash_attention
+
+    prompts = ["a photo of a red fox in the snow", "two cups of coffee on a wooden table"]
+    steps = 25
+    config = registry.load_yaml(T2I_CONFIG)
+    config["model"]["denoiser"]["init_args"]["quantize"] = "int8"
+    t0 = time.perf_counter()
+    pipe = serve.load_pipeline(config)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model = pipe.denoiser
+    check(len(quant.quant_modules(model)) == INT8_T2I_PER_CALL
+          and model.blocks[0].attn.qkv_x.weight_q is not None,
+          "the int8 pipeline has no int8 cache")
+    pipe(prompts, num_steps=2)  # warm-up
+    calls = []
+    for _ in range(2):
+        flash_attention.launches = quant.int8_mm.launches = 0
+        t0 = time.perf_counter()
+        images, _ = pipe(prompts, height=512, width=512, num_steps=steps, order=2, cfg=4.0,
+                         timeshift=3.0, seed=0, return_trajectories=True)
+        seconds = time.perf_counter() - t0
+        calls.append({"seconds": seconds, "s_per_image": seconds / len(prompts),
+                      "attention_launches": flash_attention.launches,
+                      "int8_gemm_launches": quant.int8_mm.launches})
+    images = np.stack(images)
+    w = model.blocks[0].attn.qkv_x.weight
+    model.load_state_dict({"blocks.0.attn.qkv_x.weight": w * 0.5}, strict=False)
+    try:
+        serve.Pipeline(pipe.vae, model, pipe.conditioner)
+        stale_refused = False
+    except StaleQuantCacheError:
+        stale_refused = True
+    quant.refresh_quant_cache(model)
+    serve.Pipeline(pipe.vae, model, pipe.conditioner)  # a rebuilt cache is accepted
+    emit({"phase": "int8_t2i_serve", "config": T2I_CONFIG, "prompts": len(prompts),
+          "size": [512, 512], "steps": steps, "load_s": load_s, "calls": calls,
+          "s_per_image": calls[-1]["s_per_image"], "bf16_s_per_image": bf16_s_per_image,
+          "images_shape": list(images.shape), "stale_cache_refused": stale_refused,
+          "card": card})
+    check(images.shape == (2, 512, 512, 3) and images.dtype == np.uint8, "int8 serve images")
+    want = (20 * steps, INT8_T2I_PER_CALL * steps)
+    got = [(c["attention_launches"], c["int8_gemm_launches"]) for c in calls]
+    check(all(g == want for g in got), f"int8 serve launches {got}, expected {want}")
+    check(stale_refused, "the Pipeline served a stale int8 cache")
+    del pipe, model
+    torch.cuda.empty_cache()
+    return {"launches": calls[-1]["attention_launches"]}
+
+
+def phase_msdcn(card: str) -> dict:
+    """``ops/msdcn.MultiScaleDCN`` (plain PyTorch, as the JAX op is XLA):
+    forward and backward at ``MSDCN_SHAPE`` on the card against the CPU in
+    fp32, the same seeded parameters (no zero projection) and inputs."""
+    import torch
+
+    from deco_tpu_torch.ops import msdcn
+
+    s = MSDCN_SHAPE
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((s["batch"], s["grid"], s["grid"], s["dim"])).astype(np.float32)
+    r = rng.standard_normal(x.shape).astype(np.float32)
+
+    def run(device):
+        m = msdcn.MultiScaleDCN(s["dim"], s["groups"], s["channels"], s["kernels"])
+        gen = torch.Generator().manual_seed(12)
+        with torch.no_grad():  # every parameter drawn from the seed, none zero
+            for p in m.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5 / p.shape[-1] ** 0.5)
+        m.to(device)
+        xt, rt = torch.from_numpy(x).to(device), torch.from_numpy(r).to(device)
+        out = m(xt)
+        (out * rt).sum().backward()
+        grads = torch.cat([p.grad.reshape(-1).cpu() for p in m.parameters()])
+
+        def fwd_bwd():
+            m.zero_grad()
+            (m(xt) * rt).sum().backward()
+
+        ms = cuda_ms(fwd_bwd, 5) if device == "cuda" else None
+        return out.detach().cpu(), grads, ms
+
+    out, grads, ms = run("cuda")
+    out_ref, grads_ref, _ = run("cpu")
+    row = {"out_rel_l2": _rel_l2(out, out_ref), "grad_rel_l2": _rel_l2(grads, grads_ref)}
+    emit({"phase": "msdcn", **s, **row, "limit": MSDCN_REL, "forward_backward_ms": ms,
+          "card": card})
+    check(bool(out.isfinite().all()), "msdcn output not finite")
+    check(max(row.values()) < MSDCN_REL, f"msdcn card vs CPU {row}")
+    return row
+
+
+def cli_int8_predict(card: str, workroot: str, ckpt_dir: str, bf16: np.ndarray) -> dict:
+    """``cli predict`` of phase 9's checkpoint with the int8 override
+    (``--model.denoiser.init_args.quantize=int8``): phase 9's batch of 20
+    and 100 steps, the cache built from the loaded EMA. The launch counts
+    say that int8 ran; the images are compared with the bf16 predict's for
+    the record only: after 3 steps the EMA keeps the blocks' zero-initialised
+    gates near zero, so the trunk barely reaches the pixels."""
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.ops import quant
+    from deco_tpu_torch.ops.flash_attention import flash_attention
+
+    flash_attention.launches = quant.int8_mm.launches = 0
+    t0 = time.perf_counter()
+    out = cli.main(["predict", "-c", CLI_CONFIG, *CLI_DEPTH,
+                    "--model.denoiser.init_args.quantize=int8",
+                    f"--trainer.default_root_dir={workroot}", f"--ckpt_path={ckpt_dir}",
+                    "--max_batches", "1"])
+    seconds = time.perf_counter() - t0
+    launches = [flash_attention.launches, quant.int8_mm.launches]
+    arr = np.load(out)["arr_0"]
+    diff = np.abs(arr.astype(np.int32) - bf16.astype(np.int32))
+    emit({"phase": "int8_cli_predict", "config": CLI_CONFIG, "seconds": seconds,
+          "launches_attention_int8": launches, "npz_shape": list(arr.shape),
+          "pixel_std": float(arr.std()), "mean_abs_diff_vs_bf16": float(diff.mean()),
+          "max_abs_diff_vs_bf16": int(diff.max()), "card": card})
+    want = [100 * CLI_TRUNK, 4 * 100 * CLI_TRUNK]
+    check(launches == want, f"int8 cli predict launches {launches}, expected {want}")
+    check(arr.shape == bf16.shape and arr.std() > 0, f"int8 npz {arr.shape}")
+    return {"attention": launches[0], "int8": launches[1]}
+
+
+def cli_adafactor_fit(card: str, images: str, workroot: str) -> dict:
+    """Two steps of phase 9's cut-depth fit with an ``optax.adafactor``
+    optimizer node (no checkpoint), then one more Adafactor step on the card
+    against the same step on the CPU from the same parameters, gradients
+    and state."""
+    import copy
+    import json
+
+    import torch
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.train import checkpoint
+    from deco_tpu_torch.train.state import Adafactor
+
+    steps = 2
+    t0 = time.perf_counter()
+    with Spy(checkpoint.CheckpointManager, "save", replace=lambda self, obj, step: None):
+        state = cli.main(["fit", "-c", CLI_CONFIG, *CLI_DEPTH,
+                          "--model.optimizer.class_path=optax.adafactor",
+                          f"--data.train_dataset.init_args.root={images}",
+                          f"--trainer.default_root_dir={workroot}", "--max_steps", str(steps),
+                          "--trainer.log_every_n_steps=1"])
+    fit_s = time.perf_counter() - t0
+    records = [json.loads(line) for line in open(f"{workroot}/DeCo_256_XL_freq/metrics.jsonl")]
+    params = state.parameters()
+    cpu = [torch.nn.Parameter(p.detach().cpu().clone()) for p in params]
+    for c, p in zip(cpu, params):
+        c.grad = p.grad.detach().cpu().clone()
+    cpu_opt = Adafactor(cpu, lr=state.optimizer.param_groups[0]["lr"])
+    cpu_opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    before = [c.detach().clone() for c in cpu]
+    state.optimizer.step()
+    cpu_opt.step()
+    upd = torch.cat([(p.detach().cpu() - b).reshape(-1) for p, b in zip(params, before)])
+    upd_ref = torch.cat([(c.detach() - b).reshape(-1) for c, b in zip(cpu, before)])
+
+    def moments(opt, ps):
+        return torch.cat([opt.state[p][k].reshape(-1).cpu() for p in ps
+                          for k in ("v_row", "v_col", "v") if k in opt.state[p]])
+
+    factored = sum("v_row" in st for st in state.optimizer.state.values())
+    row = {"phase": "adafactor_fit", "config": CLI_CONFIG, "steps": steps,
+           "losses": [r["loss"] for r in records], "fit_call_s": fit_s,
+           "factored_params": factored, "params": len(params),
+           "moments_rel_l2_vs_cpu": _rel_l2(moments(state.optimizer, params),
+                                            moments(cpu_opt, cpu)),
+           "update_rel_l2_vs_cpu": _rel_l2(upd, upd_ref),
+           "limits": {"moments": ADAFACTOR_STATE_REL, "update": ADAFACTOR_UPDATE_REL},
+           "card": card}
+    emit(row)
+    check(isinstance(state.optimizer, Adafactor), "the fit did not build Adafactor")
+    check(len(records) == steps and all(np.isfinite(row["losses"])), f"adafactor fit {records}")
+    check(row["moments_rel_l2_vs_cpu"] < ADAFACTOR_STATE_REL, f"adafactor moments {row}")
+    check(row["update_rel_l2_vs_cpu"] < ADAFACTOR_UPDATE_REL, f"adafactor update {row}")
+    del state
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_int8(card: str, bf16_t2i_s_per_image: float) -> dict:
+    """Phase 19: the int8 serving mode and the other opt-in extras."""
+    import torch
+
+    gemm = phase_int8_gemm(card)
+    sample = phase_int8_sample(card)
+    torch.cuda.empty_cache()
+    phase_int8_slice()
+    t2i = phase_int8_t2i(card, bf16_t2i_s_per_image)
+    msdcn_row = phase_msdcn(card)
+    print(card, flush=True)
+    return {"gemm": gemm, "sample": sample, "t2i": t2i, "msdcn": msdcn_row}
+
+
 def main() -> int:
     import torch
 
@@ -4955,6 +5531,9 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--calibrate-uniflow-slice"]:
         calibrate_uniflow_slice()  # on the CPU; sets no result
+        return 2
+    if sys.argv[1:] == ["--calibrate-int8"]:
+        calibrate_int8()  # on the CPU; sets no result
         return 2
     seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
     if not torch.cuda.is_available():
@@ -4995,7 +5574,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t2i_kernel = phase_t2i_kernel(card)
     phase_t2i_slice()
-    t2i_serve_launches = phase_t2i_serve(card)
+    t2i_serve = phase_t2i_serve(card)
     t2i_predict_launches = phase_t2i_predict(card)
     mark("11 t2i")
     torch.cuda.empty_cache()
@@ -5034,6 +5613,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     distill = phase_uniflow_distill(card, seed)
     mark("18 uniflow_distill")
+    torch.cuda.empty_cache()
+    int8 = phase_int8(card, t2i_serve["s_per_image"])
+    mark("19 int8")
     emit({"phase": "phase_seconds", "seconds": seconds, "total_s": marks[-1] - marks[0],
           "card": card})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5063,7 +5645,7 @@ def main() -> int:
                   vae_kernels["errs"]["fwd"]), kernel)
     # DeCo-XXL/16 t2i (D = 64): launches per serve and per CLI predict call
     # (the Pipeline of 2 prompts, one batch of 8), and the times at its shapes
-    fwd.update(t2i_serve_launches=t2i_serve_launches,
+    fwd.update(t2i_serve_launches=t2i_serve["launches"],
                t2i_predict_launches=t2i_predict_launches,
                d64={name: {k: v for k, v in t.items() if k in keys + (
                    "library_backend", "b_nq_nkv_h_d", "max_abs_err")}
@@ -5117,6 +5699,11 @@ def main() -> int:
                uniflow_semantic_launches=uniflow["semantic"]["fwd"],
                # phase 18: the InternVL teacher's tower in the 3-step distill fit
                uniflow_distill_teacher_launches=distill["fit"]["fwd"],
+               # phase 19 (and phase 9's int8 predict): the attention inside
+               # the int8 trunks, which stays bf16
+               int8_sample_launches=int8["sample"]["launches"],
+               int8_t2i_serve_launches=int8["t2i"]["launches"],
+               int8_cli_predict_launches=cli_launches["int8_predict"]["attention"],
                d32=_reco_timing_rows(vae_kernels["timings"]["fwd"], keys + ("plain_b",)))
     d32_resources = {name: {k: info[k] for k in ("registers", "local_bytes", "dynamic_smem",
                                                  "ctas_per_sm")}

@@ -3,10 +3,9 @@
 
 Every object of a run config is a ``class_path``/``init_args`` node,
 instantiated recursively. :data:`REFERENCE_CLASS_MAP` has the JAX
-registry's keys (the reference's torch class paths): the ported ones map to
-``deco_tpu_torch`` classes, and every other one to a factory that raises
-``NotImplementedError`` naming the ROADMAP item that ports it. Step
-functions collapse to string selectors through :data:`VALUE_MAP`.
+registry's keys (the reference's torch class paths), each mapped to a
+``deco_tpu_torch`` class or factory. Step functions collapse to string
+selectors through :data:`VALUE_MAP`.
 :func:`apply_overrides` applies ``--a.b.c=v`` dot-overrides.
 
 Departure from the JAX package: PyYAML reads ``lr: 1e-4`` as the string
@@ -123,29 +122,13 @@ _PORTED: Dict[str, str] = {
         "deco_tpu_torch.models.gan.legacy_losses.TiTokLoss",
     "src.callbacks.simple_ema.SimpleEMA": "deco_tpu_torch.config.registry._SimpleEMAConfig",
     "torch.optim.AdamW": "deco_tpu_torch.config.registry._AdamWConfig",
+    # the JAX package's extension beyond the reference (AdamW only): the
+    # factored-second-moment optimizer, under both names
+    "optax.adafactor": "deco_tpu_torch.config.registry._AdafactorConfig",
+    "transformers.Adafactor": "deco_tpu_torch.config.registry._AdafactorConfig",
 }
 
-# class path -> the ROADMAP section A item that ports it
-UNPORTED: Dict[str, int] = {
-    "optax.adafactor": 7,
-    "transformers.Adafactor": 7,
-}
-
-
-def not_ported(class_path: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{class_path}: not ported to deco_tpu_torch yet, ROADMAP §A {item}")
-
-
-def _unported_factory(class_path: str, item: int) -> Callable:
-    def factory(*args, **kwargs):
-        raise not_ported(class_path, item)
-
-    factory.__name__ = f"unported<{class_path}>"
-    return factory
-
-
-REFERENCE_CLASS_MAP: Dict[str, Union[str, Callable]] = {
-    **_PORTED, **{cp: _unported_factory(cp, item) for cp, item in UNPORTED.items()}}
+REFERENCE_CLASS_MAP: Dict[str, Union[str, Callable]] = dict(_PORTED)
 
 VALUE_MAP: Dict[str, str] = {
     "src.diffusion.flow_matching.sampling.ode_step_fn": "ode",
@@ -370,6 +353,35 @@ class _AdamWConfig:
 
         return TrainState.create(model, lr=self.lr, weight_decay=self.weight_decay,
                                  betas=self.betas, eps=self.eps, trainer_module=trainer_module)
+
+
+class _AdafactorConfig:
+    """Optimizer settings node -> ``optax.adafactor(lr)`` with optax's
+    defaults (``train/state.Adafactor``), the node of both ``optax.adafactor``
+    and ``transformers.Adafactor``. As in the JAX package, an argument the
+    optimizer cannot honour raises: ``transformers.Adafactor``'s
+    ``scale_parameter``, ``relative_step`` and ``warmup_init`` are accepted
+    (and not read), ``weight_decay`` only at 0 (optax.adafactor has no
+    decoupled weight decay), anything else raises ``TypeError``."""
+
+    _DEFAULT_OK = {"scale_parameter", "relative_step", "warmup_init"}
+
+    def __init__(self, lr: float = 1e-4, weight_decay: float = 0.0, **kw):
+        self.lr = float(lr)
+        unknown = set(kw) - self._DEFAULT_OK
+        if unknown or float(weight_decay):
+            bad = sorted(unknown) + (["weight_decay"] if float(weight_decay) else [])
+            raise TypeError(
+                f"Adafactor optimizer node has unsupported args {bad}; supported: lr "
+                f"(+{sorted(self._DEFAULT_OK)} at their defaults, weight_decay only at 0)")
+
+    def create_state(self, model, trainer_module=None):
+        """A :class:`~deco_tpu_torch.train.state.TrainState` (with EMA) whose
+        optimizer is :class:`~deco_tpu_torch.train.state.Adafactor`."""
+        from deco_tpu_torch.train.state import Adafactor, TrainState
+
+        return TrainState.create(model, trainer_module=trainer_module,
+                                 optimizer=lambda params: Adafactor(params, lr=self.lr))
 
 
 def resolve(class_path: str):

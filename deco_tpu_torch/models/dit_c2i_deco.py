@@ -24,7 +24,11 @@ block's output is kept as the next block's input; ``return_s`` also returns
 the decoder's condition s, (B, H/p, W/p, hidden). With both, the order is
 (image, s, features), as in the JAX model.
 
-Not ported, and rejected when asked for: ``quantize`` and ``trunk_parallel``.
+``quantize="int8"`` (or ``DECO_QUANT=int8`` when the model is built) runs
+the trunk blocks' attention and MLP products through W8A8 int8
+(``ops/quant.py``), an inference-only serving mode with the same
+parameters; ``ops/quant.refresh_quant_cache`` quantises the weights once.
+``trunk_parallel`` is not ported (ROADMAP §A 6), and rejected when asked for.
 """
 
 from __future__ import annotations
@@ -36,12 +40,12 @@ from torch import nn
 from deco_tpu_torch._device import resolve_device
 from deco_tpu_torch.models import layers
 from deco_tpu_torch.models.patching import patchify, unpatchify
+from deco_tpu_torch.ops import quant
 
 # constructor fields of the JAX model that the port does not implement,
 # with the value that means "off"
 _UNPORTED = {
     "trunk_parallel": "none",
-    "quantize": None,
 }
 
 
@@ -100,7 +104,7 @@ class DeCoC2I(nn.Module):
                  dtype=torch.bfloat16, rope_scale: float = 16.0,
                  param_dtype=None, grad_checkpoint: bool = False,
                  trunk_remat_policy: str = "full", decoder_chunks: int = 0,
-                 align_layer: int = 0, device="cuda", **unported):
+                 align_layer: int = 0, quantize=None, device="cuda", **unported):
         super().__init__()
         if trunk_remat_policy not in (*layers.REMAT_POLICIES, "none"):
             raise ValueError(
@@ -111,7 +115,9 @@ class DeCoC2I(nn.Module):
                 raise TypeError(f"DeCoC2I: unexpected argument {name!r}")
             if value != _UNPORTED[name]:
                 raise NotImplementedError(
-                    f"DeCoC2I: {name}={value!r} is not ported to deco_tpu_torch")
+                    f"DeCoC2I: {name}={value!r} is not ported to deco_tpu_torch, ROADMAP §A 6")
+        int8 = quant.resolve_mode(quantize)
+        self.quantize = "int8" if int8 else None
         del nerf_mlpratio  # accepted for config parity, unused by this decoder
         dev = resolve_device(device)
         self.in_channels = in_channels
@@ -132,7 +138,7 @@ class DeCoC2I(nn.Module):
             self.t_embedder = layers.TimestepEmbedder(hidden_size, **kw)
             self.y_embedder = layers.LabelEmbedder(num_classes + 1, hidden_size, **kw)
             self.blocks = nn.ModuleList(
-                layers.FlattenDiTBlock(hidden_size, num_groups, **kw)
+                layers.FlattenDiTBlock(hidden_size, num_groups, **kw, quantize=int8)
                 for _ in range(num_cond_blocks))
             self.x_embedder = layers.NerfEmbedder(
                 in_channels, hidden_size_x, patch_size, max_freqs=max_freqs, **kw)

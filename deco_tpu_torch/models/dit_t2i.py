@@ -35,8 +35,11 @@ output and reference-layout t2i checkpoints load with ``strict=True``.
 ``NerfEmbedderT2I`` (a cos-RoPE per-pixel basis) and ``NerfBlock`` (fc1
 normalised, fc2 not) into a zero-initialised linear; no shipped config uses it.
 
-Not ported, and raising when asked for: ``trunk_parallel`` (ROADMAP §A 6)
-and ``quantize`` (§A 7).
+``quantize="int8"`` (or ``DECO_QUANT=int8`` when the model is built) runs
+the text-refine and joint blocks' attention and MLP products through W8A8
+int8 (``ops/quant.py``), an inference-only serving mode with the same
+parameters. Not ported, and raising when asked for: ``trunk_parallel``
+(ROADMAP §A 6).
 """
 
 from __future__ import annotations
@@ -51,12 +54,12 @@ from torch import nn
 from deco_tpu_torch._device import resolve_device
 from deco_tpu_torch.models import layers
 from deco_tpu_torch.models.patching import patchify, unpatchify
+from deco_tpu_torch.ops import quant
 
 # constructor fields of the JAX model that the port does not implement:
 # (the value that means "off", the ROADMAP §A item that ports them)
 _UNPORTED = {
     "trunk_parallel": ("none", 6),
-    "quantize": (None, 7),
 }
 
 
@@ -91,7 +94,8 @@ class _T2ITrunk(nn.Module):
     def __init__(self, name: str, in_channels: int, patch_size: int, num_groups: int,
                  hidden_size: int, num_encoder_blocks: int, num_text_blocks: int,
                  txt_embed_dim: int, txt_max_length: int, dtype, param_dtype,
-                 patch_scaling_hw, grad_checkpoint: bool, align_layer: int, unported: dict):
+                 patch_scaling_hw, grad_checkpoint: bool, align_layer: int, quantize,
+                 unported: dict):
         super().__init__()
         for arg, value in unported.items():
             if arg not in _UNPORTED:
@@ -100,6 +104,8 @@ class _T2ITrunk(nn.Module):
             if value != off:
                 raise NotImplementedError(
                     f"{name}: {arg}={value!r} is not ported to deco_tpu_torch, ROADMAP §A {item}")
+        int8 = quant.resolve_mode(quantize)
+        self.quantize = "int8" if int8 else None
         self.in_channels = in_channels
         self.patch_size = patch_size
         self.num_groups = num_groups
@@ -118,9 +124,11 @@ class _T2ITrunk(nn.Module):
         self.y_pos_embedding = nn.Parameter(
             torch.zeros(1, txt_max_length, hidden_size, dtype=torch.float32))
         self.text_refine_blocks = nn.ModuleList(
-            layers.TextRefineBlock(hidden_size, num_groups, **kw) for _ in range(num_text_blocks))
+            layers.TextRefineBlock(hidden_size, num_groups, **kw, quantize=int8)
+            for _ in range(num_text_blocks))
         self.blocks = nn.ModuleList(
-            layers.JointDiTBlock(hidden_size, num_groups, **kw) for _ in range(num_encoder_blocks))
+            layers.JointDiTBlock(hidden_size, num_groups, **kw, quantize=int8)
+            for _ in range(num_encoder_blocks))
 
     def _rope(self, grid_h: int, grid_w: int, scale: Tuple[float, float], device):
         key = (grid_h, grid_w, scale, device)
@@ -182,14 +190,14 @@ class DeCoT2I(_T2ITrunk):
                  num_text_blocks: int = 4, txt_embed_dim: int = 2048, txt_max_length: int = 128,
                  max_freqs: int = 8, dtype=torch.bfloat16, param_dtype=None,
                  patch_scaling_hw: Tuple[float, float] = (1.0, 1.0), decoder_chunks: int = 0,
-                 grad_checkpoint: bool = False, align_layer: int = 0, device="cuda",
-                 **unported):
+                 grad_checkpoint: bool = False, align_layer: int = 0, quantize=None,
+                 device="cuda", **unported):
         dev = resolve_device(device)
         with dev:
             super().__init__("DeCoT2I", in_channels, patch_size, num_groups, hidden_size,
                              num_encoder_blocks, num_text_blocks, txt_embed_dim, txt_max_length,
                              dtype, param_dtype, patch_scaling_hw, grad_checkpoint, align_layer,
-                             unported)
+                             quantize, unported)
             kw = dict(dtype=dtype, param_dtype=param_dtype)
             self.decoder_chunks = decoder_chunks
             self.x_embedder = layers.NerfEmbedder(
@@ -226,14 +234,14 @@ class PixNerdT2I(_T2ITrunk):
                  num_text_blocks: int = 4, txt_embed_dim: int = 2048, txt_max_length: int = 128,
                  nerf_mlpratio: int = 2, max_freqs: int = 8, dtype=torch.bfloat16,
                  param_dtype=None, patch_scaling_hw: Tuple[float, float] = (1.0, 1.0),
-                 grad_checkpoint: bool = False, align_layer: int = 0, device="cuda",
-                 **unported):
+                 grad_checkpoint: bool = False, align_layer: int = 0, quantize=None,
+                 device="cuda", **unported):
         dev = resolve_device(device)
         with dev:
             super().__init__("PixNerdT2I", in_channels, patch_size, num_groups, hidden_size,
                              num_encoder_blocks, num_text_blocks, txt_embed_dim, txt_max_length,
                              dtype, param_dtype, patch_scaling_hw, grad_checkpoint, align_layer,
-                             unported)
+                             quantize, unported)
             kw = dict(dtype=dtype, param_dtype=param_dtype)
             self.blocks.extend(
                 layers.NerfBlock(decoder_hidden_size, hidden_size, nerf_mlpratio, **kw)

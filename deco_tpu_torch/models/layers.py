@@ -24,6 +24,13 @@ with ``strict=True``. Numerics follow the Flax modules:
   nothing, "dots" keeps the matmul outputs (``checkpoint_dots``), "attn"
   keeps each attention's output and logsumexp (``save_only_these_names(
   "attn_out", "attn_lse")``).
+- ``quantize`` on the trunk blocks (:class:`FlattenDiTBlock`,
+  :class:`JointDiTBlock`, :class:`TextRefineBlock`) runs their attention and
+  MLP products through int8 (:class:`Int8Linear`, the fused ``w13`` of
+  :class:`SwiGLU`; ``ops/quant.py``); adaLN and the attention stay bf16.
+  The int8 weight cache is a set of non-persistent buffers, built by
+  ``ops/quant.refresh_quant_cache`` and checked by
+  :func:`verify_quant_cache`.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from deco_tpu_torch.ops import quant as quant_ops
 from deco_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
 
@@ -56,6 +64,101 @@ class Linear(nn.Linear):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def _weight_fingerprint(weight: torch.Tensor) -> torch.Tensor:
+    """(sum, l1, sum of squares) of a weight in fp32: what an int8 cache
+    remembers of the weights it was quantised from (``_kernel_fingerprint``).
+    Weights that differ by a step or two of training can pass; different
+    weight sets (a restore) move all three at O(1) relative."""
+    wf = weight.detach().float()
+    return torch.stack([wf.sum(), wf.abs().sum(), (wf * wf).sum()])
+
+
+class _Int8Cache:
+    """The int8 weight cache of a quantised module: the non-persistent
+    buffers ``<name>_q`` (int8), ``<name>_scale`` and ``<name>_fp`` (the
+    source fingerprint), None until :meth:`refresh_quant_cache_` runs. The
+    subclass names its caches and their source weights in
+    :meth:`_cache_sources`."""
+
+    def _init_cache(self):
+        for name in self._cache_sources():
+            for part in ("q", "scale", "fp"):
+                self.register_buffer(f"{name}_{part}", None, persistent=False)
+
+    def _cache_sources(self) -> dict:
+        raise NotImplementedError
+
+    def refresh_quant_cache_(self):
+        for name, source in self._cache_sources().items():
+            w = source()
+            q, scale = quant_ops.quantize_weight(w)
+            setattr(self, f"{name}_q", q)
+            setattr(self, f"{name}_scale", scale)
+            setattr(self, f"{name}_fp", _weight_fingerprint(w))
+
+    def clear_quant_cache_(self):
+        for name in self._cache_sources():
+            for part in ("q", "scale", "fp"):
+                setattr(self, f"{name}_{part}", None)
+
+    def _quantized(self, name: str):
+        """(int8 weight, scale) from the cache, or quantised now without one."""
+        q = getattr(self, f"{name}_q")
+        if q is not None:
+            return q, getattr(self, f"{name}_scale")
+        return quant_ops.quantize_weight(self._cache_sources()[name]())
+
+
+class Int8Linear(_Int8Cache, Linear):
+    """:class:`Linear` through the W8A8 int8 product (``Int8Dense``): the same
+    ``weight`` and ``bias`` (so a checkpoint of the exact path loads as it
+    is); the input quantised per row, the weight per output channel, the
+    int32 product rescaled in fp32, cast to the compute dtype, then the bias
+    added in it. Inference only. The cache (``weight_q``, ``weight_scale``,
+    ``weight_fp``) is built by ``ops/quant.refresh_quant_cache``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._init_cache()
+
+    def _cache_sources(self) -> dict:
+        return {"weight": lambda: self.weight}
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        y = quant_ops.int8_matmul_prequant(x, *self._quantized("weight")).to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class StaleQuantCacheError(ValueError):
+    """The int8 weight cache was built from other weights than the live ones."""
+
+
+def verify_quant_cache(model: nn.Module, rtol: float = 1e-5) -> None:
+    """Raise :class:`StaleQuantCacheError` where a built int8 cache of
+    ``model`` does not match the live weights: each cached fingerprint
+    against one recomputed from them (one pass over the weights; run it once
+    when a pipeline is built, not per call). Modules without a cache pass."""
+    bad = []
+    for name, module in model.named_modules():
+        if not isinstance(module, _Int8Cache):
+            continue
+        for cache, source in module._cache_sources().items():
+            cached = getattr(module, f"{cache}_fp")
+            if cached is None:
+                continue
+            live = _weight_fingerprint(source()).double()
+            if not bool(((cached.double() - live).abs()
+                         <= rtol * live.abs().clamp(min=1.0)).all()):
+                bad.append(f"{name}.{cache}_q: fingerprint mismatch")
+    if bad:
+        raise StaleQuantCacheError(
+            f"int8 quant cache does not match the live weights ({len(bad)} entries — "
+            f"{'; '.join(bad[:8])}). The cache was built from other weights (e.g. the random "
+            "init before a checkpoint restore); serving it produces garbage. Rebuild it from "
+            "the loaded weights with ops/quant.refresh_quant_cache.")
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
@@ -139,31 +242,52 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
-class SwiGLU(nn.Module):
-    """c2i SwiGLU (unfused w1/w3/w2) of width ``int(2 * hidden_dim / 3)``."""
+class SwiGLU(_Int8Cache, nn.Module):
+    """c2i SwiGLU (unfused w1/w3/w2) of width ``int(2 * hidden_dim / 3)``.
 
-    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32, param_dtype=None):
+    ``quantize``: the int8 path, always fused as in the JAX package: one
+    activation quantisation feeds the product with ``w13`` = concat(w1, w3)
+    (its cache ``w13_q``, fingerprint that of the concatenation, the sum of
+    the two), then ``w2`` (an :class:`Int8Linear`)."""
+
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32, param_dtype=None,
+                 quantize: bool = False):
         super().__init__()
         hidden = int(2 * hidden_dim / 3)
         kw = dict(bias=False, dtype=dtype, param_dtype=param_dtype)
+        self.quantize = quantize
+        self.dtype = dtype
         self.w1 = Linear(dim, hidden, **kw)
         self.w3 = Linear(dim, hidden, **kw)
-        self.w2 = Linear(hidden, dim, **kw)
+        self.w2 = (Int8Linear if quantize else Linear)(hidden, dim, **kw)
+        if quantize:
+            self._init_cache()
+
+    def _cache_sources(self) -> dict:
+        return {"w13": lambda: torch.cat([self.w1.weight, self.w3.weight])} if self.quantize \
+            else {}
 
     def forward(self, x):
+        if self.quantize:
+            h = quant_ops.int8_matmul_prequant(x, *self._quantized("w13")).to(self.dtype)
+            h1, h3 = h.chunk(2, dim=-1)
+            return self.w2(F.silu(h1) * h3)
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
 class SwiGLUFused(nn.Module):
     """SwiGLU of exact width ``hidden_dim`` (``SwiGLU(exact_hidden=True)``)
     with one fused input GEMM: ``w12`` is ``[w1; gate]``, (2 * hidden, dim),
-    silu goes on its first half, and ``w3`` is the output projection."""
+    silu goes on its first half, and ``w3`` is the output projection; both
+    :class:`Int8Linear` under ``quantize``."""
 
-    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32, param_dtype=None):
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32, param_dtype=None,
+                 quantize: bool = False):
         super().__init__()
         kw = dict(bias=False, dtype=dtype, param_dtype=param_dtype)
-        self.w12 = Linear(dim, 2 * hidden_dim, **kw)
-        self.w3 = Linear(hidden_dim, dim, **kw)
+        lin = Int8Linear if quantize else Linear
+        self.w12 = lin(dim, 2 * hidden_dim, **kw)
+        self.w3 = lin(hidden_dim, dim, **kw)
 
     def forward(self, x):
         h1, gate = self.w12(x).chunk(2, dim=-1)
@@ -294,15 +418,18 @@ def sdpa(q, k, v, mask=None, causal: bool = False):
 
 class RAttention(nn.Module):
     """RoPE + qk-RMSNorm multi-head self-attention; ``rope=None`` (the t2i
-    text-refine blocks) rotates nothing."""
+    text-refine blocks) rotates nothing. ``quantize``: int8 ``qkv`` and
+    ``proj`` (:class:`Int8Linear`); the attention stays bf16."""
 
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, param_dtype=None):
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, param_dtype=None,
+                 quantize: bool = False):
         super().__init__()
+        lin = Int8Linear if quantize else Linear
         self.num_heads = num_heads
-        self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype, param_dtype=param_dtype)
+        self.qkv = lin(dim, 3 * dim, bias=False, dtype=dtype, param_dtype=param_dtype)
         self.q_norm = RMSNorm(dim // num_heads)
         self.k_norm = RMSNorm(dim // num_heads)
-        self.proj = Linear(dim, dim, dtype=dtype, param_dtype=param_dtype)
+        self.proj = lin(dim, dim, dtype=dtype, param_dtype=param_dtype)
 
     def forward(self, x, rope, mask=None, causal: bool = False):
         b, n, c = x.shape
@@ -315,17 +442,18 @@ class RAttention(nn.Module):
 
 
 class FlattenDiTBlock(nn.Module):
-    """adaLN-gated DiT block: RAttention + SwiGLU."""
+    """adaLN-gated DiT block: RAttention + SwiGLU; ``quantize`` makes their
+    products int8 (adaLN stays bf16)."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype=torch.float32, param_dtype=None):
+                 dtype=torch.float32, param_dtype=None, quantize: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.adaLN_modulation = nn.Sequential(Linear(hidden, 6 * hidden, **kw))
         self.norm1 = RMSNorm(hidden)
-        self.attn = RAttention(hidden, num_heads, **kw)
+        self.attn = RAttention(hidden, num_heads, **kw, quantize=quantize)
         self.norm2 = RMSNorm(hidden)
-        self.mlp = SwiGLU(hidden, int(hidden * mlp_ratio), **kw)
+        self.mlp = SwiGLU(hidden, int(hidden * mlp_ratio), **kw, quantize=quantize)
 
     def forward(self, x, c, rope, mask=None):
         (shift_msa, scale_msa, gate_msa,
@@ -343,18 +471,20 @@ class JointAttention(nn.Module):
     bias on either); one ``k_norm`` normalises both keys; RoPE rotates the
     image q and k only; the text keys and values follow the image ones on
     the key axis (the JAX ``sdpa(..., extra_kv=...)`` concatenation), so
-    Nkv = N + M.
+    Nkv = N + M. ``quantize``: the three projections are :class:`Int8Linear`.
     """
 
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, param_dtype=None):
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, param_dtype=None,
+                 quantize: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype)
+        lin = Int8Linear if quantize else Linear
         self.num_heads = num_heads
-        self.qkv_x = Linear(dim, 3 * dim, bias=False, **kw)
-        self.kv_y = Linear(dim, 2 * dim, bias=False, **kw)
+        self.qkv_x = lin(dim, 3 * dim, bias=False, **kw)
+        self.kv_y = lin(dim, 2 * dim, bias=False, **kw)
         self.q_norm = RMSNorm(dim // num_heads)
         self.k_norm = RMSNorm(dim // num_heads)
-        self.proj = Linear(dim, dim, **kw)
+        self.proj = lin(dim, dim, **kw)
 
     def forward(self, x, y, rope):
         b, n, c = x.shape
@@ -373,14 +503,14 @@ class _T2IBlock(nn.Module):
     SwiGLU of exact width ``hidden * mlp_ratio``."""
 
     def __init__(self, hidden: int, attn: nn.Module, mlp_ratio: float = 4.0,
-                 dtype=torch.float32, param_dtype=None):
+                 dtype=torch.float32, param_dtype=None, quantize: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.adaLN_modulation = nn.Sequential(Linear(hidden, 6 * hidden, **kw))
         self.norm1 = RMSNorm(hidden)
         self.attn = attn
         self.norm2 = RMSNorm(hidden)
-        self.mlp = SwiGLUFused(hidden, int(hidden * mlp_ratio), **kw)
+        self.mlp = SwiGLUFused(hidden, int(hidden * mlp_ratio), **kw, quantize=quantize)
 
     def _forward(self, x, c, *attn_args):
         (shift_msa, scale_msa, gate_msa,
@@ -390,12 +520,13 @@ class _T2IBlock(nn.Module):
 
 
 class JointDiTBlock(_T2IBlock):
-    """t2i encoder block: :class:`JointAttention` + fused SwiGLU."""
+    """t2i encoder block: :class:`JointAttention` + fused SwiGLU (both int8
+    under ``quantize``)."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype=torch.float32, param_dtype=None):
-        super().__init__(hidden, JointAttention(hidden, num_heads, dtype, param_dtype),
-                         mlp_ratio, dtype, param_dtype)
+                 dtype=torch.float32, param_dtype=None, quantize: bool = False):
+        super().__init__(hidden, JointAttention(hidden, num_heads, dtype, param_dtype, quantize),
+                         mlp_ratio, dtype, param_dtype, quantize)
 
     def forward(self, x, y, c, rope):
         """x: (B, N, C) image tokens; y: (B, M, C) text tokens; c: (B, 1, C)."""
@@ -408,9 +539,9 @@ class TextRefineBlock(_T2IBlock):
     fused SwiGLU."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype=torch.float32, param_dtype=None):
-        super().__init__(hidden, RAttention(hidden, num_heads, dtype, param_dtype),
-                         mlp_ratio, dtype, param_dtype)
+                 dtype=torch.float32, param_dtype=None, quantize: bool = False):
+        super().__init__(hidden, RAttention(hidden, num_heads, dtype, param_dtype, quantize),
+                         mlp_ratio, dtype, param_dtype, quantize)
 
     def forward(self, x, c):
         """x: (B, M, C) text tokens; c: (B, 1, C)."""

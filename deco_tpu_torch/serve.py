@@ -16,6 +16,12 @@ writes ``sample_{i}.png`` and ``traj_{i}.png``, the trajectory as an
 animated PNG (100 ms a frame, looping). ``--key=value`` overrides a config
 entry by its dotted path, as in ``deco_tpu_torch.cli``.
 
+int8 serving: a denoiser built with ``quantize="int8"`` (or under
+``DECO_QUANT=int8``) serves through W8A8 int8 trunk products;
+:func:`load_pipeline` builds its weight cache from the final weights (after
+the checkpoint and the EMA choice), and :class:`Pipeline` refuses a cache
+built from other weights (``StaleQuantCacheError``).
+
 Departures from the JAX package: the noise is drawn from a CPU
 ``torch.Generator(seed)`` and moved to the device, so the card and the CPU
 start from the same noise (it cannot equal ``jax.random.normal``); images
@@ -36,6 +42,8 @@ from deco_tpu_torch.config import registry
 from deco_tpu_torch.diffusion.adam_sampling import AdamLMSampler
 from deco_tpu_torch.diffusion.scheduling import LinearScheduler
 from deco_tpu_torch.models.autoencoders import fp_to_uint8
+from deco_tpu_torch.models.layers import verify_quant_cache
+from deco_tpu_torch.ops import quant
 from deco_tpu_torch.utils import png
 
 
@@ -47,6 +55,9 @@ class Pipeline:
     _SAMPLER_CACHE_MAX = 16
 
     def __init__(self, vae, denoiser, conditioner, scheduler=None, base_resolution: int = 512):
+        # an int8 cache quantised from other weights than the denoiser's
+        # (say, the random init before a checkpoint load) serves garbage
+        verify_quant_cache(denoiser)
         self.vae = vae
         self.denoiser = denoiser
         self.conditioner = conditioner
@@ -119,7 +130,8 @@ def load_pipeline(config, ckpt_path: Optional[str] = None, use_ema: bool = True,
     directory (``train/checkpoint.py``), a reference-layout ``.ckpt``/``.pt``
     when it is a file (``convert.load_checkpoint``, ``ema_denoiser.*`` when
     ``use_ema``), and otherwise draws the JAX initializers' distributions
-    from ``seed``."""
+    from ``seed``. An int8 denoiser's weight cache is built from the weights
+    it ends with."""
     from deco_tpu_torch.convert import load_checkpoint
     from deco_tpu_torch.models.dit_c2i_deco import init_like_jax_
     from deco_tpu_torch.train.checkpoint import CheckpointManager
@@ -137,6 +149,8 @@ def load_pipeline(config, ckpt_path: Optional[str] = None, use_ema: bool = True,
         denoiser.load_state_dict(load_checkpoint(ckpt_path, ema=use_ema), strict=True)
     else:
         init_like_jax_(denoiser, seed)
+    if quant.model_quant_active(denoiser):
+        quant.refresh_quant_cache(denoiser)
     return Pipeline(registry.instantiate(model_cfg["vae"]), denoiser,
                     registry.instantiate(model_cfg["conditioner"]))
 

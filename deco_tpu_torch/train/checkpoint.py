@@ -10,9 +10,10 @@ Orbax without JAX, so it writes one torch file per step,
   trainer's own parameters (the REPA projection) as
   ``diffusion_trainer.<name>``, the reference trainer's keys, and their EMA
   as ``ema_diffusion_trainer.<name>``;
-- ``optimizer``: the AdamW moments keyed by parameter name (a trainer's
-  under ``diffusion_trainer.``),
-  ``{name: {"exp_avg", "exp_avg_sq", "step"}}``, so a restore does not
+- ``optimizer``: each parameter's optimizer state keyed by its name (a
+  trainer's under ``diffusion_trainer.``): AdamW's
+  ``{name: {"exp_avg", "exp_avg_sq", "step"}}``, Adafactor's ``step`` with
+  ``v_row`` and ``v_col`` (factored) or ``v``, so a restore does not
   depend on the order of ``model.parameters()``;
 - ``step``: the number of train steps taken.
 
@@ -40,11 +41,12 @@ MOMENTS = ("exp_avg", "exp_avg_sq", "step")
 def payload(params: Dict[str, torch.Tensor], ema: Optional[Dict[str, torch.Tensor]],
             moments: Dict[str, dict], step: int) -> dict:
     """The checkpoint dict from named parameters, their EMA (or None), the
-    AdamW state by parameter name, and the step; tensors on the CPU."""
+    optimizer state by parameter name (tensors), and the step; tensors on
+    the CPU."""
     state_dict = {_key(k): v.detach().cpu() for k, v in params.items()}
     if ema is not None:
         state_dict.update({_key(k, ema=True): v.detach().cpu() for k, v in ema.items()})
-    optimizer = {name: {k: m[k].detach().cpu() for k in MOMENTS} for name, m in moments.items()}
+    optimizer = {name: {k: v.detach().cpu() for k, v in m.items()} for name, m in moments.items()}
     return {"state_dict": state_dict, "optimizer": optimizer, "step": int(step)}
 
 

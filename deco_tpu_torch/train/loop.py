@@ -32,6 +32,10 @@ fit / predict (``deco_tpu/train/loop.py`` ``Experiment``).
   (``ImageLogger.log_side_by_side``) and score the reconstructions against
   the originals.
 
+An int8 model (``quantize="int8"`` or ``DECO_QUANT=int8``) predicts with
+its weight cache built from the weights it samples with (after the
+checkpoint and the EMA swap); fit refuses it (``TrainState.create``).
+
 A REPA or JiT trainer sets the model's ``align_layer`` (its feature tap), and
 its projection (``proj_module``, drawn from ``seed``) trains beside the
 model; its ``encoder`` (the DINOv2 node) is built on ``device``. The DeCo
@@ -69,6 +73,7 @@ from deco_tpu_torch.diffusion.training import JiTTrainer, REPATrainer
 from deco_tpu_torch.models.autoencoders import fp_to_uint8
 from deco_tpu_torch.models.conditioners import ImageConditioner
 from deco_tpu_torch.models.dit_c2i_deco import init_like_jax_
+from deco_tpu_torch.ops import quant
 from deco_tpu_torch.train.checkpoint import CheckpointManager
 from deco_tpu_torch.train.hooks import (
     ComputeMetricsHook,
@@ -273,6 +278,8 @@ class Experiment:
         else:
             self._init_like_jax()
         model = self.model.eval()
+        if quant.model_quant_active(model):
+            quant.refresh_quant_cache(model)  # from the weights it samples with
         hook = SaveImagesHook(**self.save_images_cfg)
         hook.on_predict_start(self.workdir, step)
         imlog = ImageLogger(self.workdir)
@@ -327,5 +334,6 @@ class Experiment:
         finally:
             if kept is not None:
                 torch._foreach_copy_(list(self.model.parameters()), kept)
+                quant.clear_quant_cache(self.model)  # it was the EMA's
             npz = hook.on_predict_end()  # waits for the image writes
         return npz

@@ -144,7 +144,6 @@ def test_a_sample_that_fails_is_retried_then_raises_as_in_jax():
 
 
 def test_registry_node_builds_the_port_dataset():
-    assert NODE not in registry.UNPORTED
     assert registry.resolve(NODE) is sft.LazySupervisedMixDataset
     assert jax_registry.resolve(NODE) is jsft.LazySupervisedMixDataset
     src = [{"image": None, "txt": "a", "type": "T2I"}]

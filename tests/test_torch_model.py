@@ -73,11 +73,15 @@ def test_trunk_output_reaches_the_image():
 
 
 @pytest.mark.parametrize("kwarg", [  # decoder_chunks, the remat policies and align_layer are ported
-    dict(trunk_parallel="tp"), dict(quantize=True), dict(quantize="int8"),
+    dict(trunk_parallel="tp"), dict(quantize=True), dict(quantize="fp4"),
     dict(trunk_parallel="sp"),
 ])
 def test_unported_options_raise(kwarg):
-    with pytest.raises(NotImplementedError, match=next(iter(kwarg))):
+    """trunk_parallel is not ported (NotImplementedError); quantize is, and a
+    mode other than None or "int8" raises JAX's ValueError
+    (tests/test_torch_quant.py holds the int8 mode against JAX)."""
+    error = NotImplementedError if "trunk_parallel" in kwarg else ValueError
+    with pytest.raises(error, match=next(iter(kwarg))):
         DeCoC2I(**TINY_C2I, **kwarg, device="cpu")
 
 

@@ -229,8 +229,11 @@ def test_init_follows_the_jax_initializers():
     assert ours["y_pos_embedding"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("kwarg,item", [({"trunk_parallel": "sp"}, 6), ({"quantize": "int8"}, 7)])
+@pytest.mark.parametrize("kwarg,item", [({"trunk_parallel": "sp"}, 6),
+                                        ({"trunk_parallel": "sp", "quantize": "int8"}, 6)])
 def test_unported_options_raise_naming_their_roadmap_item(kwarg, item):
+    """quantize is ported (tests/test_torch_quant.py); int8 under
+    trunk_parallel still raises, for the parallel executors first."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
         DeCoT2I(**TINY_T2I, device="cpu", **kwarg)
 
