@@ -44,12 +44,14 @@ Phases, in the order they run:
 4. model: one full-width DeCo-XL/16 forward at batch 2: finite, and exactly
    one attention launch per trunk block.
 5. slice vs plain: a 4-block trunk, full widths, 8 CFG steps, the same
-   weights and noise on the card (kernel) and on the CPU (plain versions),
-   both in bf16; the final images agree within the stated tolerance.
+   weights and noise through the kernel and through the plain attention,
+   both on the card in bf16; the final images agree
+   within the stated tolerance.
 6. train slice vs plain: one training step of the same cut-depth model at
-   batch 2 on the card and on the CPU, both bf16 compute with fp32
-   parameters, the same weights, batch and draws: loss, gradients and the
-   parameter update agree within the stated gates.
+   batch 2 through the kernels and through the plain attention, both on
+   the card, bf16 compute with fp32 parameters, the
+   same weights, batch and draws: loss, gradients and the parameter update
+   agree within the stated gates.
 7. sample: the sampling path through ``deco_tpu_torch.sample.generate``:
    50 Euler steps, CFG 3.2 on (0.1, 1], batch 8; images finite, the launch
    count exact; throughput, time per step, MFU and a device-time breakdown
@@ -139,7 +141,8 @@ Phases, in the order they run:
    the fp32 forward with lse and backward refused. ``c2i_families_slice_vs_
    plain``: one REPA step (Baseline_DiT.yaml's trainer, a 1-layer DINOv2 at
    full width) of a 2-block BaselineDiT and a 2 + 1 block PixNerdC2I at
-   hidden 1,024, card against CPU: loss, cos_loss, all gradients, those of
+   hidden 1,024, kernels against the plain attention on the card: loss,
+   cos_loss, all gradients, those of
    the projection and of the tapped block, and the tower's fp32 features.
    ``baseline_fit``: ``cli fit -c configs_c2i/Baseline_DiT.yaml`` as shipped
    (batch 32 x diffusion_batch_mul 4, no remat, the random tower) for 3
@@ -287,7 +290,25 @@ Phases, in the order they run:
    cache makes the Pipeline raise ``StaleQuantCacheError`` until the cache
    is rebuilt. ``msdcn``: ``ops/msdcn.MultiScaleDCN`` at DeCo-XL/16's grid
    and width, forward and parameter gradients on the card against the CPU.
-20. kernels: one JSON line listing every kernel with its launches on its
+20. parallel: the executors of ``deco_tpu_torch/parallel/`` at world 1
+   over a real NCCL process group (a file store, no network) and its
+   (data 1, model 1) mesh. ``parallel_step``: DeCo_XL.yaml at full width,
+   batch 8, bf16, forward and backward of the trunk under "sp" and "tp"
+   against the sequential trunk (rel L2 gates from
+   ``--calibrate-parallel``), 28 launches of each training kernel in
+   every mode, s/step and device ms by kind. ``parallel_sample``: 50-step
+   CFG sampling at batch 8 under "sp" against the sequential trunk, images
+   equal, images/s of both, 1,400 forwards with lse (none of the plain
+   forward). ``parallel_pipeline_ep``: ``pipeline_apply`` over 4 blocks
+   (2 microbatches) against its loop and the CPU, ``expert_parallel_moe``
+   against the dense module (routing equal) and the CPU.
+   ``parallel_t2i_step``: sft_res512.yaml's model at full width, batch 2,
+   forward and backward under "sp" with the text keys as ``extra_kv``
+   (36 launches of each kernel: 4 text blocks + 2 a joint block).
+   ``parallel_cli_fit``: ``cli fit`` of DeCo_XL.yaml with
+   ``trunk_parallel=sp`` under DDP, phase 9's 4-block cut, 3 steps, the
+   checkpoint (held in host memory) read back.
+21. kernels: one JSON line listing every kernel with its launches on its
    path (sampling for the forward, training for the others) and on the CLI
    paths, error, times, bound, library time and the library call's
    backend, for the attention kernels the same at N = 1024, for the
@@ -307,10 +328,10 @@ Phases, in the order they run:
 ``python3 chip_smoke.py --calibrate-train-slice`` (and ``--calibrate-t2i-slice``,
 ``--calibrate-t2i-train-slice``, ``--calibrate-c2i-families-slice``,
 ``--calibrate-reco-slice``, ``--calibrate-vae-slice``,
-``--calibrate-uniflow-slice``, ``--calibrate-int8``) prints, on the CPU, the
-readings between which the train-slice (t2i slice, t2i train slice, c2i
-families slice, ReCo slice, VAE slice, UniFlow slice, int8) gates sit, and
-no result.
+``--calibrate-uniflow-slice``, ``--calibrate-int8``, ``--calibrate-parallel``)
+prints, on the CPU, the readings between which the train-slice (t2i slice,
+t2i train slice, c2i families slice, ReCo slice, VAE slice, UniFlow slice,
+int8, parallel) gates sit, and no result.
 
 Every phase prints JSON lines; a failed phase raises and the script exits
 non-zero without the last line. The last line is
@@ -843,37 +864,70 @@ def phase_model():
 
 
 def phase_slice():
+    """The c2i sampling slice, the card's kernel against the plain attention
+    on the card (not the CPU: host time; only the attention differs, so the
+    gate, set from the card-against-CPU reading, still sits between
+    rounding and a wrong attention)."""
     import torch
 
-    from deco_tpu_torch.ops.flash_attention import flash_attention
+    from deco_tpu_torch.models import layers
+    from deco_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
     from deco_tpu_torch.sample import build_model, build_sampler, generate
 
     depth = dict(num_cond_blocks=4, num_blocks=7)
     steps = 8
     sampler = build_sampler("deco_xl_256", steps)
     results = {}
-    for device in ("cuda", "cpu"):
-        model = build_model("deco_xl_256", device=device, seed=1, **depth)
+    model = build_model("deco_xl_256", device="cuda", seed=1, **depth)
+    for attention in ("kernel", "plain"):
+        saved = layers.flash_attention
+        if attention == "plain":
+            layers.flash_attention = lambda q, k, v, scale=None, causal=False: (
+                flash_attention_plain(q, k, v, scale, causal=causal))
         before = flash_attention.launches
         t0 = time.perf_counter()
-        results[device] = generate(model, sampler, 2, 2, image_size=256, device=device)
-        results[device + "_s"] = time.perf_counter() - t0
-        results[device + "_launches"] = flash_attention.launches - before
-    gpu, cpu = results["cuda"], results["cpu"]
-    rel_l2 = ((gpu - cpu).norm() / cpu.norm()).item()
+        try:
+            results[attention] = generate(model, sampler, 2, 2, image_size=256)
+        finally:
+            layers.flash_attention = saved
+        results[attention + "_s"] = time.perf_counter() - t0
+        results[attention + "_launches"] = flash_attention.launches - before
+    gpu, ref = results["kernel"], results["plain"]
+    rel_l2 = ((gpu - ref).norm() / ref.norm()).item()
     emit({"phase": "slice_vs_plain", "trunk_blocks": 4, "decoder_blocks": 3, "steps": steps,
-          "batch": 2, "max_abs_err": (gpu - cpu).abs().max().item(),
-          "mean_abs_err": (gpu - cpu).abs().mean().item(), "rel_l2": rel_l2,
-          "rel_l2_limit": SLICE_REL_L2, "cuda_s": results["cuda_s"], "cpu_s": results["cpu_s"],
-          "cuda_flash_launches": results["cuda_launches"],
-          "cpu_flash_launches": results["cpu_launches"]})
+          "batch": 2, "reference": "the plain attention on the card",
+          "max_abs_err": (gpu - ref).abs().max().item(),
+          "mean_abs_err": (gpu - ref).abs().mean().item(), "rel_l2": rel_l2,
+          "rel_l2_limit": SLICE_REL_L2, "kernel_s": results["kernel_s"],
+          "plain_s": results["plain_s"], "kernel_flash_launches": results["kernel_launches"],
+          "plain_flash_launches": results["plain_launches"]})
     check(bool(torch.isfinite(gpu).all()), "slice images not finite")
-    check(results["cuda_launches"] == 4 * steps, "slice did not run the kernel every step")
-    check(results["cpu_launches"] == 0, "the CPU slice launched a kernel")
-    check(rel_l2 < SLICE_REL_L2, f"slice card vs CPU rel L2 {rel_l2} >= {SLICE_REL_L2}")
+    check(results["kernel_launches"] == 4 * steps, "slice did not run the kernel every step")
+    check(results["plain_launches"] == 0, "the plain slice launched a kernel")
+    check(rel_l2 < SLICE_REL_L2, f"slice kernel vs plain rel L2 {rel_l2} >= {SLICE_REL_L2}")
 
 
 TRAIN_SLICE = dict(num_cond_blocks=4, num_blocks=7)  # full width, cut depth
+
+
+class _PlainAttention:
+    """Inside, every attention the models send through ``layers.sdpa`` (the
+    trunks, the towers, the decoders) takes its plain PyTorch version on
+    the card, with autograd's own backward: the reference of the slices
+    that hold the kernels on the card (not against the CPU: host time)."""
+
+    def __enter__(self):
+        from deco_tpu_torch.models import layers
+        from deco_tpu_torch.ops import flash_attention as fa
+
+        self.saved = layers.flash_attention
+        layers.flash_attention = lambda q, k, v, scale=None, causal=False: (
+            fa.flash_attention_plain(q, k, v, scale, causal=causal))
+
+    def __exit__(self, *exc):
+        from deco_tpu_torch.models import layers
+
+        layers.flash_attention = self.saved
 
 
 def train_slice_step(device: str, dtype=None, zero_attention_backward: bool = False):
@@ -932,32 +986,43 @@ def calibrate_train_slice() -> None:
 
 
 def phase_train_slice():
+    """One training step of the cut-depth model through the kernels and
+    through the plain attention, both on the card (not the CPU: host time;
+    only the attention differs: the frequency MSE kernel runs in both, and
+    the gates, set from CPU readings, still sit between rounding and a
+    wrong attention backward)."""
     from deco_tpu_torch.ops import block_dct
     from deco_tpu_torch.ops import flash_attention as fa
 
     kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq,
                fa.flash_attention_bwd_dkv, block_dct.freq_mse)
     results = {}
-    for device in ("cuda", "cpu"):
+    for attention in ("kernel", "plain"):
         before = [f.launches for f in kernels]
         t0 = time.perf_counter()
-        results[device] = train_slice_step(device)
-        results[device + "_s"] = time.perf_counter() - t0
-        results[device + "_launches"] = [f.launches - n for f, n in zip(kernels, before)]
-    (loss, grads, update), (loss_ref, grads_ref, update_ref) = results["cuda"], results["cpu"]
+        if attention == "plain":
+            with _PlainAttention():
+                results[attention] = train_slice_step("cuda")
+        else:
+            results[attention] = train_slice_step("cuda")
+        results[attention + "_s"] = time.perf_counter() - t0
+        results[attention + "_launches"] = [f.launches - n for f, n in zip(kernels, before)]
+    (loss, grads, update), (loss_ref, grads_ref, update_ref) = results["kernel"], results["plain"]
     row = {"loss_rel": abs(loss - loss_ref) / abs(loss_ref),
            "grad_rel_l2": _rel_l2(grads, grads_ref), "update_rel_l2": _rel_l2(update, update_ref)}
     emit({"phase": "train_slice_vs_plain", **TRAIN_SLICE, "batch": 2, "loss": loss,
-          "loss_cpu": loss_ref, **row, "loss_rel_limit": TRAIN_SLICE_LOSS_REL,
+          "loss_plain": loss_ref, **row, "reference": "the plain attention on the card",
+          "loss_rel_limit": TRAIN_SLICE_LOSS_REL,
           "grad_rel_l2_limit": TRAIN_SLICE_GRAD_REL_L2,
           "update_rel_l2_limit": TRAIN_SLICE_UPDATE_REL_L2,
-          "cuda_launches_fwd_lse_dq_dkv_freq": results["cuda_launches"],
-          "cpu_launches": results["cpu_launches"], "cuda_s": results["cuda_s"],
-          "cpu_s": results["cpu_s"]})
+          "kernel_launches_fwd_lse_dq_dkv_freq": results["kernel_launches"],
+          "plain_launches": results["plain_launches"], "kernel_s": results["kernel_s"],
+          "plain_s": results["plain_s"]})
     check(all(np.isfinite([loss, loss_ref])), "train slice loss not finite")
-    check(results["cuda_launches"] == [8, 4, 4, 1],
-          f"train slice launches {results['cuda_launches']}, expected [8, 4, 4, 1]")
-    check(results["cpu_launches"] == [0, 0, 0, 0], "the CPU train slice launched a kernel")
+    check(results["kernel_launches"] == [8, 4, 4, 1],
+          f"train slice launches {results['kernel_launches']}, expected [8, 4, 4, 1]")
+    check(results["plain_launches"] == [0, 0, 0, 1],
+          "the plain train slice launched an attention kernel")
     check(row["loss_rel"] < TRAIN_SLICE_LOSS_REL, f"train slice loss {row}")
     check(row["grad_rel_l2"] < TRAIN_SLICE_GRAD_REL_L2, f"train slice gradients {row}")
     check(row["update_rel_l2"] < TRAIN_SLICE_UPDATE_REL_L2, f"train slice update {row}")
@@ -1061,6 +1126,8 @@ def _kernel_kind(name: str) -> str:
         return "freq_mse"
     if any(s in name.lower() for s in ("gemm", "nvjet", "cutlass", "xmma")):
         return "gemm"
+    if name.startswith("nccl"):
+        return "nccl"
     return "other"  # elementwise, reductions, copies
 
 
@@ -1744,11 +1811,12 @@ def t2i_slice_images(device: str, dtype=None, attention: str = "kernel") -> list
     gen = torch.Generator().manual_seed(2)
     cond = (torch.randn(1, 128, 2048, generator=gen) * 0.02).to(torch.bfloat16).to(device)
     uncond = (torch.randn(1, 128, 2048, generator=gen) * 0.02).to(torch.bfloat16).to(device)
-    saved = layers.sdpa
+    saved = layers.flash_attention
     if attention == "zero":
-        layers.sdpa = lambda q, k, v, mask=None, causal=False: torch.zeros_like(q)
+        layers.flash_attention = lambda q, k, v, scale=None, causal=False: torch.zeros_like(q)
     elif attention == "plain":
-        layers.sdpa = lambda q, k, v, mask=None, causal=False: fa.flash_attention_plain(q, k, v)
+        layers.flash_attention = lambda q, k, v, scale=None, causal=False: (
+            fa.flash_attention_plain(q, k, v, scale, causal=causal))
     try:
         images = []
         for h, w in T2I_CANVASES:
@@ -1758,7 +1826,7 @@ def t2i_slice_images(device: str, dtype=None, attention: str = "kernel") -> list
                         uncond)
             images.append(x.float().cpu())
     finally:
-        layers.sdpa = saved
+        layers.flash_attention = saved
     return images
 
 
@@ -2577,36 +2645,46 @@ def calibrate_families_slice() -> None:
 
 
 def phase_families_slice():
-    """The REPA step of each family, card against CPU."""
+    """The REPA step of each family through the kernels against the plain
+    attention, both on the card (not the CPU: host time; only the attention
+    differs, the tower's fp32 forward included, so the gates set from the
+    card-against-CPU readings still hold)."""
     from deco_tpu_torch.ops import flash_attention as fa
 
     kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
                fa.flash_attention_fwd_f32)
     for family in FAMILIES_SLICE:
         results = {}
-        for device in ("cuda", "cpu"):
+        for attention in ("kernel", "plain"):
             before = [f.launches for f in kernels]
             t0 = time.perf_counter()
-            results[device] = families_slice_step(family, device)
-            results[device + "_s"] = time.perf_counter() - t0
-            results[device + "_launches"] = [f.launches - n for f, n in zip(kernels, before)]
-        row = _families_rows(results["cuda"], results["cpu"])
-        features, features_ref = results["cuda"][3], results["cpu"][3]
+            if attention == "plain":
+                with _PlainAttention():
+                    results[attention] = families_slice_step(family, "cuda")
+            else:
+                results[attention] = families_slice_step(family, "cuda")
+            results[attention + "_s"] = time.perf_counter() - t0
+            results[attention + "_launches"] = [f.launches - n for f, n in zip(kernels, before)]
+        row = _families_rows(results["kernel"], results["plain"])
+        features, features_ref = results["kernel"][3], results["plain"][3]
         row["feature_rel_l2"] = _rel_l2(features, features_ref)
         trunk = FAMILIES_SLICE[family].get("num_cond_blocks", FAMILIES_SLICE[family]["num_blocks"])
         emit({"phase": "c2i_families_slice_vs_plain", "family": family, **FAMILIES_SLICE[family],
-              "batch": 2, "size": 256, "tower_layers": 1, "loss": results["cuda"][0],
-              "loss_cpu": results["cpu"][0], "cos_loss": results["cuda"][1],
-              "cos_loss_cpu": results["cpu"][1], **row, "limits": FAMILIES_SLICE_GATES,
+              "batch": 2, "size": 256, "tower_layers": 1, "loss": results["kernel"][0],
+              "loss_plain": results["plain"][0], "cos_loss": results["kernel"][1],
+              "cos_loss_plain": results["plain"][1], **row, "limits": FAMILIES_SLICE_GATES,
+              "reference": "the plain attention on the card",
               "feature_limit": FEATURE_F32_REL, "calibration": FAMILIES_SLICE_READINGS.get(family),
-              "cuda_launches_fwd_lse_dq_dkv_f32": results["cuda_launches"],
-              "cpu_launches": results["cpu_launches"], "cuda_s": results["cuda_s"],
-              "cpu_s": results["cpu_s"]})
-        check(all(np.isfinite([results["cuda"][0], results["cuda"][1]])), f"{family} slice loss")
+              "kernel_launches_fwd_lse_dq_dkv_f32": results["kernel_launches"],
+              "plain_launches": results["plain_launches"], "kernel_s": results["kernel_s"],
+              "plain_s": results["plain_s"]})
+        check(all(np.isfinite([results["kernel"][0], results["kernel"][1]])),
+              f"{family} slice loss")
         # the encode in the slice itself and the one inside the step: 2 tower calls
-        check(results["cuda_launches"] == [trunk, trunk, trunk, 2],
-              f"{family} slice launches {results['cuda_launches']}")
-        check(results["cpu_launches"] == [0, 0, 0, 0], f"the CPU {family} slice launched a kernel")
+        check(results["kernel_launches"] == [trunk, trunk, trunk, 2],
+              f"{family} slice launches {results['kernel_launches']}")
+        check(results["plain_launches"] == [0, 0, 0, 0],
+              f"the plain {family} slice launched a kernel")
         check(row["feature_rel_l2"] < FEATURE_F32_REL, f"{family} tower features {row}")
         for key, limit in FAMILIES_SLICE_GATES.items():
             check(row[key] < limit, f"{family} slice {key} {row[key]} >= {limit}")
@@ -5508,6 +5586,380 @@ def phase_int8(card: str, bf16_t2i_s_per_image: float) -> dict:
     return {"gemm": gemm, "sample": sample, "t2i": t2i, "msdcn": msdcn_row}
 
 
+# ---- 20. parallel: the executors over a real NCCL group of one rank ----
+
+PARALLEL_DIR = "build/chip_smoke_parallel"  # git-ignored; deleted at the end of the phase
+PARALLEL_BATCH = 8
+# rel L2 against the sequential trunk on the card, bf16; the CPU readings of
+# ``--calibrate-parallel`` (4 of 28 blocks, batch 2) are in PARALLEL_READINGS
+# the t2i ring of one rounds where the c2i one does not: the text and image
+# partials merge in fp32 where the sequential block takes one attention over
+# both (the card reads 0.0101 and 0.0204)
+PARALLEL_GATES = {"sp_out": 1e-3, "sp_grad": 1e-2, "tp_out": 0.02, "tp_grad": 0.05,
+                  "t2i_sp_out": 0.03, "t2i_sp_grad": 0.08, "sp_images": 0.05,
+                  "pipeline_vs_cpu": 0.03, "ep_vs_cpu": 1e-4}
+PARALLEL_READINGS = {"sp_out": 0.0, "sp_grad": 0.0, "tp_out": 0.00706, "tp_grad": 0.0118,
+                     "zero_attention_out": 0.0851, "zero_attention_grad": 0.227,
+                     "t2i_sp_out": 0.00639, "t2i_sp_grad": 0.0106,
+                     "t2i_zero_attention_out": 0.0517, "t2i_zero_attention_grad": 0.157}
+
+
+def _card_init_(model, seed: int):
+    """``init_random_``'s distribution drawn on the model's device (a full
+    width t2i model's 1.1B draws on the host would take seconds)."""
+    import torch
+
+    from deco_tpu_torch.models import layers
+
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+    norms = {m for m in model.modules() if isinstance(m, (layers.RMSNorm, layers.LayerNorm))}
+    with torch.no_grad():
+        for module in model.modules():
+            for name, p in module.named_parameters(recurse=False):
+                r = torch.randn(p.shape, generator=gen, device=p.device) / p.shape[-1] ** 0.5
+                p.copy_(r + 1.0 if module in norms and name == "weight" else r)
+    return model
+
+
+def _flat_grads(model):
+    import torch
+
+    return torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1).float()
+                      for p in model.parameters()])
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _attention_counts() -> dict:
+    from deco_tpu_torch.ops import flash_attention as fa
+
+    return {"fwd": fa.flash_attention.launches, "fwd_lse": fa.flash_attention_fwd_lse.launches,
+            "bwd_dq": fa.flash_attention_bwd_dq.launches,
+            "bwd_dkv": fa.flash_attention_bwd_dkv.launches}
+
+
+def _modes_step(model, inputs, cot, modes, mesh, reps: int = 3) -> dict:
+    """Forward and backward of sum(out * cot) in each ``trunk_parallel``
+    mode: the output, the flat gradient, the launches of one step, the
+    median s/step of ``reps`` more, each ended by a synchronize, and one
+    more step's device ms by kind of kernel (and the kernels' count)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deco_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    for mode in modes:
+        model.trunk_parallel = mode
+        with mesh_lib.use_mesh(mesh):
+            times = []
+            for rep in range(reps + 1):
+                model.zero_grad(set_to_none=True)
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = model(*inputs)
+                (y.float() * cot).sum().backward()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if rep == 0:
+                    out[mode] = {"out": y.detach().float(), "grad": _flat_grads(model),
+                                 "launches": _attention_counts()}
+            model.zero_grad(set_to_none=True)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                (model(*inputs).float() * cot).sum().backward()
+                torch.cuda.synchronize()
+        out[mode]["s_per_step"] = float(np.median(times[1:]))
+        out[mode]["device_ms"] = _kernel_ms_by_kind(prof)
+        out[mode]["kernels"] = sum(ev.count for ev in prof.key_averages()
+                                   if ev.device_type.name == "CUDA")
+    model.trunk_parallel = "none"
+    return out
+
+
+def parallel_inputs(device: str, batch: int, dtype=None):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(batch, 256, 256, 3, generator=gen, device=device)
+    t = torch.rand(batch, generator=gen, device=device)
+    y = torch.randint(0, 1000, (batch,), generator=gen, device=device)
+    cot = torch.randn(batch, 256, 256, 3, generator=gen, device=device)
+    return (x, t, y), cot
+
+
+def _t2i_parallel_inputs(device: str, batch: int, text_len: int, text_dim: int):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn(batch, 512, 512, 3, generator=gen, device=device)
+    text = torch.randn(batch, text_len, text_dim, generator=gen, device=device) * 0.02
+    cot = torch.randn(batch, 512, 512, 3, generator=gen, device=device)
+    t = torch.rand(batch, generator=gen, device=device)
+    return (x, t, text), cot
+
+
+def calibrate_parallel() -> None:
+    """On the CPU (no group: a ring and a tensor split of one), bf16:
+    DeCo-XL at 4 of 28 blocks, batch 2, and sft_res512.yaml's DeCoT2I at 2
+    of 16 joint and 1 of 4 text blocks, batch 1. The executors' output and
+    gradient against the sequential trunk (rounding: the ring's fp32 merge
+    of the text and image partials, TP's bias added after the product), and
+    a trunk whose attention gives zeros against it (what the gates catch)."""
+    import torch
+
+    from deco_tpu_torch.config import registry
+    from deco_tpu_torch.models import layers
+    from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I, init_random_
+    from deco_tpu_torch.models.dit_t2i import DeCoT2I
+    from deco_tpu_torch.sample import PRESETS
+
+    kw = {**PRESETS["deco_xl_256"]["model"], "num_cond_blocks": 4, "num_blocks": 7}
+    c2i = init_random_(DeCoC2I(**kw, dtype=torch.bfloat16, param_dtype=torch.float32,
+                               device="cpu"), 1)
+    t2i_kw = dict(registry.load_yaml(T2I_CONFIG)["model"]["denoiser"]["init_args"],
+                  num_encoder_blocks=2, num_text_blocks=1)
+    t2i = init_random_(DeCoT2I(**t2i_kw, dtype=torch.bfloat16, param_dtype=torch.float32,
+                               device="cpu"), 2)
+    readings = {}
+    for name, model, (inputs, cot), modes in (
+            ("", c2i, parallel_inputs("cpu", 2), ("sp", "tp")),
+            ("t2i_", t2i, _t2i_parallel_inputs("cpu", 1, 128, 2048), ("sp",))):
+        rows = {}
+        for mode in ("none", *modes, "zero"):
+            model.zero_grad(set_to_none=True)
+            saved = layers.flash_attention
+            if mode == "zero":
+                layers.flash_attention = (
+                    lambda q, k, v, scale=None, causal=False: torch.zeros_like(q))
+            model.trunk_parallel = "none" if mode == "zero" else mode
+            try:
+                y = model(*inputs)
+                (y.float() * cot).sum().backward()
+            finally:
+                layers.flash_attention = saved
+            rows[mode] = (y.detach().float(), _flat_grads(model))
+        readings.update({f"{name}{m}_{k}": _rel(rows[m][i], rows["none"][i])
+                         for m in (*modes, "zero") for i, k in enumerate(("out", "grad"))})
+    print(json.dumps(readings))
+
+
+def phase_parallel(card: str, seed: int) -> dict:
+    """Phase 20: the parallel executors on the card at world 1, over a real
+    NCCL process group (a file store under ``PARALLEL_DIR``, no network),
+    the (data 1, model 1) mesh its collectives run on; sizes above one
+    are held to the JAX executors on gloo ranks on the CPU
+    (tests/test_torch_parallel*.py)."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from deco_tpu_torch import cli
+    from deco_tpu_torch.config import registry
+    from deco_tpu_torch.models.dit_c2i_deco import DeCoC2I
+    from deco_tpu_torch.models.dit_t2i import DeCoT2I
+    from deco_tpu_torch.models.moe import MoEMLP, capacity_of, dispatch_tensors
+    from deco_tpu_torch.parallel import mesh as mesh_lib
+    from deco_tpu_torch.parallel.ep_moe import expert_parallel_moe
+    from deco_tpu_torch.parallel.pipeline import dit_block_apply, pipeline_apply
+    from deco_tpu_torch.sample import PRESETS, build_model, build_sampler, generate
+    from deco_tpu_torch.train import checkpoint
+
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.abspath(PARALLEL_DIR)}/store",
+                            rank=0, world_size=1)
+    result = {}
+    try:
+        mesh = mesh_lib.make_mesh(model=1)
+        check(tuple(mesh.mesh.shape) == (1, 1) and dist.get_backend() == "nccl",
+              "phase 20 runs over a (1, 1) NCCL mesh")
+        n = PRESETS["deco_xl_256"]["model"]["num_cond_blocks"]
+
+        # DeCo-XL, full width, batch 8: forward and backward in each mode
+        model = _card_init_(DeCoC2I(**PRESETS["deco_xl_256"]["model"], dtype=torch.bfloat16,
+                                    param_dtype=torch.float32, device="cuda"), seed + 1)
+        inputs, cot = parallel_inputs("cuda", PARALLEL_BATCH)
+        steps = _modes_step(model, inputs, cot, ("none", "sp", "tp"), mesh)
+        ref = steps["none"]
+        keep = ("s_per_step", "launches", "device_ms", "kernels")
+        row = {m: {"out_rel_l2": _rel(steps[m]["out"], ref["out"]),
+                   "grad_rel_l2": _rel(steps[m]["grad"], ref["grad"]),
+                   **{k: steps[m][k] for k in keep}} for m in ("sp", "tp")}
+        row["none"] = {k: ref[k] for k in keep}
+        emit({"phase": "parallel_step", "config": "configs_c2i/DeCo_XL.yaml", "blocks": n,
+              "batch": PARALLEL_BATCH, "dtype": "bf16, fp32 parameters", **row,
+              "gates": PARALLEL_GATES, "cpu_readings": PARALLEL_READINGS, "card": card})
+        want = {"fwd": 0, "fwd_lse": n, "bwd_dq": n, "bwd_dkv": n}
+        for mode in ("none", "sp", "tp"):
+            check(steps[mode]["launches"] == want,
+                  f"{mode} step launches {steps[mode]['launches']}, expected {want}")
+        for mode in ("sp", "tp"):
+            for k in ("out", "grad"):
+                check(row[mode][f"{k}_rel_l2"] < PARALLEL_GATES[f"{mode}_{k}"],
+                      f"{mode} {k} rel L2 {row[mode][f'{k}_rel_l2']}")
+        result["step"] = {m: steps[m]["launches"] for m in ("none", "sp", "tp")}
+        del model, steps, ref
+        torch.cuda.empty_cache()
+
+        # 50-step CFG sampling at batch 8 under "sp" against the sequential trunk
+        model = build_model("deco_xl_256", seed=1)
+        sampler = build_sampler("deco_xl_256", 50)
+        calls = []
+        hook = model.register_forward_pre_hook(lambda *a: calls.append(1))
+        generate(model, build_sampler("deco_xl_256", 2), PARALLEL_BATCH, PARALLEL_BATCH, 256)
+        sample = {}
+        for mode in ("none", "sp"):
+            model.trunk_parallel = mode
+            calls.clear()
+            _reset_launches()
+            with mesh_lib.use_mesh(mesh):
+                t0 = time.perf_counter()
+                images = generate(model, sampler, PARALLEL_BATCH, PARALLEL_BATCH, 256)
+                seconds = time.perf_counter() - t0
+            sample[mode] = {"images": images, "images_per_s": PARALLEL_BATCH / seconds,
+                            "launches": _attention_counts(), "network_calls": len(calls)}
+            with mesh_lib.use_mesh(mesh):  # one CFG network call: its device time by kind
+                sample[mode]["cfg_call"] = device_breakdown(model, PARALLEL_BATCH)
+        hook.remove()
+        model.trunk_parallel = "none"
+        images_rel = _rel(sample["sp"]["images"], sample["none"]["images"])
+        emit({"phase": "parallel_sample", "batch": PARALLEL_BATCH, "steps": 50,
+              **{m: {k: v for k, v in sample[m].items() if k != "images"} for m in sample},
+              "images_rel_l2": images_rel, "card": card})
+        calls_n = sample["sp"]["network_calls"]
+        check(sample["none"]["launches"] == {"fwd": n * calls_n, "fwd_lse": 0, "bwd_dq": 0,
+                                             "bwd_dkv": 0}, f"sequential sample {sample}")
+        check(sample["sp"]["launches"] == {"fwd": 0, "fwd_lse": n * calls_n, "bwd_dq": 0,
+                                           "bwd_dkv": 0}, "each ring call one forward with lse")
+        check(bool(torch.isfinite(sample["sp"]["images"]).all()), "sp images not finite")
+        check(images_rel < PARALLEL_GATES["sp_images"], f"sp images rel L2 {images_rel}")
+        result["sample"] = sample["sp"]["launches"]
+
+        # pipeline and EP at world 1 against the CPU
+        blocks = model.blocks[:4]
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        xs = torch.randn(2, 256, 1152, generator=gen, device="cuda").bfloat16()
+        cs = torch.randn(2, 1, 1152, generator=gen, device="cuda").bfloat16()
+        rope = model._rope(16, 16, xs.device)
+        with torch.no_grad(), mesh_lib.use_mesh(mesh):
+            piped = pipeline_apply(dit_block_apply, blocks, xs, (cs,), (rope,),
+                                   num_microbatches=2)
+            seq = xs
+            for b in blocks:
+                seq = b(seq, cs, rope)
+        cpu_blocks = [__import__("copy").deepcopy(b).cpu() for b in blocks]
+        with torch.no_grad():
+            cpu = pipeline_apply(dit_block_apply, cpu_blocks, xs.cpu(), (cs.cpu(),),
+                                 (tuple(r.cpu() for r in rope),), mesh=None, num_microbatches=2)
+        moe = MoEMLP(256, 8, 512, top_k=2, capacity_factor=1.0, dtype=torch.float32,
+                     device="cuda")
+        xm = torch.randn(2, 256, 256, generator=gen, device="cuda")
+        cap = capacity_of(256, 8, 2, 1.0)
+        with torch.no_grad(), mesh_lib.use_mesh(mesh):
+            ye, aux, routing = expert_parallel_moe(moe.params(), xm, capacity=cap,
+                                                   dtype=torch.float32, return_routing=True)
+            dense = moe(xm)
+            probs = torch.softmax(xm @ moe.router, dim=-1)
+            same = all(torch.equal(dispatch_tensors(p, 2, cap)[0], r[0])
+                       for p, r in zip(probs, routing))
+            cpu_moe = __import__("copy").deepcopy(moe).cpu()
+            cpu_dense = cpu_moe(xm.cpu())
+        rows = {"pipeline_vs_sequential": _rel(piped, seq), "pipeline_vs_cpu": _rel(
+            piped.cpu(), cpu), "ep_vs_dense": _rel(ye, dense), "ep_vs_cpu": _rel(
+            ye.cpu(), cpu_dense), "ep_routing_equal_dense": same,
+            "ep_aux": float(aux), "dense_aux": float(moe.aux_loss)}
+        emit({"phase": "parallel_pipeline_ep", "pipeline": "4 DeCo-XL blocks, 2 microbatches",
+              "moe": "d 256, 8 experts of 512, top 2", **rows})
+        check(rows["pipeline_vs_sequential"] == 0.0, f"pipeline against its loop {rows}")
+        check(rows["pipeline_vs_cpu"] < PARALLEL_GATES["pipeline_vs_cpu"], f"pipeline {rows}")
+        check(same and rows["ep_vs_dense"] < 1e-6, f"EP against the dense module {rows}")
+        check(rows["ep_vs_cpu"] < PARALLEL_GATES["ep_vs_cpu"], f"EP against the CPU {rows}")
+        del model, moe, blocks
+        torch.cuda.empty_cache()
+
+        # sft_res512.yaml at full width: one forward and backward, text keys as extra_kv
+        config = registry.load_yaml(T2I_CONFIG)
+        kw = {k: v for k, v in config["model"]["denoiser"]["init_args"].items()
+              if k not in ("dtype", "grad_checkpoint")}
+        t2i = _card_init_(DeCoT2I(**kw, dtype=torch.bfloat16, param_dtype=torch.float32,
+                                  device="cuda"), seed + 2)
+        inputs2, cot2 = _t2i_parallel_inputs("cuda", 2, t2i.txt_max_length, kw["txt_embed_dim"])
+        tsteps = _modes_step(t2i, inputs2, cot2, ("none", "sp"), mesh, reps=1)
+        blocks_j, blocks_t = t2i.num_encoder_blocks, len(t2i.text_refine_blocks)
+        t2i_row = {"out_rel_l2": _rel(tsteps["sp"]["out"], tsteps["none"]["out"]),
+                   "grad_rel_l2": _rel(tsteps["sp"]["grad"], tsteps["none"]["grad"]),
+                   "launches": tsteps["sp"]["launches"],
+                   "sequential_launches": tsteps["none"]["launches"],
+                   **{f"{k}": tsteps["sp"][k] for k in ("s_per_step", "device_ms", "kernels")},
+                   **{f"sequential_{k}": tsteps["none"][k]
+                      for k in ("s_per_step", "device_ms", "kernels")}}
+        emit({"phase": "parallel_t2i_step", "config": T2I_CONFIG, "batch": 2, **t2i_row})
+        want = {"fwd": 0, **{k: blocks_t + 2 * blocks_j for k in ("fwd_lse", "bwd_dq",
+                                                                   "bwd_dkv")}}
+        check(tsteps["sp"]["launches"] == want, f"t2i sp launches {t2i_row}, expected {want}")
+        check(t2i_row["out_rel_l2"] < PARALLEL_GATES["t2i_sp_out"], f"t2i sp {t2i_row}")
+        check(t2i_row["grad_rel_l2"] < PARALLEL_GATES["t2i_sp_grad"], f"t2i sp {t2i_row}")
+        result["t2i_step"] = tsteps["sp"]["launches"]
+        del t2i, tsteps
+        torch.cuda.empty_cache()
+
+        # cli fit of DeCo_XL.yaml under "sp", phase 9's trunk cut; the checkpoint
+        # through the rank-0 gather into host memory and read back
+        write_image_folder(f"{PARALLEL_DIR}/images", seed, per_class=16)
+        memory = _MemoryCheckpoints()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with Spy(checkpoint.CheckpointManager, "save", replace=memory.save):
+            state = cli.main(["fit", "-c", "configs_c2i/DeCo_XL.yaml", *CLI_DEPTH,
+                              "--model.denoiser.init_args.trunk_parallel=sp",
+                              f"--data.train_dataset.init_args.root={PARALLEL_DIR}/images",
+                              f"--trainer.default_root_dir={PARALLEL_DIR}/work",
+                              "--max_steps", "3", "--trainer.log_every_n_steps=1"])
+        fit_s = time.perf_counter() - t0
+        fit = _attention_counts()
+        records = [json.loads(line) for line in open(
+            f"{PARALLEL_DIR}/work/DeCo_256_XL/metrics.jsonl")]
+        with Spy(checkpoint.CheckpointManager, "load", replace=memory.load), \
+                Spy(checkpoint.CheckpointManager, "latest_step", replace=memory.latest_step):
+            back = DeCoC2I(**{**PRESETS["deco_xl_256"]["model"], "num_cond_blocks": CLI_TRUNK,
+                              "num_blocks": CLI_TRUNK + 3}, dtype=torch.bfloat16,
+                           param_dtype=torch.float32, device="cuda")
+            step = checkpoint.CheckpointManager(f"{PARALLEL_DIR}/work/DeCo_256_XL/checkpoints",
+                                                0).restore_params(back, use_ema=False)
+        same = all(torch.equal(a.detach(), b.detach()) for a, b in zip(
+            back.parameters(), state.model.parameters()))
+        remat = 2 if state.model.trunk_checkpoint else 1
+        want = {"fwd": 0, "fwd_lse": 3 * CLI_TRUNK * remat, "bwd_dq": 3 * CLI_TRUNK,
+                "bwd_dkv": 3 * CLI_TRUNK}
+        emit({"phase": "parallel_cli_fit", "config": "configs_c2i/DeCo_XL.yaml",
+              "trunk_blocks": CLI_TRUNK, "trunk_parallel": "sp", "ddp": type(
+                  state.net).__name__, "steps": 3, "fit_s": fit_s,
+              "losses": [r["loss"] for r in records], "launches": fit,
+              "checkpoint_bytes": [s["bytes"] for s in memory.saves], "read_back_step": step,
+              "read_back_equal": same, "card": card})
+        check(type(state.net).__name__ == "DistributedDataParallel", "the fit ran under DDP")
+        check(fit == want, f"sp fit launches {fit}, expected {want}")
+        check(len(records) == 3 and all(np.isfinite(r["loss"]) for r in records),
+              f"sp fit losses {records}")
+        check(step == 3 and same, "the sp fit's checkpoint did not read back")
+        result["fit"] = fit
+        result["seconds"] = {"sp_step": row["sp"]["s_per_step"],
+                             "tp_step": row["tp"]["s_per_step"],
+                             "none_step": row["none"]["s_per_step"],
+                             "sp_images_per_s": sample["sp"]["images_per_s"],
+                             "none_images_per_s": sample["none"]["images_per_s"]}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -5534,6 +5986,9 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--calibrate-int8"]:
         calibrate_int8()  # on the CPU; sets no result
+        return 2
+    if sys.argv[1:] == ["--calibrate-parallel"]:
+        calibrate_parallel()  # on the CPU; sets no result
         return 2
     seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
     if not torch.cuda.is_available():
@@ -5616,6 +6071,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8 = phase_int8(card, t2i_serve["s_per_image"])
     mark("19 int8")
+    torch.cuda.empty_cache()
+    parallel = phase_parallel(card, seed)
+    mark("20 parallel")
     emit({"phase": "phase_seconds", "seconds": seconds, "total_s": marks[-1] - marks[0],
           "card": card})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5684,6 +6142,15 @@ def main() -> int:
         r.update(jpeg_t2i_fit_launches=jpeg["t2i"][key],
                  jpeg_uniflow_fit_launches=jpeg["uniflow"][key],
                  uniflow_distill_fit_launches=distill["fit"][key])
+        # phase 20: the ring (a forward with lse a hop, a dQ and a dK/dV a
+        # hop; twice with the t2i text keys) and TP, at world 1
+        r.update(parallel_launches={"sp_step": parallel["step"]["sp"][key],
+                                    "tp_step": parallel["step"]["tp"][key],
+                                    "sequential_step": parallel["step"]["none"][key],
+                                    "t2i_sp_step": parallel["t2i_step"][key],
+                                    "sp_cli_fit": parallel["fit"][key],
+                                    **({"sp_sample": parallel["sample"][key]}
+                                       if key == "fwd_lse" else {})})
         r.update(vae_fit_launches=vae["fit"][key],
                  vae_fit_launches_per_step=vae["per_step"][key],
                  vae_disc_start_step_launches=vae["disc_start"][key],
@@ -5704,6 +6171,8 @@ def main() -> int:
                int8_sample_launches=int8["sample"]["launches"],
                int8_t2i_serve_launches=int8["t2i"]["launches"],
                int8_cli_predict_launches=cli_launches["int8_predict"]["attention"],
+               # phase 20: under "sp" each ring call takes row 3's kernel
+               parallel_sp_sample_launches=parallel["sample"]["fwd"],
                d32=_reco_timing_rows(vae_kernels["timings"]["fwd"], keys + ("plain_b",)))
     d32_resources = {name: {k: info[k] for k in ("registers", "local_bytes", "dynamic_smem",
                                                  "ctas_per_sm")}

@@ -18,6 +18,18 @@ the DC-AE decoder eval (``configs_flow/dcae_decoder_eval.yaml``) route to
 ``train/workloads.py``: ``fit`` trains, ``validate`` and ``predict``
 score reconstructions; so do the UniFlow configs
 (``configs_flow/uniflow_*.yaml``).
+
+Several GPUs: one process each, as ``torchrun`` starts them, e.g.
+
+    torchrun --standalone --nproc_per_node=4 -m deco_tpu_torch.cli fit \
+        -c configs_c2i/DeCo_XL.yaml --mesh_model_axis=2 \
+        --model.denoiser.init_args.trunk_parallel=sp
+
+The first thing ``main`` does is start the process group from
+``torchrun``'s environment (``parallel.distributed.initialize``: NCCL on
+the card, gloo with ``--device cpu``); a run without that environment is
+one process. ``mesh_model_axis`` (the diffusion loop) and ``mesh: {data,
+model}`` (the UniFlow and VAE-GAN workloads) lay the processes out.
 """
 
 from __future__ import annotations
@@ -81,6 +93,9 @@ def detect_workload(config: Dict[str, Any]) -> str:
 def main(argv: Optional[list] = None):
     argv = argv if argv is not None else sys.argv[1:]
     known, unknown = build_parser().parse_known_args(argv)
+    from deco_tpu_torch.parallel import distributed
+
+    distributed.initialize(device=known.device)
     config = registry.load_yaml(known.config)
     registry.apply_overrides(config, parse_overrides(unknown))
     kind = detect_workload(config)

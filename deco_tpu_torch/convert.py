@@ -305,6 +305,13 @@ def repa_proj_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return _tensors(out)
 
 
+def moe_state_dict_from_jax(params: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A JAX ``MoEMLP`` tree (``router`` (d, E), ``w1``/``w3`` (E, d, m),
+    ``w2`` (E, m, d)) as the port's ``MoEMLP`` state dict, which keeps the
+    JAX layout (no transposes)."""
+    return _tensors({prefix + k: params[k] for k in ("router", "w1", "w3", "w2")})
+
+
 def _plain_dit_block(block: dict, out: dict, prefix: str):
     """A JAX ``PlainDiTBlock`` (its own subtree, not scanned) in the
     reference ``FlattenDiTBlock`` layout: the fused SwiGLU (``w12 = [w1; w3]``,

@@ -1,10 +1,15 @@
 """Host-side data loading: shuffling, batching, thread prefetch
 (``deco_tpu/data/loader.py``).
 
-One process feeds one card, so the shard is rank 0 of 1 unless the caller
-gives ``process_index``/``process_count``. The per-epoch shuffle is
-``RandomState(seed + epoch)``, the padding and batching are the JAX
-loader's, so the same dataset gives the same batches in the same order.
+``process_index``/``process_count`` are this process's rank and the size of
+the mesh's data axis (default 0 of 1): the loader walks the global batches
+of ``batch_size * process_count`` rows that one process over the whole
+world would load and decodes only this rank's rows of each
+(``parallel.mesh.rank_rows``: its 1/count of each of the ``microbatches``),
+so a fit on W ranks sees the world-1 fit's global batch. The per-epoch
+shuffle is ``RandomState(seed + epoch)``, and the padding and batching of
+one rank are the JAX loader's, so the same dataset gives the same batches
+in the same order.
 Batches are prepared on a thread pool; image decode (``zlib``, libjpeg) and
 the resampler's matmuls release the interpreter lock.
 
@@ -22,6 +27,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional
 
 import numpy as np
+
+from deco_tpu_torch.parallel.mesh import rank_rows
 
 
 def collate(samples):
@@ -96,7 +103,7 @@ class ShardedLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
                  drop_last: bool = True, num_workers: int = 4, prefetch: int = 4,
                  process_index: Optional[int] = None, process_count: Optional[int] = None,
-                 infinite: bool = False):
+                 infinite: bool = False, microbatches: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -107,6 +114,7 @@ class ShardedLoader:
         self.infinite = infinite
         self.rank = 0 if process_index is None else process_index
         self.world = 1 if process_count is None else process_count
+        self.rows = rank_rows(self.rank, self.world, batch_size, microbatches)
         self.epoch = 0
         self._start_offset = 0  # first-epoch batch offset (set_position)
 
@@ -123,29 +131,28 @@ class ShardedLoader:
         self.epoch = global_batch // per_epoch
         self._start_offset = global_batch % per_epoch
 
-    def _shard_indices(self, epoch: int) -> np.ndarray:
+    def _global_indices(self, epoch: int) -> np.ndarray:
+        """The epoch's dataset indices in order, padded to at least one
+        global batch (drop_last) by repeating from the start."""
         n = len(self.dataset)
         idx = np.arange(n)
         if self.shuffle:
             idx = np.random.RandomState(self.seed + epoch).permutation(n)
-        # pad to a multiple of world, and to at least one full batch per shard
-        per = max(-(-n // self.world), self.batch_size if self.drop_last else 1)
-        target = per * self.world
+        target = max(n, self.batch_size * self.world if self.drop_last else 1)
         while len(idx) < target:
             idx = np.concatenate([idx, idx[:target - len(idx)]])
-        return idx[self.rank::self.world]
+        return idx
 
     def __len__(self):
-        per = len(self._shard_indices(0))
-        if self.drop_last:
-            return per // self.batch_size
-        return -(-per // self.batch_size)
+        n, g = len(self._global_indices(0)), self.batch_size * self.world
+        return n // g if self.drop_last else -(-n // g)
 
     def _epoch_batches(self, epoch: int, skip: int = 0) -> Iterator:
-        idx = self._shard_indices(epoch)
-        nb = (len(idx) // self.batch_size if self.drop_last
-              else -(-len(idx) // self.batch_size))
-        batches = [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(nb)][skip:]
+        idx = self._global_indices(epoch)
+        g = self.batch_size * self.world
+        nb = len(idx) // g if self.drop_last else -(-len(idx) // g)
+        batches = [idx[j * g:(j + 1) * g] for j in range(nb)][skip:]
+        batches = [b[self.rows[self.rows < len(b)]] for b in batches]
 
         def fetch(bidx):
             return collate([self.dataset[int(i)] for i in bidx])
@@ -208,9 +215,14 @@ class IterableLoader:
 def make_loader(dataset, batch_size: int, **kwargs):
     """A :class:`ShardedLoader` for a map-style dataset, an
     :class:`IterableLoader` for a stream (which takes no shuffle, seed,
-    workers or process arguments: the stream shards and shuffles itself)."""
+    workers or process arguments: the stream shuffles itself, and reads the
+    shard of ``process_index`` of ``process_count`` unless its config fixed
+    one)."""
     if hasattr(dataset, "__len__") and hasattr(dataset, "__getitem__"):
         return ShardedLoader(dataset, batch_size, **kwargs)
-    for k in ("shuffle", "seed", "num_workers", "process_index", "process_count"):
+    if kwargs.get("process_count") is not None and hasattr(dataset, "use_loader_shard"):
+        dataset.use_loader_shard(kwargs.get("process_index") or 0, kwargs["process_count"])
+    for k in ("shuffle", "seed", "num_workers", "process_index", "process_count",
+              "microbatches"):
         kwargs.pop(k, None)
     return IterableLoader(dataset, batch_size, **kwargs)

@@ -11,8 +11,12 @@ sample's caption key from numpy's global generator, as the JAX reader does.
 
 Departures from the JAX package:
 
-- The shard index and count come from ``torch.distributed`` when it is
-  initialised, else (0, 1), in place of ``jax.process_index()``.
+- The shard index and count are the config's when it gives them, else
+  the data rank and size of the mesh that the loader passes
+  (:meth:`StreamShard.use_loader_shard`: the model axis's ranks of one
+  data rank read the same stream), else ``torch.distributed``'s rank and
+  world size when it is initialised, else (0, 1), in place of
+  ``jax.process_index()``.
 - Images are decoded by :func:`~deco_tpu_torch.data.imagenet.decode_image`
   (PNG and JPEG, equal to PIL's ``convert("RGB")``) and resized with the
   PIL-exact resampler. The JAX readers skip every sample that fails; the
@@ -66,6 +70,20 @@ def shard_of_process(shard_index: Optional[int], shard_count: Optional[int]):
     return 0, 1
 
 
+class StreamShard:
+    """The shard a stream reads, set by the subclass's ``select_shard(index,
+    count)``: the config's when given, else :func:`shard_of_process`'s
+    until the loader passes its data rank (:meth:`use_loader_shard`)."""
+
+    def _init_shard(self, index: Optional[int], count: Optional[int]) -> None:
+        self.shard_fixed = index is not None
+        self.select_shard(*shard_of_process(index, count))
+
+    def use_loader_shard(self, index: int, count: int) -> None:
+        if not self.shard_fixed:
+            self.select_shard(index, count)
+
+
 def decode_image(data: bytes) -> Optional[np.ndarray]:
     """Image bytes as (H, W, 3) uint8 RGB
     (:func:`~deco_tpu_torch.data.imagenet.decode_image`), or None for corrupt
@@ -105,7 +123,7 @@ def _item(img_bytes: bytes, caption: str, resolution: int, random_crop: bool,
     return x, caption, {"raw_image": raw, "prompt": caption}
 
 
-class PackedParquetDataset:
+class PackedParquetDataset(StreamShard):
     """Endless iterable over parquet shards of (image bytes, captions):
     ``data_sources`` maps a folder to how often its files repeat, and
     ``caption_weight`` a caption column to its sampling weight."""
@@ -121,9 +139,12 @@ class PackedParquetDataset:
             files = sorted(os.path.join(root, f) for f in os.listdir(root)
                            if f.endswith(".parquet"))
             self.parquet_files.extend(files * int(repeat))
-        shard_index, shard_count = shard_of_process(shard_index, shard_count)
-        self._files = self.parquet_files[shard_index::shard_count]
-        self._rng = random.Random(seed + shard_index)
+        self.seed = seed
+        self._init_shard(shard_index, shard_count)
+
+    def select_shard(self, index: int, count: int) -> None:
+        self._files = self.parquet_files[index::count]
+        self._rng = random.Random(self.seed + index)
 
     def __iter__(self) -> Iterator:
         try:
@@ -151,7 +172,7 @@ class PackedParquetDataset:
                     yield item
 
 
-class WebDatasetPacked:
+class WebDatasetPacked(StreamShard):
     """Local webdataset tar shards of (jpg/png + txt/json caption) members
     grouped by stem, through a shuffle buffer of ``shuffle_buffer``
     samples; ``repeat`` starts over after the last tar. ``urls`` are tar
@@ -173,9 +194,12 @@ class WebDatasetPacked:
                                    if f.endswith(".tar")))
             else:
                 tars.append(url)
-        shard_index, shard_count = shard_of_process(shard_index, shard_count)
-        self._tars = tars[shard_index::shard_count]
-        self._rng = random.Random(seed + shard_index)
+        self.tars, self.seed = tars, seed
+        self._init_shard(shard_index, shard_count)
+
+    def select_shard(self, index: int, count: int) -> None:
+        self._tars = self.tars[index::count]
+        self._rng = random.Random(self.seed + index)
 
     def _samples_from_tar(self, path: str) -> list:
         """(image bytes, caption) of each stem with an image and a caption, in

@@ -11,8 +11,9 @@ crops and the flips, in the JAX order.
 
 Departures from the JAX package:
 
-- The process index and count come from ``torch.distributed`` when it is
-  initialised, else (0, 1), in place of ``jax.process_index()``.
+- The process index and count are chosen as ``data/packed.py``'s shard
+  (:class:`~deco_tpu_torch.data.packed.StreamShard`), in place of
+  ``jax.process_index()``.
 - Members are decoded by :func:`~deco_tpu_torch.data.imagenet.decode_image`
   (PNG and JPEG, equal to PIL's ``convert("RGB")``) and cropped by the
   PIL-exact resampler (the ADM center crop, or with ``random_crop`` a
@@ -35,7 +36,7 @@ from typing import Iterator, List, Optional, Sequence, Union
 import numpy as np
 
 from deco_tpu_torch.data.imagenet import adm_center_crop, decode_image, resize_short_side
-from deco_tpu_torch.data.packed import shard_of_process
+from deco_tpu_torch.data.packed import StreamShard
 
 _IMAGE_EXT = (".jpg", ".jpeg", ".png", ".webp")
 
@@ -55,7 +56,7 @@ def decode_and_crop(data: bytes, resolution: int, random_crop: bool, crop_at) ->
     return arr[y0:y0 + resolution, x0:x0 + resolution]
 
 
-class PixWebDataset:
+class PixWebDataset(StreamShard):
     """Iterable over webdataset tar shards -> (x, class, metadata)."""
 
     def __init__(self, data_files: Union[str, Sequence[str]], resolution: int = 256,
@@ -79,7 +80,10 @@ class PixWebDataset:
         self.seed = random_seed
         self.buffer_size = buffer_size
         self._epoch = 0
-        self.rank, self.world = shard_of_process(process_index, process_count)
+        self._init_shard(process_index, process_count)
+
+    def select_shard(self, index: int, count: int) -> None:
+        self.rank, self.world = index, count
 
     def _process(self, image_bytes: bytes, target: int, rng: random.Random):
         # random.randint is inclusive; x is drawn before y, as in JAX

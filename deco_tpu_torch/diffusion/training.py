@@ -37,6 +37,7 @@ from torch import nn
 
 from deco_tpu_torch.diffusion.scheduling import BaseScheduler, bcast_right
 from deco_tpu_torch.ops import block_dct
+from deco_tpu_torch.parallel import mesh as mesh_lib
 
 DRAWS = ("drop_u", "t_normal", "t_uniform", "mix_u", "t_int", "noise")
 
@@ -81,7 +82,9 @@ def _resolve_weight_fn(fn: Union[str, Callable]) -> Callable:
 
 def draw(draws, key: str, shape, normal: bool, generator, device) -> torch.Tensor:
     """``draws[key]`` (checked against ``shape``) when given, else a fresh
-    fp32 normal or uniform draw from ``generator`` on ``device``."""
+    fp32 normal or uniform draw from ``generator`` on ``device``: a
+    ``torch.Generator``, or a ``parallel.mesh.RowDraws``, which draws for
+    the global batch and keeps this rank's rows."""
     if draws is not None and key in draws:
         x = torch.as_tensor(draws[key], dtype=torch.float32, device=device)
         if tuple(x.shape) != tuple(shape):
@@ -89,8 +92,7 @@ def draw(draws, key: str, shape, normal: bool, generator, device) -> torch.Tenso
         return x
     if generator is None:
         raise ValueError(f"draw {key!r}: pass a torch.Generator or the draw itself")
-    sample = torch.randn if normal else torch.rand
-    return sample(tuple(shape), generator=generator, device=device)
+    return mesh_lib.sample(generator, shape, device, normal=normal)
 
 
 class BaseTrainer:
@@ -384,5 +386,5 @@ class DDPMTrainer(VPTrainer):
         elif generator is None:
             raise ValueError("draw 't_int': pass a torch.Generator or the draw itself")
         else:
-            t = torch.randint(0, self.train_max_t, b, generator=generator, device=x.device)
+            t = mesh_lib.sample_int(generator, self.train_max_t, b, x.device)
         return self._eps_loss(net, x, y, t, t.to(x.dtype), generator, draws)

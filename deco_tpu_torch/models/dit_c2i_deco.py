@@ -28,7 +28,14 @@ the decoder's condition s, (B, H/p, W/p, hidden). With both, the order is
 the trunk blocks' attention and MLP products through W8A8 int8
 (``ops/quant.py``), an inference-only serving mode with the same
 parameters; ``ops/quant.refresh_quant_cache`` quantises the weights once.
-``trunk_parallel`` is not ported (ROADMAP §A 6), and rejected when asked for.
+
+``trunk_parallel`` runs the trunk under a parallel executor over the current
+mesh's model axis (``parallel.mesh.use_mesh``; the loops set it from
+``mesh_model_axis``): "sp" sequence-parallel with ring attention
+(``parallel/sp_trunk.py``), "tp" Megatron-style heads and SwiGLU width
+(``parallel/tp_trunk.py``), "none" the sequential loop. The executors read
+the same ``blocks.*`` parameters, so checkpoints are the same in every
+mode. As in JAX they refuse int8, the REPA feature tap and a mask.
 """
 
 from __future__ import annotations
@@ -42,11 +49,32 @@ from deco_tpu_torch.models import layers
 from deco_tpu_torch.models.patching import patchify, unpatchify
 from deco_tpu_torch.ops import quant
 
-# constructor fields of the JAX model that the port does not implement,
-# with the value that means "off"
-_UNPORTED = {
-    "trunk_parallel": "none",
-}
+TRUNK_PARALLEL = ("none", "sp", "tp")
+
+
+def check_trunk_parallel(mode: str, int8: bool) -> None:
+    """Raise for a mode the executors do not run: an unknown one, or int8
+    (the executors read the weights themselves and would drop it)."""
+    if mode not in TRUNK_PARALLEL:
+        raise ValueError(f"trunk_parallel={mode!r}: expected 'none', 'sp', or 'tp'")
+    if int8 and mode != "none":
+        raise ValueError("quantize='int8' is not available under trunk_parallel executors; use "
+                         "the sequential trunk for int8 serving")
+
+
+def run_trunk_parallel(mode: str, blocks, x, c, rope, y=None, *, remat: bool,
+                       policy: str = "full"):
+    """The trunk under the "sp" or "tp" executor (the joint one with text
+    tokens ``y``) over the current mesh."""
+    from deco_tpu_torch.parallel import sp_trunk, tp_trunk
+
+    kw = dict(remat=remat, policy=policy)
+    if y is None:
+        fn = sp_trunk.sequence_parallel_trunk if mode == "sp" else tp_trunk.tensor_parallel_trunk
+        return fn(blocks, x, c, rope, **kw)
+    fn = (sp_trunk.sequence_parallel_joint_trunk if mode == "sp"
+          else tp_trunk.tensor_parallel_joint_trunk)
+    return fn(blocks, x, y, c, rope, **kw)
 
 
 def channel_major(x_patches, patch_size: int, in_channels: int):
@@ -104,19 +132,16 @@ class DeCoC2I(nn.Module):
                  dtype=torch.bfloat16, rope_scale: float = 16.0,
                  param_dtype=None, grad_checkpoint: bool = False,
                  trunk_remat_policy: str = "full", decoder_chunks: int = 0,
-                 align_layer: int = 0, quantize=None, device="cuda", **unported):
+                 align_layer: int = 0, quantize=None, trunk_parallel: str = "none",
+                 device="cuda"):
         super().__init__()
         if trunk_remat_policy not in (*layers.REMAT_POLICIES, "none"):
             raise ValueError(
                 f"DeCoC2I: trunk_remat_policy={trunk_remat_policy!r}; expected one of "
                 f"{sorted((*layers.REMAT_POLICIES, 'none'))}")
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"DeCoC2I: unexpected argument {name!r}")
-            if value != _UNPORTED[name]:
-                raise NotImplementedError(
-                    f"DeCoC2I: {name}={value!r} is not ported to deco_tpu_torch, ROADMAP §A 6")
         int8 = quant.resolve_mode(quantize)
+        check_trunk_parallel(trunk_parallel, int8)
+        self.trunk_parallel = trunk_parallel
         self.quantize = "int8" if int8 else None
         del nerf_mlpratio  # accepted for config parity, unused by this decoder
         dev = resolve_device(device)
@@ -171,10 +196,24 @@ class DeCoC2I(nn.Module):
         feat = None
         if s is None:
             s = self.s_embedder(channel_major(x_patches, p, self.in_channels))
-            s, feat = run_dit_blocks(self.blocks, s, c, self._rope(gh, gw, x.device), mask,
-                                     align_layer=self.align_layer if return_features else None,
-                                     enabled=self.trunk_checkpoint,
-                                     policy=self.trunk_remat_policy)
+            rope = self._rope(gh, gw, x.device)
+            if self.trunk_parallel != "none":
+                if return_features and self.align_layer:
+                    raise ValueError(
+                        "the REPA feature tap is not available under trunk_parallel (the "
+                        "executors do not carry the per-layer tap); train REPA with the "
+                        "sequential trunk")
+                if mask is not None:
+                    raise ValueError("trunk_parallel executors are unmasked (ring/TP "
+                                     "attention); c2i never passes a mask")
+                s = run_trunk_parallel(self.trunk_parallel, self.blocks, s, c, rope,
+                                       remat=self.trunk_checkpoint,
+                                       policy=self.trunk_remat_policy)
+            else:
+                s, feat = run_dit_blocks(
+                    self.blocks, s, c, rope, mask,
+                    align_layer=self.align_layer if return_features else None,
+                    enabled=self.trunk_checkpoint, policy=self.trunk_remat_policy)
             s = F.silu(t_emb + s)
 
         x_pix = x_patches.reshape(b, gh * gw, p * p, self.in_channels)

@@ -38,8 +38,10 @@ normalised, fc2 not) into a zero-initialised linear; no shipped config uses it.
 ``quantize="int8"`` (or ``DECO_QUANT=int8`` when the model is built) runs
 the text-refine and joint blocks' attention and MLP products through W8A8
 int8 (``ops/quant.py``), an inference-only serving mode with the same
-parameters. Not ported, and raising when asked for: ``trunk_parallel``
-(ROADMAP §A 6).
+parameters. ``trunk_parallel`` ("sp" or "tp") runs the joint blocks under
+the joint executors of ``parallel/`` over the current mesh's model axis, as
+``DeCoC2I``'s does (the text tokens stay whole on every rank); it refuses
+int8 and the REPA tap, and its ``return_features`` are zeros.
 """
 
 from __future__ import annotations
@@ -53,14 +55,9 @@ from torch import nn
 
 from deco_tpu_torch._device import resolve_device
 from deco_tpu_torch.models import layers
+from deco_tpu_torch.models.dit_c2i_deco import check_trunk_parallel, run_trunk_parallel
 from deco_tpu_torch.models.patching import patchify, unpatchify
 from deco_tpu_torch.ops import quant
-
-# constructor fields of the JAX model that the port does not implement:
-# (the value that means "off", the ROADMAP §A item that ports them)
-_UNPORTED = {
-    "trunk_parallel": ("none", 6),
-}
 
 
 def nerf_rope_cos_basis(patch_size: int, max_freqs: int) -> np.ndarray:
@@ -95,16 +92,11 @@ class _T2ITrunk(nn.Module):
                  hidden_size: int, num_encoder_blocks: int, num_text_blocks: int,
                  txt_embed_dim: int, txt_max_length: int, dtype, param_dtype,
                  patch_scaling_hw, grad_checkpoint: bool, align_layer: int, quantize,
-                 unported: dict):
+                 trunk_parallel: str):
         super().__init__()
-        for arg, value in unported.items():
-            if arg not in _UNPORTED:
-                raise TypeError(f"{name}: unexpected argument {arg!r}")
-            off, item = _UNPORTED[arg]
-            if value != off:
-                raise NotImplementedError(
-                    f"{name}: {arg}={value!r} is not ported to deco_tpu_torch, ROADMAP §A {item}")
         int8 = quant.resolve_mode(quantize)
+        check_trunk_parallel(trunk_parallel, int8)
+        self.trunk_parallel = trunk_parallel
         self.quantize = "int8" if int8 else None
         self.in_channels = in_channels
         self.patch_size = patch_size
@@ -159,11 +151,18 @@ class _T2ITrunk(nn.Module):
         s = self.s_embedder(x_pix.transpose(2, 3).reshape(b, gh * gw, -1))
         rope = self._rope(gh, gw, scale, x.device)
         feat = None
-        for i, block in enumerate(self.blocks[:self.num_encoder_blocks]):
-            s = layers.run_checkpointed(block, s, y_emb, condition, rope,
-                                        enabled=self.grad_checkpoint)
-            if return_features and i == self.align_layer - 1:
-                feat = s
+        if self.trunk_parallel != "none":
+            if return_features and self.align_layer:
+                raise ValueError("the REPA feature tap is not available under trunk_parallel; "
+                                 "train alignment with the sequential trunk")
+            s = run_trunk_parallel(self.trunk_parallel, self.blocks[:self.num_encoder_blocks],
+                                   s, condition, rope, y=y_emb, remat=self.grad_checkpoint)
+        else:
+            for i, block in enumerate(self.blocks[:self.num_encoder_blocks]):
+                s = layers.run_checkpointed(block, s, y_emb, condition, rope,
+                                            enabled=self.grad_checkpoint)
+                if return_features and i == self.align_layer - 1:
+                    feat = s
         if return_features and feat is None:
             feat = torch.zeros_like(s)
         return x_pix, F.silu(t_emb + s), feat
@@ -191,13 +190,13 @@ class DeCoT2I(_T2ITrunk):
                  max_freqs: int = 8, dtype=torch.bfloat16, param_dtype=None,
                  patch_scaling_hw: Tuple[float, float] = (1.0, 1.0), decoder_chunks: int = 0,
                  grad_checkpoint: bool = False, align_layer: int = 0, quantize=None,
-                 device="cuda", **unported):
+                 trunk_parallel: str = "none", device="cuda"):
         dev = resolve_device(device)
         with dev:
             super().__init__("DeCoT2I", in_channels, patch_size, num_groups, hidden_size,
                              num_encoder_blocks, num_text_blocks, txt_embed_dim, txt_max_length,
                              dtype, param_dtype, patch_scaling_hw, grad_checkpoint, align_layer,
-                             quantize, unported)
+                             quantize, trunk_parallel)
             kw = dict(dtype=dtype, param_dtype=param_dtype)
             self.decoder_chunks = decoder_chunks
             self.x_embedder = layers.NerfEmbedder(
@@ -235,13 +234,13 @@ class PixNerdT2I(_T2ITrunk):
                  nerf_mlpratio: int = 2, max_freqs: int = 8, dtype=torch.bfloat16,
                  param_dtype=None, patch_scaling_hw: Tuple[float, float] = (1.0, 1.0),
                  grad_checkpoint: bool = False, align_layer: int = 0, quantize=None,
-                 device="cuda", **unported):
+                 trunk_parallel: str = "none", device="cuda"):
         dev = resolve_device(device)
         with dev:
             super().__init__("PixNerdT2I", in_channels, patch_size, num_groups, hidden_size,
                              num_encoder_blocks, num_text_blocks, txt_embed_dim, txt_max_length,
                              dtype, param_dtype, patch_scaling_hw, grad_checkpoint, align_layer,
-                             quantize, unported)
+                             quantize, trunk_parallel)
             kw = dict(dtype=dtype, param_dtype=param_dtype)
             self.blocks.extend(
                 layers.NerfBlock(decoder_hidden_size, hidden_size, nerf_mlpratio, **kw)

@@ -400,15 +400,38 @@ def apply_rope(xq, xk, rope):
     return rot(xq), rot(xk)
 
 
-def sdpa(q, k, v, mask=None, causal: bool = False):
+def sdpa(q, k, v, mask=None, causal: bool = False, impl: str = "auto", extra_kv=None):
     """Attention dispatch. q: (B, Nq, H, Hc); k/v: (B, Nkv, H, Hc).
 
     Without a mask this is :func:`flash_attention` (the kernel on CUDA, its
     plain version on CPU), ``causal`` masking the keys past each query (the
     kernel's causal instantiation). Any other mask takes the plain version
     on CPU and raises on CUDA: no ported model passes one.
+
+    ``extra_kv``: (k, v) of further tokens every query attends to (the t2i
+    text), concatenated after k and v on the key axis. ``impl="ring"`` is
+    ring attention over the current mesh's model axis
+    (:func:`~deco_tpu_torch.parallel.ring_attention.ring_attention_local`),
+    valid only inside the sequence-parallel trunk, whose tokens are split
+    over that axis; the extra tokens stay replicated and their gradient
+    sum is left to the model group's mean (``reduce_extra=False``). The
+    ring is unmasked only.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
+    if impl == "ring":
+        if mask is not None or causal:
+            raise ValueError("ring attention is unmasked only")
+        from deco_tpu_torch.parallel import mesh as mesh_lib
+        from deco_tpu_torch.parallel.ring_attention import ring_attention_local
+
+        group = mesh_lib.axis_group(mesh_lib.current_mesh(), mesh_lib.MODEL_AXIS)
+        return ring_attention_local(q, k, v, group=group, scale=scale, extra_kv=extra_kv,
+                                    reduce_extra=False)
+    if impl != "auto":
+        raise ValueError(f"sdpa impl {impl!r}: expected 'auto' or 'ring'")
+    if extra_kv is not None:
+        k = torch.cat([k, extra_kv[0]], dim=1)
+        v = torch.cat([v, extra_kv[1]], dim=1)
     if mask is None:
         return flash_attention(q, k, v, scale=scale, causal=causal)
     if q.is_cuda:
@@ -419,7 +442,8 @@ def sdpa(q, k, v, mask=None, causal: bool = False):
 class RAttention(nn.Module):
     """RoPE + qk-RMSNorm multi-head self-attention; ``rope=None`` (the t2i
     text-refine blocks) rotates nothing. ``quantize``: int8 ``qkv`` and
-    ``proj`` (:class:`Int8Linear`); the attention stays bf16."""
+    ``proj`` (:class:`Int8Linear`); the attention stays bf16. ``forward``'s
+    ``attn_impl`` goes to :func:`sdpa` ("ring": sequence-parallel)."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32, param_dtype=None,
                  quantize: bool = False):
@@ -431,19 +455,19 @@ class RAttention(nn.Module):
         self.k_norm = RMSNorm(dim // num_heads)
         self.proj = lin(dim, dim, dtype=dtype, param_dtype=param_dtype)
 
-    def forward(self, x, rope, mask=None, causal: bool = False):
+    def forward(self, x, rope, mask=None, causal: bool = False, attn_impl=None):
         b, n, c = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
         q, k, v = self.q_norm(qkv[:, :, 0]), self.k_norm(qkv[:, :, 1]), qkv[:, :, 2]
         if rope is not None:
             q, k = apply_rope(q, k, rope)
-        out = sdpa(q, k, v, mask=mask, causal=causal)
+        out = sdpa(q, k, v, mask=mask, causal=causal, impl=attn_impl or "auto")
         return self.proj(out.reshape(b, n, c))
 
 
 class FlattenDiTBlock(nn.Module):
     """adaLN-gated DiT block: RAttention + SwiGLU; ``quantize`` makes their
-    products int8 (adaLN stays bf16)."""
+    products int8 (adaLN stays bf16); ``forward``'s ``attn_impl`` as :class:`RAttention`'s."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype=torch.float32, param_dtype=None, quantize: bool = False):
@@ -455,11 +479,11 @@ class FlattenDiTBlock(nn.Module):
         self.norm2 = RMSNorm(hidden)
         self.mlp = SwiGLU(hidden, int(hidden * mlp_ratio), **kw, quantize=quantize)
 
-    def forward(self, x, c, rope, mask=None):
+    def forward(self, x, c, rope, mask=None, attn_impl=None):
         (shift_msa, scale_msa, gate_msa,
          shift_mlp, scale_mlp, gate_mlp) = self.adaLN_modulation(c).chunk(6, dim=-1)
         h = modulate(self.norm1(x), shift_msa, scale_msa)
-        x = x + gate_msa * self.attn(h, rope, mask)
+        x = x + gate_msa * self.attn(h, rope, mask, attn_impl=attn_impl)
         h = modulate(self.norm2(x), shift_mlp, scale_mlp)
         return x + gate_mlp * self.mlp(h)
 
@@ -472,6 +496,9 @@ class JointAttention(nn.Module):
     image q and k only; the text keys and values follow the image ones on
     the key axis (the JAX ``sdpa(..., extra_kv=...)`` concatenation), so
     Nkv = N + M. ``quantize``: the three projections are :class:`Int8Linear`.
+    ``forward``'s ``attn_impl="ring"``: the image keys ride
+    the ring and the text keys seed every rank's accumulator
+    (:func:`sdpa`'s ``extra_kv``).
     """
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32, param_dtype=None,
@@ -486,7 +513,7 @@ class JointAttention(nn.Module):
         self.k_norm = RMSNorm(dim // num_heads)
         self.proj = lin(dim, dim, **kw)
 
-    def forward(self, x, y, rope):
+    def forward(self, x, y, rope, attn_impl=None):
         b, n, c = x.shape
         head_dim = c // self.num_heads
         qkv = self.qkv_x(x).reshape(b, n, 3, self.num_heads, head_dim)
@@ -494,7 +521,7 @@ class JointAttention(nn.Module):
         q, kx = apply_rope(self.q_norm(q), self.k_norm(kx), rope)
         kv = self.kv_y(y).reshape(b, y.shape[1], 2, self.num_heads, head_dim)
         ky, vy = self.k_norm(kv[:, :, 0]), kv[:, :, 1]
-        out = sdpa(q, torch.cat([kx, ky], dim=1), torch.cat([vx, vy], dim=1))
+        out = sdpa(q, kx, vx, impl=attn_impl or "auto", extra_kv=(ky, vy))
         return self.proj(out.reshape(b, n, c))
 
 
@@ -521,16 +548,16 @@ class _T2IBlock(nn.Module):
 
 class JointDiTBlock(_T2IBlock):
     """t2i encoder block: :class:`JointAttention` + fused SwiGLU (both int8
-    under ``quantize``)."""
+    under ``quantize``); ``forward``'s ``attn_impl`` as :class:`JointAttention`'s."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype=torch.float32, param_dtype=None, quantize: bool = False):
         super().__init__(hidden, JointAttention(hidden, num_heads, dtype, param_dtype, quantize),
                          mlp_ratio, dtype, param_dtype, quantize)
 
-    def forward(self, x, y, c, rope):
+    def forward(self, x, y, c, rope, attn_impl=None):
         """x: (B, N, C) image tokens; y: (B, M, C) text tokens; c: (B, 1, C)."""
-        return self._forward(x, c, y, rope)
+        return self._forward(x, c, y, rope, attn_impl)
 
 
 class TextRefineBlock(_T2IBlock):

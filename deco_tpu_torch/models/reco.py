@@ -132,6 +132,10 @@ class ReCoModel(nn.Module):
     ``device`` defaults to CUDA and raises where there is none ("meta" builds
     the shapes only)."""
 
+    # the reconstruction loss does not reach ``mlp1`` (the understanding
+    # features): DDP looks for unused parameters
+    unused_in_fit = True
+
     def __init__(self, vit: vit_lib.ViTConfig = DEFAULT_VIT, in_channels: int = 3,
                  hidden_size: int = 1152, hidden_size_x: int = 64, num_groups: int = 12,
                  num_encoder_blocks: int = 18, num_decoder_blocks: int = 4,

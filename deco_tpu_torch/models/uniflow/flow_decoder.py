@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from deco_tpu_torch.diffusion.training import draw
+from deco_tpu_torch.parallel import mesh as mesh_lib
 from deco_tpu_torch.models.uniflow.components import (
     TimeCondMLPAdaLN,
     UniFlowNerfEmbedder,
@@ -102,8 +103,7 @@ class FlowDecoder(nn.Module):
                 on = (ts >= lo) & (ts <= hi)
             cfg_per_step = np.where(on, cfg, 1.0).astype(np.float32)
         if noise is None:
-            noise = torch.randn((b, n, self.target_channels), generator=generator,
-                                device=z.device)
+            noise = mesh_lib.sample(generator, (b, n, self.target_channels), z.device)
         x = noise.float()
         for i in range(len(ts)):
             tt = torch.full((b, n), float(ts[i] * np.float32(1000.0)), device=z.device)

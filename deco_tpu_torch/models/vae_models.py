@@ -44,6 +44,7 @@ from deco_tpu_torch.models.dcae import DCAEDecoder, DCRMSNorm
 from deco_tpu_torch.models.internvl import INTERNVIT, mlp1_connector
 from deco_tpu_torch.models.uniflow import vit as vit_lib
 from deco_tpu_torch.models.uniflow.components import resample_tokens
+from deco_tpu_torch.parallel import mesh as mesh_lib
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -195,7 +196,7 @@ class VAEModel(nn.Module):
             extras["kl"] = (0.5 * (torch.exp(logvar) + mean.float() ** 2 - 1.0 - logvar)
                             .sum(dim=(1, 2))).mean()
             if noise is None and generator is not None:
-                noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+                noise = mesh_lib.sample(generator, mean.shape, mean.device)
             latent = mean if noise is None else mean + torch.exp(0.5 * logvar) * noise.to(
                 mean.dtype)
         return latent, extras

@@ -21,6 +21,11 @@ Only tensors, dicts and ints, so ``torch.load(weights_only=True)`` reads
 it. A save goes to a temporary file in the same directory, is flushed to
 disk and then renamed over the final name, so a crash never leaves a
 half-written checkpoint under a step's name.
+
+Under several processes, rank 0 writes each checkpoint, whole: FSDP2's
+shards are gathered first (every rank takes part), and the others wait
+at a barrier. Every mesh reads every checkpoint: a restore gives each
+sharded parameter, its EMA and its moments this rank's shard.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from deco_tpu_torch.parallel import distributed
+from deco_tpu_torch.parallel.mesh import full, is_dtensor, like
 from deco_tpu_torch.train.state import TRAINER_PREFIX, TrainState
 
 _NAME = re.compile(r"^(\d+)\.pt$")
@@ -43,10 +50,11 @@ def payload(params: Dict[str, torch.Tensor], ema: Optional[Dict[str, torch.Tenso
     """The checkpoint dict from named parameters, their EMA (or None), the
     optimizer state by parameter name (tensors), and the step; tensors on
     the CPU."""
-    state_dict = {_key(k): v.detach().cpu() for k, v in params.items()}
+    state_dict = {_key(k): full(v.detach()).cpu() for k, v in params.items()}
     if ema is not None:
-        state_dict.update({_key(k, ema=True): v.detach().cpu() for k, v in ema.items()})
-    optimizer = {name: {k: v.detach().cpu() for k, v in m.items()} for name, m in moments.items()}
+        state_dict.update({_key(k, ema=True): full(v.detach()).cpu() for k, v in ema.items()})
+    optimizer = {name: {k: full(v.detach()).cpu() for k, v in m.items()}
+                 for name, m in moments.items()}
     return {"state_dict": state_dict, "optimizer": optimizer, "step": int(step)}
 
 
@@ -80,9 +88,13 @@ class CheckpointManager:
         step = state.step if step is None else int(step)
         if not force and (self.every_n_steps <= 0 or step % self.every_n_steps != 0):
             return False
-        obj = state_payload(state)
-        obj["step"] = step
-        self.save(obj, step)
+        writer = distributed.rank() == 0
+        if writer or any(is_dtensor(p) for p in state.parameters()):
+            obj = state_payload(state)  # a gather of the shards, on every rank
+            obj["step"] = step
+            if writer:
+                self.save(obj, step)
+        distributed.barrier()
         return True
 
     def save(self, obj: dict, step: int) -> str:
@@ -118,16 +130,18 @@ class CheckpointManager:
                        else set()), "state_dict")
         with torch.no_grad():
             for n, p in named:
-                p.copy_(sd[_key(n)])
+                p.copy_(like(p, sd[_key(n)]))
             if state.ema_params is not None:
                 for (n, _), e in zip(named, state.ema_params):
-                    e.copy_(sd[_key(n, ema=True)])
+                    e.copy_(like(e, sd[_key(n, ema=True)]))
         index = {n: i for i, (n, _) in enumerate(named)}
         unknown = set(obj["optimizer"]) - set(index)
         if unknown:
             raise KeyError(f"checkpoint optimizer state for unknown parameters {sorted(unknown)[:5]}")
+        params = dict(named)
         osd = state.optimizer.state_dict()
-        osd["state"] = {index[n]: dict(m) for n, m in obj["optimizer"].items()}
+        osd["state"] = {index[n]: {k: like(params[n], v) if v.dim() else v for k, v in m.items()}
+                        for n, m in obj["optimizer"].items()}
         state.optimizer.load_state_dict(osd)
         state.step = int(obj["step"])
         return state

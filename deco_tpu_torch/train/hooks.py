@@ -13,7 +13,10 @@
 - :class:`ComputeMetricsHook`: PSNR, SSIM and FID of predicted against
   original images, accumulated over a predict run.
 
-One process writes everything.
+Under several processes (``parallel/distributed.py``): the scalar log is
+rank 0's (``writer``), each data rank saves its own samples by their
+global index and ``output.npz`` is merged in the global order, and the
+metrics' sums and FID moments are summed over the processes.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 
 from deco_tpu_torch._device import resolve_device
 from deco_tpu_torch.models import inception
+from deco_tpu_torch.parallel import distributed
 from deco_tpu_torch.train.metrics import (
     FIDStats,
     frechet_distance,
@@ -60,16 +64,25 @@ class SaveImagesHook:
         self._saved = 0
         self._futures = []
 
-    def on_predict_start(self, workdir: str, step: int = 0):
+    def on_predict_start(self, workdir: str, step: int = 0, process_index: int = 0,
+                         process_count: int = 1, writes: bool = True):
+        """``process_index`` of ``process_count``: this rank of the data axis,
+        whose batches are its rows of each global batch; ``writes``: whether
+        this rank saves (one rank of each model group does)."""
         self.root = os.path.join(workdir, self.save_dir, f"iter_{step}")
         os.makedirs(self.root, exist_ok=True)
         self._pool = ThreadPoolExecutor(max_workers=self.num_threads)
         self._accum = []
         self._saved = 0
         self._futures = []
+        self._shard = (process_index, process_count, writes)
 
-    def on_predict_batch_end(self, images_uint8: np.ndarray, metadata: dict):
-        """images: (B, H, W, 3) uint8 on the host; metadata from the loader's collate."""
+    def on_predict_batch_end(self, images_uint8: np.ndarray, metadata: dict,
+                             first_index: Optional[int] = None):
+        """images: (B, H, W, 3) uint8 on the host; metadata from the loader's
+        collate. ``first_index``: the first image's index in the whole
+        predict (a data rank's rows): the first ``max_save_images`` of the
+        whole predict are saved; without it, the first of this hook's."""
         batch = images_uint8.shape[0]
         save_fns = metadata.get("save_fn", [None] * batch)
 
@@ -88,23 +101,46 @@ class SaveImagesHook:
         for i in range(batch):
             md = {k: per_sample(v, i) for k, v in metadata.items() if k != "save_fn"}
             fn = save_fns[i] if isinstance(save_fns, list) else save_fns
-            if fn is not None and self._saved < self.max_save_images:
+            order = self._saved if first_index is None else first_index + i
+            if fn is not None and order < self.max_save_images:
                 self._futures.append(self._pool.submit(fn, images_uint8[i], md, self.root))
                 self._saved += 1
         if self.save_compressed:
             self._accum.append(images_uint8)
 
     def on_predict_end(self) -> Optional[str]:
-        """Waits for the image writes; returns the npz path (or None)."""
+        """Waits for the image writes; returns the npz path (or None). Under
+        several data ranks every process calls it: each writing rank leaves
+        its rows, and data rank 0 merges them in the global order (rank-major
+        within each batch) and removes the parts."""
         try:
             for f in self._futures:
                 f.result()
         finally:
             self._pool.shutdown()
-        if not self.save_compressed or not self._accum:
+        index, count, writes = self._shard
+        if not self.save_compressed:
             return None
-        out_path = os.path.join(self.root, "output.npz")
-        np.savez(out_path, arr_0=np.concatenate(self._accum, axis=0))  # ADM suite: key arr_0
+        if count == 1:
+            if not self._accum:
+                return None
+            out_path = os.path.join(self.root, "output.npz")
+            np.savez(out_path, arr_0=np.concatenate(self._accum, axis=0))  # ADM suite: key arr_0
+            return out_path
+        part = os.path.join(self.root, f"output_rank{index}.npy")
+        if writes:
+            np.save(part, np.stack(self._accum) if self._accum else np.zeros((0,)))
+        distributed.barrier()
+        out_path = None
+        if writes and index == 0:
+            parts = [np.load(os.path.join(self.root, f"output_rank{r}.npy")) for r in range(count)]
+            if parts[0].size:
+                merged = np.stack(parts, axis=1)  # (batches, ranks, rows, ...)
+                out_path = os.path.join(self.root, "output.npz")
+                np.savez(out_path, arr_0=merged.reshape((-1,) + merged.shape[3:]))
+            for r in range(count):
+                os.remove(os.path.join(self.root, f"output_rank{r}.npy"))
+        distributed.barrier()
         return out_path
 
 
@@ -144,6 +180,10 @@ class ComputeMetricsHook:
         """True once a batch went through :meth:`on_batch_end`."""
         return bool(self._n_images)
 
+    def any_rank_has_updates(self) -> bool:
+        """:attr:`has_updates` of any process (every process calls it)."""
+        return bool(np.sum(distributed.process_allgather(np.float64(self._n_images))))
+
     def tower(self):
         """The Inception tower at this hook's tap, built on first use."""
         if self._tower is None:
@@ -176,7 +216,19 @@ class ComputeMetricsHook:
             self._fake.update(tower(pred / 255.0).cpu().numpy())
 
     def on_epoch_end(self, prefix: str = "metrics") -> dict:
-        """The run's scores (``{prefix}/psnr``, ``/ssim``, ``/fid``); resets."""
+        """The run's scores (``{prefix}/psnr``, ``/ssim``, ``/fid``); resets.
+        Under several processes every one calls it, and the sums and the FID
+        moments are those of all of them."""
+        if distributed.world_size() > 1:
+            sums = distributed.process_allgather(
+                np.asarray([self._sse, self._n_obs, self._ssim_sum, self._n_images]))
+            self._sse, self._n_obs, self._ssim_sum, self._n_images = sums.sum(0)
+            for stats in (self._real, self._fake):
+                total = distributed.process_allgather(
+                    np.concatenate([[stats.n], stats.s1, stats.s2.ravel()])).sum(0)
+                stats.n = int(total[0])
+                stats.s1 = total[1:1 + len(stats.s1)]
+                stats.s2 = total[1 + len(stats.s1):].reshape(stats.s2.shape)
         out = {}
         if self._n_images:
             out[f"{prefix}/psnr"] = psnr_from_stats(self._sse, self._n_obs,
@@ -250,7 +302,10 @@ class ScalarLogger:
 
     def __init__(self, workdir: str, use_tensorboard: bool = True,
                  log_every_n_steps: int = 50, wandb_project: Optional[str] = None,
-                 run_config: Optional[dict] = None):
+                 run_config: Optional[dict] = None, writer: bool = True):
+        self.writer = writer
+        if not writer:  # another rank logs
+            return
         os.makedirs(workdir, exist_ok=True)
         self.path = os.path.join(workdir, "metrics.jsonl")
         self._fh = open(self.path, "a")
@@ -260,7 +315,7 @@ class ScalarLogger:
         self._t0 = time.time()
 
     def log(self, step: int, metrics: dict, force: bool = False):
-        if not force and step % self.log_every_n_steps != 0:
+        if not self.writer or (not force and step % self.log_every_n_steps != 0):
             return
         record = {"step": int(step), "time": round(time.time() - self._t0, 3)}
         for k, v in metrics.items():
@@ -278,6 +333,8 @@ class ScalarLogger:
             self._wandb.log({k: v for k, v in record.items() if k != "step"}, step=step)
 
     def close(self):
+        if not self.writer:
+            return
         self._fh.close()
         if self._tb is not None:
             self._tb.close()

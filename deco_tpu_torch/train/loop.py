@@ -54,6 +54,24 @@ here either: ``model.distill``, ``model.pretrain_model_path``,
 from the card on every step: fit reads the metrics on log steps only, and
 waits on a CUDA event ``_TRAIN_RUNAHEAD`` steps back so the host runs ahead
 of the card by a bounded number of steps.
+
+Several processes (``torchrun``, one per GPU; ``parallel/distributed.py``):
+the (data, model) mesh comes from ``mesh_model_axis`` (the data axis takes
+the rest of the world), as in JAX, and is the current mesh inside fit and
+predict, where the models' ``trunk_parallel`` executors read it. The
+global batch is ``train_batch_size x data axis x accumulate_grad_batches``
+(``pred_batch_size x data axis`` for predict), and each data rank loads and
+decodes only its rows of it (``data/loader.py``). fit wraps the model in
+DDP (a model axis of 1) or shards it with FSDP2 (``parallel.mesh.shard_params``,
+a model axis above 1), draws the step's noise and t for the global batch
+and keeps its rows, and logs the global mean; rank 0 writes the logs and
+each checkpoint, whole, and the on-exception save is skipped (the other
+ranks may sit in a collective). predict runs each data rank's rows, and
+the data ranks of model index 0 write the images: each file is the
+world-1 predict's, by name and by byte (the ``output.npz`` merged in the
+global order, the sample panels from the global batch), and the metrics
+are gathered over the ranks. So a fit or a predict on W ranks computes
+what one process over the same global batch computes.
 """
 
 from __future__ import annotations
@@ -74,6 +92,8 @@ from deco_tpu_torch.models.autoencoders import fp_to_uint8
 from deco_tpu_torch.models.conditioners import ImageConditioner
 from deco_tpu_torch.models.dit_c2i_deco import init_like_jax_
 from deco_tpu_torch.ops import quant
+from deco_tpu_torch.parallel import distributed
+from deco_tpu_torch.parallel import mesh as mesh_lib
 from deco_tpu_torch.train.checkpoint import CheckpointManager
 from deco_tpu_torch.train.hooks import (
     ComputeMetricsHook,
@@ -100,6 +120,13 @@ class Experiment:
                  resume: bool = False, device="cuda"):
         self.config = config
         self.device = resolve_device(device)
+        if "mesh" in config:
+            raise ValueError("the diffusion loop takes its mesh from `mesh_model_axis`; the "
+                             "`mesh:` node is the UniFlow and VAE-GAN workloads'")
+        self.mesh = mesh_lib.make_mesh(model=config.get("mesh_model_axis", 1))
+        self.data_rank = mesh_lib.axis_index(self.mesh, mesh_lib.DATA_AXIS)
+        self.data_size = mesh_lib.axis_size(self.mesh, mesh_lib.DATA_AXIS)
+        self.writer = distributed.rank() == 0
         model_cfg = config["model"]
         self.vae = registry.instantiate(model_cfg["vae"])
         self.model = self._build_model(model_cfg["denoiser"])
@@ -152,9 +179,11 @@ class Experiment:
         if os.path.isdir(self.workdir) and os.listdir(self.workdir) and not resume:
             raise FileExistsError(f"workdir {self.workdir} is not empty; pass resume=True or "
                                   "--ckpt_path to continue")
+        distributed.barrier()  # every rank has looked before rank 0 writes
         os.makedirs(self.workdir, exist_ok=True)
-        with open(os.path.join(self.workdir, "config.yaml"), "w") as f:
-            f.write(_yaml.dump(self.config))
+        if self.writer:
+            with open(os.path.join(self.workdir, "config.yaml"), "w") as f:
+                f.write(_yaml.dump(self.config))
 
     def _on_device(self, trainer_node: dict) -> dict:
         """The trainer node with its ``encoder`` node (REPA's frozen tower)
@@ -184,6 +213,24 @@ class Experiment:
         cond, uncond = self.conditioner(bx if self._cond_on_images else by, bmeta)
         return self._to_device(cond), self._to_device(uncond)
 
+    def _parallel(self):
+        """What the train step runs on a mesh: the model sharded by FSDP2 (a
+        model axis above 1) or under DDP; the model itself without a mesh."""
+        if self.mesh is None:
+            return None
+        if mesh_lib.axis_size(self.mesh, mesh_lib.MODEL_AXIS) > 1:
+            tp = getattr(self.model, "trunk_parallel", "none") == "tp"
+            return mesh_lib.shard_params(self.model, self.mesh,
+                                         whole=[self.model.blocks] if tp else [])
+        from torch.nn.parallel import DistributedDataParallel
+
+        ids = [torch.cuda.current_device()] if self.device.type == "cuda" else None
+        # DDP walks the autograd graph each backward only for a model whose
+        # loss leaves parameters out (ReCo's ``mlp1``)
+        return DistributedDataParallel(
+            self.model, device_ids=ids, broadcast_buffers=False,
+            find_unused_parameters=getattr(self.model, "unused_in_fit", False))
+
     def _init_like_jax(self):
         init = getattr(self.model, "init_like_jax_", None)
         if init is not None:
@@ -194,16 +241,24 @@ class Experiment:
     # ---- fit ----
 
     def fit(self, ckpt_path: Optional[str] = None, max_steps: Optional[int] = None):
+        with mesh_lib.use_mesh(self.mesh):
+            return self._fit(ckpt_path, max_steps)
+
+    def _fit(self, ckpt_path: Optional[str], max_steps: Optional[int]):
         data_cfg = self.config["data"]
         dataset = registry.instantiate(data_cfg["train_dataset"])
         batch_size = data_cfg.get("train_batch_size", 32) * self.accumulate_grad_batches
         loader = make_loader(dataset, batch_size,
-                             num_workers=data_cfg.get("train_num_workers", 4), infinite=True)
+                             num_workers=data_cfg.get("train_num_workers", 4), infinite=True,
+                             process_index=self.data_rank, process_count=self.data_size,
+                             microbatches=self.accumulate_grad_batches)
         self._init_like_jax()  # before the EMA copies the parameters
         proj = self.trainer.proj_module
         if proj is not None:
             proj.reset_parameters(self.seed)
+        net = self._parallel()  # before the optimizer sees the (sharded) parameters
         state = self.opt_cfg.create_state(self.model.train(), trainer_module=proj)
+        state.net = net
         ckpt = CheckpointManager(os.path.join(self.workdir, "checkpoints"),
                                  every_n_steps=self.ckpt_every)
         if ckpt_path:
@@ -218,9 +273,10 @@ class Experiment:
         step_fn = make_train_step(
             self.trainer, ema_decay=self.ema_cfg.decay, ema_every=self.ema_cfg.every_n_steps,
             diffusion_batch_mul=self.diffusion_batch_mul, grad_clip=self.grad_clip,
-            accumulate_grad_batches=self.accumulate_grad_batches)
+            accumulate_grad_batches=self.accumulate_grad_batches, mesh=self.mesh)
         logger = ScalarLogger(self.workdir, log_every_n_steps=self.log_every,
-                              wandb_project=self.wandb_project, run_config=self.config)
+                              wandb_project=self.wandb_project, run_config=self.config,
+                              writer=self.writer)
         limit = max_steps if max_steps is not None else self.max_steps
         inflight: deque = deque()
         try:
@@ -246,7 +302,8 @@ class Experiment:
                         if len(inflight) > self._TRAIN_RUNAHEAD:
                             inflight.popleft().synchronize()
         except BaseException:
-            ckpt.maybe_save(state, force=True)  # crash and preemption recovery
+            if distributed.world_size() == 1:  # the others may sit in a collective
+                ckpt.maybe_save(state, force=True)  # crash and preemption recovery
             raise
         finally:
             logger.close()
@@ -255,16 +312,25 @@ class Experiment:
 
     # ---- predict ----
 
-    @torch.no_grad()
     def predict(self, state=None, ckpt_path: Optional[str] = None, use_ema: bool = True,
                 max_batches: Optional[int] = None, dataset_key: str = "pred_dataset"):
         """Sample the ``dataset_key`` dataset with the EMA weights (of
         ``state``, of the checkpoint under ``ckpt_path``, or the model's own);
-        returns the ``output.npz`` path (or None without ``save_compressed``)."""
+        returns the ``output.npz`` path (or None without ``save_compressed``,
+        and on the ranks that do not write it)."""
+        with mesh_lib.use_mesh(self.mesh), torch.no_grad():
+            return self._predict(state, ckpt_path, use_ema, max_batches, dataset_key)
+
+    def _predict(self, state, ckpt_path, use_ema, max_batches, dataset_key):
         data_cfg = self.config["data"]
         dataset = registry.instantiate(data_cfg[dataset_key])
-        loader = make_loader(dataset, data_cfg.get("pred_batch_size", 32), shuffle=False,
-                             drop_last=True, num_workers=data_cfg.get("pred_num_workers", 1))
+        local = data_cfg.get("pred_batch_size", 32)
+        loader = make_loader(dataset, local, shuffle=False,
+                             drop_last=True, num_workers=data_cfg.get("pred_num_workers", 1),
+                             process_index=self.data_rank, process_count=self.data_size)
+        global_batch = local * self.data_size
+        # the data ranks of model index 0 write; a model group's ranks sample alike
+        writes = mesh_lib.axis_index(self.mesh, mesh_lib.MODEL_AXIS) == 0
         step, kept = 0, None
         if state is not None:
             step = state.step
@@ -281,7 +347,8 @@ class Experiment:
         if quant.model_quant_active(model):
             quant.refresh_quant_cache(model)  # from the weights it samples with
         hook = SaveImagesHook(**self.save_images_cfg)
-        hook.on_predict_start(self.workdir, step)
+        hook.on_predict_start(self.workdir, step, process_index=self.data_rank,
+                              process_count=self.data_size, writes=writes)
         imlog = ImageLogger(self.workdir)
         metrics_hook = None
         if self.metrics_hook_cfg is not None:
@@ -298,7 +365,8 @@ class Experiment:
                     # the sampler starts from fresh noise
                     gen = torch.Generator(device=self.device).manual_seed(
                         step_seed(self.seed, 1000 + bi))
-                    noise = torch.randn(x.shape, generator=gen, device=self.device)
+                    noise = mesh_lib.sample(mesh_lib.microbatch_draws(gen, self.mesh, len(x)),
+                                            x.shape, self.device)
                     yield bi, bmeta, noise, cond, uncond, x
                 else:
                     yield bi, bmeta, x, cond, uncond, None
@@ -311,11 +379,21 @@ class Experiment:
         def consume(out, b):
             bi, bmeta = b[0], b[1]
             u8, orig = (None if t is None else t.cpu().numpy() for t in out)  # this batch only
-            hook.on_predict_batch_end(u8, bmeta)
-            if orig is not None:
-                imlog.log_side_by_side(step, orig, u8)
-            elif bi == 0:
-                imlog.log_images(step, u8)
+            if writes:
+                hook.on_predict_batch_end(u8, bmeta,
+                                          first_index=bi * global_batch + self.data_rank * local)
+            # the panels are the global batch's: gathered while there is room
+            if orig is not None and bi * global_batch < imlog.max_images:
+                u8_all = mesh_lib.gather_data_rows(self.mesh, u8)
+                orig_all = mesh_lib.gather_data_rows(self.mesh, orig)
+                if self.writer:
+                    imlog.log_side_by_side(step, orig_all, u8_all)
+            elif orig is None and bi == 0:
+                u8_all = mesh_lib.gather_data_rows(self.mesh, u8)
+                if self.writer:
+                    imlog.log_images(step, u8_all)
+            if not writes:
+                return
             if metrics_hook is not None and "raw_image" in bmeta:
                 raw = np.asarray(bmeta["raw_image"], np.float32)
                 if raw.ndim == 4 and raw.shape[1] in (1, 3):
@@ -327,10 +405,11 @@ class Experiment:
         try:
             pipelined_map(batches(), dispatch, consume,
                           depth=int(data_cfg.get("pred_pipeline_depth", 1)))
-            if metrics_hook is not None and metrics_hook.has_updates:
-                scores = metrics_hook.on_epoch_end()
-                with open(os.path.join(self.workdir, "predict_metrics.json"), "w") as f:
-                    json.dump({k: float(v) for k, v in scores.items()}, f)
+            if metrics_hook is not None and metrics_hook.any_rank_has_updates():
+                scores = metrics_hook.on_epoch_end()  # summed over the ranks
+                if self.writer:
+                    with open(os.path.join(self.workdir, "predict_metrics.json"), "w") as f:
+                        json.dump({k: float(v) for k, v in scores.items()}, f)
         finally:
             if kept is not None:
                 torch._foreach_copy_(list(self.model.parameters()), kept)

@@ -35,6 +35,9 @@ class TrainState:
     ema_params: Optional[list]
     step: int = 0
     trainer_module: Optional[nn.Module] = None
+    # what the train step runs: the model under DDP on a mesh, else None
+    # (the model itself)
+    net: Optional[nn.Module] = None
 
     def named_parameters(self) -> list:
         """[(name, parameter)]: the model's, then the trainer module's under
@@ -163,9 +166,13 @@ class Adafactor(torch.optim.Optimizer):
 
 @torch.no_grad()
 def ema_update(ema_params, params, decay: float) -> None:
-    """In place: e <- e * decay + p * (1 - decay)."""
-    torch._foreach_mul_(ema_params, decay)
-    torch._foreach_add_(ema_params, [p.detach() for p in params], alpha=1.0 - decay)
+    """In place: e <- e * decay + p * (1 - decay) (on the local shards of
+    FSDP2's sharded parameters)."""
+    from deco_tpu_torch.parallel.mesh import local
+
+    ema = [local(e) for e in ema_params]
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, [local(p).detach() for p in params], alpha=1.0 - decay)
 
 
 def ema_decay_schedule(step: int, decay: float = 0.9999, min_decay: float = 0.0,

@@ -3,20 +3,51 @@
 
 The JAX step is one jitted program; here it is eager PyTorch, and it
 updates the :class:`~deco_tpu_torch.train.state.TrainState` in place.
+
+On a mesh (``mesh``) each process runs its rows of the global batch
+through ``state.net`` (the model under DDP, or the model sharded by FSDP2),
+whose backward takes the gradients' mean over the world; under
+accumulation only the last microbatch's backward reduces. The step's draws
+are made for the global batch and cut to the rank's rows
+(``parallel.mesh.RowDraws``), the norm is the global one (DTensor shards
+included), and the metrics are their mean over the world: the step
+computes the world-1 step of the same global batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
+from deco_tpu_torch.parallel import mesh as mesh_lib
 from deco_tpu_torch.train.state import TrainState, ema_update
+
+
+@contextlib.contextmanager
+def _gradient_sync(net, on: bool):
+    """Inside, ``net``'s backward reduces its gradients only when ``on``
+    (DDP's ``no_sync``, FSDP2's ``set_requires_gradient_sync``)."""
+    if on:
+        yield
+    elif hasattr(net, "no_sync"):
+        with net.no_sync():
+            yield
+    elif hasattr(net, "set_requires_gradient_sync"):
+        net.set_requires_gradient_sync(False)
+        try:
+            yield
+        finally:
+            net.set_requires_gradient_sync(True)
+    else:
+        yield
 
 
 def make_train_step(trainer, ema_decay: float = 0.9999, ema_every: int = 1,
                     diffusion_batch_mul: int = 1, grad_clip: Optional[float] = None,
-                    accumulate_grad_batches: int = 1):
+                    accumulate_grad_batches: int = 1, mesh=None):
     """Build ``train_step(state, batch, generator=None, draws=None) -> metrics``.
 
     ``trainer`` is a :mod:`deco_tpu_torch.diffusion.training` objective;
@@ -50,6 +81,7 @@ def make_train_step(trainer, ema_decay: float = 0.9999, ema_every: int = 1,
     def train_step(state: TrainState, batch, generator=None,
                    draws: Optional[Sequence[dict]] = None):
         params = state.parameters()
+        net = state.net if state.net is not None else state.model
         if draws is not None and len(draws) != k:
             raise ValueError(f"draws: expected {k} dicts (one per microbatch), got {len(draws)}")
         x, cond, uncond = batch["x"], batch["condition"], batch["uncondition"]
@@ -67,18 +99,31 @@ def make_train_step(trainer, ema_decay: float = 0.9999, ema_every: int = 1,
                 part = [torch.cat([a] * diffusion_batch_mul) for a in part]
                 if mpart is not None:
                     mpart = {key: torch.cat([v] * diffusion_batch_mul) for key, v in mpart.items()}
-            out = trainer(state.model, *part, generator=generator,
-                          draws=None if draws is None else draws[i], metadata=mpart)
-            (out["loss"] / k).backward()
+            gen = mesh_lib.microbatch_draws(generator, mesh, part[0].shape[0],
+                                            diffusion_batch_mul)
+            with _gradient_sync(net, i == k - 1):
+                out = trainer(net, *part, generator=gen,
+                              draws=None if draws is None else draws[i], metadata=mpart)
+                (out["loss"] / k).backward()
             for name, value in out.items():
                 metrics[name] = metrics.get(name, 0.0) + value.detach() / k
         for p in params:  # a parameter the loss does not reach gets a zero gradient
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if mesh is not None and state.trainer_module is not None:
+            # the trainer's own parameters (REPA's projection) sit outside DDP
+            mesh_lib.mean_over_world([p.grad for p in state.trainer_module.parameters()])
         grads = [p.grad for p in params]
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        gnorm = mesh_lib.grad_norm(grads)
         if grad_clip is not None:
-            torch._foreach_mul_(grads, torch.clamp(grad_clip / (gnorm + 1e-6), max=1.0))
+            torch._foreach_mul_([mesh_lib.local(g) for g in grads],
+                                torch.clamp(grad_clip / (gnorm + 1e-6), max=1.0))
+        if mesh is not None:  # the logged values are the global batch's
+            names = sorted(metrics)
+            values = torch.stack([metrics[n].float().reshape(()) for n in names])
+            dist.all_reduce(values)
+            values /= dist.get_world_size()
+            metrics = dict(zip(names, values.unbind()))
         metrics["grad_norm"] = gnorm
         state.optimizer.step()
         if state.ema_params is not None and state.step % ema_every == 0:

@@ -10,7 +10,8 @@ ViTs) and ``frozen_mlp`` leave those parameters out of the optimizer, as
 their gradients and counts them in the clip's norm (``train/freeze.py``).
 
 A step, as the JAX step: ``forward_loss``; the gradient of every
-parameter; the clip by the global norm of all of them,
+parameter (on a mesh, ``mesh``, averaged over the world: each rank holds
+its rows of the global batch); the clip by the global norm of all of them,
 ``min(1, clip / (norm + 1e-6))``; AdamW; the EMA. It updates the state in
 place and returns the loss terms and ``grad_norm`` as 0-d tensors.
 :meth:`UniFlowExperiment.reconstruct` pads H and W symmetrically with zeros
@@ -26,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from deco_tpu_torch.models.uniflow.model import UniFlowConfig, UniFlowVision
+from deco_tpu_torch.parallel import mesh as mesh_lib
 from deco_tpu_torch.train.freeze import split_frozen
 from deco_tpu_torch.train.schedules import adamw_with_groups, cosine_with_min_lr, set_group_lrs
 from deco_tpu_torch.train.state import ema_update
@@ -73,8 +75,9 @@ class UniFlowExperiment:
     def __init__(self, model_cfg: UniFlowConfig = UniFlowConfig(),
                  train_cfg: UniFlowTrainConfig = UniFlowTrainConfig(),
                  teacher_fn: Optional[Callable] = None, lpips_fn: Optional[Callable] = None,
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda", mesh=None):
         self.model = UniFlowVision(model_cfg, dtype=dtype, device=device)
+        self.mesh = mesh
         self.cfg = train_cfg
         self.teacher_fn = teacher_fn
         self.lpips_fn = lpips_fn
@@ -106,6 +109,8 @@ class UniFlowExperiment:
         losses = model.forward_loss(x, draws, generator, teacher_feat, self.lpips_fn)
         grads = torch.autograd.grad(losses["loss"], params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if self.mesh is not None:  # the global batch's gradient, before the clip
+            mesh_lib.mean_over_world(grads)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))  # optax.global_norm
         torch._foreach_mul_(grads, torch.clamp(self.cfg.grad_clip / (norm + 1e-6), max=1.0))
         for p, g in zip(params, grads):
@@ -117,7 +122,12 @@ class UniFlowExperiment:
         if state.ema_params is not None:
             ema_update(state.ema_params, params, self.cfg.ema_decay)
         state.step += 1
-        return {**{k: v.detach() for k, v in losses.items()}, "grad_norm": norm.detach()}
+        out = {k: v.detach() for k, v in losses.items()}
+        if self.mesh is not None:  # the global batch's losses
+            values = [v.float().reshape(1).clone() for v in out.values()]
+            mesh_lib.mean_over_world(values)
+            out = {k: v.reshape(()) for k, v in zip(out, values)}
+        return {**out, "grad_norm": norm.detach()}
 
     @torch.no_grad()
     def reconstruct(self, x, mode: str = "pixel", noise=None, generator=None):

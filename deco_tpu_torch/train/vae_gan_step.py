@@ -22,6 +22,16 @@ they take no update), AdamW with the cosine-with-min-lr rate of the step,
 the generator EMA over every parameter, and the discriminator step on the
 detached reconstruction with LeCam, its clip, its AdamW and the LeCam EMA.
 The step updates the state in place and returns its metrics as 0-d tensors.
+
+On a mesh (``mesh``) each process takes its rows of the global batch, and
+the step computes the world-1 step of that batch: the two last-layer
+gradients behind ``d_weight`` are averaged over the world before their
+norms (each rank's are its rows' alone), so are both sides' gradients
+before the clip (ROADMAP §C 12's norm is the global gradient's), LeCam's
+batch means carry their global value (``parallel.mesh.global_value``: the
+term is not linear in them), and the metrics are their global means. The
+steps take ``torch.autograd.grad``, which no DDP hook sees, so the means
+are explicit all-reduces (``parallel.mesh.mean_over_world``).
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from deco_tpu_torch.models.gan.vae_loss import (
     gradient_norm,
     hinge_d_loss,
 )
+from deco_tpu_torch.parallel import mesh as mesh_lib
 from deco_tpu_torch.train.freeze import split_frozen
 from deco_tpu_torch.train.state import ema_update
 
@@ -98,13 +109,19 @@ def _apply(optimizer: torch.optim.Optimizer, params: list, grads: list, lr: floa
 
 def make_vae_gan_step(loss_cfg: VAEGANLoss, perceptual_fn: Optional[Callable] = None,
                       teacher_fn: Optional[Callable] = None, grad_clip: float = 1.0,
-                      ema_decay: float = 0.9999, last_layer: str = "decoder.conv_out"):
+                      ema_decay: float = 0.9999, last_layer: str = "decoder.conv_out",
+                      mesh=None):
     """Build ``step(state, x, generator=None, noise=None) -> metrics``.
 
     ``x`` is (B, H, W, 3) in [-1, 1]; ``generator`` draws the stochastic
     posterior's noise, or ``noise`` gives it. ``last_layer`` names the
     decoder's output layer, whose parameters give the adaptive weight.
     """
+
+    def mean(grads):
+        if mesh is not None:
+            mesh_lib.mean_over_world(grads)
+        return grads
 
     def step(state: VAEGANTrainState, x, generator=None, noise=None) -> dict:
         vae, disc = state.vae, state.disc
@@ -131,8 +148,8 @@ def make_vae_gan_step(loss_cfg: VAEGANLoss, perceptual_fn: Optional[Callable] = 
             distill = (cos + mse if loss_cfg.distillation_loss_type == "cosine" else mse
                        ) * loss_cfg.distillation_weight
         if loss_cfg.adaptive_weight:
-            g_nll = torch.autograd.grad(nll, last, retain_graph=True)
-            g_gan = torch.autograd.grad(g_loss, last, retain_graph=True)
+            g_nll = mean(list(torch.autograd.grad(nll, last, retain_graph=True)))
+            g_gan = mean(list(torch.autograd.grad(g_loss, last, retain_graph=True)))
             d_weight = torch.clamp(gradient_norm(g_nll) / (gradient_norm(g_gan) + 1e-4),
                                    0.0, 1e4) * loss_cfg.discriminator_weight
         else:
@@ -142,7 +159,7 @@ def make_vae_gan_step(loss_cfg: VAEGANLoss, perceptual_fn: Optional[Callable] = 
         if disc_factor:
             total = total + d_weight * disc_factor * g_loss
         grads = list(torch.autograd.grad(total, params, allow_unused=True))
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grads = mean([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
         gnorm = _clip_(grads, grad_clip)
         _apply(state.gen_opt, params, grads, state.gen_lr(state.step))
         if state.gen_ema is not None:
@@ -153,6 +170,8 @@ def make_vae_gan_step(loss_cfg: VAEGANLoss, perceptual_fn: Optional[Callable] = 
         d_params = list(disc.parameters())
         logits_real, logits_fake = disc(inputs01), disc(recon01)
         real_mean, fake_mean = logits_real.mean(), logits_fake.mean()
+        if mesh is not None:
+            real_mean, fake_mean = (mesh_lib.global_value(m) for m in (real_mean, fake_mean))
         d_loss = disc_factor * hinge_d_loss(logits_real, logits_fake)
         lecam = zero
         if loss_cfg.lecam_regularization_weight > 0:
@@ -161,19 +180,25 @@ def make_vae_gan_step(loss_cfg: VAEGANLoss, perceptual_fn: Optional[Callable] = 
                      ) * loss_cfg.lecam_regularization_weight
         d_loss = d_loss + lecam
         d_grads = list(torch.autograd.grad(d_loss, d_params, allow_unused=True))
-        d_grads = [torch.zeros_like(p) if g is None else g for p, g in zip(d_params, d_grads)]
+        d_grads = mean([torch.zeros_like(p) if g is None else g for p, g in zip(d_params, d_grads)])
         d_gnorm = _clip_(d_grads, grad_clip)
         _apply(state.disc_opt, d_params, d_grads, state.disc_lr(state.step))
         state.lecam = state.lecam.updated(real_mean, fake_mean, loss_cfg.lecam_ema_decay)
         state.step += 1
 
-        return dict(total_loss=(nll + d_weight * disc_factor * g_loss + distill).detach(),
-                    reconstruction_loss=rec.detach(),
-                    perceptual_loss=(loss_cfg.perceptual_weight * perc).detach(),
-                    gan_loss=g_loss.detach(), d_weight=d_weight, distillation_loss=distill,
-                    kl_loss=kl.detach(), discriminator_loss=d_loss.detach(),
-                    logits_real=real_mean.detach(), logits_fake=fake_mean.detach(),
-                    lecam_loss=lecam.detach(), gen_grad_norm=gnorm.detach(),
-                    disc_grad_norm=d_gnorm.detach())
+        metrics = dict(total_loss=(nll + d_weight * disc_factor * g_loss + distill).detach(),
+                       reconstruction_loss=rec.detach(),
+                       perceptual_loss=(loss_cfg.perceptual_weight * perc).detach(),
+                       gan_loss=g_loss.detach(), d_weight=d_weight, distillation_loss=distill,
+                       kl_loss=kl.detach(), discriminator_loss=d_loss.detach(),
+                       logits_real=real_mean.detach(), logits_fake=fake_mean.detach(),
+                       lecam_loss=lecam.detach(), gen_grad_norm=gnorm.detach(),
+                       disc_grad_norm=d_gnorm.detach())
+        if mesh is not None:  # the global batch's values
+            names = [k for k in metrics if k not in ("gen_grad_norm", "disc_grad_norm")]
+            values = [metrics[k].float().reshape(1).clone() for k in names]
+            mesh_lib.mean_over_world(values)
+            metrics.update({k: v.reshape(()) for k, v in zip(names, values)})
+        return metrics
 
     return step

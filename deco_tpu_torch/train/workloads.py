@@ -49,6 +49,19 @@ The checkpoint is one torch file a step (``train/checkpoint.py``'s
 ``CheckpointManager``): ``state_dict`` with ``vae.``, ``ema_vae.`` and
 ``disc.`` keys, ``optimizer`` with each parameter's AdamW moments by the
 same names, ``lecam`` and ``step``.
+
+Both workloads take ``mesh: {data, model}`` (:func:`_make_mesh`; data x
+model must be the number of processes ``torchrun`` started, data defaults
+to the rest). Each data rank loads its rows of the global batch
+(``batch_size x data``); the step's draws are made for the global batch
+and cut to the rank's rows, its gradients averaged over the world before
+the clip, and its metrics are the global means, so a step on W ranks is
+the world-1 step of the global batch. The model axis holds the same
+batch rows and parameters on each of its ranks: JAX shards the
+parameters over it (fsdp), which the port does not, since FSDP2 reduces
+gradients in a backward hook and these steps take ``torch.autograd.grad``.
+Rank 0 writes the logs and checkpoints; validate splits the eval batches
+over the data ranks, gathers the metrics, and writes the world-1 files.
 """
 
 from __future__ import annotations
@@ -66,6 +79,8 @@ from deco_tpu_torch._device import resolve_device
 from deco_tpu_torch.config import registry
 from deco_tpu_torch.data.loader import make_loader
 from deco_tpu_torch.models.autoencoders import fp_to_uint8
+from deco_tpu_torch.parallel import distributed
+from deco_tpu_torch.parallel import mesh as mesh_lib
 from deco_tpu_torch.train.checkpoint import MOMENTS, CheckpointManager
 
 
@@ -109,6 +124,57 @@ def _make_dataset(data_cfg: Dict[str, Any], key: str, resolution: int):
 
         return PixImageNet(data_cfg["train_root"], resolution=resolution)
     return None
+
+
+def _make_mesh(config: Dict[str, Any]):
+    """The mesh of ``mesh: {data: N, model: M}`` (``_make_mesh``): the
+    model axis M (default 1) and data N (default the rest of the world);
+    N x M must be the world. ``mesh_model_axis`` is the diffusion loop's
+    key and raises here."""
+    if "mesh_model_axis" in config:
+        raise ValueError("this workload takes its mesh from `mesh: {data, model}`; "
+                         "`mesh_model_axis` is the diffusion loop's key")
+    mcfg = config.get("mesh") or {}
+    return mesh_lib.make_mesh(data=mcfg.get("data"), model=int(mcfg.get("model", 1)))
+
+
+class _DataParallel:
+    """What the two workloads share on a mesh: the data rank's loader rows,
+    the draws, the writer, the checkpoint and the validate gathers."""
+
+    def _setup_mesh(self, config):
+        self.mesh = _make_mesh(config)
+        self.data_rank = mesh_lib.axis_index(self.mesh, mesh_lib.DATA_AXIS)
+        self.data_size = mesh_lib.axis_size(self.mesh, mesh_lib.DATA_AXIS)
+        self.writer = distributed.rank() == 0
+        self.writes_images = mesh_lib.axis_index(self.mesh, mesh_lib.MODEL_AXIS) == 0
+
+    def _rank_loader(self, dataset, batch: int, infinite: bool, workers):
+        return make_loader(dataset, batch, infinite=infinite, shuffle=infinite,
+                           num_workers=workers, process_index=self.data_rank,
+                           process_count=self.data_size)
+
+    def _step_generator(self, step: int, rows: int):
+        from deco_tpu_torch.train.loop import step_seed
+
+        gen = torch.Generator(device=self.device).manual_seed(step_seed(self.seed, step))
+        return mesh_lib.microbatch_draws(gen, self.mesh, rows)
+
+    def _save(self, ckpt: CheckpointManager, state, force: bool = False):
+        """Rank 0 writes ``_payload(state)``; every rank waits for it."""
+        if force or (ckpt.every_n_steps > 0 and state.step % ckpt.every_n_steps == 0):
+            if self.writer:
+                ckpt.save(self._payload(state), state.step)
+            distributed.barrier()
+
+    def _log_panels(self, imlog, bi: int, rows: int, orig, recon, step: int):
+        """The global batch's original|reconstruction panels while there is
+        room (every process calls it)."""
+        if bi * rows * self.data_size >= imlog.max_images:
+            return
+        orig, recon = (mesh_lib.gather_data_rows(self.mesh, a) for a in (orig, recon))
+        if self.writer:
+            imlog.log_side_by_side(step, orig, recon)
 
 
 def _workdir(config, trainer: _TrainerSection, workdir: Optional[str], default: str) -> str:
@@ -157,7 +223,7 @@ def _build_uniflow_teacher(path: Optional[str], device):
     return build_teacher(weights, device=device)
 
 
-class UniFlowRun:
+class UniFlowRun(_DataParallel):
     """The UniFlow workload (the reference's ``LightningUniFlowModel``)."""
 
     def __init__(self, config: Dict[str, Any], workdir: Optional[str] = None, device="cuda"):
@@ -166,6 +232,7 @@ class UniFlowRun:
 
         self.config = config
         self.device = resolve_device(device)
+        self._setup_mesh(config)
         self.trainer = _TrainerSection(config)
         self.seed = int(config.get("seed", 0))
         m = config["model"]
@@ -197,7 +264,7 @@ class UniFlowRun:
         teacher = (_build_uniflow_teacher(self.teacher_path, self.device) if self.distill
                    else None)
         self.exp = UniFlowExperiment(model_cfg, train_cfg, teacher_fn=teacher,
-                                     device=self.device)
+                                     device=self.device, mesh=self.mesh)
         self.model_cfg, self.train_cfg = model_cfg, train_cfg
         self.workdir = _workdir(config, self.trainer, workdir, "./workdirs_uniflow")
         os.makedirs(self.workdir, exist_ok=True)
@@ -209,8 +276,8 @@ class UniFlowRun:
             raise ValueError(f"config has no data.{key}")
         size_key = "train_batch_size" if key == "train_dataset" else "pred_batch_size"
         batch = int(data_cfg.get(size_key, data_cfg.get("batch_size", 8)))
-        return make_loader(dataset, batch, infinite=infinite, shuffle=infinite,
-                           num_workers=data_cfg.get("train_num_workers", 2)), batch
+        return self._rank_loader(dataset, batch, infinite,
+                                 data_cfg.get("train_num_workers", 2)), batch
 
     def _payload(self, state) -> dict:
         model = self.exp.model
@@ -250,7 +317,6 @@ class UniFlowRun:
     def fit(self, max_steps: Optional[int] = None, ckpt_path: Optional[str] = None):
         """Train to ``max_steps`` (else the trainer's); returns the state."""
         from deco_tpu_torch.train.hooks import ScalarLogger
-        from deco_tpu_torch.train.loop import step_seed
         from deco_tpu_torch.utils.preemption import PreemptionGuard
 
         loader, _ = self._loader("train_dataset", infinite=True)
@@ -268,14 +334,10 @@ class UniFlowRun:
             except Exception as e:  # noqa: BLE001 - as JAX: warn, keep the fresh init
                 warnings.warn(f"pretrain warm-start failed ({e}); fresh init")
         logger = ScalarLogger(self.workdir, log_every_n_steps=self.trainer.log_every,
-                              wandb_project=self.trainer.wandb_project, run_config=self.config)
+                              wandb_project=self.trainer.wandb_project, run_config=self.config,
+                              writer=self.writer)
         limit = max_steps if max_steps is not None else (
             self.trainer.max_steps or self.train_cfg.total_steps)
-
-        def checkpoint(force: bool = False):
-            if force or (ckpt.every_n_steps > 0 and state.step % ckpt.every_n_steps == 0):
-                ckpt.save(self._payload(state), state.step)
-
         try:
             with PreemptionGuard() as preempt:
                 for bx, _, _ in loader:
@@ -283,18 +345,18 @@ class UniFlowRun:
                         break
                     x = self._to_device(bx)
                     teacher = self.exp.teacher_fn(x) if self.exp.teacher_fn else None
-                    gen = torch.Generator(device=self.device).manual_seed(
-                        step_seed(self.seed, state.step))
+                    gen = self._step_generator(state.step, len(x))
                     step = state.step
                     logger.log(step, self.exp.train_step(state, x, generator=gen,
                                                          teacher_feat=teacher))
-                    checkpoint()
+                    self._save(ckpt, state)
         except BaseException:
-            checkpoint(force=True)
+            if distributed.world_size() == 1:  # the others may sit in a collective
+                self._save(ckpt, state, force=True)
             raise
         finally:
             logger.close()
-        checkpoint(force=True)
+        self._save(ckpt, state, force=True)
         return state
 
     @torch.no_grad()
@@ -325,16 +387,18 @@ class UniFlowRun:
                 if max_batches is not None and bi >= max_batches:
                     break
                 x = self._to_device(bx)
-                gen = torch.Generator(device=self.device).manual_seed(1234 + bi)
+                gen = mesh_lib.microbatch_draws(
+                    torch.Generator(device=self.device).manual_seed(1234 + bi), self.mesh, len(x))
                 recon = self.exp.reconstruct(x, mode=mode, generator=gen)
                 ru8, ou8 = fp_to_uint8(recon).cpu().numpy(), fp_to_uint8(x).cpu().numpy()
-                metrics_hook.on_batch_end(ru8, ou8)
-                imlog.log_side_by_side(state.step, ou8, ru8)
+                if self.writes_images:
+                    metrics_hook.on_batch_end(ru8, ou8)
+                self._log_panels(imlog, bi, len(x), ou8, ru8, state.step)
         finally:
             if kept is not None:
                 torch._foreach_copy_(params, kept)
         scores = metrics_hook.on_epoch_end()
-        if scores:
+        if scores and self.writer:
             with open(os.path.join(self.workdir, "validate_metrics.json"), "w") as f:
                 json.dump({k: float(v) for k, v in scores.items()}, f)
         return scores
@@ -353,7 +417,7 @@ def run_uniflow(config: Dict[str, Any], max_steps: Optional[int] = None,
 # VAE-GAN
 # ---------------------------------------------------------------------------
 
-class VAEGANRun:
+class VAEGANRun(_DataParallel):
     """The VAE-GAN workload (the reference's ``LightningModelVAE``)."""
 
     def __init__(self, config: Dict[str, Any], workdir: Optional[str] = None, device="cuda"):
@@ -362,6 +426,7 @@ class VAEGANRun:
 
         self.config = config
         self.device = resolve_device(device)
+        self._setup_mesh(config)
         self.trainer = _TrainerSection(config)
         self.seed = int(config.get("seed", 0))
         m = config["model"]
@@ -426,8 +491,7 @@ class VAEGANRun:
         size_key = "train_batch_size" if key == "train_dataset" else "pred_batch_size"
         batch = int(data_cfg.get(size_key, data_cfg.get("batch_size", 4)))
         workers = data_cfg.get("train_num_workers" if infinite else "pred_num_workers", 4)
-        return make_loader(dataset, batch, infinite=infinite, shuffle=infinite,
-                           num_workers=workers), batch
+        return self._rank_loader(dataset, batch, infinite, workers), batch
 
     def _init_state(self):
         """Parameters drawn from ``seed``, AdamW for both sides with the
@@ -505,7 +569,6 @@ class VAEGANRun:
     def fit(self, max_steps: Optional[int] = None, ckpt_path: Optional[str] = None):
         """Train to ``max_steps`` (else the trainer's); returns the state."""
         from deco_tpu_torch.train.hooks import ScalarLogger
-        from deco_tpu_torch.train.loop import step_seed
         from deco_tpu_torch.train.vae_gan_step import make_vae_gan_step
         from deco_tpu_torch.utils.preemption import PreemptionGuard
 
@@ -518,32 +581,29 @@ class VAEGANRun:
         elif ckpt.latest_step() is not None:
             self._restore(ckpt, state)
         step_fn = make_vae_gan_step(self.loss_cfg, perceptual_fn=self.perceptual,
-                                    grad_clip=self.trainer.grad_clip, ema_decay=self.ema_decay)
+                                    grad_clip=self.trainer.grad_clip, ema_decay=self.ema_decay,
+                                    mesh=self.mesh)
         logger = ScalarLogger(self.workdir, log_every_n_steps=self.trainer.log_every,
-                              wandb_project=self.trainer.wandb_project, run_config=self.config)
+                              wandb_project=self.trainer.wandb_project, run_config=self.config,
+                              writer=self.writer)
         limit = max_steps if max_steps is not None else (self.trainer.max_steps or 200000)
-
-        def checkpoint(force: bool = False):
-            if force or (ckpt.every_n_steps > 0 and state.step % ckpt.every_n_steps == 0):
-                ckpt.save(self._payload(state), state.step)
-
         try:
             with PreemptionGuard() as preempt:
                 for bx, _, _ in loader:
                     if state.step >= limit or preempt.requested:
                         break
-                    gen = torch.Generator(device=self.device).manual_seed(
-                        step_seed(self.seed, state.step))
+                    gen = self._step_generator(state.step, len(bx))
                     step = state.step
                     metrics = step_fn(state, self._to_device(bx), generator=gen)
                     logger.log(step, metrics)
-                    checkpoint()
+                    self._save(ckpt, state)
         except BaseException:
-            checkpoint(force=True)
+            if distributed.world_size() == 1:  # the others may sit in a collective
+                self._save(ckpt, state, force=True)
             raise
         finally:
             logger.close()
-        checkpoint(force=True)
+        self._save(ckpt, state, force=True)
         return state
 
     # ---- validate ----
@@ -573,7 +633,8 @@ class VAEGANRun:
         save_hook = None
         if self.trainer.save_images_cfg is not None:
             save_hook = SaveImagesHook(**self.trainer.save_images_cfg)
-            save_hook.on_predict_start(self.workdir, state.step)
+            save_hook.on_predict_start(self.workdir, state.step, process_index=self.data_rank,
+                                       process_count=self.data_size, writes=self.writes_images)
         # the reference protocol: centre-pad to a 2 x patch canvas with -1,
         # reconstruct, centre-crop the reconstruction back to the input
         mult = 2 * self.vae.vit.patch_size
@@ -590,17 +651,19 @@ class VAEGANRun:
                 ct, cl = (recon.shape[1] - h) // 2, (recon.shape[2] - w) // 2
                 recon = recon[:, ct:ct + h, cl:cl + w]
                 ru8, ou8 = fp_to_uint8(recon).cpu().numpy(), fp_to_uint8(x).cpu().numpy()
-                metrics_hook.on_batch_end(ru8, ou8)
-                imlog.log_side_by_side(state.step, ou8, ru8)
-                if save_hook is not None:
-                    save_hook.on_predict_batch_end(ru8, bmeta)
+                self._log_panels(imlog, bi, len(x), ou8, ru8, state.step)
+                if self.writes_images:
+                    metrics_hook.on_batch_end(ru8, ou8)
+                    if save_hook is not None:
+                        save_hook.on_predict_batch_end(
+                            ru8, bmeta, first_index=(bi * self.data_size + self.data_rank) * len(x))
         finally:
             if kept is not None:
                 torch._foreach_copy_(list(vae.parameters()), kept)
         scores = metrics_hook.on_epoch_end()
         if save_hook is not None:
             save_hook.on_predict_end()
-        if scores:
+        if scores and self.writer:
             with open(os.path.join(self.workdir, "validate_metrics.json"), "w") as f:
                 json.dump({k: float(v) for k, v in scores.items()}, f)
         return scores

@@ -66,6 +66,10 @@ def test_port_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|deco_tpu|yaml|PIL)\b", re.M)
     files = sorted((ROOT / "deco_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {f"deco_tpu_torch/parallel/{m}.py" for m in (
+        "distributed", "mesh", "ring_attention", "sp_trunk", "tp_trunk", "pipeline",
+        "ep_moe")} | {"deco_tpu_torch/models/moe.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert offenders == []
 

@@ -77,11 +77,19 @@ def test_trunk_output_reaches_the_image():
     dict(trunk_parallel="sp"),
 ])
 def test_unported_options_raise(kwarg):
-    """trunk_parallel is not ported (NotImplementedError); quantize is, and a
-    mode other than None or "int8" raises JAX's ValueError
-    (tests/test_torch_quant.py holds the int8 mode against JAX)."""
-    error = NotImplementedError if "trunk_parallel" in kwarg else ValueError
-    with pytest.raises(error, match=next(iter(kwarg))):
+    """trunk_parallel is ported: "sp" and "tp" build, and raise JAX's
+    ValueError with int8 (the executors read the weights themselves) or at
+    an unknown mode; quantize is ported, and a mode other than None or
+    "int8" raises JAX's ValueError (tests/test_torch_quant.py holds the
+    int8 mode against JAX)."""
+    if "trunk_parallel" in kwarg:
+        assert DeCoC2I(**TINY_C2I, **kwarg, device="cpu").trunk_parallel == kwarg["trunk_parallel"]
+        with pytest.raises(ValueError, match="trunk_parallel"):
+            DeCoC2I(**TINY_C2I, **kwarg, quantize="int8", device="cpu")
+        with pytest.raises(ValueError, match="trunk_parallel"):
+            DeCoC2I(**TINY_C2I, trunk_parallel="pp", device="cpu")
+        return
+    with pytest.raises(ValueError, match=next(iter(kwarg))):
         DeCoC2I(**TINY_C2I, **kwarg, device="cpu")
 
 

@@ -273,9 +273,9 @@ def test_bad_mode_raises():
 
 
 def test_int8_under_trunk_parallel_raises():
-    """The parallel executors are ROADMAP §A 6: int8 with one raises there
-    first (JAX raises its own ValueError)."""
-    with pytest.raises(NotImplementedError, match="§A 6"):
+    """int8 under a parallel executor raises JAX's ValueError (the
+    executors read the weights themselves and would drop the int8 path)."""
+    with pytest.raises(ValueError, match="not available under trunk_parallel"):
         DeCoC2I(**TINY_C2I, quantize="int8", trunk_parallel="tp", device="cpu")
 
 

@@ -232,10 +232,16 @@ def test_init_follows_the_jax_initializers():
 @pytest.mark.parametrize("kwarg,item", [({"trunk_parallel": "sp"}, 6),
                                         ({"trunk_parallel": "sp", "quantize": "int8"}, 6)])
 def test_unported_options_raise_naming_their_roadmap_item(kwarg, item):
-    """quantize is ported (tests/test_torch_quant.py); int8 under
-    trunk_parallel still raises, for the parallel executors first."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
-        DeCoT2I(**TINY_T2I, device="cpu", **kwarg)
+    """trunk_parallel (ROADMAP §A {item}) and quantize are ported
+    (tests/test_torch_parallel.py, tests/test_torch_quant.py): "sp" builds,
+    and int8 under it raises JAX's ValueError, as an unknown mode does."""
+    if "quantize" in kwarg:
+        with pytest.raises(ValueError, match="not available under trunk_parallel"):
+            DeCoT2I(**TINY_T2I, device="cpu", **kwarg)
+        return
+    assert DeCoT2I(**TINY_T2I, device="cpu", **kwarg).trunk_parallel == "sp"
+    with pytest.raises(ValueError, match="trunk_parallel"):
+        DeCoT2I(**TINY_T2I, device="cpu", trunk_parallel="pp")
 
 
 def test_return_features_raises():
