@@ -422,18 +422,28 @@ def cuda_ms(fn, iters: int, flush=None) -> float:
 
 
 def phase_build():
+    """Every kernel source built by ``nvcc`` and, beside them, every host
+    source (the data layer's image decoders) by the host C++ compiler, so
+    that no phase's first image read waits for its decoder's build."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from deco_tpu_torch._device import card_info
     from deco_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    seconds = _build.build()
+    hosts = sorted(path.stem for path in _build.CSRC.glob("*.cpp"))
+    with ThreadPoolExecutor(len(hosts)) as pool:
+        host_builds = [pool.submit(_build.build_host, name) for name in hosts]
+        seconds = _build.build()
+        host_seconds = {name: f.result() for name, f in zip(hosts, host_builds)}
     for name in seconds:
         log = (_build.BUILD_DIR / f"{name}.log").read_text()
         print(f"[{name}]\n{log}", file=sys.stderr)
     card = card_info()
     print(card, flush=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": seconds,
-          "nvcc_flags": " ".join(_build.NVCC_FLAGS), "card": card})
+          "host_sources": host_seconds, "nvcc_flags": " ".join(_build.NVCC_FLAGS),
+          "host_flags": " ".join(_build.HOST_FLAGS), "card": card})
     return card
 
 
@@ -1253,6 +1263,28 @@ def write_image_folder(root: str, seed: int, per_class: int = 32,
     return count
 
 
+# the committed WebP, GIF and BMP fixtures phase 9's folder holds beside its
+# PNGs, three copies of each in each class (they are upsampled to 256 px)
+CLI_IMAGE_KINDS = {"webp_lossy": "webp_lossy_512x512.webp",
+                   "webp_lossless": "webp_lossless_512x512.webp",
+                   "webp_alpha": "webp_lossy_alpha.webp", "gif": "gif_global_256.gif",
+                   "bmp24": "bmp_24bpp.bmp", "bmprle8": "bmp_rle8.bmp"}
+
+
+def image_kinds_beside(root: str, copies: int = 3) -> dict:
+    """Copies of :data:`CLI_IMAGE_KINDS` into the classes of the image
+    folder ``root`` as ``kind_<kind>_<i>.<ext>``; returns kind: file."""
+    import os
+    import shutil
+
+    for c in range(2):
+        for kind, name in CLI_IMAGE_KINDS.items():
+            for i in range(copies):
+                shutil.copyfile(f"{IMAGE_KINDS_FIXTURES}/{name}",
+                                f"{root}/class_{c}/kind_{kind}_{i}{os.path.splitext(name)[1]}")
+    return dict(CLI_IMAGE_KINDS)
+
+
 class Spy:
     """Wraps ``owner.name`` for the phase: counts the calls that return and
     sums their seconds over every thread that makes them, records each
@@ -1327,6 +1359,7 @@ def phase_cli(card: str, seed: int) -> dict:
 
     from deco_tpu_torch import cli
     from deco_tpu_torch.config import registry
+    from deco_tpu_torch.data import imagenet
     from deco_tpu_torch.ops import block_dct
     from deco_tpu_torch.ops import flash_attention as fa
     from deco_tpu_torch.train import checkpoint
@@ -1338,17 +1371,21 @@ def phase_cli(card: str, seed: int) -> dict:
     steps = 3
     try:
         images = write_image_folder(f"{CLI_DIR}/images", seed)
+        kinds = image_kinds_beside(f"{CLI_DIR}/images")
         workroot = f"{CLI_DIR}/work"
         for f in kernels.values():
             f.launches = 0
         t0 = time.perf_counter()
         with Spy(checkpoint.CheckpointManager, "maybe_save") as saves, \
+                Spy(imagenet, "read_image") as reads, \
                 profile(activities=[ProfilerActivity.CUDA]) as prof:
             state = cli.main(["fit", "-c", CLI_CONFIG, *CLI_DEPTH,
                               f"--data.train_dataset.init_args.root={CLI_DIR}/images",
                               f"--trainer.default_root_dir={workroot}", "--max_steps", str(steps),
                               "--trainer.log_every_n_steps=1"])
         fit_s = time.perf_counter() - t0
+        decoded = {kind: sum(os.path.basename(c["args"][0]).startswith(f"kind_{kind}_")
+                             for c in reads.calls) for kind in kinds}
         fit_launches = {k: f.launches for k, f in kernels.items()}
         workdir = f"{workroot}/DeCo_256_XL_freq"
         records = [json.loads(line) for line in open(f"{workdir}/metrics.jsonl")]
@@ -1367,6 +1404,7 @@ def phase_cli(card: str, seed: int) -> dict:
                    and all(set(m) == {"exp_avg", "exp_avg_sq", "step"}
                            for m in obj["optimizer"].values()) and obj["step"] == steps)
         fit = {"phase": "cli_fit", "config": CLI_CONFIG, "images": images,
+               "image_kinds": kinds, "image_kind_decodes": decoded,
                "batch": config["data"]["train_batch_size"], "steps": steps,
                "losses": [r["loss"] for r in records], "step_s": step_s,
                "s_per_step": float(np.median(step_s[1:])),
@@ -1385,6 +1423,10 @@ def phase_cli(card: str, seed: int) -> dict:
                     "bwd_dkv": CLI_TRUNK * steps,
                     "freq_mse": steps, "fwd": 0}
         check(fit_launches == expected, f"cli fit launches {fit_launches}, expected {expected}")
+        # the folder scan (the JAX reader's too) takes no .gif: phase 17's
+        # image_kinds_decode decodes GIF on the card's host
+        check(all(decoded[k] >= 1 for k in kinds if k != "gif"),
+              f"the cli fit did not decode each new image kind: {decoded}")
         check(keys_ok, "the cli checkpoint lacks keys")
         check(len(written) == 1, f"{len(written)} checkpoint saves, expected the final one")
         ema_saved = {n[len("ema_denoiser."):]: t for n, t in obj["state_dict"].items()
@@ -4679,7 +4721,8 @@ def phase_jpeg(card: str, seed: int) -> dict:
     its accumulation (``JPEG_T2I_ACCUMULATION``), 3 steps; ``jpeg_uniflow_fit``: ``cli fit`` on
     uniflow_internvit_2b_blip3o.yaml as shipped (448 px, batch 16,
     ``random_crop`` and ``random_flip``) but for its tar of 64 JPEG members
-    and its work directory, 3 steps with the causal launches counted. Both
+    and its work directory, 3 steps with the causal launches counted.
+    ``image_kinds_decode``: see :func:`phase_image_kinds_decode`. Both
     fits skip their checkpoint (the call's disk-write budget)."""
     import os
     import shutil
@@ -4691,6 +4734,7 @@ def phase_jpeg(card: str, seed: int) -> dict:
     t2i_config = registry.load_yaml(T2I_CONFIG)
     decode = phase_jpeg_decode(card, t2i_config["data"].get("train_num_workers", 4))
     png_decode = phase_png_decode(card, t2i_config["data"].get("train_num_workers", 4))
+    kinds_decode = phase_image_kinds_decode(card, t2i_config["data"].get("train_num_workers", 4))
     # DeCo-XXL/16 cut to JPEG_T2I_BLOCKS encoder blocks (its 4 text blocks
     # kept): one forward with lse, dQ and dK/dV per attention block and microbatch
     denoiser = t2i_config["model"]["denoiser"]["init_args"]
@@ -4730,8 +4774,8 @@ def phase_jpeg(card: str, seed: int) -> dict:
             (webdataset.PixWebDataset, "_process"), UNIFLOW_FIT_STEPS,
             config=JPEG_UNIFLOW_CONFIG, members=members, image_size=node["resolution"])
         print(card, flush=True)
-        return {"decode": decode, "png_decode": png_decode, "t2i": t2i["launches"],
-                "uniflow": uniflow["launches"]}
+        return {"decode": decode, "png_decode": png_decode, "image_kinds_decode": kinds_decode,
+                "t2i": t2i["launches"], "uniflow": uniflow["launches"]}
     finally:
         shutil.rmtree(JPEG_DIR, ignore_errors=True)
 
@@ -4797,6 +4841,98 @@ def phase_png_decode(card: str, workers: int) -> dict:
     emit(out)
     check(all(f["equal"] for f in files.values()),
           f"PNG decodes differ from PIL's: {[n for n, f in files.items() if not f['equal']]}")
+    return out
+
+
+IMAGE_KINDS_FIXTURES = "tests/torch_image_fixtures"  # committed; digests from Pillow
+IMAGE_KINDS_ROUNDS = 3  # decodes of each 512 x 512 file for the host's ms per megapixel
+
+
+def _image_kinds_generator():
+    """``tests/torch_image_fixtures/generate.py``: its BMP writer builds the
+    512 x 512 24-bit BMP of the timing with numpy only (the card's host has
+    no PIL)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_image_fixtures_generate",
+                                                  f"{IMAGE_KINDS_FIXTURES}/generate.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_image_kinds_decode(card: str, workers: int) -> dict:
+    """``image_kinds_decode``: the port's WebP, GIF and BMP decoders
+    (``csrc/{webp,gif,bmp}_decode.cpp``) as the card's host C++ compiler
+    built them (in phase 1-3, or here when the phase runs alone): each
+    library's name digests its sources, the flags and this compiler; every
+    committed fixture of ``tests/torch_image_fixtures/`` (and the generated
+    512 x 512 BMP) held to the sha256 of PIL's ``convert("RGB")`` in its
+    ``digests.json`` (equal or the phase fails); the host's decode ms a
+    megapixel on one thread and on ``workers`` threads (the loader's) for a
+    512 x 512 lossy WebP, lossless WebP, GIF and 24-bit BMP."""
+    import hashlib
+    import json
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deco_tpu_torch.data import bmp, gif, imagenet, webp
+    from deco_tpu_torch.ops import _build
+
+    with open(f"{IMAGE_KINDS_FIXTURES}/digests.json") as f:
+        want = json.load(f)
+    generator = _image_kinds_generator()
+    decoders = (webp.DECODER, gif.DECODER, bmp.DECODER)
+    sources = [decoder.source for decoder in decoders]
+    with ThreadPoolExecutor(len(decoders)) as pool:
+        build_s = dict(zip(sources, pool.map(_build.build_host, sources)))
+    libraries = {}
+    for decoder in decoders:
+        path = _build.host_library_path(decoder.source)
+        libraries[decoder.source] = {"file": path.name, "loaded": decoder.load()._name == str(path)}
+    blobs = {}
+    for name in sorted(want["files"]):
+        with open(f"{IMAGE_KINDS_FIXTURES}/{name}", "rb") as f:
+            blobs[name] = f.read()
+    generated = generator.generated_files()
+    files = {}
+    for name, data in [*blobs.items(), *generated.items()]:
+        d = want["files"].get(name) or want["generated"][name]
+        rgb = imagenet.decode_image(data)
+        files[name] = {"shape": list(rgb.shape), "pil_mode": d["mode"],
+                       "equal": hashlib.sha256(rgb.tobytes()).hexdigest() == d["sha256"]
+                       and list(rgb.shape) == d["shape"]}
+    large = {"webp_lossy": (webp, blobs["webp_lossy_512x512.webp"]),
+             "webp_lossless": (webp, blobs["webp_lossless_512x512.webp"]),
+             "gif": (gif, blobs["gif_512x512.gif"]),
+             "bmp": (bmp, generated["bmp_24bpp_512x512.bmp"])}
+    ms_per_mp, ms_per_mp_threads = {}, {}
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for kind, (module, data) in large.items():
+            mp = np.prod(module.decode(data).shape[:2]) / 1e6  # also warms the call
+            times = []
+            for _ in range(IMAGE_KINDS_ROUNDS):
+                t0 = time.perf_counter()
+                module.decode(data)
+                times.append(time.perf_counter() - t0)
+            ms_per_mp[kind] = float(np.median(times)) * 1e3 / mp
+            rounds = IMAGE_KINDS_ROUNDS * workers
+            list(pool.map(module.decode, [data] * workers))  # the threads started
+            t0 = time.perf_counter()
+            list(pool.map(module.decode, [data] * rounds))
+            ms_per_mp_threads[kind] = (time.perf_counter() - t0) * 1e3 / (mp * rounds)
+    out = {"phase": "image_kinds_decode", "compiler": _build.host_compiler(),
+           "host_flags": " ".join(_build.HOST_FLAGS), "build_s_here": build_s,
+           "libraries": libraries, "files": files, "kinds": len(files), "ms_per_mp": ms_per_mp,
+           "ms_per_mp_threads": ms_per_mp_threads, "threads": workers,
+           "rounds": IMAGE_KINDS_ROUNDS, "host_cpu": _cpu_model(), "card": card,
+           "note": "host time on the card's host, not the card's; ms a megapixel of the 512 x "
+                   "512 files, the median of the rounds on one thread, the mean over the "
+                   "threads; build_s_here is 0.0 for a library phase 1-3 built"}
+    emit(out)
+    check(all(lib["loaded"] for lib in libraries.values()),
+          f"a decoder was not loaded from this host's build of these sources: {libraries}")
+    check(all(f["equal"] for f in files.values()),
+          f"image decodes differ from PIL's: {[n for n, f in files.items() if not f['equal']]}")
     return out
 
 

@@ -32,11 +32,13 @@
 // markers out of sequence resynchronise as jdmarker.c
 // jpeg_resync_to_restart does.
 //
-// What it refuses: arithmetic coding, 12-bit samples, lossless and
-// hierarchical JPEG, and a progressive file whose scans leave one of the
+// What it does not read though Pillow does: arithmetic coding (SOF9-11),
+// lossless JPEG (SOF3) and a progressive file whose scans leave one of the
 // first nine AC coefficients unfinished (libjpeg smooths such blocks)
-// return JPEG_UNSUPPORTED. A truncated stream, or one whose headers are
-// corrupt, returns JPEG_CORRUPT. The message goes into the caller's buffer.
+// return JPEG_UNSUPPORTED. What Pillow refuses returns JPEG_CORRUPT: a
+// truncated stream, corrupt headers, samples of other than 8 bits (Pillow
+// refuses them at open) and hierarchical JPEG (SOF5-7, SOF13-15, DHP and
+// EXP, which libjpeg-turbo refuses). The message goes into the caller's buffer.
 //
 // No global mutable state: the loader's threads call it at once.
 
@@ -591,9 +593,12 @@ struct Decoder {
     ncomp = data[p + 5];
     kind = code - 0xC0;
     progressive = code == 0xC2;
-    if (precision == 12)
-      fail(JPEG_UNSUPPORTED, "a 12-bit JPEG: the port's decoder reads 8-bit samples only");
-    if (precision != 8) fail(JPEG_CORRUPT, "corrupt JPEG: sample precision %d", precision);
+    // Pillow reads the precision of every SOFn at open and refuses all but 8
+    if (precision != 8) fail(JPEG_CORRUPT, "a JPEG of %d-bit samples: Pillow reads 8", precision);
+    if (code == 0xC3) fail(JPEG_UNSUPPORTED, "a lossless JPEG (SOF3)");
+    if (code >= 0xC9 && code <= 0xCB) fail(JPEG_UNSUPPORTED, "an arithmetic-coded JPEG");
+    if (code > 0xC2)  // SOF5-7, SOF13-15: libjpeg-turbo refuses differential frames
+      fail(JPEG_CORRUPT, "a hierarchical JPEG (SOF%d): libjpeg refuses it", code - 0xC0);
     if (height == 0)
       fail(JPEG_CORRUPT, "a JPEG whose height comes in a DNL marker (libjpeg refuses it too)");
     if (width == 0 || ncomp == 0) fail(JPEG_CORRUPT, "corrupt JPEG: an empty image");
@@ -645,18 +650,13 @@ struct Decoder {
   bool handle_marker(int code) {
     bool sof = code >= 0xC0 && code <= 0xCF && code != 0xC4 && code != 0xC8 && code != 0xCC;
     if (sof && have_frame) fail(JPEG_CORRUPT, "corrupt JPEG: a second frame header");
-    if ((code == 0xDE || code == 0xDF) && have_frame)
-      fail(JPEG_CORRUPT, "corrupt JPEG: unknown marker 0x%02X", code);  // as libjpeg reads DHP, EXP
     switch (code) {
-      case 0xC0: case 0xC1: case 0xC2:
+      case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC5: case 0xC6: case 0xC7:
+      case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
         read_sof(code);
         return true;
-      case 0xC3:
-        fail(JPEG_UNSUPPORTED, "a lossless JPEG (SOF3)");
-      case 0xC5: case 0xC6: case 0xC7: case 0xDE: case 0xDF:
-        fail(JPEG_UNSUPPORTED, "a hierarchical JPEG (SOF%d)", code - 0xC0);
-      case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
-        fail(JPEG_UNSUPPORTED, "an arithmetic-coded JPEG");
+      case 0xDE: case 0xDF:  // DHP, EXP: libjpeg reads them as unknown markers
+        fail(JPEG_CORRUPT, "a hierarchical JPEG (marker 0x%02X): libjpeg refuses it", code);
       case 0xC4:
         read_dht();
         return true;

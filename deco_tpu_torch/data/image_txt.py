@@ -7,8 +7,8 @@ The folder is walked in sorted order and each image with a same-name
 resolution with PIL's BICUBIC filter to ``(round(w * scale), round(h *
 scale))``, byte for byte (:func:`~deco_tpu_torch.data.imagenet.resize_short_side`),
 then center-cropped. Images are read by
-:func:`~deco_tpu_torch.data.imagenet.read_image` (PNG and JPEG, equal to
-PIL's ``convert("RGB")``); a file that does not decode raises, as PIL's
+:func:`~deco_tpu_torch.data.imagenet.read_image` (PNG, JPEG, WebP, GIF and
+BMP, equal to PIL's ``convert("RGB")``); a file that does not decode raises, as PIL's
 ``open`` does in the JAX reader.
 """
 

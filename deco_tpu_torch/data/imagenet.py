@@ -13,9 +13,10 @@ vertical pass. Each pass is one dense (out x in) weight matrix applied with
 result equals PIL's.
 
 Images are read by :func:`decode_image`: PNG of every kind with
-:mod:`deco_tpu_torch.utils.png`, JPEG with the port's own decoder
-(:mod:`deco_tpu_torch.data.jpeg`), both equal to PIL's ``convert("RGB")``;
-WebP, GIF and BMP raise naming ROADMAP §A 2b. Items are NHWC float32 in [-1, 1] with
+:mod:`deco_tpu_torch.utils.png`, JPEG, WebP, GIF and BMP with the port's own
+decoders (:mod:`deco_tpu_torch.data.jpeg`, ``webp``, ``gif``, ``bmp``), all
+equal to PIL's ``convert("RGB")``; the other formats Pillow opens raise
+naming ROADMAP §A 2e. Items are NHWC float32 in [-1, 1] with
 ``metadata['raw_image']`` the [0, 1] image; :class:`LocalCachedDataset`
 gives VAE latents sampled from a cache of ``.npz`` posteriors instead.
 :class:`PixHFDataset` reads a Hugging Face ``datasets`` split the same way.
@@ -28,7 +29,7 @@ import os
 
 import numpy as np
 
-from deco_tpu_torch.data import jpeg
+from deco_tpu_torch.data import bmp, gif, jpeg, webp
 from deco_tpu_torch.utils import png
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".JPEG", ".JPG", ".PNG", ".bmp", ".webp")
@@ -121,23 +122,88 @@ def adm_center_crop(image: np.ndarray, image_size: int) -> np.ndarray:
     return center_crop(resize_short_side(arr, image_size), image_size)
 
 
+def _le32(data: bytes, at: int = 0) -> int:
+    return int.from_bytes(data[at:at + 4], "little") if len(data) >= at + 4 else -1
+
+
+# The formats Pillow 12.1 opens and decodes that the port does not decode,
+# by the test of each plugin's ``_accept`` (or, where a plugin has none,
+# the header its ``_open`` requires). TGA, SPIDER, IPTC and IMT carry no
+# signature, so their bytes read as no image format; the stub plugins
+# (BUFR, GRIB, HDF5, MPEG, WMF) open but cannot decode, so they raise
+# ``ValueError`` as Pillow raises.
+OTHER_FORMATS = (
+    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
+    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2")),
+    ("CUR", lambda d: d[:4] == b"\0\0\2\0"),
+    ("DCX", lambda d: _le32(d) == 0x3ADE68B1),
+    ("DDS", lambda d: d[:4] == b"DDS "),
+    ("DIB", lambda d: _le32(d) in (12, 40, 52, 56, 64, 108, 124)),
+    ("EPS", lambda d: d[:4] == b"%!PS" or _le32(d) == 0xC6D3D0C5),
+    ("FITS", lambda d: d[:6] == b"SIMPLE"),
+    ("FLI", lambda d: len(d) >= 16 and int.from_bytes(d[4:6], "little") in (0xAF11, 0xAF12)
+     and int.from_bytes(d[14:16], "little") in (0, 3)),
+    ("FTEX", lambda d: d[:4] == b"FTEX"),
+    ("GBR", lambda d: len(d) >= 8 and int.from_bytes(d[:4], "big") >= 20
+     and int.from_bytes(d[4:8], "big") in (1, 2)),
+    ("ICNS", lambda d: d[:4] == b"icns"),
+    ("ICO", lambda d: d[:4] == b"\0\0\1\0"),
+    ("IM", lambda d: d[:11] == b"Image type:"),
+    ("JPEG2000", lambda d: d[:4] == b"\xff\x4f\xff\x51"
+     or d[:12] == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"),
+    ("MCIDAS", lambda d: d[:8] == b"\x00\x00\x00\x00\x00\x00\x00\x04"),
+    ("MSP", lambda d: d[:4] in (b"DanM", b"LinS")),
+    ("PCD", lambda d: d[2048:2052] == b"PCD_"),
+    ("PCX", lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5)),
+    ("PIXAR", lambda d: d[:4] == b"\x80\xe8\x00\x00"),
+    ("PPM", lambda d: len(d) >= 2 and d[:1] == b"P" and d[1] in b"0123456fy"),
+    ("PSD", lambda d: d[:4] == b"8BPS"),
+    ("QOI", lambda d: d[:4] == b"qoif"),
+    ("SGI", lambda d: d[:2] == b"\x01\xda"),
+    ("SUN", lambda d: d[:4] == b"\x59\xa6\x6a\x95"),
+    ("TIFF", lambda d: d[:4] in (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
+                                 b"MM\x00\x2b", b"II\x2b\x00")),
+    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define")),
+    ("XPM", lambda d: d[:9] == b"/* XPM */"),
+    ("XVTHUMB", lambda d: d[:6] == b"P7 332"),
+)
+
+
+def other_format(data: bytes):
+    """The name of a format Pillow decodes and the port does not, or None."""
+    return next((name for name, accepts in OTHER_FORMATS if accepts(data)), None)
+
+
 def decode_image(data: bytes) -> np.ndarray:
     """Image bytes as (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
     them: PNG of every kind (any colour type, bit depth and interlace)
     through :mod:`deco_tpu_torch.utils.png`, baseline and progressive
-    Huffman JPEG through :mod:`deco_tpu_torch.data.jpeg`. Corrupt or
-    truncated data raises
-    ``ValueError`` (PIL's ``OSError``); a WebP, GIF or BMP image raises
-    ``NotImplementedError`` naming ROADMAP §A 2b; bytes of no image format
-    raise ``ValueError``."""
+    Huffman JPEG through :mod:`deco_tpu_torch.data.jpeg`, WebP (lossy,
+    lossless, alpha, the first frame of an animation on its canvas), GIF
+    (the first frame) and BMP through :mod:`~deco_tpu_torch.data.webp`,
+    :mod:`~deco_tpu_torch.data.gif` and :mod:`~deco_tpu_torch.data.bmp`.
+    What PIL refuses raises ``ValueError`` (PIL's ``OSError``), bytes of no
+    image format too; a format PIL decodes and the port does not (TIFF, PNM,
+    ICO, JPEG 2000, ...: :data:`OTHER_FORMATS`) raises
+    ``NotImplementedError`` naming ROADMAP §A 2e."""
     if data[:8] == png.SIGNATURE:
         return png.decode(data)
     if jpeg.is_jpeg(data):
         return jpeg.decode(data)
-    if data[:4] in (b"RIFF", b"GIF8") or data[:2] == b"BM":
-        raise NotImplementedError("a WebP, GIF or BMP image: the port decodes PNG and JPEG "
-                                  "only: ROADMAP §A 2b")
-    raise ValueError("not an image the port recognises (no PNG or JPEG signature)")
+    if data[:4] == b"RIFF":
+        if webp.is_webp(data):
+            return webp.decode(data)
+        raise ValueError("a RIFF file that is not a WebP image")
+    if gif.is_gif(data):
+        return gif.decode(data)
+    if bmp.is_bmp(data):
+        return bmp.decode(data)
+    name = other_format(data)
+    if name is not None:
+        raise NotImplementedError(f"a {name} image: the port decodes PNG, JPEG, WebP, GIF and "
+                                  "BMP: ROADMAP §A 2e")
+    raise ValueError("not an image the port recognises (no PNG, JPEG, WebP, GIF or BMP "
+                     "signature)")
 
 
 def read_image(path: str) -> np.ndarray:
@@ -254,7 +320,7 @@ class PixHFDataset:
     constructor raises ``ImportError``.
 
     The ``image`` column is read undecoded (the port has no PIL) and
-    decoded by :func:`decode_image` (PNG and JPEG, equal to PIL's), then
+    decoded by :func:`decode_image` (PNG, JPEG, WebP, GIF, BMP, equal to PIL's), then
     cropped by the numpy resampler. ``label`` (0 where absent) is the
     item's class.
     """

@@ -9,12 +9,12 @@ alike.
 
 Corrupt entropy-coded data decodes as libjpeg-turbo decodes it (a bad
 Huffman code, a segment cut short, restart markers out of order). A
-truncated stream, or one libjpeg refuses, raises ``ValueError`` where
-Pillow raises ``OSError``, so the readers skip it where the JAX readers
-skip; a stream of
-a kind the decoder does not read (arithmetic coding, 12-bit samples,
-lossless or hierarchical JPEG, a progressive file that needs libjpeg's
-block smoothing) raises ``NotImplementedError`` naming ROADMAP §A 2c. The
+truncated stream, or one Pillow or libjpeg refuses (samples of other than
+8 bits, hierarchical JPEG), raises ``ValueError`` where Pillow raises
+``OSError``, so the readers skip it where the JAX readers skip; a stream
+of a kind Pillow reads and the decoder does not (arithmetic coding,
+lossless JPEG, a progressive file that needs libjpeg's block smoothing)
+raises ``NotImplementedError`` naming ROADMAP §A 2c. The
 decoder keeps no global state, and ``ctypes`` releases the GIL during a
 call, so the loader's threads decode at once.
 """

@@ -18,15 +18,14 @@ Departures from the JAX package:
   world size when it is initialised, else (0, 1), in place of
   ``jax.process_index()``.
 - Images are decoded by :func:`~deco_tpu_torch.data.imagenet.decode_image`
-  (PNG and JPEG, equal to PIL's ``convert("RGB")``) and resized with the
-  PIL-exact resampler. The JAX readers skip every sample that fails; the
-  port skips what PIL also rejects (images smaller than the resolution,
-  corrupt or truncated PNG and JPEG data, bytes of no image format,
+  (PNG, JPEG, WebP, GIF and BMP, equal to PIL's ``convert("RGB")``) and
+  resized with the PIL-exact resampler. The JAX readers skip every sample
+  that fails; the port skips what PIL also rejects (images smaller than
+  the resolution, corrupt or truncated data, bytes of no image format,
   unreadable tars) and raises where the port lacks a decoder PIL has: a
-  WebP, GIF or BMP sample and a JPEG kind the port's decoder refuses
-  (``NotImplementedError``, ROADMAP §A 2b and 2c). Skipping those would
-  drop every sample of such a shard and spin forever. Every well-formed
-  PNG decodes.
+  JPEG kind the port's decoder does not read and the other formats Pillow
+  decodes (``NotImplementedError``, ROADMAP §A 2c and 2e). Skipping those
+  would drop every sample of such a shard and spin forever.
 - ``WebDatasetPacked`` takes the reference ``WebDatasetPackedDataset``'s
   ``sample_shuffle`` (the pretraining YAMLs set it; the JAX class has no
   such argument, ROADMAP §C 8): False turns the shuffle buffer off.

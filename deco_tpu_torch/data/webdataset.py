@@ -15,13 +15,14 @@ Departures from the JAX package:
   (:class:`~deco_tpu_torch.data.packed.StreamShard`), in place of
   ``jax.process_index()``.
 - Members are decoded by :func:`~deco_tpu_torch.data.imagenet.decode_image`
-  (PNG and JPEG, equal to PIL's ``convert("RGB")``) and cropped by the
-  PIL-exact resampler (the ADM center crop, or with ``random_crop`` a
-  bicubic resize of the short side and a random crop). A WebP, GIF or BMP
-  member, or a JPEG kind the port's decoder refuses, raises
-  ``NotImplementedError`` (ROADMAP §A 2b, 2c), where the JAX reader would
-  decode it. Every other failing sample (corrupt or truncated data, bytes
-  of no image format) is skipped with a warning, as in JAX.
+  (PNG, JPEG, WebP, GIF and BMP, equal to PIL's ``convert("RGB")``) and
+  cropped by the PIL-exact resampler (the ADM center crop, or with
+  ``random_crop`` a bicubic resize of the short side and a random crop). A
+  JPEG kind the port's decoder does not read, or another format Pillow
+  decodes (TIFF, PNM, ...), raises ``NotImplementedError`` (ROADMAP §A 2c,
+  2e), where the JAX reader would decode it. Every other failing sample
+  (corrupt or truncated data, bytes of no image format) is skipped with a
+  warning, as in JAX.
 """
 
 from __future__ import annotations

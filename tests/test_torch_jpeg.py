@@ -225,9 +225,26 @@ def _patched_sof(data: bytes, marker: int, precision: int = 8) -> bytes:
     ("12-bit", 0xC1, 12), ("arithmetic-coded", 0xC9, 8), ("lossless", 0xC3, 8),
     ("hierarchical", 0xC5, 8)])
 def test_kinds_it_does_not_read_raise_naming_the_roadmap_item(kind, marker, precision):
-    data = _patched_sof(pil_jpeg(generate.photo_like(16, 16, 3, seed=0)), marker, precision)
-    with pytest.raises(NotImplementedError, match=f"{kind}.*ROADMAP §A 2c"):
-        jpeg.decode(data)
+    """The kinds Pillow reads (arithmetic coding, a genuine lossless file)
+    raise ``NotImplementedError`` naming ROADMAP §A 2c; those Pillow refuses
+    (12-bit samples, hierarchical frames) raise ``ValueError``, as the
+    readers need to skip them where the JAX readers skip (ROADMAP §C 17)."""
+    if kind == "lossless":
+        data = generate.encode_lossless(generate.photo_like(16, 16, 3, seed=0))
+    else:
+        data = _patched_sof(pil_jpeg(generate.photo_like(16, 16, 3, seed=0)), marker, precision)
+    try:
+        pil_rgb(data)
+        pil_reads = True
+    except OSError:
+        pil_reads = False
+    assert pil_reads == (kind in ("arithmetic-coded", "lossless"))
+    if pil_reads:
+        with pytest.raises(NotImplementedError, match=f"{kind}.*ROADMAP §A 2c"):
+            jpeg.decode(data)
+    else:
+        with pytest.raises(ValueError, match=kind):
+            jpeg.decode(data)
 
 
 def test_a_progressive_file_that_needs_block_smoothing_raises():
@@ -285,7 +302,8 @@ def _scan_data(data: bytes):
 
 def assert_decodes_or_raises_as_pil(data: bytes):
     """Pillow's image where it returns one (0 LSB); ``ValueError`` where it
-    raises, but for a progressive file libjpeg smooths (ROADMAP §A 2c)."""
+    raises; ``NotImplementedError`` (ROADMAP §A 2c) only where Pillow reads
+    a kind the decoder does not (a progressive file libjpeg smooths)."""
     try:
         ref = pil_rgb(data)
     except OSError:
@@ -293,7 +311,7 @@ def assert_decodes_or_raises_as_pil(data: bytes):
     try:
         ours = jpeg.decode(data)
     except NotImplementedError as err:
-        assert "block smoothing" in str(err)
+        assert ref is not None and "ROADMAP §A 2c" in str(err), str(err)
         return
     except ValueError:
         assert ref is None, "PIL decodes a stream the decoder refuses"
@@ -750,6 +768,53 @@ def test_jsonl_retries_a_truncated_jpeg_as_jax_does(jpeg_folder, tmp_path, monke
             cls(str(tmp_path), str(tmp_path / "only.jsonl"), resolution=32, max_retries=2)[0]
 
 
+def test_c17_streams_skip_12_bit_and_hierarchical_jpegs_as_jax(tmp_path, monkeypatch):
+    """ROADMAP §C 17: a tar shard and a JSONL source holding a 12-bit and a
+    hierarchical JPEG among good ones. Pillow refuses both, so the JAX
+    readers skip (tar) or retry (JSONL) them; the port's decoder raises
+    ``ValueError`` for them (it raised ``NotImplementedError``, which
+    stopped the port's readers), and its readers give the JAX items."""
+    jax_decodes_with_pil(monkeypatch)
+    good = [_jpeg_file(tmp_path / f"g{i}.jpg", h, w, seed=40 + i, **dict(kw))
+            for i, (h, w, kw) in enumerate(SIZES) if not kw.get("progressive")]
+    bad = {"twelve_bit.jpg": _patched_sof(good[0], 0xC1, 12),
+           "hierarchical.jpg": _patched_sof(good[1], 0xC5)}
+    for name, data in bad.items():
+        (tmp_path / name).write_bytes(data)
+        with pytest.raises(OSError):
+            pil_rgb(data)
+        with pytest.raises(ValueError):
+            jpeg.decode(data)
+    order = [good[0], bad["twelve_bit.jpg"], good[1], good[2], bad["hierarchical.jpg"], good[3]]
+    members = []
+    for i, data in enumerate(order):
+        members += [(f"{i:03d}.jpg", data), (f"{i:03d}.cls", str(i).encode()),
+                    (f"{i:03d}.txt", f"caption {i}".encode())]
+    os.makedirs(tmp_path / "shards")
+    shard = _write_tar(tmp_path / "shards" / "shard-0.tar", members)
+    kw = dict(resolution=32, random_crop=True, random_flip=True, buffer_size=3,
+              process_index=0, process_count=1)
+    ours = _items(webdataset.PixWebDataset(shard, **kw))
+    ref = _items(jwebdataset.PixWebDataset(shard, **kw))
+    assert len(ours) == len(ref) == 4
+    _same(ours, ref)
+    kw = dict(resolution=40, random_crop=True, shuffle_buffer=3, repeat=False, seed=2,
+              shard_index=0, shard_count=1)
+    ours = list(packed.WebDatasetPacked(str(tmp_path / "shards"), **kw))
+    ref = list(jpacked.WebDatasetPacked(str(tmp_path / "shards"), **kw))
+    assert len(ours) == len(ref) == 4
+    for (x, text, _), (rx, rtext, _) in zip(ours, ref):
+        assert text == rtext
+        np.testing.assert_array_equal(x, rx)
+    names = ["g0.jpg", "twelve_bit.jpg", "g1.jpg", "hierarchical.jpg", "g2.jpg"]
+    ann = tmp_path / "ann.jsonl"
+    ann.write_text("\n".join(json.dumps({"target_image": n}) for n in names) + "\n")
+    kw = dict(resolution=32, random_crop=True, random_flip=True, seed=5)
+    ours = jsonl.PixJSONLDataset(str(tmp_path), str(ann), **kw)
+    ref = jjsonl.PixJSONLDataset(str(tmp_path), str(ann), **kw)
+    _same([ours[i] for i in range(len(ours))], [ref[i] for i in range(len(ref))])
+
+
 def test_image_text_jpeg_equals_jax(tmp_path):
     for i, (h, w, kw) in enumerate(SIZES):
         _jpeg_file(tmp_path / f"{i}.jpg", h, w, seed=20 + i, **dict(kw))
@@ -763,9 +828,12 @@ def test_image_text_jpeg_equals_jax(tmp_path):
         np.testing.assert_array_equal(x, rx)
 
 
-@pytest.mark.parametrize("data, item", [(b"RIFF\x00\x00\x00\x00WEBPVP8 ", "2b"),
-                                        (b"GIF89a\x01\x00", "2b"), (b"BM\x00\x00", "2b")],
-                         ids=["webp", "gif", "bmp"])
-def test_other_formats_raise_naming_their_roadmap_item(data, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
+@pytest.mark.parametrize("data", [b"RIFF\x00\x00\x00\x00WEBPVP8 ", b"GIF89a\x01\x00",
+                                  b"BM\x00\x00"], ids=["webp", "gif", "bmp"])
+def test_other_formats_raise_naming_their_roadmap_item(data):
+    """WebP, GIF and BMP decode since ROADMAP §A 2b closed: a truncated
+    header raises ``ValueError`` as Pillow raises."""
+    with pytest.raises(OSError):
+        pil_rgb(data)
+    with pytest.raises(ValueError, match="truncated|not a|WebP|GIF|BMP"):
         imagenet.decode_image(data)

@@ -479,8 +479,8 @@ def test_jsonl_retries_a_bad_sample_and_refuses_a_random_crop_jpeg(jsonl_sources
                                                                      monkeypatch):
     """A missing file is retried at a random index, as in JAX; a JPEG under
     ``random_crop`` (which once raised naming ROADMAP §A 2) reads as the JAX
-    reader's PIL path reads it, byte for byte; a WebP raises naming
-    ROADMAP §A 2b at once, without a retry."""
+    reader's PIL path reads it, byte for byte; so does a WebP (which once
+    raised naming ROADMAP §A 2b)."""
     root, _, _ = jsonl_sources
     ann = tmp_path / "ann.jsonl"
     ann.write_text("\n".join(json.dumps({"target_image": n}) for n in ("missing.png", "0.png")))
@@ -496,7 +496,10 @@ def test_jsonl_retries_a_bad_sample_and_refuses_a_random_crop_jpeg(jsonl_sources
     kw = dict(resolution=24, random_crop=True, seed=2)
     _same_items([jsonl.PixJSONLDataset(str(tmp_path), str(ann), **kw)[0]],
                 [jjsonl.PixJSONLDataset(str(tmp_path), str(ann), **kw)[0]])
-    (tmp_path / "a.webp").write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (30, 44, 3), dtype=np.uint8)).save(buf, "WEBP",
+                                                                             quality=70)
+    (tmp_path / "a.webp").write_bytes(buf.getvalue())
     ann.write_text(json.dumps({"target_image": "a.webp"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP §A 2b"):
-        jsonl.PixJSONLDataset(str(tmp_path), str(ann), **kw)[0]
+    _same_items([jsonl.PixJSONLDataset(str(tmp_path), str(ann), **kw)[0]],
+                [jjsonl.PixJSONLDataset(str(tmp_path), str(ann), **kw)[0]])

@@ -255,6 +255,40 @@ def encode_baseline(planes, sampling, quality_scale: float = 1.0, ids=None, jfif
     return bytes(out)
 
 
+def encode_lossless(image: np.ndarray) -> bytes:
+    """A lossless JPEG (SOF3, predictor 1, no point transform) of an (H, W,
+    C) uint8 image, every component at full size, coded with the standard
+    DC table; Pillow writes no lossless JPEG, and libjpeg-turbo reads it."""
+    h, w, n = image.shape
+    dc = _codes(*_STD_DC)
+    bits = _Bits()
+    x = image.astype(np.int64)
+    for row in range(h):
+        for col in range(w):
+            for c in range(n):
+                if row == 0 and col == 0:
+                    pred = 128
+                elif row == 0 or col > 0:
+                    pred = x[row, col - 1, c]
+                else:
+                    pred = x[row - 1, col, c]
+                diff = int(x[row, col, c] - pred)
+                size = abs(diff).bit_length()
+                bits.put(*dc[size])
+                if size:
+                    bits.put(diff if diff > 0 else diff + (1 << size) - 1, size)
+    bits.flush()
+
+    def segment(marker, payload):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) + payload
+
+    sof = struct.pack(">BHHB", 8, h, w, n) + b"".join(bytes([i + 1, 0x11, 0]) for i in range(n))
+    sos = bytes([n]) + b"".join(bytes([i + 1, 0]) for i in range(n)) + bytes([1, 0, 0])
+    return (b"\xff\xd8" + segment(0xC3, sof)
+            + segment(0xC4, bytes([0]) + bytes(_STD_DC[0]) + bytes(_STD_DC[1]))
+            + segment(0xDA, sos) + bytes(bits.out) + b"\xff\xd9")
+
+
 if __name__ == "__main__":
     written = write_fixtures()
     for name, d in written["files"].items():
