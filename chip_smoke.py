@@ -238,11 +238,14 @@ Phases, in the order they run:
    under ``build/chip_smoke_uniflow/``, which is deleted.
 17. jpeg: JPEG data, decoded by the port's own decoder
    (``csrc/jpeg_decode.cpp``, host C++ built here by the host compiler).
-   ``jpeg_decode``: every fixture of ``tests/torch_jpeg_fixtures/`` held to
-   the sha256 of PIL's ``convert("RGB")`` (equal or the phase fails), the
-   port's ``PixImageNet`` items over them (center and random crop) held to
-   the digests the CPU wrote, and the host's decode ms per megapixel on one
-   thread and on the t2i loader's 8, with the host CPU's name.
+   ``jpeg_decode``: every fixture of ``tests/torch_jpeg_fixtures/`` and of
+   its ``kinds/`` (arithmetic coding, sequential and progressive; block
+   smoothing; lossless) held to the sha256 of PIL's ``convert("RGB")``
+   (equal or the phase fails), the port's ``PixImageNet`` items over the
+   first (center and random crop) held to the digests the CPU wrote, and
+   the host's decode ms per megapixel on one thread and on the t2i loader's
+   8, for those and for a 512 x 512 arithmetic sequential, arithmetic
+   progressive and lossless file, with the host CPU's name.
    ``png_decode``: every fixture of ``tests/torch_png_fixtures/`` (every PNG
    colour type and bit depth, plain and Adam7) held to the sha256 of PIL's
    ``convert("RGB")``, and the host's decode ms per megapixel.
@@ -4442,6 +4445,10 @@ JPEG_FIXTURES = "tests/torch_jpeg_fixtures"  # committed; Pillow wrote them (no 
 JPEG_DIR = "build/chip_smoke_jpeg"  # git-ignored; deleted at the end of the phase
 JPEG_READER = dict(resolution=256, seed=0)  # the PixImageNet items behind digests.json's readers
 JPEG_TIMING_ROUNDS = 3  # decodes of each fixture for the host's ms per megapixel
+JPEG_KINDS = f"{JPEG_FIXTURES}/kinds"  # the kinds Pillow reads and does not write
+JPEG_KIND_TIMING = {"arithmetic": "arith_420_512x512.jpg",
+                    "arithmetic-progressive": "arith_progressive_420_512x512.jpg",
+                    "lossless": "lossless_rgb_p6_512x512.jpg"}
 JPEG_T2I_COPIES = 8  # 8 fixtures x 8 = 64 JPEG + caption pairs for the t2i fit
 JPEG_UNIFLOW_CONFIG = "configs_flow/uniflow_internvit_2b_blip3o.yaml"
 JPEG_UNIFLOW_COPIES = 8  # 64 JPEG members in the webdataset tar
@@ -4542,7 +4549,12 @@ def phase_jpeg_decode(card: str, workers: int) -> dict:
     fails); the port's ``PixImageNet`` over a folder of the fixtures, center
     crop and random crop, held to the digests the same code wrote on the
     CPU; the host's decode time per megapixel on one thread and on
-    ``workers`` threads (the t2i loader's), beside the host CPU's name."""
+    ``workers`` threads (the t2i loader's), beside the host CPU's name.
+    Then the kinds Pillow reads and does not write (``kinds/``: arithmetic
+    coding, block smoothing, lossless), each held to its digest and its
+    ``info`` kind, and the ms per megapixel of a 512 x 512 file of each of
+    the three kinds (the median of the rounds on one thread, the mean on
+    the threads)."""
     import hashlib
     import json
     import os
@@ -4595,17 +4607,50 @@ def phase_jpeg_decode(card: str, workers: int) -> dict:
         t0 = time.perf_counter()
         list(pool.map(jpeg.decode, work))
         threaded = (time.perf_counter() - t0) * 1e3 / (mp * JPEG_TIMING_ROUNDS * workers)
+    with open(f"{JPEG_KINDS}/digests.json") as f:
+        want_kinds = json.load(f)["files"]
+    kinds, kind_blobs = {}, {}
+    for name, d in sorted(want_kinds.items()):
+        with open(f"{JPEG_KINDS}/{name}", "rb") as f:
+            kind_blobs[name] = f.read()
+        rgb = jpeg.decode(kind_blobs[name])
+        kinds[name] = {"kind": jpeg.info(kind_blobs[name])[3],
+                       "equal": hashlib.sha256(rgb.tobytes()).hexdigest() == d["sha256"]
+                       and list(rgb.shape) == d["shape"]
+                       and jpeg.info(kind_blobs[name])[3] == d["kind"]}
+    kind_ms, kind_ms_threads = {}, {}
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for kind, name in JPEG_KIND_TIMING.items():
+            data = kind_blobs[name]
+            kind_mp = np.prod(want_kinds[name]["shape"][:2]) / 1e6
+            times = []
+            for _ in range(JPEG_TIMING_ROUNDS):
+                t0 = time.perf_counter()
+                jpeg.decode(data)
+                times.append(time.perf_counter() - t0)
+            kind_ms[kind] = float(np.median(times)) * 1e3 / kind_mp
+            rounds = JPEG_TIMING_ROUNDS * workers
+            list(pool.map(jpeg.decode, [data] * workers))  # the threads started
+            t0 = time.perf_counter()
+            list(pool.map(jpeg.decode, [data] * rounds))
+            kind_ms_threads[kind] = (time.perf_counter() - t0) * 1e3 / (kind_mp * rounds)
     out = {"phase": "jpeg_decode", "compiler": compiler, "compiler_version": version,
            "host_flags": " ".join(_build.HOST_FLAGS), "build_s": build_s, "files": files,
            "readers": {k: readers[k] == want["readers"][k] for k in readers},
            "reader_settings": JPEG_READER, "megapixels": mp,
            "decode_ms_per_mp_one_thread": one_thread,
            "decode_ms_per_mp_threads": threaded, "threads": workers,
+           "kinds": kinds, "kind_files": JPEG_KIND_TIMING,
+           "kind_ms_per_mp_one_thread": kind_ms, "kind_ms_per_mp_threads": kind_ms_threads,
            "host_cpu": _cpu_model(), "host_cpus": os.cpu_count(), "card": card,
-           "note": "host time on the card's host, not the card's"}
+           "note": "host time on the card's host, not the card's; the kinds' ms a megapixel "
+                   "of one 512 x 512 file each, the median of the rounds on one thread, the "
+                   "mean over the threads"}
     emit(out)
     check(build_s > 0, "the JPEG decoder was not built from source in this run")
     check(all(f["equal"] for f in files.values()), f"JPEG decodes differ from PIL's: {files}")
+    check(all(k["equal"] for k in kinds.values()),
+          f"JPEG kinds differ from PIL's: {[n for n, k in kinds.items() if not k['equal']]}")
     check(all(out["readers"].values()), f"PixImageNet JPEG items differ: {out['readers']}")
     return out
 
@@ -4849,9 +4894,9 @@ IMAGE_KINDS_ROUNDS = 3  # decodes of each 512 x 512 file for the host's ms per m
 
 
 def _image_kinds_generator():
-    """``tests/torch_image_fixtures/generate.py``: its BMP writer builds the
-    512 x 512 24-bit BMP of the timing with numpy only (the card's host has
-    no PIL)."""
+    """``tests/torch_image_fixtures/generate.py``: its writers build the
+    512 x 512 24-bit BMP, P6 PNM and QOI of the timing with numpy and
+    Python only (the card's host has no PIL)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("torch_image_fixtures_generate",
@@ -4862,26 +4907,27 @@ def _image_kinds_generator():
 
 
 def phase_image_kinds_decode(card: str, workers: int) -> dict:
-    """``image_kinds_decode``: the port's WebP, GIF and BMP decoders
-    (``csrc/{webp,gif,bmp}_decode.cpp``) as the card's host C++ compiler
-    built them (in phase 1-3, or here when the phase runs alone): each
-    library's name digests its sources, the flags and this compiler; every
-    committed fixture of ``tests/torch_image_fixtures/`` (and the generated
-    512 x 512 BMP) held to the sha256 of PIL's ``convert("RGB")`` in its
+    """``image_kinds_decode``: the port's WebP, GIF, BMP (with DIB, ICO and
+    CUR), PNM and QOI decoders (``csrc/{webp,gif,bmp,pnm,qoi}_decode.cpp``)
+    as the card's host C++ compiler built them (in phase 1-3, or here when
+    the phase runs alone): each library's name digests its sources, the
+    flags and this compiler; every committed fixture of
+    ``tests/torch_image_fixtures/`` (and the generated 512 x 512 BMP, PNM
+    and QOI) held to the sha256 of PIL's ``convert("RGB")`` in its
     ``digests.json`` (equal or the phase fails); the host's decode ms a
     megapixel on one thread and on ``workers`` threads (the loader's) for a
-    512 x 512 lossy WebP, lossless WebP, GIF and 24-bit BMP."""
+    512 x 512 lossy WebP, lossless WebP, GIF, 24-bit BMP, P6 PNM and QOI."""
     import hashlib
     import json
     from concurrent.futures import ThreadPoolExecutor
 
-    from deco_tpu_torch.data import bmp, gif, imagenet, webp
+    from deco_tpu_torch.data import bmp, gif, imagenet, pnm, qoi, webp
     from deco_tpu_torch.ops import _build
 
     with open(f"{IMAGE_KINDS_FIXTURES}/digests.json") as f:
         want = json.load(f)
     generator = _image_kinds_generator()
-    decoders = (webp.DECODER, gif.DECODER, bmp.DECODER)
+    decoders = (webp.DECODER, gif.DECODER, bmp.DECODER, pnm.DECODER, qoi.DECODER)
     sources = [decoder.source for decoder in decoders]
     with ThreadPoolExecutor(len(decoders)) as pool:
         build_s = dict(zip(sources, pool.map(_build.build_host, sources)))
@@ -4904,7 +4950,9 @@ def phase_image_kinds_decode(card: str, workers: int) -> dict:
     large = {"webp_lossy": (webp, blobs["webp_lossy_512x512.webp"]),
              "webp_lossless": (webp, blobs["webp_lossless_512x512.webp"]),
              "gif": (gif, blobs["gif_512x512.gif"]),
-             "bmp": (bmp, generated["bmp_24bpp_512x512.bmp"])}
+             "bmp": (bmp, generated["bmp_24bpp_512x512.bmp"]),
+             "pnm": (pnm, generated["pnm_p6_512x512.ppm"]),
+             "qoi": (qoi, generated["qoi_512x512.qoi"])}
     ms_per_mp, ms_per_mp_threads = {}, {}
     with ThreadPoolExecutor(max_workers=workers) as pool:
         for kind, (module, data) in large.items():

@@ -12,8 +12,19 @@
 // depth or compression, data that ends early) returns BMP_CORRUPT with a
 // message.
 //
+// The same bitmap reader decodes the formats that wrap one: a DIB (a BMP
+// without its file header, Pillow's DibImageFile), a Windows cursor
+// (CurImagePlugin: the largest cursor of the directory, its height halved)
+// and the bitmap frames of a Windows icon (IcoImagePlugin: the largest
+// entry, then the lowest bit depth; the height halved; the AND mask, or the
+// alpha bytes of a 32-bit entry, must be in the file, as Pillow reads them
+// though RGB drops them). An icon's PNG frames are the caller's
+// (data/ico.py decodes them with utils/png.py).
+//
 // No global mutable state: the loader's threads call it at once.
 
+#include <algorithm>
+#include <cmath>
 #include <cstdarg>
 #include <cstdint>
 #include <cstdio>
@@ -65,12 +76,28 @@ struct Bmp {
   void header() {
     if (size < 2 || data[0] != 'B' || data[1] != 'M') fail("not a BMP file");
     if (size < 18) fail("truncated BMP: the file ends inside its header");
-    offset = u32(10);
-    uint32_t header_size = u32(14);
+    bitmap(14, u32(10));
+    check_pixels(height);
+  }
+
+  // Pillow's decompression-bomb check, on the size it opens
+  void check_pixels(uint64_t rows) const {
+    if (width * rows > kMaxPixels)
+      fail("a BMP of %llu x %llu pixels: over Pillow's decompression-bomb limit",
+           static_cast<unsigned long long>(width), static_cast<unsigned long long>(rows));
+  }
+
+  // BmpImageFile._bitmap: the info header at hpos; file_offset is the BMP
+  // file header's data offset, 0 where there is none (the data then follows
+  // the header, its bitfields and its palette)
+  void bitmap(size_t hpos, uint64_t file_offset) {
+    offset = file_offset;
+    if (hpos > size || size - hpos < 4) fail("truncated bitmap: the file ends inside its header");
+    uint32_t header_size = u32(hpos);
     // Pillow reads the rest of the header before it checks its size
-    if (header_size >= 4 && header_size - 4 > size - 18)
+    if (header_size >= 4 && header_size - 4 > size - hpos - 4)
       fail("truncated BMP: the file ends inside its header");
-    size_t hd = 18, pos = 14 + static_cast<size_t>(header_size);
+    size_t hd = hpos + 4, pos = hpos + std::max<size_t>(header_size, 4);
     int pad = 4;
     uint32_t compression = 0, colors = 0;
     uint32_t masks[4] = {0, 0, 0, 0};
@@ -171,9 +198,6 @@ struct Bmp {
       pos += got;
     }
     if (offset == 0) offset = pos;  // Pillow's `offset or fp.tell()`
-    if (width * height > kMaxPixels)
-      fail("a BMP of %llu x %llu pixels: over Pillow's decompression-bomb limit",
-           static_cast<unsigned long long>(width), static_cast<unsigned long long>(height));
     if (rle && mode != 'P' && mode != 'L') fail("an RLE BMP of %d bits a pixel", bits);
     stride = ((width * bits + 31) >> 3) & ~3ull;
   }
@@ -309,8 +333,139 @@ struct Bmp {
   }
 };
 
+// CurImagePlugin._open: the cursor whose width and height both exceed
+// those of every cursor taken before it (the first to start), read as a
+// bitmap at its offset, its height halved. Returns 0 (no PNG frame).
+size_t open_cur(Bmp& b) {
+  const uint8_t* data = b.data;
+  const size_t size = b.size;
+  if (size < 6 || std::memcmp(data, "\0\0\2\0", 4) != 0) b.fail("not a CUR file");
+  const int count = data[4] | (data[5] << 8);
+  size_t pos = 6, m = 0, mlen = 0;  // the entry taken: its position and the bytes read of it
+  for (int i = 0; i < count; i++) {
+    size_t len = pos < size ? std::min<size_t>(16, size - pos) : 0;
+    if (mlen == 0) {
+      m = pos;
+      mlen = len;
+    } else {
+      if (len < 1) b.fail("truncated CUR: the file ends inside its directory");
+      if (data[pos] > data[m]) {
+        if (len < 2 || mlen < 2) b.fail("truncated CUR: the file ends inside its directory");
+        if (data[pos + 1] > data[m + 1]) {
+          m = pos;
+          mlen = len;
+        }
+      }
+    }
+    pos += len;
+  }
+  if (mlen == 0) b.fail("a CUR file with no cursor");
+  if (mlen < 16) b.fail("truncated CUR: the file ends inside its directory");
+  size_t at = b.u32(m + 12);
+  b.bitmap(at ? at : pos, 0);  // an offset of 0 reads on from the directory
+  b.height /= 2;
+  if (b.height == 0) b.fail("an empty CUR image");
+  b.check_pixels(b.height);
+  return 0;
+}
+
+// IcoFile and IcoImageFile: the entry of the largest area, then the lowest
+// colour depth, then the first. Returns the offset of a PNG frame (decoded
+// by the caller), or 0 where the frame is a bitmap, which b then reads.
+size_t open_ico(Bmp& b) {
+  const uint8_t* data = b.data;
+  const size_t size = b.size;
+  if (size < 6 || std::memcmp(data, "\0\0\1\0", 4) != 0) b.fail("not an ICO file");
+  const int count = data[4] | (data[5] << 8);
+  if (count == 0) b.fail("an ICO file with no image");
+  if (size - 6 < 16ull * count) b.fail("truncated ICO: the file ends inside its directory");
+  size_t best = 0;
+  uint64_t best_square = 0;
+  int best_depth = 0;
+  for (int i = 0; i < count; i++) {
+    const size_t e = 6 + 16 * static_cast<size_t>(i);
+    const uint64_t w = data[e] ? data[e] : 256, h = data[e + 1] ? data[e + 1] : 256;
+    const int colors = data[e + 2], bpp = data[e + 6] | (data[e + 7] << 8);
+    // color_depth = bpp or (nb_color != 0 and ceil(log(nb_color, 2))) or 256
+    int depth = bpp;
+    if (!depth && colors) depth = static_cast<int>(std::ceil(std::log(colors) / std::log(2.0)));
+    if (!depth) depth = 256;
+    if (i == 0 || w * h > best_square || (w * h == best_square && depth < best_depth)) {
+      best = e;
+      best_square = w * h;
+      best_depth = depth;
+    }
+  }
+  const uint32_t entry_bpp = data[best + 6] | (data[best + 7] << 8);
+  const uint64_t entry_size = b.u32(best + 8), entry_offset = b.u32(best + 12);
+  static const uint8_t kPng[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a, '\n'};
+  if (entry_offset + 8 <= size && std::memcmp(data + entry_offset, kPng, 8) == 0)
+    return entry_offset;
+  b.bitmap(entry_offset, 0);  // DibImageFile at the entry's offset
+  b.check_pixels(b.height);
+  b.height = b.height / 2;  // the XOR image; the AND mask follows it
+  if (b.height == 0) b.fail("an empty ICO image");
+  const uint64_t w = b.width, h = b.height;
+  if (entry_bpp == 32) {  // the alpha bytes of the BGRA rows
+    if (b.offset > size || w * h * 4 > size - b.offset)
+      b.fail("truncated ICO: the file ends inside its alpha bytes");
+  } else {  // the AND mask: rows of 32-bit words, ending where the entry ends
+    const uint64_t stride = (w + 31) / 32 * 4, total = stride * h;
+    // Pillow's raw decoder needs every row but the last one's padding
+    const uint64_t need = (h - 1) * stride + (w + 7) / 8;
+    if (entry_offset + entry_size < total || entry_offset + entry_size - total > size ||
+        need > size - (entry_offset + entry_size - total))
+      b.fail("truncated ICO: the file ends inside its AND mask");
+  }
+  return 0;
+}
+
 void write_error(char* err, int errlen, const char* msg) {
   if (err && errlen > 0) std::snprintf(err, errlen, "%s", msg);
+}
+
+// The four formats share these: opens b as the format does
+template <typename Open>
+int info_of(const uint8_t* data, size_t size, int* out, char* err, int errlen, Open open) {
+  try {
+    Bmp b{data, size, err, errlen};
+    out[3] = static_cast<int>(open(b));
+    out[0] = static_cast<int>(b.height);
+    out[1] = static_cast<int>(b.width);
+    out[2] = b.bits;
+    return BMP_OK;
+  } catch (const Failure& f) {
+    return f.code;
+  } catch (...) {
+    write_error(err, errlen, "BMP decoder: out of memory");
+    return BMP_CORRUPT;
+  }
+}
+
+template <typename Open>
+int decode_of(const uint8_t* data, size_t size, uint8_t* out, size_t out_size, char* err,
+              int errlen, Open open) {
+  try {
+    Bmp b{data, size, err, errlen};
+    if (open(b)) b.fail("an icon frame that is a PNG");
+    if (out_size != b.width * b.height * 3) b.fail("output buffer of the wrong size");
+    if (b.rle)
+      b.decode_rle(out);
+    else
+      b.decode_raw(out);
+    return BMP_OK;
+  } catch (const Failure& f) {
+    return f.code;
+  } catch (...) {
+    write_error(err, errlen, "BMP decoder: out of memory");
+    return BMP_CORRUPT;
+  }
+}
+
+size_t open_dib(Bmp& b) {
+  b.bitmap(0, 0);
+  b.check_pixels(b.height);
+  return 0;
 }
 
 }  // namespace
@@ -353,6 +508,31 @@ int bmp_decode_rgb(const uint8_t* data, size_t size, uint8_t* out, size_t out_si
     write_error(err, errlen, "BMP decoder: out of memory");
     return BMP_CORRUPT;
   }
+}
+
+// A DIB (a BMP without its file header), a CUR and an ICO: out as
+// bmp_info's, but that out[3] is, for an icon, the offset of a PNG frame
+// (0 for a bitmap frame; its decode then fails) and 0 for the others.
+int dib_info(const uint8_t* data, size_t size, int* out, char* err, int errlen) {
+  return info_of(data, size, out, err, errlen, open_dib);
+}
+int dib_decode_rgb(const uint8_t* data, size_t size, uint8_t* out, size_t out_size, char* err,
+                   int errlen) {
+  return decode_of(data, size, out, out_size, err, errlen, open_dib);
+}
+int cur_info(const uint8_t* data, size_t size, int* out, char* err, int errlen) {
+  return info_of(data, size, out, err, errlen, open_cur);
+}
+int cur_decode_rgb(const uint8_t* data, size_t size, uint8_t* out, size_t out_size, char* err,
+                   int errlen) {
+  return decode_of(data, size, out, out_size, err, errlen, open_cur);
+}
+int ico_info(const uint8_t* data, size_t size, int* out, char* err, int errlen) {
+  return info_of(data, size, out, err, errlen, open_ico);
+}
+int ico_decode_rgb(const uint8_t* data, size_t size, uint8_t* out, size_t out_size, char* err,
+                   int errlen) {
+  return decode_of(data, size, out, out_size, err, errlen, open_ico);
 }
 
 }  // extern "C"

@@ -1,15 +1,31 @@
 // JPEG decoder of the port's data layer: host C++17, no libjpeg.
 //
 // It decodes what Pillow's `Image.open(f).convert("RGB")` decodes through
-// libjpeg-turbo's defaults, and gives the same bytes:
+// libjpeg-turbo 3.1's defaults, and gives the same bytes:
 //   - baseline and extended-sequential Huffman JPEG, 8-bit, one or several
 //     scans; progressive Huffman JPEG (spectral selection, successive
 //     approximation, EOB runs); restart intervals;
+//   - arithmetic-coded JPEG, sequential (SOF9) and progressive (SOF10): the
+//     QM coder of T.81 Annex D as jdarith.c decodes it, with the DAC
+//     conditioning (L, U, Kx), statistics reset at each scan and restart,
+//     and the DC context from the previous difference's class;
+//   - lossless JPEG (SOF3, jdlhuff.c, jddiffct.c, jdlossls.c): predictors
+//     1-7, the point transform, the first row and each restart predicted
+//     from 2^(7 - Pt), differences of classes 0-16 summed in 16 bits and
+//     cut to 8-bit samples; no colour conversion (three components are
+//     RGB; YCbCr and YCCK are refused, as libjpeg refuses them) and no fancy
+//     upsampling (a lossless data unit is one sample);
 //   - 1, 3 and 4 components and any integral ratio of sampling factors;
 //   - the ISLOW integer IDCT of jidctint.c, in the 16- and 32-bit
 //     arithmetic of libjpeg-turbo's x86 SIMD build (equal to jidctint.c on
 //     every valid stream; on a corrupt one it wraps and saturates as the
 //     SIMD code does);
+//   - block smoothing of a progressive image whose scans leave one of the
+//     first nine AC coefficients unfinished (jdcoefct.c smoothing_ok and
+//     decompress_smooth_data: estimates from the DC values of the 5 x 5
+//     blocks around, into a copy of each block; Pillow decodes in one pass,
+//     so the coefficient bits are those after the last scan, or before it
+//     for the rows a cut-short last scan left);
 //   - libjpeg-turbo's fancy upsampling (jdsample.c): the h2v1 and h2v2
 //     triangle filters with their alternating biases where the downsampled
 //     row is wider than 2 samples, the h1v2 filter, and replication for
@@ -18,27 +34,30 @@
 //   - the fixed-point YCbCr -> RGB tables of jdcolor.c; grayscale copied
 //     into three channels; the colour space chosen as jdapimin.c chooses it
 //     (a JFIF APP0 means YCbCr; else an Adobe APP14 transform of 0 means
-//     RGB; else component ids 'R','G','B' mean RGB); four components as
-//     CMYK, or YCCK -> CMYK where the Adobe transform is not 0, then read
-//     inverted as Pillow's "CMYK;I" raw mode does and turned into RGB by
-//     Pillow's cmyk2rgb.
+//     RGB; else component ids 'R','G','B' mean RGB, and so do any ids in a
+//     lossless frame); four components as CMYK, or YCCK -> CMYK where the
+//     Adobe transform is not 0, then read inverted as Pillow's "CMYK;I" raw
+//     mode does and turned into RGB by Pillow's cmyk2rgb.
 // EXIF orientation is not applied (Pillow's open does not apply it).
 //
 // Corrupt entropy-coded data is decoded as libjpeg-turbo decodes it, with
 // the warnings Pillow ignores: a bad Huffman code reads 17 bits and gives
-// the symbol 0 (jdhuff.c jpeg_huff_decode); a segment whose data ends
-// before its last MCU feeds zero bits to the MCU that ran short and leaves
-// the rest of the segment's MCUs unread (insufficient_data); restart
-// markers out of sequence resynchronise as jdmarker.c
+// the symbol 0 (jdhuff.c jpeg_huff_decode); a Huffman segment whose data
+// ends before its last MCU feeds zero bits to the MCU that ran short and
+// leaves the rest of the segment's MCUs unread (insufficient_data; a
+// lossless scan's differences are then zero from a reset predictor); the
+// arithmetic decoder reads zeros after a marker, and after a bad code
+// (a magnitude or spectral overflow) leaves the rest of the segment as it
+// is; restart markers out of sequence resynchronise as jdmarker.c
 // jpeg_resync_to_restart does.
 //
-// What it does not read though Pillow does: arithmetic coding (SOF9-11),
-// lossless JPEG (SOF3) and a progressive file whose scans leave one of the
-// first nine AC coefficients unfinished (libjpeg smooths such blocks)
-// return JPEG_UNSUPPORTED. What Pillow refuses returns JPEG_CORRUPT: a
-// truncated stream, corrupt headers, samples of other than 8 bits (Pillow
-// refuses them at open) and hierarchical JPEG (SOF5-7, SOF13-15, DHP and
-// EXP, which libjpeg-turbo refuses). The message goes into the caller's buffer.
+// What Pillow refuses returns JPEG_CORRUPT: a truncated stream, corrupt
+// headers, samples of other than 8 bits (Pillow refuses them at open),
+// hierarchical JPEG (SOF5-7, SOF13-15, DHP and EXP, which libjpeg-turbo
+// refuses), lossless arithmetic coding (SOF11, which it has no decoder
+// for), and arithmetic-coded data past the bytes Pillow had handed libjpeg
+// (its reads are 65,536 bytes, and jdarith.c cannot suspend for more). The
+// message goes into the caller's buffer.
 //
 // No global mutable state: the loader's threads call it at once.
 
@@ -55,8 +74,10 @@ namespace {
 
 constexpr int JPEG_OK = 0;
 constexpr int JPEG_CORRUPT = 1;
-constexpr int JPEG_UNSUPPORTED = 2;
 constexpr int JPEG_TRUNCATED = 3;  // returned as JPEG_CORRUPT
+
+// what jpeg_info reports as the frame's kind (data/jpeg.py KINDS)
+constexpr int KIND_LOSSLESS = 3, KIND_ARITH = 4, KIND_ARITH_PROGRESSIVE = 5;
 
 struct Failure {
   int code;
@@ -82,6 +103,31 @@ const int kNatural[64 + 16] = {
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
+// the QM coder's probability estimation states, ITU-T T.81 Table D.2, as
+// jaricom.c packs them: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 |
+// Next_Index_LPS; state 113 is the fixed estimate of 0.5 (T.851 Table 5)
+const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171};
+
+// Pillow hands libjpeg the file in reads of this many bytes
+constexpr size_t kRead = 65536;
+
 constexpr int kLookBits = 9;
 // Pillow refuses images of more than 2 x Image.MAX_IMAGE_PIXELS pixels
 // (DecompressionBombError); so does the decoder, before it allocates
@@ -100,7 +146,7 @@ struct Huffman {
 };
 
 // jdhuff.c jpeg_make_d_derived_tbl
-void build_huffman(Huffman& h, bool is_dc) {
+void build_huffman(Huffman& h, bool is_dc, int max_dc = 15) {
   const uint8_t* bits = h.bits;
   const uint8_t* vals = h.vals;
   int huffsize[257];
@@ -147,7 +193,7 @@ void build_huffman(Huffman& h, bool is_dc) {
   }
   if (is_dc)
     for (int i = 0; i < numsymbols; i++)
-      if (vals[i] > 15) fail(JPEG_CORRUPT, "bad DC Huffman table");
+      if (vals[i] > max_dc) fail(JPEG_CORRUPT, "bad DC Huffman table");
   h.built = true;
 }
 
@@ -286,7 +332,6 @@ struct Replay {
   int left0 = 0;
   std::vector<int8_t> reads;
 
-  static constexpr size_t kRead = 65536;
   Replay(const uint8_t* d, size_t n, size_t start, int blocks, bool has_restarts, bool single)
       : data(d), size(n), pos(start), fast_bytes(512u * blocks), restarts(has_restarts),
         onepass(single) {
@@ -449,10 +494,13 @@ struct Component {
   int bw, bh;            // blocks with data (ceil of dw, dh over 8)
   int bstride, brows;    // allocated blocks (whole MCUs)
   std::vector<int16_t> coef;  // bstride * brows * 64
+  std::vector<uint8_t> samples;  // lossless: dh rows of dw samples
   uint16_t quant[64];
   bool latched = false;
+  bool scanned = false;  // by a scan
   int dc_table = 0, ac_table = 0;
   int coef_bits[64];  // progressive: the Al of each coefficient's last scan, -1 before
+  int prev_bits[64];  // ... and before that scan (jdphuff.c, jdarith.c start_pass)
   int16_t* block(int bx, int by) {
     return coef.data() + (static_cast<size_t>(by) * bstride + bx) * 64;
   }
@@ -463,8 +511,8 @@ struct Decoder {
   size_t size;
   size_t pos = 0;
 
-  bool have_frame = false, progressive = false;
-  int kind = 0;  // 0 baseline, 1 extended sequential, 2 progressive
+  bool have_frame = false, progressive = false, arith = false, lossless = false;
+  int kind = 0;  // 0 baseline, 1 extended sequential, 2 progressive, KIND_*
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1, mcusx = 0, mcusy = 0;
   std::vector<Component> comps;
@@ -476,8 +524,20 @@ struct Decoder {
   int adobe_transform = 0;
   int scans = 0;
   bool multiscan = false;
+  // the conditioning of each arithmetic-coding table (DAC; reset at SOI)
+  uint8_t dac_l[16], dac_u[16], dac_k[16];
+  // the bytes Pillow has handed libjpeg: it reads on where libjpeg suspends,
+  // which jdarith.c cannot do (JERR_CANT_SUSPEND)
+  size_t handed = kRead;
+  // the last iMCU row of the last scan that began with data left
+  // (jdcoefct.c consume_data's last_good_iMCU_row)
+  int last_good_imcu = 0;
 
-  Decoder(const uint8_t* d, size_t n) : data(d), size(n) {}
+  Decoder(const uint8_t* d, size_t n) : data(d), size(n) {
+    std::memset(dac_l, 0, sizeof(dac_l));
+    std::memset(dac_u, 1, sizeof(dac_u));
+    std::memset(dac_k, 5, sizeof(dac_k));
+  }
 
   int byte() {
     if (pos >= size) fail(JPEG_TRUNCATED, "truncated JPEG: the file ends inside its headers");
@@ -591,13 +651,16 @@ struct Decoder {
     height = (data[p + 1] << 8) | data[p + 2];
     width = (data[p + 3] << 8) | data[p + 4];
     ncomp = data[p + 5];
-    kind = code - 0xC0;
-    progressive = code == 0xC2;
+    progressive = code == 0xC2 || code == 0xCA;
+    arith = code >= 0xC9;
+    lossless = code == 0xC3;
+    kind = code <= 0xC2 ? code - 0xC0
+                        : (lossless ? KIND_LOSSLESS : (progressive ? KIND_ARITH_PROGRESSIVE : KIND_ARITH));
     // Pillow reads the precision of every SOFn at open and refuses all but 8
     if (precision != 8) fail(JPEG_CORRUPT, "a JPEG of %d-bit samples: Pillow reads 8", precision);
-    if (code == 0xC3) fail(JPEG_UNSUPPORTED, "a lossless JPEG (SOF3)");
-    if (code >= 0xC9 && code <= 0xCB) fail(JPEG_UNSUPPORTED, "an arithmetic-coded JPEG");
-    if (code > 0xC2)  // SOF5-7, SOF13-15: libjpeg-turbo refuses differential frames
+    if (code == 0xCB)  // libjpeg-turbo has no lossless arithmetic decoder
+      fail(JPEG_CORRUPT, "a lossless arithmetic-coded JPEG (SOF11): libjpeg refuses it");
+    if ((code > 0xC3 && code < 0xC9) || code > 0xCB)  // SOF5-7, SOF13-15: differential frames
       fail(JPEG_CORRUPT, "a hierarchical JPEG (SOF%d): libjpeg refuses it", code - 0xC0);
     if (height == 0)
       fail(JPEG_CORRUPT, "a JPEG whose height comes in a DNL marker (libjpeg refuses it too)");
@@ -621,8 +684,10 @@ struct Decoder {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    mcusx = (width + 8 * hmax - 1) / (8 * hmax);
-    mcusy = (height + 8 * vmax - 1) / (8 * vmax);
+    // the data unit: an 8 x 8 block, or one sample of a lossless frame
+    const int du = lossless ? 1 : 8;
+    mcusx = (width + du * hmax - 1) / (du * hmax);
+    mcusy = (height + du * vmax - 1) / (du * vmax);
     have_frame = true;
   }
 
@@ -634,8 +699,11 @@ struct Decoder {
       c.bh = (c.dh + 7) / 8;
       c.bstride = mcusx * c.h;
       c.brows = mcusy * c.v;
-      c.coef.assign(static_cast<size_t>(c.bstride) * c.brows * 64, 0);
-      for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
+      if (lossless)
+        c.samples.assign(static_cast<size_t>(c.dw) * c.dh, 0);
+      else
+        c.coef.assign(static_cast<size_t>(c.bstride) * c.brows * 64, 0);
+      for (int k = 0; k < 64; k++) c.coef_bits[k] = c.prev_bits[k] = -1;
     }
   }
 
@@ -690,7 +758,7 @@ struct Decoder {
           segment(len, true);
           return true;
         }
-        if (code == 0xCC) {  // DAC: jdmarker.c get_dac checks it
+        if (code == 0xCC) {  // DAC (jdmarker.c get_dac)
           int len;
           size_t p = segment(len);
           long length = len;
@@ -699,6 +767,12 @@ struct Decoder {
             length -= 2;
             if (index > 31 || (index < 16 && (val & 15) > (val >> 4)))
               fail(JPEG_CORRUPT, "corrupt JPEG: bad arithmetic-coding table");
+            if (index >= 16) {
+              dac_k[index - 16] = static_cast<uint8_t>(val);
+            } else {
+              dac_l[index] = static_cast<uint8_t>(val & 15);
+              dac_u[index] = static_cast<uint8_t>(val >> 4);
+            }
           }
           if (length != 0) fail(JPEG_CORRUPT, "corrupt JPEG: bad DAC length");
           return true;
@@ -724,7 +798,7 @@ struct Decoder {
       std::memcpy(h.vals, t.vals, sizeof(t.vals));
       h.defined = true;
     }
-    if (!h.built) build_huffman(h, is_dc);
+    if (!h.built) build_huffman(h, is_dc, lossless ? 16 : 15);
   }
 
   void read_scan() {
@@ -748,6 +822,7 @@ struct Decoder {
       if (!found) fail(JPEG_CORRUPT, "corrupt JPEG: a scan of unknown component %d", cid);
       found->dc_table = tables >> 4;
       found->ac_table = tables & 15;
+      found->scanned = true;
       scomp[i] = found;
     }
     ss = at(p + 1 + 2 * ns);
@@ -773,11 +848,19 @@ struct Decoder {
       }
       if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
       if (bad) fail(JPEG_CORRUPT, "corrupt JPEG: bad progression parameters");
-      for (int i = 0; i < ns; i++)
-        for (int k = ss; k <= se; k++) scomp[i]->coef_bits[k] = al;
+      for (int i = 0; i < ns; i++) {
+        Component& c = *scomp[i];
+        for (int k = std::min(ss, 1); k <= std::max(se, 9); k++)
+          c.prev_bits[k] = scans > 0 ? c.coef_bits[k] : 0;
+        for (int k = ss; k <= se; k++) c.coef_bits[k] = al;
+      }
     }
-    // quantization tables latch at a component's first scan (jdinput.c)
-    for (int i = 0; i < ns; i++) {
+    // jdlossls.c start_pass_lossless: Ss is the predictor, Al the point transform
+    if (lossless && (ss < 1 || ss > 7 || se != 0 || ah != 0 || al > 7))
+      fail(JPEG_CORRUPT, "corrupt JPEG: bad lossless scan parameters");
+    // quantization tables latch at a component's first scan (jdinput.c), but
+    // for a lossless frame, which has none
+    for (int i = 0; i < ns && !lossless; i++) {
       Component& c = *scomp[i];
       if (!c.latched) {
         if (!qt_defined[c.tq]) fail(JPEG_CORRUPT, "corrupt JPEG: undefined quantization table");
@@ -788,9 +871,9 @@ struct Decoder {
     // the tables this scan reads must exist; slots 0 and 1 default to the
     // standard tables, as libjpeg-turbo's std_huff_tables sets them for
     // Motion-JPEG streams that omit them
-    for (int i = 0; i < ns; i++) {
+    for (int i = 0; i < ns && !arith; i++) {
       bool need_dc = !progressive || (ss == 0 && ah == 0);
-      bool need_ac = !progressive || ss > 0;
+      bool need_ac = !lossless && (!progressive || ss > 0);
       int dct = scomp[i]->dc_table, act = scomp[i]->ac_table;
       if ((need_dc && dct > 3) || (need_ac && act > 3))
         fail(JPEG_CORRUPT, "corrupt JPEG: Huffman table index");
@@ -798,7 +881,12 @@ struct Decoder {
       if (need_ac) need_table(ac[act], act, false);
     }
     if (scans == 0) multiscan = progressive || ns < ncomp;
-    decode_scan();
+    if (arith)
+      decode_scan_arith();
+    else if (lossless)
+      decode_scan_lossless();
+    else
+      decode_scan();
     scans++;
   }
 
@@ -853,6 +941,45 @@ struct Decoder {
     std::memcpy(pred, saved, sizeof(saved));
   }
 
+  // jdmarker.c read_restart_marker and jpeg_resync_to_restart, from the
+  // marker the entropy decoder met (0 if none) and the data at p, which
+  // ends at limit (failing with code there): a marker other than the
+  // expected RSTn is skipped (a marker below SOF0, or one of the two RSTn
+  // before it), kept for the next segment, which then reads as empty (any
+  // other marker, or one of the two RSTn after it), or taken as the
+  // expected one. Returns the marker kept, 0 if none.
+  int read_restart(int marker, size_t& p, size_t limit, int next_rst, int code) {
+    auto next_marker_in_data = [&]() {  // jdmarker.c next_marker
+      for (;;) {
+        if (p >= limit) fail(code, "truncated JPEG: a missing restart marker");
+        int c = data[p++];
+        if (c != 0xFF) continue;
+        int c2;
+        do {
+          if (p >= limit) fail(code, "truncated JPEG: a missing restart marker");
+          c2 = data[p++];
+        } while (c2 == 0xFF);
+        if (c2 != 0) return c2;
+      }
+    };
+    if (marker == 0) marker = next_marker_in_data();
+    int want = 0xD0 + next_rst;
+    while (marker != 0 && marker != want) {
+      int m = marker;
+      bool rst = m >= 0xD0 && m <= 0xD7;
+      if (rst && (m == 0xD0 + ((next_rst + 1) & 7) || m == 0xD0 + ((next_rst + 2) & 7)))
+        break;  // kept
+      if (m < 0xC0 ||
+          (rst && (m == 0xD0 + ((next_rst + 7) & 7) || m == 0xD0 + ((next_rst + 6) & 7)))) {
+        marker = next_marker_in_data();  // skipped
+        continue;
+      }
+      if (!rst) break;  // kept
+      marker = want;  // too far away: taken as the expected one
+    }
+    return marker == want ? 0 : marker;
+  }
+
   void decode_scan() {
     BitReader br{data, size, pos};
     // Replay follows libjpeg's bit buffer where it shows: a single-scan
@@ -872,8 +999,9 @@ struct Decoder {
       br.reads = &replay->reads;
     }
     // one MCU: each_block(fn) calls fn(component, index in the scan, block)
-    auto mcu = [&](auto each_block) {
+    auto mcu = [&](int imcu_row, auto each_block) {
       if (br.insufficient) return;  // the MCU stays as it was
+      last_good_imcu = imcu_row;
       BitReader start;
       if (replay) {
         start = br;
@@ -886,43 +1014,10 @@ struct Decoder {
     eobrun = 0;
     int restarts_left = restart_interval;
     int next_rst = 0;
-    // the next marker from br.pos (jdmarker.c next_marker)
-    auto next_marker_in_data = [&]() {
-      for (;;) {
-        if (br.pos >= size) fail(JPEG_TRUNCATED, "truncated JPEG: a missing restart marker");
-        int c = data[br.pos++];
-        if (c != 0xFF) continue;
-        int c2;
-        do {
-          if (br.pos >= size) fail(JPEG_TRUNCATED, "truncated JPEG: a missing restart marker");
-          c2 = data[br.pos++];
-        } while (c2 == 0xFF);
-        if (c2 != 0) return c2;
-      }
-    };
-    // jdhuff.c process_restart with jdmarker.c read_restart_marker and
-    // jpeg_resync_to_restart: a marker other than the expected RSTn is
-    // skipped (a marker below SOF0, or one of the two RSTn before it), kept
-    // for the next segment, which then reads as empty (any other marker, or
-    // one of the two RSTn after it), or taken as the expected one
+    // jdhuff.c process_restart
     auto restart = [&]() {
       br.reset();
-      if (br.marker == 0) br.marker = next_marker_in_data();
-      int want = 0xD0 + next_rst;
-      while (br.marker != 0 && br.marker != want) {
-        int m = br.marker;
-        bool rst = m >= 0xD0 && m <= 0xD7;
-        if (rst && (m == 0xD0 + ((next_rst + 1) & 7) || m == 0xD0 + ((next_rst + 2) & 7)))
-          break;  // kept
-        if (m < 0xC0 || (rst && (m == 0xD0 + ((next_rst + 7) & 7) ||
-                                 m == 0xD0 + ((next_rst + 6) & 7)))) {
-          br.marker = next_marker_in_data();  // skipped
-          continue;
-        }
-        if (!rst) break;  // kept
-        br.marker = want;  // too far away: taken as the expected one
-      }
-      if (br.marker == want) br.marker = 0;
+      br.marker = read_restart(br.marker, br.pos, size, next_rst, JPEG_TRUNCATED);
       if (replay) replay->restart(br.pos, br.marker != 0);
       next_rst = (next_rst + 1) & 7;
       for (int i = 0; i < 4; i++) pred[i] = 0;
@@ -939,7 +1034,7 @@ struct Decoder {
             if (restarts_left == 0) restart();
             restarts_left--;
           }
-          mcu([&](auto fn) { fn(c, 0, c.block(bx, by)); });
+          mcu(by / c.v, [&](auto fn) { fn(c, 0, c.block(bx, by)); });
         }
       }
     } else {
@@ -949,7 +1044,7 @@ struct Decoder {
             if (restarts_left == 0) restart();
             restarts_left--;
           }
-          mcu([&](auto fn) {
+          mcu(my, [&](auto fn) {
             for (int i = 0; i < ns; i++) {
               Component& c = *scomp[i];
               for (int y = 0; y < c.v; y++)
@@ -1070,6 +1165,378 @@ struct Decoder {
     }
   }
 
+  // --- arithmetic-coded scans (jdarith.c) --------------------------------
+
+  // the QM decoder over a scan's data: it reads a byte only when it needs
+  // one, and once it meets a marker it reads zeros
+  struct Arith {
+    const uint8_t* data;
+    size_t limit;  // the end of what Pillow has handed libjpeg
+    size_t pos;
+    int marker = 0;
+    int64_t c = 0, a = 0;
+    int ct = -16;  // -16: 2 bytes to read first; -1: a bad code left the segment
+
+    int byte() {  // libjpeg cannot suspend here: past the bytes handed over is an error
+      if (pos >= limit)
+        fail(JPEG_CORRUPT, "arithmetic-coded data past the bytes Pillow had handed libjpeg");
+      return data[pos++];
+    }
+    int decode(uint8_t* st) {  // arith_decode
+      while (a < 0x8000) {  // D.2.6: renormalise, reading bytes
+        if (--ct < 0) {
+          int d = 0;
+          if (!marker) {
+            d = byte();
+            if (d == 0xFF) {
+              do d = byte();
+              while (d == 0xFF);
+              if (d == 0) {
+                d = 0xFF;
+              } else {
+                marker = d;
+                d = 0;
+              }
+            }
+          }
+          c = (c << 8) | d;
+          if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the 2 bytes read
+        }
+        a <<= 1;
+      }
+      int sv = *st;
+      uint32_t qe = kAritab[sv & 0x7F];
+      int nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
+      qe >>= 16;
+      int64_t temp = a - qe;  // D.2.4 and D.2.5
+      a = temp;
+      temp <<= ct;
+      if (c >= temp) {
+        c -= temp;
+        if (a < qe) {  // conditional exchange
+          a = qe;
+          *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+        } else {
+          a = qe;
+          *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+          sv ^= 0x80;
+        }
+      } else if (a < 0x8000) {
+        if (a < qe) {
+          *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+          sv ^= 0x80;
+        } else {
+          *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+        }
+      }
+      return sv >> 7;
+    }
+    void reset() {
+      c = a = 0;
+      ct = -16;
+    }
+  };
+
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed_bin[4] = {113, 0, 0, 0};  // the fixed estimate of 0.5
+  int dc_context[4];
+
+  // a DC difference (F.1.4.4.1, Figures F.19-F.24); false on a bad code
+  bool arith_dc_diff(Arith& ar, int tbl, int ci, int& v) {
+    uint8_t* st = dc_stats[tbl] + dc_context[ci];
+    v = 0;
+    if (ar.decode(st) == 0) {
+      dc_context[ci] = 0;
+      return true;
+    }
+    int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m) {
+      st = dc_stats[tbl] + 20;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) {  // magnitude overflow
+          ar.ct = -1;
+          return false;
+        }
+        st++;
+      }
+    }
+    if (m < static_cast<int>((1L << dac_l[tbl]) >> 1))
+      dc_context[ci] = 0;
+    else if (m > static_cast<int>((1L << dac_u[tbl]) >> 1))
+      dc_context[ci] = 12 + sign * 4;
+    else
+      dc_context[ci] = 4 + sign * 4;
+    v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    return true;
+  }
+
+  // AC coefficients k0..k1 (F.1.4.4.2, G.1.3.2), shifted left by shift
+  bool arith_ac(Arith& ar, int tbl, int k0, int k1, int shift, int16_t* blk) {
+    for (int k = k0; k <= k1; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > k1) {  // spectral overflow
+          ar.ct = -1;
+          return false;
+        }
+      }
+      int sign = ar.decode(fixed_bin);
+      st += 2;
+      int m = ar.decode(st);
+      if (m && ar.decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= dac_k[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {  // magnitude overflow
+            ar.ct = -1;
+            return false;
+          }
+          st++;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << shift);
+    }
+    return true;
+  }
+
+  // one block of an arithmetic-coded scan; false on a bad code
+  bool decode_block_arith(Arith& ar, Component& c, int ci, int16_t* blk) {
+    int v;
+    if (!progressive || (ss == 0 && ah == 0)) {
+      if (!arith_dc_diff(ar, c.dc_table, ci, v)) return false;
+      pred[ci] = (pred[ci] + v) & 0xFFFF;
+      blk[0] = static_cast<int16_t>(static_cast<uint32_t>(pred[ci]) << (progressive ? al : 0));
+      return progressive || arith_ac(ar, c.ac_table, 1, 63, 0, blk);
+    }
+    if (ss == 0) {  // DC refinement: the next bit, at the fixed estimate
+      if (ar.decode(fixed_bin)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+      return true;
+    }
+    if (ah == 0) return arith_ac(ar, c.ac_table, ss, se, al, blk);
+    // AC refinement (decode_mcu_AC_refine)
+    const int p1 = 1 << al, m1 = -p1;
+    const int tbl = c.ac_table;
+    int kex = se;  // the previous stage's end of block
+    for (; kex > 0; kex--)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {
+          if (ar.decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          *coef = static_cast<int16_t>(ar.decode(fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {  // spectral overflow
+          ar.ct = -1;
+          return false;
+        }
+      }
+    }
+    return true;
+  }
+
+  void decode_scan_arith() {
+    // libjpeg reads this scan's data from what Pillow handed it while it
+    // read the markers up to here, in reads of kRead bytes
+    handed = std::max(handed, (pos + kRead - 1) / kRead * kRead);
+    Arith ar{data, std::min(handed, size), pos};
+    auto reset_stats = [&]() {  // at the scan's start and at each restart
+      for (int i = 0; i < ns; i++) {
+        if (!progressive || (ss == 0 && ah == 0)) {
+          std::memset(dc_stats[scomp[i]->dc_table], 0, sizeof(dc_stats[0]));
+          pred[i] = dc_context[i] = 0;
+        }
+        if (!progressive || ss) std::memset(ac_stats[scomp[i]->ac_table], 0, sizeof(ac_stats[0]));
+      }
+    };
+    reset_stats();
+    int restarts_left = restart_interval, next_rst = 0;
+    auto start_mcu = [&](int imcu_row) {
+      if (restart_interval) {
+        if (restarts_left == 0) {
+          ar.marker = read_restart(ar.marker, ar.pos, ar.limit, next_rst, JPEG_CORRUPT);
+          next_rst = (next_rst + 1) & 7;
+          reset_stats();
+          ar.reset();
+          restarts_left = restart_interval;
+        }
+        restarts_left--;
+      }
+      last_good_imcu = imcu_row;
+      return ar.ct != -1;  // after a bad code, the segment's MCUs stay as they are
+    };
+    if (ns == 1) {
+      Component& c = *scomp[0];
+      for (int by = 0; by < c.bh; by++)
+        for (int bx = 0; bx < c.bw; bx++)
+          if (start_mcu(by / c.v)) decode_block_arith(ar, c, 0, c.block(bx, by));
+    } else {
+      for (int my = 0; my < mcusy; my++) {
+        for (int mx = 0; mx < mcusx; mx++) {
+          if (!start_mcu(my)) continue;
+          bool ok = true;
+          for (int i = 0; i < ns && ok; i++) {
+            Component& c = *scomp[i];
+            for (int y = 0; y < c.v && ok; y++)
+              for (int x = 0; x < c.h && ok; x++)
+                ok = decode_block_arith(ar, c, i, c.block(mx * c.h + x, my * c.v + y));
+          }
+        }
+      }
+    }
+    pos = ar.pos;
+    if (ar.marker != 0) pos -= 2;
+  }
+
+  // --- lossless scans (jdlhuff.c, jddiffct.c, jdlossls.c) -------------------
+
+  void decode_scan_lossless() {
+    BitReader br{data, size, pos};
+    std::unique_ptr<Replay> replay;
+    bool marker_follows, ff_runs;
+    scan_data(pos, marker_follows, ff_runs);
+    const bool inter = ns > 1;
+    if (!multiscan && !marker_follows) {  // see decode_scan; jdlhuff.c has no fast path
+      int samples = 0;
+      for (int i = 0; i < ns; i++) samples += inter ? scomp[i]->h * scomp[i]->v : 1;
+      replay = std::make_unique<Replay>(data, size, pos, samples, true, true);
+      br.zeros_at_end = true;
+      br.reads = &replay->reads;
+    }
+    const int per_row = inter ? mcusx : scomp[0]->dw;  // MCUs in an MCU row
+    if (restart_interval % per_row)
+      fail(JPEG_CORRUPT, "corrupt JPEG: a lossless restart interval of %d MCUs in rows of %d",
+           restart_interval, per_row);
+    const int rows_per_restart = restart_interval / per_row;
+    const int init = 1 << (8 - al - 1);
+    // each scan component's differences of one iMCU row, and its last
+    // undifferenced row; first[] is jdlossls.c's undifference_first_row,
+    // set for every component at the scan's start and at each restart
+    std::vector<int> diff[4], prev[4], cur[4];
+    bool first[4] = {true, true, true, true};
+    for (int i = 0; i < ns; i++) {
+      Component& c = *scomp[i];
+      diff[i].assign(static_cast<size_t>(c.v) * std::max(mcusx * c.h, c.dw), 0);
+      prev[i].assign(c.dw, 0);
+      cur[i].assign(c.dw, 0);
+    }
+    auto comp_index = [&](const Component* c) { return static_cast<int>(c - comps.data()); };
+    auto decode_diff = [&](const Huffman& h) {
+      int s = br.decode(h);
+      if (s == 0) return 0;
+      if (s == 16) return 32768;
+      return extend(br.get(s), s);
+    };
+    int rows_left = rows_per_restart, next_rst = 0;
+    for (int r0 = 0; r0 < mcusy; r0++) {
+      const Component& c0 = *scomp[0];
+      int last_rows = c0.dh % c0.v ? c0.dh % c0.v : c0.v;
+      int mcu_rows = inter ? 1 : (r0 < mcusy - 1 ? c0.v : last_rows);
+      for (int y = 0; y < mcu_rows; y++) {
+        if (restart_interval) {
+          if (rows_left == 0) {
+            br.reset();
+            br.marker = read_restart(br.marker, br.pos, size, next_rst, JPEG_TRUNCATED);
+            if (replay) replay->restart(br.pos, br.marker != 0);
+            next_rst = (next_rst + 1) & 7;
+            if (br.marker == 0) br.insufficient = false;
+            for (int k = 0; k < 4; k++) first[k] = true;
+            rows_left = rows_per_restart;
+          }
+        }
+        if (br.insufficient) {  // out of data: zero differences from the predictor reset
+          for (int i = 0; i < ns; i++) {
+            size_t stride = diff[i].size() / scomp[i]->v;
+            if (inter)
+              std::fill(diff[i].begin(), diff[i].end(), 0);
+            else
+              std::fill(diff[i].begin() + y * stride, diff[i].begin() + (y + 1) * stride, 0);
+          }
+          for (int k = 0; k < 4; k++) first[k] = true;
+        } else {
+          for (int mx = 0; mx < per_row; mx++) {
+            if (inter) {
+              for (int i = 0; i < ns; i++) {
+                const Component& c = *scomp[i];
+                size_t stride = diff[i].size() / c.v;
+                for (int yy = 0; yy < c.v; yy++)
+                  for (int xx = 0; xx < c.h; xx++)
+                    diff[i][yy * stride + mx * c.h + xx] = decode_diff(dc[c.dc_table]);
+              }
+            } else {
+              diff[0][y * (diff[0].size() / c0.v) + mx] = decode_diff(dc[c0.dc_table]);
+            }
+            if (replay) replay->mcu();
+          }
+        }
+        if (restart_interval) rows_left--;
+      }
+      // undifference and scale each row of the iMCU row
+      for (int i = 0; i < ns; i++) {
+        Component& c = *scomp[i];
+        const int ci = comp_index(&c), w = c.dw;
+        const size_t stride = diff[i].size() / c.v;
+        int rows = r0 < mcusy - 1 ? c.v : (c.dh % c.v ? c.dh % c.v : c.v);
+        for (int r = 0; r < rows; r++) {
+          const int* d = diff[i].data() + r * stride;
+          const int* up = prev[i].data();
+          int* out = cur[i].data();
+          if (first[ci]) {
+            int ra = (d[0] + init) & 0xFFFF;
+            out[0] = ra;
+            for (int x = 1; x < w; x++) out[x] = ra = (d[x] + ra) & 0xFFFF;
+            first[ci] = false;
+          } else {
+            int rb = up[0], ra = (d[0] + rb) & 0xFFFF;
+            out[0] = ra;
+            for (int x = 1; x < w; x++) {
+              int rc = rb;
+              rb = up[x];
+              int p;
+              switch (ss) {
+                case 1: p = ra; break;
+                case 2: p = rb; break;
+                case 3: p = rc; break;
+                case 4: p = ra + rb - rc; break;
+                case 5: p = ra + ((rb - rc) >> 1); break;
+                case 6: p = rb + ((ra - rc) >> 1); break;
+                default: p = (ra + rb) >> 1; break;
+              }
+              out[x] = ra = (d[x] + p) & 0xFFFF;
+            }
+          }
+          uint8_t* row = c.samples.data() + static_cast<size_t>(r0 * c.v + r) * w;
+          for (int x = 0; x < w; x++) row[x] = static_cast<uint8_t>(out[x] << al);
+          std::swap(prev[i], cur[i]);
+        }
+      }
+    }
+    pos = br.pos;
+    if (br.marker != 0) pos -= 2;
+  }
+
   // after read_header: the scans up to EOI; for a single-scan image, the file may end (with
   // no EOI) once its scan is read: Pillow's libjpeg has every row by then,
   // and only a marker it refuses stops it
@@ -1081,20 +1548,6 @@ struct Decoder {
       if (f.code != JPEG_TRUNCATED || scans == 0 || multiscan) throw;
     }
     if (scans == 0) fail(JPEG_CORRUPT, "corrupt JPEG: no scan before EOI");
-    if (progressive) {
-      // libjpeg smooths the blocks of a progressive image whose first AC
-      // coefficients are unfinished (jdcoefct.c smoothing_ok); not ported
-      bool dc_known = true, unfinished = false;
-      for (Component& c : comps) {
-        if (c.coef_bits[0] < 0) dc_known = false;
-        for (int k = 1; k < 10; k++)
-          if (c.coef_bits[k] != 0) unfinished = true;
-      }
-      if (dc_known && unfinished)
-        fail(JPEG_UNSUPPORTED,
-             "a progressive JPEG whose scans leave its first AC coefficients unfinished "
-             "(libjpeg's block smoothing)");
-    }
   }
 };
 
@@ -1215,20 +1668,172 @@ std::vector<uint8_t> component_plane(Component& c) {
   return plane;
 }
 
+// --- block smoothing (jdcoefct.c decompress_smooth_data) -------------------
+//
+// libjpeg-turbo smooths a progressive image whose scans leave one of the
+// first nine AC coefficients unfinished: it estimates the coefficients that
+// are still zero (and, where no AC coefficient was sent, the DC) from the
+// DC values of the 5 x 5 blocks around, into a copy of each block.
+
+// jdcoefct.c smoothing_ok, after the last scan (Pillow decodes in one pass)
+bool smoothing_ok(const Decoder& d) {
+  if (!d.progressive) return false;
+  bool useful = false;
+  for (const Component& c : d.comps) {
+    if (!c.latched) return false;
+    const uint16_t* q = c.quant;
+    if (!q[0] || !q[1] || !q[8] || !q[16] || !q[9] || !q[2] || !q[3] || !q[10] || !q[17] ||
+        !q[24])
+      return false;
+    if (c.coef_bits[0] < 0) return false;
+    for (int k = 1; k < 10; k++) useful |= c.coef_bits[k] != 0;
+  }
+  return useful;
+}
+
+// the estimate of a coefficient whose quantizer is q from num, limited to
+// what its unsent bits below Al can hold
+inline int16_t smooth_pred(int64_t num, int64_t q, int Al) {
+  int pred = static_cast<int>(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+  if (Al > 0 && pred >= (1 << Al)) pred = (1 << Al) - 1;
+  return static_cast<int16_t>(num >= 0 ? pred : -pred);
+}
+
+// one block's estimates into ws; dc[1..25] are the DC values of the 5 x 5
+// blocks around it, row by row (dc[13] its own)
+void smooth_block(int16_t* ws, const int* dc, const int* bits, const uint16_t* q,
+                  bool change_dc) {
+  const int64_t Q00 = q[0];
+  int Al;
+  auto DC = [&](int i) { return dc[i]; };
+  if ((Al = bits[1]) != 0 && ws[1] == 0) {
+    int64_t num = Q00 * (change_dc ? (-DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6) + 13 * DC(7) -
+                                      13 * DC(9) + 3 * DC(10) - 3 * DC(11) + 38 * DC(12) -
+                                      38 * DC(14) + 3 * DC(15) - 3 * DC(16) + 13 * DC(17) -
+                                      13 * DC(19) + 3 * DC(20) - DC(21) - DC(22) + DC(24) + DC(25))
+                                   : (-7 * DC(11) + 50 * DC(12) - 50 * DC(14) + 7 * DC(15)));
+    ws[1] = smooth_pred(num, q[1], Al);
+  }
+  if ((Al = bits[2]) != 0 && ws[8] == 0) {
+    int64_t num = Q00 * (change_dc ? (-DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) - DC(5) - DC(6) +
+                                      13 * DC(7) + 38 * DC(8) + 13 * DC(9) - DC(10) + DC(16) -
+                                      13 * DC(17) - 38 * DC(18) - 13 * DC(19) + DC(20) + DC(21) +
+                                      3 * DC(22) + 3 * DC(23) + 3 * DC(24) + DC(25))
+                                   : (-7 * DC(3) + 50 * DC(8) - 50 * DC(18) + 7 * DC(23)));
+    ws[8] = smooth_pred(num, q[8], Al);
+  }
+  if ((Al = bits[3]) != 0 && ws[16] == 0) {
+    int64_t num = Q00 * (change_dc ? (DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9) - 5 * DC(12) -
+                                      14 * DC(13) - 5 * DC(14) + 2 * DC(17) + 7 * DC(18) +
+                                      2 * DC(19) + DC(23))
+                                   : (-DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18) - DC(23)));
+    ws[16] = smooth_pred(num, q[16], Al);
+  }
+  if ((Al = bits[4]) != 0 && ws[9] == 0) {
+    int64_t num = Q00 * (change_dc ? (-DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) - 9 * DC(17) +
+                                      9 * DC(19) + DC(21) - DC(25))
+                                   : (DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19) - DC(2) -
+                                      DC(20) + DC(22) - DC(24) + DC(4) - DC(6) + 10 * DC(7) -
+                                      10 * DC(9)));
+    ws[9] = smooth_pred(num, q[9], Al);
+  }
+  if ((Al = bits[5]) != 0 && ws[2] == 0) {
+    int64_t num = Q00 * (change_dc ? (2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11) + 7 * DC(12) -
+                                      14 * DC(13) + 7 * DC(14) + DC(15) + 2 * DC(17) -
+                                      5 * DC(18) + 2 * DC(19))
+                                   : (-DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14) - DC(15)));
+    ws[2] = smooth_pred(num, q[2], Al);
+  }
+  if (!change_dc) return;
+  if ((Al = bits[6]) != 0 && ws[3] == 0)
+    ws[3] = smooth_pred(Q00 * (DC(7) - DC(9) + 2 * DC(12) - 2 * DC(14) + DC(17) - DC(19)), q[3], Al);
+  if ((Al = bits[7]) != 0 && ws[10] == 0)
+    ws[10] = smooth_pred(Q00 * (DC(7) - 3 * DC(8) + DC(9) - DC(17) + 3 * DC(18) - DC(19)), q[10], Al);
+  if ((Al = bits[8]) != 0 && ws[17] == 0)
+    ws[17] = smooth_pred(Q00 * (DC(7) - DC(9) - 3 * DC(12) + 3 * DC(14) + DC(17) - DC(19)), q[17], Al);
+  if ((Al = bits[9]) != 0 && ws[24] == 0)
+    ws[24] = smooth_pred(Q00 * (DC(7) + 2 * DC(8) + DC(9) - DC(17) - 2 * DC(18) - DC(19)), q[24], Al);
+  // the DC itself, a weighted mean of the 25 (the weights sum to 256)
+  int64_t num = Q00 * (-2 * DC(1) - 6 * DC(2) - 8 * DC(3) - 6 * DC(4) - 2 * DC(5) - 6 * DC(6) +
+                       6 * DC(7) + 42 * DC(8) + 6 * DC(9) - 6 * DC(10) - 8 * DC(11) +
+                       42 * DC(12) + 152 * DC(13) + 42 * DC(14) - 8 * DC(15) - 6 * DC(16) +
+                       6 * DC(17) + 42 * DC(18) + 6 * DC(19) - 6 * DC(20) - 2 * DC(21) -
+                       6 * DC(22) - 8 * DC(23) - 6 * DC(24) - 2 * DC(25));
+  ws[0] = smooth_pred(num, q[0], 0);
+}
+
+// component_plane with each block smoothed. The rows above and below a
+// block are those of jdcoefct.c, which counts the blocks of the last iMCU
+// row as though every iMCU row held that many: where that row is short, a
+// neighbour that exists can read as the edge, replicated.
+std::vector<uint8_t> component_plane_smoothed(const Decoder& d, Component& c) {
+  const int stride = c.bw * 8;
+  std::vector<uint8_t> plane(static_cast<size_t>(stride) * c.bh * 8);
+  int prev_bits[10];
+  for (int k = 0; k < 10; k++) prev_bits[k] = d.scans > 1 ? c.prev_bits[k] : -1;
+  for (int R = 0; R < d.mcusy; R++) {
+    const int block_rows = R < d.mcusy - 1 ? c.v : (c.bh % c.v ? c.bh % c.v : c.v);
+    // an iMCU row after the last good one of an incomplete last scan takes
+    // the coefficient bits from before that scan
+    const int* bits = R > d.last_good_imcu ? prev_bits : c.coef_bits;
+    bool change_dc = true;  // DC interpolation, where no AC coefficient was sent
+    for (int k = 1; k < 10; k++) change_dc &= bits[k] == -1;
+    const int image_block_rows = block_rows * d.mcusy;
+    for (int b = 0; b < block_rows; b++) {
+      const int by = R * c.v + b, ib = R * block_rows + b;
+      int rows[5];
+      rows[2] = by;
+      rows[1] = ib > 0 ? by - 1 : by;
+      rows[0] = ib > 1 ? by - 2 : rows[1];
+      rows[3] = ib < image_block_rows - 1 ? by + 1 : by;
+      rows[4] = ib < image_block_rows - 2 ? by + 2 : rows[3];
+      int reg[5][5];  // the DC values at columns bx-2..bx+2 of each row
+      for (int r = 0; r < 5; r++)
+        for (int x = 0; x < 5; x++) reg[r][x] = c.block(0, rows[r])[0];
+      const int last = c.bw - 1;
+      for (int bx = 0; bx < c.bw; bx++) {
+        if (bx == 0 && bx < last)
+          for (int r = 0; r < 5; r++) reg[r][3] = reg[r][4] = c.block(1, rows[r])[0];
+        if (bx + 1 < last)
+          for (int r = 0; r < 5; r++) reg[r][4] = c.block(bx + 2, rows[r])[0];
+        int dc[26];
+        for (int r = 0; r < 5; r++)
+          for (int x = 0; x < 5; x++) dc[1 + 5 * r + x] = reg[r][x];
+        int16_t ws[64];
+        std::memcpy(ws, c.block(bx, by), sizeof(ws));
+        smooth_block(ws, dc, bits, c.quant, change_dc);
+        idct_islow(ws, c.quant, plane.data() + static_cast<size_t>(by) * 8 * stride + bx * 8,
+                   stride);
+        for (int r = 0; r < 5; r++)
+          for (int x = 0; x < 4; x++) reg[r][x] = reg[r][x + 1];
+      }
+    }
+  }
+  return plane;
+}
+
 // --- upsampling (jdsample.c) to the full (height, width) -------------------
 
-void upsample(const Decoder& d, const Component& c, const std::vector<uint8_t>& plane,
+// plane: the component's samples, rows of stride bytes; fancy: libjpeg's
+// default, which is off for a lossless frame (its data units are single
+// samples), where every ratio replicates
+void upsample(const Decoder& d, const Component& c, const uint8_t* plane, int stride, bool fancy,
               std::vector<uint8_t>& full) {
   const int W = d.width, H = d.height;
-  const int stride = c.bw * 8;
   const int hf = d.hmax / c.h, vf = d.vmax / c.v;
   full.resize(static_cast<size_t>(W) * H);
-  auto in_row = [&](int r) { return plane.data() + static_cast<size_t>(r) * stride; };
+  auto in_row = [&](int r) { return plane + static_cast<size_t>(r) * stride; };
   const int dw = c.dw, dh = c.dh;
   std::vector<int> colsum(dw + 2);
   std::vector<uint8_t> row(2 * dw + 2);
   if (hf == 1 && vf == 1) {
     for (int y = 0; y < H; y++) std::memcpy(&full[static_cast<size_t>(y) * W], in_row(y), W);
+  } else if (!fancy) {
+    for (int y = 0; y < H; y++) {
+      const uint8_t* in = in_row(y / vf);
+      uint8_t* out = &full[static_cast<size_t>(y) * W];
+      for (int x = 0; x < W; x++) out[x] = in[x / hf];
+    }
   } else if (hf == 2 && vf == 1 && dw > 2) {  // h2v1 fancy
     for (int y = 0; y < H; y++) {
       const uint8_t* in = in_row(y);
@@ -1309,15 +1914,32 @@ void decode_to_rgb(Decoder& d, uint8_t* out) {
   d.read_all();
   const int W = d.width, H = d.height;
   const size_t npix = static_cast<size_t>(W) * H;
+  // libjpeg-turbo converts no colour in a lossless frame: one whose
+  // components are YCbCr or YCCK is refused (JERR_CONVERSION_NOTIMPL)
+  if (d.lossless && ((d.ncomp == 3 && (d.saw_jfif || (d.saw_adobe && d.adobe_transform != 0))) ||
+                     (d.ncomp == 4 && d.saw_adobe && d.adobe_transform != 0)))
+    fail(JPEG_CORRUPT, "a lossless JPEG in YCbCr or YCCK: libjpeg converts no colour there");
+  // a lossless frame's samples of several scans wait in arrays libjpeg does
+  // not zero: reading those of a component no scan wrote is an error
+  // (jmemmgr.c JERR_BAD_VIRTUAL_ACCESS)
+  for (const Component& c : d.comps)
+    if (d.lossless && !c.scanned) fail(JPEG_CORRUPT, "a lossless JPEG with a component no scan holds");
   std::vector<std::vector<uint8_t>> full(d.ncomp);
+  const bool smooth = smoothing_ok(d);
   for (int i = 0; i < d.ncomp; i++) {
     Component& c = d.comps[i];
     if (d.hmax % c.h || d.vmax % c.v)
       fail(JPEG_CORRUPT, "sampling factors of a fractional ratio (libjpeg refuses them too)");
-    std::vector<uint8_t> plane = component_plane(c);
+    if (d.lossless) {
+      upsample(d, c, c.samples.data(), c.dw, false, full[i]);
+      continue;
+    }
+    std::vector<uint8_t> plane = smooth ? component_plane_smoothed(d, c) : component_plane(c);
+    upsample(d, c, plane.data(), c.bw * 8, true, full[i]);
+  }
+  for (Component& c : d.comps) {
     c.coef.clear();
     c.coef.shrink_to_fit();
-    upsample(d, c, plane, full[i]);
   }
   if (d.ncomp == 1) {
     const uint8_t* g = full[0].data();
@@ -1331,8 +1953,8 @@ void decode_to_rgb(Decoder& d, uint8_t* out) {
       rgb = false;
     else if (d.saw_adobe)
       rgb = d.adobe_transform == 0;
-    else
-      rgb = d.comps[0].id == 82 && d.comps[1].id == 71 && d.comps[2].id == 66;
+    else  // jdapimin.c: a lossless frame is RGB whatever its ids
+      rgb = d.lossless || (d.comps[0].id == 82 && d.comps[1].id == 71 && d.comps[2].id == 66);
     const uint8_t *c0 = full[0].data(), *c1 = full[1].data(), *c2 = full[2].data();
     if (rgb) {
       for (size_t p = 0; p < npix; p++) {
@@ -1385,7 +2007,8 @@ void copy_message(const char* msg, char* err, int errlen) {
 extern "C" {
 
 // (height, width, components, kind) of a JPEG's frame; kind is 0 for
-// baseline, 1 for extended sequential, 2 for progressive.
+// baseline, 1 for extended sequential, 2 for progressive, 3 for lossless,
+// 4 for arithmetic-coded sequential, 5 for arithmetic-coded progressive.
 int jpeg_info(const uint8_t* data, size_t size, int* info, char* err, int errlen) {
   try {
     Decoder d(data, size);

@@ -29,7 +29,7 @@ import os
 
 import numpy as np
 
-from deco_tpu_torch.data import bmp, gif, jpeg, webp
+from deco_tpu_torch.data import bmp, gif, ico, jpeg, pnm, qoi, webp
 from deco_tpu_torch.utils import png
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".JPEG", ".JPG", ".PNG", ".bmp", ".webp")
@@ -135,10 +135,8 @@ def _le32(data: bytes, at: int = 0) -> int:
 OTHER_FORMATS = (
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
     ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2")),
-    ("CUR", lambda d: d[:4] == b"\0\0\2\0"),
     ("DCX", lambda d: _le32(d) == 0x3ADE68B1),
     ("DDS", lambda d: d[:4] == b"DDS "),
-    ("DIB", lambda d: _le32(d) in (12, 40, 52, 56, 64, 108, 124)),
     ("EPS", lambda d: d[:4] == b"%!PS" or _le32(d) == 0xC6D3D0C5),
     ("FITS", lambda d: d[:6] == b"SIMPLE"),
     ("FLI", lambda d: len(d) >= 16 and int.from_bytes(d[4:6], "little") in (0xAF11, 0xAF12)
@@ -147,7 +145,6 @@ OTHER_FORMATS = (
     ("GBR", lambda d: len(d) >= 8 and int.from_bytes(d[:4], "big") >= 20
      and int.from_bytes(d[4:8], "big") in (1, 2)),
     ("ICNS", lambda d: d[:4] == b"icns"),
-    ("ICO", lambda d: d[:4] == b"\0\0\1\0"),
     ("IM", lambda d: d[:11] == b"Image type:"),
     ("JPEG2000", lambda d: d[:4] == b"\xff\x4f\xff\x51"
      or d[:12] == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"),
@@ -156,9 +153,7 @@ OTHER_FORMATS = (
     ("PCD", lambda d: d[2048:2052] == b"PCD_"),
     ("PCX", lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5)),
     ("PIXAR", lambda d: d[:4] == b"\x80\xe8\x00\x00"),
-    ("PPM", lambda d: len(d) >= 2 and d[:1] == b"P" and d[1] in b"0123456fy"),
     ("PSD", lambda d: d[:4] == b"8BPS"),
-    ("QOI", lambda d: d[:4] == b"qoif"),
     ("SGI", lambda d: d[:2] == b"\x01\xda"),
     ("SUN", lambda d: d[:4] == b"\x59\xa6\x6a\x95"),
     ("TIFF", lambda d: d[:4] in (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
@@ -169,6 +164,9 @@ OTHER_FORMATS = (
 )
 
 
+DECODED = "PNG, JPEG, WebP, GIF, BMP, DIB, ICO, CUR, PNM or QOI"
+
+
 def other_format(data: bytes):
     """The name of a format Pillow decodes and the port does not, or None."""
     return next((name for name, accepts in OTHER_FORMATS if accepts(data)), None)
@@ -177,14 +175,17 @@ def other_format(data: bytes):
 def decode_image(data: bytes) -> np.ndarray:
     """Image bytes as (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
     them: PNG of every kind (any colour type, bit depth and interlace)
-    through :mod:`deco_tpu_torch.utils.png`, baseline and progressive
-    Huffman JPEG through :mod:`deco_tpu_torch.data.jpeg`, WebP (lossy,
-    lossless, alpha, the first frame of an animation on its canvas), GIF
-    (the first frame) and BMP through :mod:`~deco_tpu_torch.data.webp`,
-    :mod:`~deco_tpu_torch.data.gif` and :mod:`~deco_tpu_torch.data.bmp`.
+    through :mod:`deco_tpu_torch.utils.png`; JPEG of every kind Pillow reads
+    (baseline, extended, progressive, arithmetic-coded, lossless) through
+    :mod:`deco_tpu_torch.data.jpeg`; WebP (lossy, lossless, alpha, the first
+    frame of an animation on its canvas), GIF (the first frame), BMP and
+    DIB, ICO and CUR, PNM (P1-P6, Pf) and QOI through
+    :mod:`~deco_tpu_torch.data.webp`, :mod:`~deco_tpu_torch.data.gif`,
+    :mod:`~deco_tpu_torch.data.bmp`, :mod:`~deco_tpu_torch.data.ico`,
+    :mod:`~deco_tpu_torch.data.pnm` and :mod:`~deco_tpu_torch.data.qoi`.
     What PIL refuses raises ``ValueError`` (PIL's ``OSError``), bytes of no
-    image format too; a format PIL decodes and the port does not (TIFF, PNM,
-    ICO, JPEG 2000, ...: :data:`OTHER_FORMATS`) raises
+    image format too; a format PIL decodes and the port does not (TIFF,
+    JPEG 2000, AVIF, ...: :data:`OTHER_FORMATS`) raises
     ``NotImplementedError`` naming ROADMAP §A 2e."""
     if data[:8] == png.SIGNATURE:
         return png.decode(data)
@@ -198,12 +199,18 @@ def decode_image(data: bytes) -> np.ndarray:
         return gif.decode(data)
     if bmp.is_bmp(data):
         return bmp.decode(data)
+    if bmp.is_dib(data):
+        return bmp.decode_dib(data)
+    if ico.is_ico(data) or ico.is_cur(data):
+        return ico.decode(data)
+    if pnm.is_pnm(data):
+        return pnm.decode(data)
+    if qoi.is_qoi(data):
+        return qoi.decode(data)
     name = other_format(data)
     if name is not None:
-        raise NotImplementedError(f"a {name} image: the port decodes PNG, JPEG, WebP, GIF and "
-                                  "BMP: ROADMAP §A 2e")
-    raise ValueError("not an image the port recognises (no PNG, JPEG, WebP, GIF or BMP "
-                     "signature)")
+        raise NotImplementedError(f"a {name} image: the port decodes {DECODED}: ROADMAP §A 2e")
+    raise ValueError(f"not an image the port recognises (no {DECODED} signature)")
 
 
 def read_image(path: str) -> np.ndarray:

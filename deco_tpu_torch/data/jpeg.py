@@ -3,20 +3,21 @@
 :func:`decode` gives what ``np.asarray(Image.open(f).convert("RGB"))``
 gives in the JAX package, byte for byte, with no PIL and no libjpeg: the
 C++ source mirrors libjpeg-turbo's defaults (ISLOW IDCT, fancy upsampling,
-the jdcolor.c tables) and Pillow's CMYK handling. The host C++ compiler
-builds it at first use (``ops/_build.py``), here and on the card's host
-alike.
+block smoothing of progressive files, the jdcolor.c tables) and Pillow's
+CMYK handling. It reads every kind Pillow reads (:data:`KINDS`): baseline,
+extended and progressive Huffman JPEG, arithmetic-coded JPEG, sequential
+and progressive, and lossless JPEG. The host C++ compiler builds it at
+first use (``ops/_build.py``), here and on the card's host alike.
 
 Corrupt entropy-coded data decodes as libjpeg-turbo decodes it (a bad
-Huffman code, a segment cut short, restart markers out of order). A
-truncated stream, or one Pillow or libjpeg refuses (samples of other than
-8 bits, hierarchical JPEG), raises ``ValueError`` where Pillow raises
-``OSError``, so the readers skip it where the JAX readers skip; a stream
-of a kind Pillow reads and the decoder does not (arithmetic coding,
-lossless JPEG, a progressive file that needs libjpeg's block smoothing)
-raises ``NotImplementedError`` naming ROADMAP §A 2c. The
-decoder keeps no global state, and ``ctypes`` releases the GIL during a
-call, so the loader's threads decode at once.
+Huffman or arithmetic code, a segment cut short, restart markers out of
+order). A truncated stream, or one Pillow or libjpeg refuses (samples of
+other than 8 bits, hierarchical JPEG, lossless arithmetic coding, a
+lossless frame in YCbCr, arithmetic-coded data past what Pillow hands
+libjpeg in one go), raises ``ValueError`` where Pillow raises ``OSError``,
+so the readers skip it where the JAX readers skip. The decoder keeps no
+global state, and ``ctypes`` releases the GIL during a call, so the
+loader's threads decode at once.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ import numpy as np
 from deco_tpu_torch.ops import _build
 
 SIGNATURE = b"\xff\xd8\xff"
-KINDS = ("baseline", "extended", "progressive")
-ROADMAP_ITEM = "ROADMAP §A 2c"
+KINDS = ("baseline", "extended", "progressive", "lossless", "arithmetic",
+         "arithmetic-progressive")
 _ERRLEN = 256
 _lock = threading.Lock()
 _lib = None
@@ -58,11 +59,7 @@ def is_jpeg(data: bytes) -> bool:
 
 
 def _raise(code: int, err: ctypes.Array) -> None:
-    msg = err.value.decode(errors="replace")
-    if code == 2:
-        raise NotImplementedError(f"{msg}: the port's JPEG decoder does not read it: "
-                                  f"{ROADMAP_ITEM}")
-    raise ValueError(msg)
+    raise ValueError(err.value.decode(errors="replace"))
 
 
 def info(data: bytes) -> tuple[int, int, int, str]:

@@ -11,13 +11,13 @@ The random crop resizes the short side bicubically, draws y0 then x0, and
 flips with probability 0.5 whatever ``random_flip`` says (the reference's
 quirk, kept); the center crop is the ADM one, flipped under ``random_flip``.
 
-Decoding follows ``data/webdataset.py``: PNG, JPEG, WebP, GIF and BMP
-through :func:`~deco_tpu_torch.data.imagenet.decode_image`, equal to PIL's
+Decoding follows ``data/webdataset.py``: PNG, JPEG (every kind Pillow
+reads), WebP, GIF, BMP, DIB, ICO, CUR, PNM and QOI through
+:func:`~deco_tpu_torch.data.imagenet.decode_image`, equal to PIL's
 ``convert("RGB")``. Corrupt or truncated files are retried like any bad
-sample; a format Pillow decodes and the port does not (a JPEG kind of
-ROADMAP §A 2c, the formats of §A 2e) raises ``NotImplementedError`` at
-once, naming its ROADMAP item (no retry: the decoder is missing, not the
-sample).
+sample; a format Pillow decodes and the port does not (those of ROADMAP
+§A 2e) raises ``NotImplementedError`` at once, naming its ROADMAP item (no
+retry: the decoder is missing, not the sample).
 """
 
 from __future__ import annotations

@@ -18,13 +18,13 @@ Departures from the JAX package:
   world size when it is initialised, else (0, 1), in place of
   ``jax.process_index()``.
 - Images are decoded by :func:`~deco_tpu_torch.data.imagenet.decode_image`
-  (PNG, JPEG, WebP, GIF and BMP, equal to PIL's ``convert("RGB")``) and
-  resized with the PIL-exact resampler. The JAX readers skip every sample
+  (PNG, JPEG of every kind Pillow reads, WebP, GIF, BMP, DIB, ICO, CUR,
+  PNM and QOI, equal to PIL's ``convert("RGB")``) and resized with the
+  PIL-exact resampler. The JAX readers skip every sample
   that fails; the port skips what PIL also rejects (images smaller than
   the resolution, corrupt or truncated data, bytes of no image format,
-  unreadable tars) and raises where the port lacks a decoder PIL has: a
-  JPEG kind the port's decoder does not read and the other formats Pillow
-  decodes (``NotImplementedError``, ROADMAP §A 2c and 2e). Skipping those
+  unreadable tars) and raises where the port lacks a decoder PIL has: the
+  formats of ROADMAP §A 2e (``NotImplementedError``). Skipping those
   would drop every sample of such a shard and spin forever.
 - ``WebDatasetPacked`` takes the reference ``WebDatasetPackedDataset``'s
   ``sample_shuffle`` (the pretraining YAMLs set it; the JAX class has no

@@ -15,12 +15,12 @@ Departures from the JAX package:
   (:class:`~deco_tpu_torch.data.packed.StreamShard`), in place of
   ``jax.process_index()``.
 - Members are decoded by :func:`~deco_tpu_torch.data.imagenet.decode_image`
-  (PNG, JPEG, WebP, GIF and BMP, equal to PIL's ``convert("RGB")``) and
-  cropped by the PIL-exact resampler (the ADM center crop, or with
-  ``random_crop`` a bicubic resize of the short side and a random crop). A
-  JPEG kind the port's decoder does not read, or another format Pillow
-  decodes (TIFF, PNM, ...), raises ``NotImplementedError`` (ROADMAP §A 2c,
-  2e), where the JAX reader would decode it. Every other failing sample
+  (PNG, JPEG of every kind Pillow reads, WebP, GIF, BMP, DIB, ICO, CUR, PNM
+  and QOI, equal to PIL's ``convert("RGB")``) and cropped by the PIL-exact
+  resampler (the ADM center crop, or with ``random_crop`` a bicubic resize
+  of the short side and a random crop). Another format Pillow decodes
+  (TIFF, JPEG 2000, ...) raises ``NotImplementedError`` (ROADMAP §A 2e),
+  where the JAX reader would decode it. Every other failing sample
   (corrupt or truncated data, bytes of no image format) is skipped with a
   warning, as in JAX.
 """

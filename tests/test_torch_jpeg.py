@@ -3,13 +3,18 @@
 files against the JAX package's, on the CPU.
 
 The decoder is held bit for bit (0 LSB) to ``Image.open(f).convert("RGB")``
-(Pillow on libjpeg-turbo): on the committed fixtures (``torch_jpeg_fixtures/``,
-with the digests the card's host checks), on a parametrised and a
-``hypothesis``-drawn set of Pillow-written files (sizes 1-300 a side,
-quality 10-100, 4:4:4, 4:2:2 and 4:2:0, progressive or not, restart
-intervals, gray, CMYK, optimised tables), and on streams Pillow cannot
-write but reads (``generate.encode_baseline``: 4:4:0, 4:1:1 and other
-ratios, YCCK, Adobe RGB, no Huffman tables). The readers' JPEG items equal
+(Pillow 12.1 on libjpeg-turbo 3.1): on the committed fixtures
+(``torch_jpeg_fixtures/`` and its ``kinds/``, with the digests the card's
+host checks: arithmetic coding, sequential and progressive, with restart
+intervals and DAC conditioning; progressive files libjpeg smooths; lossless
+files of every predictor), on a parametrised and a ``hypothesis``-drawn set
+of Pillow-written files (sizes 1-300 a side, quality 10-100, 4:4:4, 4:2:2
+and 4:2:0, progressive or not, restart intervals, gray, CMYK, optimised
+tables), on streams Pillow cannot write but reads
+(``generate.encode_baseline``: 4:4:0, 4:1:1 and other ratios, YCCK, Adobe
+RGB, no Huffman tables; ``generate.encode_lossless``: lossless JPEG of
+every predictor, point transform, sampling and scan layout), and on seeded
+corruptions of every kind. The readers' JPEG items equal
 the JAX readers' byte for byte with the JAX package on its PIL path
 (``DECO_NATIVE_DECODE=0``), and lie within 1 LSB of its native path where
 ``native/libdataplane.so`` is built (the bound its own tests hold). A
@@ -45,6 +50,13 @@ FIXTURES = generate.HERE
 with open(os.path.join(FIXTURES, "digests.json")) as _f:
     _WRITTEN = json.load(_f)
 DIGESTS, READER_DIGESTS = _WRITTEN["files"], _WRITTEN["readers"]
+with open(os.path.join(generate.KINDS_DIR, "digests.json")) as _f:
+    KIND_DIGESTS = json.load(_f)["files"]
+
+
+def kind_fixture(name: str) -> bytes:
+    with open(os.path.join(generate.KINDS_DIR, name), "rb") as f:
+        return f.read()
 ONE_LSB = 2.0 / 255 + 1e-6  # one level of a uint8 image on [-1, 1]
 
 
@@ -82,6 +94,19 @@ def test_fixture_decodes_to_its_pil_digest(name):
     ours = jpeg.decode(data)
     assert list(ours.shape) == DIGESTS[name]["shape"]
     assert hashlib.sha256(ours.tobytes()).hexdigest() == DIGESTS[name]["sha256"]
+    np.testing.assert_array_equal(ours, pil_rgb(data))
+
+
+@pytest.mark.parametrize("name", sorted(KIND_DIGESTS))
+def test_kind_fixture_decodes_to_its_pil_digest(name):
+    """Arithmetic coding (SOF9, SOF10), block smoothing (SOF2, SOF10) and
+    lossless JPEG (SOF3): the committed files equal Pillow's bytes, and
+    ``info`` names their kind."""
+    data = kind_fixture(name)
+    ours = jpeg.decode(data)
+    assert list(ours.shape) == KIND_DIGESTS[name]["shape"]
+    assert hashlib.sha256(ours.tobytes()).hexdigest() == KIND_DIGESTS[name]["sha256"]
+    assert jpeg.info(data)[3] == KIND_DIGESTS[name]["kind"]
     np.testing.assert_array_equal(ours, pil_rgb(data))
 
 
@@ -223,16 +248,20 @@ def _patched_sof(data: bytes, marker: int, precision: int = 8) -> bytes:
 
 @pytest.mark.parametrize("kind, marker, precision", [
     ("12-bit", 0xC1, 12), ("arithmetic-coded", 0xC9, 8), ("lossless", 0xC3, 8),
-    ("hierarchical", 0xC5, 8)])
+    ("hierarchical", 0xC5, 8), ("lossless arithmetic-coded", 0xCB, 8)])
 def test_kinds_it_does_not_read_raise_naming_the_roadmap_item(kind, marker, precision):
-    """The kinds Pillow reads (arithmetic coding, a genuine lossless file)
-    raise ``NotImplementedError`` naming ROADMAP §A 2c; those Pillow refuses
-    (12-bit samples, hierarchical frames) raise ``ValueError``, as the
-    readers need to skip them where the JAX readers skip (ROADMAP §C 17)."""
+    """Every kind Pillow reads decodes to Pillow's bytes (an arithmetic-coded
+    stream, a genuine lossless file); the kinds Pillow refuses (12-bit
+    samples, hierarchical frames, lossless arithmetic coding, which
+    libjpeg-turbo has no decoder for) raise ``ValueError``, as the readers
+    need to skip them where the JAX readers skip (ROADMAP §C 17)."""
+    arr = generate.photo_like(16, 16, 3, seed=0)
     if kind == "lossless":
-        data = generate.encode_lossless(generate.photo_like(16, 16, 3, seed=0))
+        data = generate.encode_lossless(arr)
+    elif kind == "arithmetic-coded":
+        data = kind_fixture("arith_444_restart_dac_333x250.jpg")
     else:
-        data = _patched_sof(pil_jpeg(generate.photo_like(16, 16, 3, seed=0)), marker, precision)
+        data = _patched_sof(pil_jpeg(arr), marker, precision)
     try:
         pil_rgb(data)
         pil_reads = True
@@ -240,23 +269,49 @@ def test_kinds_it_does_not_read_raise_naming_the_roadmap_item(kind, marker, prec
         pil_reads = False
     assert pil_reads == (kind in ("arithmetic-coded", "lossless"))
     if pil_reads:
-        with pytest.raises(NotImplementedError, match=f"{kind}.*ROADMAP §A 2c"):
-            jpeg.decode(data)
+        assert_equals_pil(data)
     else:
         with pytest.raises(ValueError, match=kind):
             jpeg.decode(data)
 
 
+def _sof_of(data: bytes) -> int:
+    return next(i for i in range(2, len(data) - 1) if data[i] == 0xFF
+                and 0xC0 <= data[i + 1] <= 0xCF and data[i + 1] not in (0xC4, 0xC8, 0xCC))
+
+
+@pytest.mark.parametrize("source", ["baseline", "lossless", "arith", "arith_progressive",
+                                    "progressive_noise"])
+def test_a_lossless_arithmetic_frame_raises_whatever_its_data(source):
+    """SOF11 (lossless, arithmetic-coded): Pillow reads the frame header and
+    libjpeg-turbo refuses it before it reads any scan, so the streams of
+    every other kind patched to SOF11 raise alike."""
+    arr = generate.photo_like(24, 40, 3, seed=6)
+    data = {"baseline": lambda: pil_jpeg(arr, quality=80),
+            "lossless": lambda: generate.encode_lossless(arr, predictor=5),
+            "arith": lambda: kind_fixture("arith_gray_restart_300x200.jpg"),
+            "arith_progressive": lambda: kind_fixture("smooth_dc_only_arith_177x93.jpg"),
+            "progressive_noise": lambda: pil_jpeg(np.random.default_rng(1).integers(
+                0, 256, (40, 24, 3), dtype=np.uint8), quality=95, progressive=True)}[source]()
+    i = _sof_of(data)
+    patched = data[:i + 1] + b"\xcb" + data[i + 2:]
+    with pytest.raises(OSError):
+        pil_rgb(patched)
+    with pytest.raises(ValueError, match="SOF11"):
+        jpeg.info(patched)
+    with pytest.raises(ValueError, match="SOF11"):
+        jpeg.decode(patched)
+
+
 def test_a_progressive_file_that_needs_block_smoothing_raises():
     """A progressive stream whose scans stop before the first AC
-    coefficients are finished: libjpeg smooths its blocks, which the
-    decoder does not port."""
+    coefficients are finished (here: cut after each of its scans): libjpeg
+    smooths its blocks (jdcoefct.c decompress_smooth_data, from the DC
+    values of the 5 x 5 blocks around each), and so does the decoder."""
     data = pil_jpeg(generate.photo_like(32, 32, 3, seed=2), progressive=True)
     sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
-    truncated = data[:sos[1]] + b"\xff\xd9"  # the DC scan only
-    Image.open(io.BytesIO(truncated)).convert("RGB")  # PIL decodes it, smoothed
-    with pytest.raises(NotImplementedError, match="unfinished.*ROADMAP §A 2c"):
-        jpeg.decode(truncated)
+    for k in range(1, len(sos)):
+        assert_equals_pil(data[:sos[k]] + b"\xff\xd9")  # the first k scans
 
 
 @pytest.mark.parametrize("fraction", [0.02, 0.3, 0.6, 0.95])
@@ -302,17 +357,13 @@ def _scan_data(data: bytes):
 
 def assert_decodes_or_raises_as_pil(data: bytes):
     """Pillow's image where it returns one (0 LSB); ``ValueError`` where it
-    raises; ``NotImplementedError`` (ROADMAP §A 2c) only where Pillow reads
-    a kind the decoder does not (a progressive file libjpeg smooths)."""
+    raises."""
     try:
         ref = pil_rgb(data)
     except OSError:
         ref = None
     try:
         ours = jpeg.decode(data)
-    except NotImplementedError as err:
-        assert ref is not None and "ROADMAP §A 2c" in str(err), str(err)
-        return
     except ValueError:
         assert ref is None, "PIL decodes a stream the decoder refuses"
         return
@@ -359,6 +410,228 @@ def test_mutated_streams_decode_or_raise():
         except OSError:
             outcomes["error"] += 1
     assert min(outcomes.values()) > 40, outcomes
+
+
+def _mutate_scans(data: bytes, rng, anywhere: bool) -> bytes:
+    """One to three of: a byte replaced, a bit flipped, a run cut or
+    inserted, a stray marker; inside one scan's entropy-coded data unless
+    ``anywhere``."""
+    d = bytearray(data)
+    scans = _scan_data(bytes(d))
+    start, end = scans[int(rng.integers(0, len(scans)))]
+    for _ in range(int(rng.integers(1, 4))):
+        kind = int(rng.integers(0, 5))
+        i = int(rng.integers(2, len(d)) if anywhere else rng.integers(start, end))
+        i = min(i, len(d) - 1)  # an earlier cut may have shortened the stream
+        if kind == 0:
+            d[i] = int(rng.integers(0, 256))
+        elif kind == 1:
+            d[i] ^= 1 << int(rng.integers(0, 8))
+        elif kind == 2:
+            del d[i:i + int(rng.integers(1, 20))]
+        elif kind == 3:
+            d[i:i] = bytes(rng.integers(0, 256, int(rng.integers(1, 8)), dtype=np.uint8))
+        else:
+            d[i:i] = bytes([0xFF, int(rng.integers(1, 255))])
+    return bytes(d)
+
+
+NEW_KIND_SEEDS = {
+    "arithmetic": lambda: [kind_fixture(n) for n in (
+        "arith_422_restart_dac_250x333.jpg", "arith_gray_restart_300x200.jpg",
+        "arith_adobe_cmyk_dac_240x180.jpg")],
+    "arithmetic_progressive": lambda: [kind_fixture(n) for n in (
+        "arith_progressive_gray_restart_200x150.jpg", "smooth_early_stop_arith_211x157.jpg",
+        "smooth_no_chroma_ac_arith_199x131.jpg")],
+    "lossless": lambda: [generate.encode_lossless(generate.photo_like(40, 56, 4, seed=1)[
+        ..., :c], seed=1, **kw) for c, kw in (
+        (3, dict(predictor=4)), (3, dict(predictor=7, pt=1, restart_rows=3)),
+        (1, dict(predictor=5, wild=0.05)),
+        (3, dict(predictor=2, sampling=[(2, 2), (1, 1), (1, 1)], interleaved=False)),
+        (4, dict(predictor=3, sampling=[(1, 2), (1, 1), (1, 1), (1, 2)], restart_rows=2)))],
+}
+
+
+@pytest.mark.parametrize("kind", sorted(NEW_KIND_SEEDS))
+def test_mutated_streams_of_the_new_kinds_decode_or_raise(kind):
+    """100 seeded mutations (as in :func:`test_mutated_streams_decode_or_raise`)
+    of arithmetic-coded sequential and progressive streams and of lossless
+    streams: Pillow's bytes where Pillow reads the stream (jdarith.c feeds
+    zeros after a marker and leaves the rest of a segment as it is after a
+    bad code; jdlhuff.c's differences past the data are zero, from a reset
+    predictor), ``ValueError`` where it raises (while it was written the
+    decoder was held to Pillow on 1,800 such streams of each kind)."""
+    rng = np.random.default_rng({"arithmetic": 2, "arithmetic_progressive": 3,
+                                 "lossless": 4}[kind])
+    seeds = NEW_KIND_SEEDS[kind]()
+    outcomes = {"image": 0, "error": 0}
+    for t in range(100):
+        d = _mutate_scans(seeds[t % len(seeds)], rng, anywhere=t % 5 == 0)
+        assert_decodes_or_raises_as_pil(d)
+        try:
+            pil_rgb(d)
+            outcomes["image"] += 1
+        except OSError:
+            outcomes["error"] += 1
+    assert min(outcomes.values()) > 5, outcomes
+
+
+LOSSLESS_CASES = {  # name: (channels, encode_lossless keywords)
+    **{f"p{p}_pt{pt}": (3, dict(predictor=p, pt=pt)) for p in range(1, 8) for pt in (0, 1, 2)},
+    "pt7_gray": (1, dict(predictor=4, pt=7)),
+    "wild_p5": (3, dict(predictor=5, wild=0.1)),
+    "wild_p6_420": (3, dict(predictor=6, wild=0.1, sampling=[(2, 2), (1, 1), (1, 1)])),
+    "wild_p7_pt1": (1, dict(predictor=7, pt=1, wild=0.1)),
+    "422_restart": (3, dict(predictor=4, sampling=[(2, 1), (1, 1), (1, 1)], restart_rows=2)),
+    "440": (3, dict(predictor=1, sampling=[(1, 2), (1, 1), (1, 1)])),
+    "411": (3, dict(predictor=7, sampling=[(4, 1), (1, 1), (1, 1)])),
+    "chroma_above_luma": (3, dict(predictor=3, sampling=[(1, 1), (2, 2), (1, 1)])),
+    "gray_2x2_sampling": (1, dict(predictor=2, sampling=[(2, 2)])),
+    "three_scans_restart": (3, dict(predictor=6, interleaved=False, restart_rows=4)),
+    "cmyk": (4, dict(predictor=5)),
+    "ids_456": (3, dict(predictor=1, ids=[4, 5, 6])),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOSSLESS_CASES))
+def test_lossless_equals_pil(case):
+    """Lossless JPEG as libjpeg-turbo 3.1 reads it: predictors 1-7, the
+    point transform, the first row and each restart predicted from
+    2^(7 - Pt) and the left, 16-bit sums cut to 8-bit samples, sampling
+    factors replicated (no fancy upsampling: a lossless data unit is one
+    sample), no colour conversion (three components are RGB)."""
+    channels, kw = LOSSLESS_CASES[case]
+    arr = generate.photo_like(19, 23, 4, seed=len(case))[..., :channels]
+    assert_equals_pil(generate.encode_lossless(arr, seed=3, **kw))
+
+
+@pytest.mark.parametrize("case", ["jfif", "adobe_ycc", "ycck", "restart_not_a_row",
+                                  "component_without_scan", "predictor_0", "predictor_8",
+                                  "se_not_0", "pt_8"])
+def test_lossless_streams_pillow_refuses_raise(case):
+    """libjpeg-turbo converts no colour in lossless mode (a JFIF or an Adobe
+    YCC frame is refused), wants a restart interval of whole MCU rows,
+    reads no component a scan never wrote, and checks the scan's predictor,
+    Se and point transform."""
+    arr = generate.photo_like(21, 17, 4, seed=8)
+    data = {
+        "jfif": lambda: generate.encode_lossless(arr[..., :3], jfif=True),
+        "adobe_ycc": lambda: generate.encode_lossless(arr[..., :3], adobe_transform=1),
+        "ycck": lambda: generate.encode_lossless(arr, adobe_transform=2),
+        "restart_not_a_row": lambda: _with_dri(generate.encode_lossless(arr[..., :3]), 5),
+        "component_without_scan": lambda: _without_last_scan(
+            generate.encode_lossless(arr[..., :3], interleaved=False)),
+        "predictor_0": lambda: _patched_sos(generate.encode_lossless(arr[..., :3]), 0, 0, 0),
+        "predictor_8": lambda: _patched_sos(generate.encode_lossless(arr[..., :3]), 8, 0, 0),
+        "se_not_0": lambda: _patched_sos(generate.encode_lossless(arr[..., :3]), 1, 1, 0),
+        "pt_8": lambda: _patched_sos(generate.encode_lossless(arr[..., :3]), 1, 0, 8),
+    }[case]()
+    with pytest.raises(OSError):
+        pil_rgb(data)
+    with pytest.raises(ValueError):
+        jpeg.decode(data)
+
+
+def _with_dri(data: bytes, interval: int) -> bytes:
+    i = data.index(b"\xff\xda")
+    return data[:i] + b"\xff\xdd\x00\x04" + interval.to_bytes(2, "big") + data[i:]
+
+
+def _without_last_scan(data: bytes) -> bytes:
+    return data[:data.rindex(b"\xff\xda")] + b"\xff\xd9"
+
+
+def _patched_sos(data: bytes, ss: int, se: int, al: int) -> bytes:
+    i = data.index(b"\xff\xda")
+    end = i + 2 + int.from_bytes(data[i + 2:i + 4], "big")
+    return data[:end - 3] + bytes([ss, se, al]) + data[end:]
+
+
+def _com(n: int) -> bytes:
+    """A COM segment of n zero bytes."""
+    return b"\xff\xfe" + (n + 2).to_bytes(2, "big") + bytes(n)
+
+
+def test_arithmetic_data_past_pillows_read_raises_as_pil():
+    """libjpeg's arithmetic decoder cannot suspend: Pillow hands libjpeg the
+    file in reads of 65,536 bytes and reads on only where libjpeg suspends,
+    in its marker reader, so a scan whose data runs past the bytes handed
+    over by its header's end fails. Padding (a COM segment) before each
+    scan, to put its header on either side of a read's end, gives both
+    outcomes; so do large files."""
+    data = kind_fixture("arith_progressive_custom_scans_300x200.jpg")
+    sos = [i for i in range(2, len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    outcomes = set()
+    for k in range(1, len(sos), 2):
+        end = sos[k] + 2 + int.from_bytes(data[sos[k] + 2:sos[k] + 4], "big")
+        for delta in (-3, -1, 0, 1, 2):
+            pad = (end // 65536 + 1) * 65536 + delta - end - 4
+            padded = data[:sos[k]] + _com(pad) + data[sos[k]:]
+            assert_decodes_or_raises_as_pil(padded)
+            try:
+                pil_rgb(padded)
+                outcomes.add("image")
+            except OSError:
+                outcomes.add("error")
+    assert outcomes == {"image", "error"}
+    big = kind_fixture("arith_q100_noise_160x120.jpg")
+    for pad in (1000, 5000, 65000):  # a header in the first read, the data past it
+        assert_decodes_or_raises_as_pil(big[:2] + _com(pad) + big[2:])
+
+
+def test_c18_arithmetic_data_past_pillows_read_raises_as_the_jax_pil_path(tmp_path,
+                                                                          monkeypatch):
+    """ROADMAP §C 18: an arithmetic-coded JPEG whose scan data runs past
+    Pillow's first read (here: a COM segment of 60,000 bytes before it).
+    The JAX reader's PIL path raises and the port raises as it does; the
+    JAX reader's native data plane, where it is built, hands libjpeg the
+    whole file and decodes it (the JAX package's two paths disagree)."""
+    big = kind_fixture("arith_q100_noise_160x120.jpg")
+    data = big[:2] + _com(60_000) + big[2:]
+    os.makedirs(tmp_path / "c")
+    (tmp_path / "c" / "a.jpg").write_bytes(data)
+    jax_decodes_with_pil(monkeypatch)
+    with pytest.raises(OSError):
+        jimagenet.PixImageNet(str(tmp_path), resolution=16)[0]
+    with pytest.raises(ValueError, match="arithmetic-coded data past"):
+        imagenet.PixImageNet(str(tmp_path), resolution=16)[0]
+    if jax_native_data_plane(monkeypatch):
+        assert jimagenet.PixImageNet(str(tmp_path), resolution=16)[0][0].shape == (16, 16, 3)
+
+
+@pytest.mark.parametrize("name", ["progressive_420_640x480.jpg", "smooth_early_stop_arith",
+                                  "arith_progressive_custom_scans_300x200.jpg"])
+def test_a_progressive_file_cut_inside_a_scan_decodes_as_pil(name):
+    """EOI inside a scan's data: the Huffman decoder leaves the MCUs after
+    the cut as they are, and libjpeg smooths the iMCU rows after the last
+    one that began with data by the coefficient bits of the scan before;
+    the arithmetic decoder reads zeros after the marker."""
+    data = (kind_fixture(f"{name}_211x157.jpg") if name.startswith("smooth")
+            else kind_fixture(name) if name.startswith("arith")
+            else open(os.path.join(FIXTURES, name), "rb").read())
+    for start, end in _scan_data(data)[-3:]:
+        for f in (0.2, 0.7):
+            assert_decodes_or_raises_as_pil(data[:start + int((end - start) * f)] + b"\xff\xd9")
+
+
+@pytest.mark.parametrize("name", ["arith_gray_restart_300x200.jpg",
+                                  "lossless_gray_restart_p7_64x64.jpg",
+                                  "lossless_three_scans_p2_59x37.jpg"])
+def test_a_new_kind_without_eoi_decodes_or_raises_as_pil(name):
+    """A file cut just before or inside its end: a single-scan image
+    decodes where libjpeg never read past the end (the arithmetic decoder
+    reads lazily; the lossless Huffman decoder refills as jdhuff.c's slow
+    path does), and a multi-scan one needs its EOI."""
+    data = kind_fixture(name)
+    for cut in range(len(data) - 10, len(data) + 1):
+        assert_decodes_or_raises_as_pil(data[:cut])
+
+
+def test_info_reports_the_new_kinds():
+    assert jpeg.info(kind_fixture("arith_420_512x512.jpg")) == (512, 512, 3, "arithmetic")
+    assert jpeg.info(kind_fixture("smooth_dc_only_arith_177x93.jpg"))[3] == \
+        "arithmetic-progressive"
+    assert jpeg.info(kind_fixture("lossless_adobe_cmyk_p1_37x29.jpg")) == (29, 37, 4, "lossless")
 
 
 @pytest.mark.parametrize("seed", ["baseline", "progressive", "restart", "gray_optimized"])
@@ -551,8 +824,8 @@ def test_reader_digests_are_the_port_items_and_equal_jax(tmp_path, monkeypatch):
 
 def test_chip_smoke_jpeg_decode_phase_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
     """Phase 17's ``jpeg_decode`` is host code: here it builds the decoder
-    afresh, holds every fixture and both readers to their digests and
-    times the decode, as on the card's host."""
+    afresh, holds every fixture (the kinds of ``kinds/`` too) and both
+    readers to their digests and times the decode, as on the card's host."""
     from deco_tpu_torch.data import jpeg as jpeg_module
     from deco_tpu_torch.ops import _build
 
@@ -565,6 +838,9 @@ def test_chip_smoke_jpeg_decode_phase_runs_on_the_cpu(tmp_path, monkeypatch, cap
     assert out["build_s"] > 0 and all(f["equal"] for f in out["files"].values())
     assert out["readers"] == {"center": True, "random_crop": True}
     assert out["decode_ms_per_mp_one_thread"] > 0 and out["host_cpu"]
+    assert len(out["kinds"]) == len(KIND_DIGESTS) and all(k["equal"] for k in out["kinds"].values())
+    assert set(out["kind_ms_per_mp_threads"]) == {"arithmetic", "arithmetic-progressive",
+                                                  "lossless"}
     assert '"phase": "jpeg_decode"' in capsys.readouterr().out
 
 
@@ -644,6 +920,50 @@ def test_pix_imagenet_jpeg_within_one_level_of_jax_native_path(jpeg_folder, monk
     ours = imagenet.PixImageNet(jpeg_folder, resolution=48)
     ref = jimagenet.PixImageNet(jpeg_folder, resolution=48)
     # the native library reads RGB and gray JPEGs; CMYK goes to PIL on its side too
+    _same([ours[i] for i in range(len(ours))], [ref[i] for i in range(len(ref))], tol=ONE_LSB)
+
+
+KIND_FOLDER = ["arith_422_restart_dac_250x333.jpg", "arith_progressive_gray_restart_200x150.jpg",
+               "arith_adobe_cmyk_dac_240x180.jpg", "smooth_early_stop_huffman_211x157.jpg",
+               "smooth_no_chroma_ac_arith_199x131.jpg", "lossless_420_p5_71x53.jpg",
+               "lossless_three_scans_p2_59x37.jpg", "lossless_gray_restart_p7_64x64.jpg"]
+
+
+@pytest.fixture(scope="module")
+def kinds_folder(tmp_path_factory):
+    """An image folder of .jpg files of the new kinds in two classes:
+    arithmetic-coded (sequential and progressive), smoothed progressive and
+    lossless."""
+    root = tmp_path_factory.mktemp("kinds_folder")
+    for i, name in enumerate(KIND_FOLDER):
+        os.makedirs(root / f"n{i % 2}", exist_ok=True)
+        (root / f"n{i % 2}" / name).write_bytes(kind_fixture(name))
+    return str(root)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(random_crop=True, random_flip=True)],
+                         ids=["center", "random_crop"])
+def test_pix_imagenet_new_jpeg_kinds_equal_jax(kinds_folder, monkeypatch, kw):
+    """The JAX reader picks these files by their .jpg name and decodes them
+    with PIL (its native data plane switched off here), so the port's items
+    must be equal to its items, byte for byte."""
+    jax_decodes_with_pil(monkeypatch)
+    ours = imagenet.PixImageNet(kinds_folder, resolution=40, seed=4, **kw)
+    ref = jimagenet.PixImageNet(kinds_folder, resolution=40, seed=4, **kw)
+    assert len(ours) == len(ref) == len(KIND_FOLDER)
+    _same([ours[i] for i in range(len(ours))], [ref[i] for i in range(len(ref))])
+
+
+def test_pix_imagenet_new_jpeg_kinds_within_one_level_of_jax_native_path(kinds_folder,
+                                                                         monkeypatch):
+    """Where ``native/libdataplane.so`` is built, the JAX reader's center
+    crop decodes the arithmetic-coded and smoothed files with the system
+    libjpeg (the whole file in memory, so no read boundary), and hands the
+    lossless ones, which that libjpeg does not read, to PIL."""
+    if not jax_native_data_plane(monkeypatch):
+        pytest.skip("the JAX package's native/libdataplane.so is not built")
+    ours = imagenet.PixImageNet(kinds_folder, resolution=40)
+    ref = jimagenet.PixImageNet(kinds_folder, resolution=40)
     _same([ours[i] for i in range(len(ours))], [ref[i] for i in range(len(ref))], tol=ONE_LSB)
 
 

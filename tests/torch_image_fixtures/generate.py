@@ -1,13 +1,13 @@
-"""The WebP, GIF and BMP fixtures of the port's decoder tests, and the small
-encoders that write what Pillow does not.
+"""The WebP, GIF, BMP, DIB, ICO, CUR, PNM and QOI fixtures of the port's
+decoder tests, and the small encoders that write what Pillow does not.
 
 ``python tests/torch_image_fixtures/generate.py`` (from the repository
 root) writes the fixture files of this folder from a seed, and
 ``digests.json``: under ``files`` the sha256 of each file's
 ``Image.open(f).convert("RGB")`` bytes with its shape and Pillow's mode;
 under ``generated`` the same for the files :func:`generated_files` writes
-at run time (the 512 x 512 24-bit BMP of the decode timing, which would not
-fit the folder). Run it where Pillow is installed; the card's host reads
+at run time (the 512 x 512 24-bit BMP, P6 PNM and QOI of the decode
+timing, which would not fit the folder). Run it where Pillow is installed; the card's host reads
 the files and the digests only, and builds the generated ones with numpy.
 
 - WebP (Pillow, over libwebp): lossy at qualities 5-100 and methods 0-6,
@@ -24,6 +24,20 @@ the files and the digests only, and builds the generated ones with numpy.
   1, 4 and 8-bit palettes (short, gray, two-colour); 16-bit 555 and 565;
   24 and 32 bits under every bitfield layout Pillow reads; bottom-up and
   top-down rows; RLE8 and RLE4 with end of line, delta and absolute runs.
+- DIB (BMPs without their file header): 1, 8, 24-bit, OS/2 core, v5
+  bitfields, RLE8.
+- ICO and CUR (:func:`encode_icon`, :func:`icon_bitmap`, and Pillow's ICO
+  writer): PNG frames (several sizes, one Pillow resized), bitmap frames of
+  1, 4, 8, 24 and 32 bits with their AND masks, the choice between entries
+  of one size and several depths (a depth given by the colour count only),
+  a cursor directory whose largest entry is not the first, and one whose
+  later entry is wider but not taller.
+- PNM: P1-P3 plain with comments (one inside a token), P4-P6 raw, maxval
+  100, 1000, 4095 and 65535 (mode I), Pf little- and big-endian, and
+  Pillow's P0CMYK, PyCMYK, PyRGBA and PyP.
+- QOI (Pillow, and :func:`encode_qoi`): RGB and RGBA, and an op stream of
+  every op with an index slot never written, a channel count of 5 (RGBA to
+  Pillow), a last run past the image and no end marker.
 """
 
 from __future__ import annotations
@@ -38,6 +52,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LARGE = 512  # the side of the decode-timing images
+SUFFIXES = (".bmp", ".gif", ".webp", ".dib", ".ico", ".cur", ".pbm", ".pgm", ".ppm", ".pfm",
+            ".qoi")
 
 
 def photo_like(h: int, w: int, seed: int) -> np.ndarray:
@@ -234,9 +250,226 @@ def large_bmp() -> bytes:
     return encode_bmp(LARGE, LARGE, 24, bmp_rows(img[..., ::-1], 24))
 
 
+def large_pnm() -> bytes:
+    """The 512 x 512 P6 PNM of the decode timing (numpy only)."""
+    return b"P6\n%d %d\n255\n" % (LARGE, LARGE) + photo_like(LARGE, LARGE, 98).tobytes()
+
+
+def large_qoi() -> bytes:
+    """The 512 x 512 QOI of the decode timing (:func:`encode_qoi`)."""
+    return encode_qoi(photo_like(LARGE, LARGE, 97))
+
+
 def generated_files() -> dict:
     """The files built at run time (too large to commit)."""
-    return {"bmp_24bpp_512x512.bmp": large_bmp()}
+    return {"bmp_24bpp_512x512.bmp": large_bmp(), "pnm_p6_512x512.ppm": large_pnm(),
+            "qoi_512x512.qoi": large_qoi()}
+
+
+# --- DIB, ICO and CUR ----------------------------------------------------
+
+def dib(bmp: bytes) -> bytes:
+    """A BMP without its 14-byte file header: Pillow's DibImageFile."""
+    return bmp[14:]
+
+
+def dib_fixtures() -> dict:
+    h, w = 21, 35
+    img = photo_like(h, w, 30)
+    bgr = img[..., ::-1]
+    idx = indexed(h, w, 256, 31)
+    rgba = np.concatenate([img, photo_like(h, w, 32)[..., :1]], -1)
+    return {
+        "dib_1bpp.dib": dib(encode_bmp(w, h, 1, bmp_rows(indexed(h, w, 2, 33), 1),
+                                       _palette(2, 34))),
+        "dib_8bpp_palette.dib": dib(encode_bmp(w, h, 8, bmp_rows(idx, 8), _palette(256, 35))),
+        "dib_24bpp.dib": dib(encode_bmp(w, h, 24, bmp_rows(bgr, 24))),
+        "dib_os2_24bpp.dib": dib(encode_bmp(w, h, 24, bmp_rows(bgr, 24), header=12)),
+        "dib_32bpp_rgba_v5.dib": dib(encode_bmp(
+            w, h, 32, bmp_rows(rgba, 32), header=124, compression=3,
+            masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000))),
+        "dib_rle8.dib": dib(encode_bmp(w, h, 8, rle(indexed(h, w, 7, 36), delta_at=4),
+                                       _palette(256, 37), compression=1)),
+    }
+
+
+def icon_bitmap(pixels: np.ndarray, bits: int, palette: bytes = b"", seed: int = 0) -> bytes:
+    """An icon's bitmap frame: a DIB of twice the height holding the XOR
+    rows (bottom-up), then the AND mask's 1-bit rows."""
+    h, w = pixels.shape[:2]
+    mask = bmp_rows(indexed(h, w, 2, seed), 1)
+    return dib(encode_bmp(w, 2 * h, bits, bmp_rows(pixels, bits) + mask, palette))
+
+
+def encode_icon(entries, kind: int = 1) -> bytes:
+    """An ICO (kind 1) or CUR (kind 2) of entries (width, height, colours,
+    bits, payload): the directory, then the payloads in its order."""
+    out = struct.pack("<HHH", 0, kind, len(entries))
+    body = b""
+    start = 6 + 16 * len(entries)
+    for w, h, colors, bits, payload in entries:
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, colors, 0, 1, bits, len(payload),
+                           start + len(body))
+        body += payload
+    return out + body
+
+
+def icon_fixtures() -> dict:
+    from PIL import Image
+
+    def save(im, fmt="ICO", **kw):
+        buf = io.BytesIO()
+        im.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    big = photo_like(48, 48, 40)
+    files = {
+        "ico_png_sizes.ico": save(Image.fromarray(big), sizes=[(16, 16), (32, 32), (48, 48)]),
+        "ico_png_resized_24x20.ico": save(Image.fromarray(photo_like(20, 24, 41))),
+        "ico_pillow_bmp_rgba.ico": save(Image.fromarray(
+            np.concatenate([big, photo_like(48, 48, 42)[..., :1]], -1), "RGBA"),
+            bitmap_format="bmp", sizes=[(32, 32), (48, 48)]),
+    }
+    px = photo_like(24, 24, 43)
+    idx8, idx4, idx1 = indexed(24, 24, 256, 44), indexed(24, 24, 16, 45), indexed(24, 24, 2, 46)
+    rgba = np.concatenate([px[..., ::-1], photo_like(24, 24, 47)[..., :1]], -1)
+    frames = {
+        1: icon_bitmap(idx1, 1, _palette(2, 48), 1),
+        4: icon_bitmap(idx4, 4, _palette(16, 49), 2),
+        8: icon_bitmap(idx8, 8, _palette(256, 50), 3),
+        24: icon_bitmap(px[..., ::-1], 24, seed=4),
+        32: icon_bitmap(rgba, 32, seed=5),
+    }
+    for bits, frame in frames.items():
+        files[f"ico_bmp_{bits}bpp.ico"] = encode_icon([(24, 24, 0, bits, frame)])
+    small = icon_bitmap(photo_like(16, 16, 51)[..., ::-1], 24, seed=6)
+    # one size in several depths: the lowest depth wins, here 4 bits given
+    # by the colour count alone (bits 0, 16 colours)
+    files["ico_pick_lowest_depth.ico"] = encode_icon([
+        (16, 16, 0, 24, small), (24, 24, 0, 32, frames[32]), (24, 24, 16, 0, frames[4]),
+        (24, 24, 0, 8, frames[8])])
+    png = save(Image.fromarray(photo_like(32, 32, 52)), "PNG")
+    files["ico_bmp_and_png.ico"] = encode_icon([(16, 16, 0, 24, small), (32, 32, 0, 32, png)])
+    # cursors: the largest entry is not the first; a later entry wider but
+    # not taller is not taken
+    files["cur_largest_second.cur"] = encode_icon([(16, 16, 0, 24, small),
+                                                   (24, 24, 0, 24, frames[24])], kind=2)
+    files["cur_first_kept.cur"] = encode_icon([(24, 24, 0, 8, frames[8]),
+                                               (32, 24, 0, 24, frames[24])], kind=2)
+    files["cur_32bpp.cur"] = encode_icon([(24, 24, 0, 32, frames[32])], kind=2)
+    return files
+
+
+# --- PNM -----------------------------------------------------------------
+
+def pnm_fixtures() -> dict:
+    h, w = 19, 27
+    img = photo_like(h, w, 60).astype(np.int64)
+    gray = img[..., 1]
+    cmyk = np.concatenate([img, photo_like(h, w, 61)[..., :1]], -1).astype(np.int64)
+
+    def plain(values, per_line: int = 12) -> bytes:
+        flat = [str(int(v)).encode() for v in np.ravel(values)]
+        return b"\n".join(b" ".join(flat[i:i + per_line]) for i in range(0, len(flat), per_line))
+
+    bits = (gray > 127).astype(np.uint8)
+    packed = np.packbits(bits, axis=1)
+    floats = (gray / 255.0 * 300 - 20).astype(np.float32)
+    floats[0, :3] = (np.nan, np.inf, -np.inf)
+    return {
+        "pnm_p1_plain_comments.pbm": b"P1\n# a comment\n%d %d\n" % (w, h) + b"\n".join(
+            b"".join(b"%d" % v for v in row) + (b" # row %d" % i if i % 5 == 0 else b"")
+            for i, row in enumerate(bits)),
+        "pnm_p2_plain.pgm": b"P2 %d %d 255\n" % (w, h) + plain(gray),
+        "pnm_p2_plain_16bit.pgm": b"P2\n%d %d\n# a comment\n60000\n" % (w, h) + plain(
+            gray * 60000 // 255),
+        "pnm_p3_plain_maxval_1000.ppm": b"P3\n%d %d\n1000\n" % (w, h) + plain(
+            img * 1000 // 255, 9),
+        "pnm_p4.pbm": b"P4\n%d %d\n" % (w, h) + packed.tobytes(),
+        "pnm_p5.pgm": b"P5\n%d %d\n255\n" % (w, h) + gray.astype(np.uint8).tobytes(),
+        "pnm_p5_maxval_100.pgm": b"P5 %d %d 100\n" % (w, h) + (gray * 100 // 255).astype(
+            np.uint8).tobytes(),
+        "pnm_p5_maxval_1000.pgm": b"P5\n%d %d\n1000\n" % (w, h) + (gray * 1000 // 255).astype(
+            ">u2").tobytes(),
+        "pnm_p5_16bit.pgm": b"P5\n%d %d\n65535\n" % (w, h) + (gray * 257).astype(">u2").tobytes(),
+        "pnm_p6.ppm": b"P6\n%d %d\n255\n" % (w, h) + img.astype(np.uint8).tobytes(),
+        "pnm_p6_maxval_4095.ppm": b"P6\n%d %d\n4095\n" % (w, h) + (img * 4095 // 255).astype(
+            ">u2").tobytes(),
+        # a comment inside the maxval token: "25" + "5"
+        "pnm_p6_comment_in_token.ppm": b"P6\n%d %d\n25#inside\n5\n" % (w, h) + img.astype(
+            np.uint8).tobytes(),
+        "pnm_pf_little_endian.pfm": b"Pf\n%d %d\n-1.0\n" % (w, h) + floats[::-1].astype(
+            "<f4").tobytes(),
+        "pnm_pf_big_endian.pfm": b"Pf\n%d %d\n2.5\n" % (w, h) + floats[::-1].astype(
+            ">f4").tobytes(),
+        "pnm_p0cmyk.ppm": b"P0CMYK\n%d %d\n255\n" % (w, h) + cmyk.astype(np.uint8).tobytes(),
+        "pnm_pycmyk_maxval_7000.ppm": b"PyCMYK %d %d 7000\n" % (w, h) + (
+            cmyk * 7000 // 255).astype(">u2").tobytes(),
+        "pnm_pyrgba.ppm": b"PyRGBA %d %d 255\n" % (w, h) + cmyk.astype(np.uint8).tobytes(),
+        "pnm_pyp.ppm": b"PyP %d %d 255\n" % (w, h) + gray.astype(np.uint8).tobytes(),
+    }
+
+
+# --- QOI -----------------------------------------------------------------
+
+def encode_qoi(pixels: np.ndarray) -> bytes:
+    """A QOI file of (h, w, 3 or 4) uint8 pixels (the reference encoder's
+    choice of ops), with its end marker."""
+    h, w, c = pixels.shape
+    out = bytearray(b"qoif" + struct.pack(">IIBB", w, h, c, 0))
+    index = [(0, 0, 0, 0)] * 64
+    prev, run = (0, 0, 0, 255), 0
+    flat = pixels.reshape(-1, c).tolist()
+    for i, p in enumerate(flat):
+        px = (p[0], p[1], p[2], p[3] if c == 4 else prev[3])
+        if px == prev:
+            run += 1
+            if run == 62 or i == len(flat) - 1:
+                out.append(0xC0 | (run - 1))
+                run = 0
+            continue
+        if run:
+            out.append(0xC0 | (run - 1))
+            run = 0
+        slot = (px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64
+        if index[slot] == px:
+            out.append(slot)
+        else:
+            index[slot] = px
+            if px[3] == prev[3]:
+                dr, dg, db = ((px[k] - prev[k] + 128) % 256 - 128 for k in range(3))
+                if -2 <= dr <= 1 and -2 <= dg <= 1 and -2 <= db <= 1:
+                    out.append(0x40 | (dr + 2) << 4 | (dg + 2) << 2 | (db + 2))
+                elif -32 <= dg <= 31 and -8 <= dr - dg <= 7 and -8 <= db - dg <= 7:
+                    out += bytes([0x80 | (dg + 32), (dr - dg + 8) << 4 | (db - dg + 8)])
+                else:
+                    out += bytes([0xFE, *px[:3]])
+            else:
+                out += bytes([0xFF, *px])
+        prev = px
+    return bytes(out + b"\0" * 7 + b"\1")
+
+
+def qoi_fixtures() -> dict:
+    from PIL import Image
+
+    def save(im):
+        buf = io.BytesIO()
+        im.save(buf, "QOI")
+        return buf.getvalue()
+
+    img = photo_like(22, 30, 70)
+    rgba = np.concatenate([img, photo_like(22, 30, 71)[..., :1]], -1)
+    # 4 x 3 pixels of every op: RGBA, RGB, DIFF, LUMA, INDEX of a slot written
+    # and of one never written, RUN; a channel byte of 5 (RGBA to Pillow);
+    # the last run passes the image and no end marker follows
+    ops = bytes([0xFF, 10, 200, 30, 128, 0xFE, 40, 50, 60, 0x40 | 0b111001,
+                 0x80 | 40, 0x5A, (10 * 3 + 200 * 5 + 30 * 7 + 128 * 11) % 64, 0x3F,
+                 0xC0 | 2, 0xFE, 1, 2, 3, 0xC0 | 9])
+    return {"qoi_rgb.qoi": save(Image.fromarray(img)),
+            "qoi_rgba.qoi": save(Image.fromarray(rgba, "RGBA")),
+            "qoi_encoded_rgb.qoi": encode_qoi(photo_like(17, 13, 72)),
+            "qoi_every_op.qoi": b"qoif" + struct.pack(">IIBB", 4, 3, 5, 1) + ops}
 
 
 # --- GIF -----------------------------------------------------------------
@@ -472,9 +705,10 @@ def pil_record(data: bytes) -> dict:
 
 def write_fixtures(folder: str = HERE) -> dict:
     """Writes every fixture and ``digests.json``; returns the digests."""
-    files = {**bmp_fixtures(), **gif_fixtures(), **webp_fixtures()}
+    files = {**bmp_fixtures(), **gif_fixtures(), **webp_fixtures(), **dib_fixtures(),
+             **icon_fixtures(), **pnm_fixtures(), **qoi_fixtures()}
     for name in os.listdir(folder):
-        if name.endswith((".bmp", ".gif", ".webp")) and name not in files:
+        if name.endswith(SUFFIXES) and name not in files:
             os.remove(os.path.join(folder, name))
     out = {"files": {}, "generated": {}}
     for name, data in sorted(files.items()):
